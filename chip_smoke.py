@@ -5,22 +5,39 @@
 
 Phases, each printed on its own line with its seconds:
 
-1. build the homography-warp kernel (``cuahn_vio_torch/ops/cuda/warp.cu``)
-   with nvcc for sm_90a;
-2. hold the kernel to its plain PyTorch version on the card: B in {1, 8},
-   224x320, uint8 and float32, random near-identity homographies plus an
-   off-image, a z <= 0 and a NaN homography; max abs error <= 1e-5 and NaN
-   exactly where the plain version has NaN;
-3. time the kernel, its plain version and ``torch.nn.functional.
-   grid_sample`` (the library yardstick; the port never calls it) at B = 1
-   and B = 64, uint8 and float32, beside the kernel's byte bound: device
-   time from CUDA-graph replays (the numbers kept; the kernels line reports
-   uint8 at B = 1, the main path's call), and eager call-to-call time;
-4. the slice: a synthetic 2.5 s still + 6 s flight from the port's
-   ``make_sequence``, run through ``run_offline`` with the shipped v10
-   weights and 16-member MC dropout (p = 0.05, seeded generator); the warp
-   launch count must be 3 x steps x IEKF iterations, every pose finite and
-   the ATE under the bar below.
+1. build the sampling kernels (``cuahn_vio_torch/ops/cuda/warp.cu``: the
+   warp B1/B2, the row-band warp B3 and the flat sampler B4) with nvcc for
+   sm_90a;
+2. hold each kernel to its plain PyTorch version on the card, 224x320,
+   uint8 and float32: the warp at B in {1, 8} (near-identity, off-image,
+   z <= 0, NaN and rolled homographies; max abs error <= 1e-5); the
+   row-band warp at B in {1, 4, 8} on the same cases against the warp
+   kernel and the plain version (max abs error 0.0); the flat sampler on a
+   512x512 texture at in-range, edge, off-image, +-inf and NaN coordinates
+   (max abs error <= 1e-5); NaN exactly where the plain version has NaN;
+3. time each kernel, its plain version and ``torch.nn.functional.
+   grid_sample`` on the same points (the library yardstick; the port never
+   calls it) beside its byte bound: device time from CUDA-graph replays
+   (the numbers kept) and eager call-to-call time. The warp at B = 1, 4
+   and 64 (uint8 and float32), the row-band warp at B = 4, 8 and 64
+   (uint8), the flat sampler at 71,680 points on a 512x512 uint8 texture;
+4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
+   port's ``make_sequence``, run through ``run_offline`` with the shipped
+   v10 weights and 16-member MC dropout (p = 0.05, seeded generator); the
+   warp launch count must be 3 x steps x IEKF iterations, every pose finite
+   and the ATE under the bar below;
+5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
+   with ``make_sequence`` on the card; the flat sampler must launch once
+   per rendered frame;
+6. the batched path: ``run_offline_batch`` over the slice's sequence and
+   the three textured ones (B = 4, lockstep, padded to the longest) with
+   ``BATCH_SAMPLER = "full"``; the warp kernel must launch 3 x F x IEKF
+   times (once per warp site and lockstep frame, not per sequence), every
+   pose finite and each sequence's ATE under its bar (``BATCH_ATE_BARS_M``);
+7. the first ``ROWSKIP_FRAMES`` lockstep frames again with
+   ``BATCH_SAMPLER = "rowskip"`` and the same generator seed: the row-band
+   kernel must launch 3 x frames x IEKF times, the warp kernel never, and
+   the poses must agree with the "full" run's within ``ROWSKIP_POS_TOL_M``.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -46,6 +63,7 @@ PARITY_TOL = 1e-5  # max abs error, kernel vs plain version
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 WARP_FLOPS_PER_PIXEL = 38  # 15 coords, 2 div, 4 clip, 17 bilinear
+SAMPLE_FLOPS_PER_POINT = 21  # 4 clip, 17 bilinear
 
 # The slice's sequence: 2.5 s still, 6 s of motion, the noise of the
 # verify recipe's make-synthetic drive, fixed seeds.
@@ -63,6 +81,35 @@ REF_ATE_M = 0.03315
 ATE_MARGIN_M = 0.005
 ATE_BAR_M = REF_ATE_M + ATE_MARGIN_M
 
+# The batched phase's photo-texture sequences: entries of the texture
+# bank's procedural part (``data/textures._procedural_extras(512)``, the
+# whole bank where no image package is installed) at uint8 levels, one
+# texture period per TEX_SCALE_M metres, SEQ's noise and still phase.
+# Durations differ so that the batch pads.
+TEX_SEQS = (
+    dict(texture=0, duration=6.0, seed=11),  # fractal noise
+    dict(texture=5, duration=5.0, seed=12),  # fractal noise
+    dict(texture=11, duration=4.0, seed=13),  # paving stones
+)
+TEX_SIZE = 512
+TEX_SCALE_M = 4.0
+# ATE bars of the batched phase, one per sequence (SEQ, then TEX_SEQS).
+# Reference: ``python3 smoke_reference.py OUT_DIR --part batch`` makes the
+# same four sequences with the port's make_sequence on the CPU and runs them
+# through the JAX package's ``run-vio-batch`` with the v10 weights, scored
+# with its ``error-singlerun se3``, on the CPU (JAX_REF_BATCH_ATE_M, the
+# mean over MC-dropout seeds 0-2). Each bar is that ATE + 0.005 m, or + 5x
+# the JAX package's seed-to-seed spread where that spread is above
+# 0.001 m. Measured: JAX seeds 0/1/2 0.03283/0.03278/0.03215,
+# 0.04416/0.04465/0.04416, 0.01794/0.01804/0.01791, 0.00654/0.00601/0.00596 m
+# (spreads 0.00068, 0.00049, 0.00013, 0.00058 m: the 0.005 m margin holds).
+# The port's run-vio-batch on the CPU, seeds 0/1/2: 0.03244/0.03205/0.03249,
+# 0.04355/0.04401/0.04415, 0.01785/0.01819/0.01775, 0.00609/0.00597/0.00613 m.
+JAX_REF_BATCH_ATE_M = (0.03259, 0.04432, 0.01796, 0.00617)
+BATCH_ATE_BARS_M = tuple(round(a + ATE_MARGIN_M, 5) for a in JAX_REF_BATCH_ATE_M)
+ROWSKIP_FRAMES = 40
+ROWSKIP_POS_TOL_M = 1e-5  # rowskip vs full run, world positions
+
 
 def phase(name: str, t0: float, **fields) -> None:
     extra = " ".join(f"{k}={v}" for k, v in fields.items())
@@ -77,9 +124,19 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def rolled(deg: float):
+    """Pixel homography of a camera roll by ``deg`` about the image centre."""
+    import math
+
+    c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    return [[c, -s, cx - c * cx + s * cy], [s, c, cy - s * cx - c * cy], [0.0, 0.0, 1.0]]
+
+
 def parity_cases(torch, rng, b: int, dtype):
     """(imgs, homographies) at B = b: random near-identity homographies,
-    then (when b >= 4) off-image, z <= 0 and NaN ones."""
+    then (when b >= 4) off-image, z <= 0 and NaN ones, and (when b >= 6)
+    an extreme (90 deg) and a 20 deg roll."""
     import numpy as np
 
     if dtype == torch.uint8:
@@ -94,11 +151,25 @@ def parity_cases(torch, rng, b: int, dtype):
         hs[1] = [[1, 0, 5000], [0, 1, 5000], [0, 0, 1]]  # everything off-image
         hs[2] = [[1, 0, 0], [0, 1, 0], [0.01, 0, -1.6]]  # z <= 0 left of u=160
         hs[3, 0, 0] = np.nan  # NaN everywhere
+    if b >= 6:
+        hs[4] = rolled(90.0)  # every output row sweeps a full image column
+        hs[5] = rolled(20.0)
     return imgs, hs
 
 
+def nan_checked_err(torch, out, ref, what: str) -> float:
+    """Max abs error over ref's non-NaN entries; NaN must be exactly where
+    ref has NaN."""
+    nan_ref = torch.isnan(ref)
+    if not torch.equal(torch.isnan(out), nan_ref):
+        raise AssertionError(f"NaN pattern differs: {what}")
+    diff = (out - ref).abs()[~nan_ref]
+    return diff.max().item() if diff.numel() else 0.0
+
+
 def check_kernel(torch, dev):
-    """Phase 2: kernel against plain version. Returns the max abs error."""
+    """Phase 2, B1/B2: the warp kernel against its plain version. Returns
+    the max abs error."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda
@@ -114,10 +185,8 @@ def check_kernel(torch, dev):
             out = homography_warp_cuda(imgs, hs)
             ref = homography_warp_plain(imgs, hs)
             torch.cuda.synchronize()
-            nan_out, nan_ref = torch.isnan(out), torch.isnan(ref)
-            if not torch.equal(nan_out, nan_ref):
-                raise AssertionError(f"NaN pattern differs ({dtype}, B={b})")
-            err = (out - ref).abs()[~nan_ref].max().item()
+            err = nan_checked_err(torch, out, ref, f"warp {dtype} B={b}")
+            nan_ref = torch.isnan(ref)
             if b >= 4 and not (
                 nan_ref[3].all() and (ref[1] == 0).all() and (out[1] == 0).all()
             ):
@@ -127,6 +196,79 @@ def check_kernel(torch, dev):
             if not err <= PARITY_TOL:
                 raise AssertionError(f"kernel vs plain {err:.3e} > {PARITY_TOL}")
             worst = max(worst, err)
+    return worst
+
+
+def check_rowskip(torch, dev):
+    """Phase 2, B3: the row-band warp against the warp kernel and the plain
+    version, which it must equal bit for bit. Returns the max abs error."""
+    import numpy as np
+
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, homography_warp_rowskip_cuda
+    from cuahn_vio_torch.ops.warp import homography_warp_plain
+
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for dtype in (torch.uint8, torch.float32):
+        for b in (1, 4, 8):
+            imgs, hs = parity_cases(torch, rng, b, dtype)
+            imgs = torch.as_tensor(imgs, device=dev)
+            hs = torch.as_tensor(hs, device=dev)
+            out = homography_warp_rowskip_cuda(imgs, hs)
+            full = homography_warp_cuda(imgs, hs)
+            ref = homography_warp_plain(imgs, hs)
+            torch.cuda.synchronize()
+            err_full = nan_checked_err(torch, out, full, f"rowskip vs warp {dtype} B={b}")
+            err_plain = nan_checked_err(torch, out, ref, f"rowskip vs plain {dtype} B={b}")
+            print(f"  rowskip parity {str(dtype):13s} B={b}: max abs err vs warp kernel "
+                  f"{err_full:.3e}, vs plain {err_plain:.3e}", flush=True)
+            if not (err_full == 0.0 and err_plain == 0.0):
+                raise AssertionError("the row-band warp is not bit-identical")
+            worst = max(worst, err_full, err_plain)
+    return worst
+
+
+def sample_cases(torch, rng, dtype, dev):
+    """A 512x512 texture and flat coordinates: in-range, edges, off-image,
+    +-inf and NaN."""
+    import numpy as np
+
+    t = TEX_SIZE
+    if dtype == torch.uint8:
+        tex = rng.integers(0, 256, (t, t)).astype(np.uint8)
+    else:
+        tex = rng.random((t, t)).astype(np.float32)
+    inside = rng.uniform(0.0, t - 1.0, (2, 4096))
+    edge = np.array([0.0, t - 1.0, t - 1.5, -0.5, t - 0.5, -1.0, float(t), -0.999, t - 0.001])
+    special = np.array([-600.0, 600.0, 1e5, -1e5, np.inf, -np.inf, np.nan, 3.0])
+    su = np.concatenate([inside[0], np.repeat(edge, len(edge)), np.repeat(special, len(special))])
+    sv = np.concatenate([inside[1], np.tile(edge, len(edge)), np.tile(special, len(special))])
+    return (torch.as_tensor(tex, device=dev),
+            torch.as_tensor(su.astype(np.float32), device=dev),
+            torch.as_tensor(sv.astype(np.float32), device=dev))
+
+
+def check_sample(torch, dev):
+    """Phase 2, B4: the flat sampler against its plain version. Returns
+    the max abs error."""
+    import numpy as np
+
+    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
+    from cuahn_vio_torch.ops.warp import bilinear_sample_flat
+
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    for dtype in (torch.uint8, torch.float32):
+        tex, su, sv = sample_cases(torch, rng, dtype, dev)
+        out = bilinear_sample_cuda(tex, su, sv)
+        ref = bilinear_sample_flat(tex, su, sv)
+        torch.cuda.synchronize()
+        err = nan_checked_err(torch, out, ref, f"flat sampler {dtype}")
+        print(f"  sampler parity {str(dtype):13s} N={su.numel()}: max abs err {err:.3e}, "
+              f"NaN points {int(torch.isnan(ref).sum())}", flush=True)
+        if not err <= PARITY_TOL:
+            raise AssertionError(f"sampler vs plain {err:.3e} > {PARITY_TOL}")
+        worst = max(worst, err)
     return worst
 
 
@@ -180,20 +322,32 @@ def warp_bound_ms(b: int, pixel_bytes: int) -> float:
     return max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
 
 
+def timed(torch, fns: dict, bound_ms: float, iters: int):
+    """(device times from CUDA-graph replays + bound_ms, eager times) of
+    ``fns`` {key: fn}."""
+    row = {k: time_graph_ms(torch, fn) for k, fn in fns.items()}
+    row["bound_ms"] = bound_ms
+    eager = {k: time_ms(torch, fn, iters) for k, fn in fns.items()}
+    return row, eager
+
+
 def time_kernel(torch, dev):
-    """Phase 3: kernel / plain / grid_sample times at B = 1 and 64, for
-    uint8 frames (the main path's input) and float32 images. Returns
-    {(dtype name, B): {ms, plain_ms, library_ms, bound_ms}}."""
+    """Phase 3, warps: warp kernel / row-band kernel / plain / grid_sample
+    times for uint8 frames (the main path's input) and float32 images.
+    Returns {(kernel, dtype name, B): {ms, plain_ms, library_ms, bound_ms}}."""
     import numpy as np
     import torch.nn.functional as F
 
-    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, homography_warp_rowskip_cuda
     from cuahn_vio_torch.ops.warp import homography_warp_plain
 
     rng = np.random.default_rng(1)
     rows = {}
-    for dtype, b, iters in ((torch.uint8, 1, 500), (torch.uint8, 64, 50),
-                            (torch.float32, 1, 500), (torch.float32, 64, 50)):
+    cases = (("warp", torch.uint8, 1, 500), ("warp", torch.uint8, 4, 200),
+             ("warp", torch.uint8, 64, 50), ("warp", torch.float32, 1, 500),
+             ("warp", torch.float32, 64, 50), ("rowskip", torch.uint8, 4, 200),
+             ("rowskip", torch.uint8, 8, 200), ("rowskip", torch.uint8, 64, 50))
+    for kernel, dtype, b, iters in cases:
         name = "uint8" if dtype == torch.uint8 else "float32"
         imgs, hs = parity_cases(torch, rng, b, dtype)
         hs[:] = hs[0]  # finite, near identity for every image
@@ -215,23 +369,69 @@ def time_kernel(torch, dev):
                                  padding_mode="zeros", align_corners=True)
 
         lib_err = (library()[:, 0] - homography_warp_plain(imgs, hs)).abs().max().item()
-        fns = dict(
-            ms=lambda: homography_warp_cuda(imgs, hs),
+        launch = homography_warp_cuda if kernel == "warp" else homography_warp_rowskip_cuda
+        row, eager = timed(torch, dict(
+            ms=lambda: launch(imgs, hs),
             plain_ms=lambda: homography_warp_plain(imgs, hs),
             library_ms=library,
-        )
-        row = {k: time_graph_ms(torch, fn) for k, fn in fns.items()}
-        row["bound_ms"] = warp_bound_ms(b, imgs.element_size())
-        rows[(name, b)] = row
-        eager = {k: time_ms(torch, fn, iters) for k, fn in fns.items()}
-        print(f"  warp {name} B={b} device time (CUDA graph): kernel {row['ms']:.5f} ms"
+        ), warp_bound_ms(b, imgs.element_size()), iters)
+        rows[(kernel, name, b)] = row
+        print(f"  {kernel} {name} B={b} device time (CUDA graph): kernel {row['ms']:.5f} ms"
               f" | plain {row['plain_ms']:.5f} ms | grid_sample "
               f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | byte bound "
               f"{row['bound_ms']:.5f} ms", flush=True)
-        print(f"  warp {name} B={b} eager call to call: kernel {eager['ms']:.5f} ms | "
+        print(f"  {kernel} {name} B={b} eager call to call: kernel {eager['ms']:.5f} ms | "
               f"plain {eager['plain_ms']:.5f} ms | grid_sample "
               f"{eager['library_ms']:.5f} ms", flush=True)
     return rows
+
+
+def time_sample(torch, dev):
+    """Phase 3, B4: the flat sampler at one frame's 71,680 points on a
+    512x512 uint8 texture, the points of a scaled, rotated image grid.
+    Returns {ms, plain_ms, library_ms, bound_ms}; the bound counts the
+    texels this call's taps read."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
+    from cuahn_vio_torch.ops.warp import bilinear_sample_flat
+
+    t = TEX_SIZE
+    rng = np.random.default_rng(4)
+    tex = torch.as_tensor(rng.integers(0, 256, (t, t)).astype(np.uint8), device=dev)
+    u = torch.arange(W, device=dev, dtype=torch.float32)[None, :].expand(H, W)
+    v = torch.arange(H, device=dev, dtype=torch.float32)[:, None].expand(H, W)
+    su = (60.0 + 1.15 * u + 0.2 * v).reshape(-1).contiguous()
+    sv = (80.0 - 0.2 * u + 1.15 * v).reshape(-1).contiguous()
+    n = su.numel()
+    x0, y0 = torch.floor(su).long(), torch.floor(sv).long()
+    taps = torch.cat([(y0 + dy) * t + (x0 + dx) for dy in (0, 1) for dx in (0, 1)])
+    texels = int(torch.unique(taps).numel())  # all in the image here
+    bytes_moved = 2 * n * 4 + texels * tex.element_size() + n * 4
+    bound = max(bytes_moved / HBM_BYTES_PER_S,
+                n * SAMPLE_FLOPS_PER_POINT / F32_FLOPS_PER_S) * 1e3
+    tex_f = (tex.float() / 255.0)[None, None]
+    grid = torch.stack([2 * su / (t - 1) - 1, 2 * sv / (t - 1) - 1], dim=-1)[None, None]
+
+    def library():
+        return F.grid_sample(tex_f, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    lib_err = (library().reshape(-1) - bilinear_sample_flat(tex, su, sv)).abs().max().item()
+    row, eager = timed(torch, dict(
+        ms=lambda: bilinear_sample_cuda(tex, su, sv),
+        plain_ms=lambda: bilinear_sample_flat(tex, su, sv),
+        library_ms=library,
+    ), bound, 500)
+    print(f"  sampler uint8 N={n} ({texels} texels) device time (CUDA graph): kernel "
+          f"{row['ms']:.5f} ms | plain {row['plain_ms']:.5f} ms | grid_sample "
+          f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | byte bound "
+          f"{row['bound_ms']:.5f} ms", flush=True)
+    print(f"  sampler uint8 N={n} eager call to call: kernel {eager['ms']:.5f} ms | "
+          f"plain {eager['plain_ms']:.5f} ms | grid_sample {eager['library_ms']:.5f} ms",
+          flush=True)
+    return row
 
 
 def slice_setup(torch, dev):
@@ -259,9 +459,33 @@ def slice_setup(torch, dev):
     return seq, opts, model
 
 
+def textured_sequences(dev):
+    """The batched phase's three photo-texture sequences (TEX_SEQS) from
+    the port's make_sequence on ``dev``."""
+    import numpy as np
+
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, make_sequence
+    from cuahn_vio_torch.data.textures import (
+        _procedural_extras,
+        default_tex_params,
+        quantize_u8,
+    )
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    extras = _procedural_extras(TEX_SIZE)
+    t_imu_to_cam = np.asarray(VioOptions.uzhfpv_indoor45().t_imu_to_cam)
+    noise = {k: SEQ[k] for k in ("t_still", "sigma_w", "sigma_a", "bias_g", "bias_a")}
+    return [
+        make_sequence(AnalyticTrajectory(), t_imu_to_cam, duration=spec["duration"],
+                      seed=spec["seed"], texture=quantize_u8(extras[spec["texture"]]),
+                      tex_params=default_tex_params(TEX_SCALE_M), device=dev, **noise)
+        for spec in TEX_SEQS
+    ]
+
+
 def run_slice(torch, dev):
-    """Phase 4: the main path. Returns (launches, steps, iekf, ms/frame,
-    ATE pos m, ATE ori deg)."""
+    """Phase 4: the single-stream main path. Returns (launches, steps,
+    iekf, ms/frame, ATE pos m, ATE ori deg, (seq, opts, model))."""
     import numpy as np
 
     from cuahn_vio_torch.eval.align import ate_rmse
@@ -283,7 +507,90 @@ def run_slice(torch, dev):
     if not np.isfinite(res.pose_w).all():
         raise AssertionError("non-finite pose in the slice")
     ori, pos = ate_rmse(res.times, res.pose_w, seq.gt_times, seq.gt_pose_w)
-    return launches, steps, cfg.max_iekf_iterations, seconds * 1e3 / steps, pos, ori
+    return (launches, steps, cfg.max_iekf_iterations, seconds * 1e3 / steps, pos, ori,
+            (seq, opts, model))
+
+
+def make_textured(torch, dev):
+    """Phase 5: the three photo-texture sequences on the card. Returns
+    (sequences, sampler launches, frames rendered)."""
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    seqs = textured_sequences(dev)
+    torch.cuda.synchronize()
+    return seqs, dict(launch_counts), sum(len(s.cam_t) for s in seqs)
+
+
+def run_batched(torch, dev, seqs, opts, model):
+    """Phase 6: run_offline_batch over ``seqs`` in lockstep with the "full"
+    batched sampler. Returns (results, launches, seconds)."""
+    import numpy as np
+
+    from cuahn_vio_torch.ops import warp
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.pipeline.runner import run_offline_batch
+
+    warp.BATCH_SAMPLER = "full"
+    sequences = [(s.imu_t, s.imu_w, s.imu_a, s.cam_t, s.frames) for s in seqs]
+    fparams = opts.filter_params(dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_offline_batch(sequences, model, fparams, opts.vio_config(),
+                                opts.runner_options(), seed=0, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    for res in results:
+        if not np.isfinite(res.pose_w).all():
+            raise AssertionError("non-finite pose in the batched run")
+    return results, launches, seconds
+
+
+def run_rowskip(torch, dev, seqs, opts, model, frames: int):
+    """Phase 7: the first ``frames`` lockstep frames of the batched run with
+    the row-band sampler and the same generator seed. Returns (results,
+    launches)."""
+    from cuahn_vio_torch.ops import warp
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.parallel.sharded_eval import batched_run_sequences
+    from cuahn_vio_torch.pipeline.runner import batch_results, prepare_batch
+
+    sequences = [(s.imu_t, s.imu_w, s.imu_a, s.cam_t, s.frames) for s in seqs]
+    fparams = opts.filter_params(dev)
+    batch = prepare_batch(sequences, opts.runner_options(), fparams, dev)
+    cut = batch._replace(
+        imgs_u8=batch.imgs_u8[:, :frames + 1], w_win=batch.w_win[:, :frames],
+        a_win=batch.a_win[:, :frames], dt_win=batch.dt_win[:, :frames],
+        n_used=batch.n_used[:, :frames],
+        n_frames=[min(nf, frames) for nf in batch.n_frames],
+        times=[t[:frames] for t in batch.times],
+    )
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    warp.BATCH_SAMPLER = "rowskip"
+    try:
+        reset_launch_counts()
+        _, outs = batched_run_sequences(
+            cut.states0, model, fparams, opts.vio_config(), cut.imgs_u8, cut.w_win,
+            cut.a_win, cut.dt_win, cut.n_used, generator,
+        )
+        torch.cuda.synchronize()
+        launches = dict(launch_counts)
+    finally:
+        warp.BATCH_SAMPLER = "full"
+    return batch_results(outs, cut), launches
+
+
+def kernel_entry(name, source_line, launches, err, row, bound_by="bytes"):
+    return dict(
+        name=name, route="cuda", source="cuahn_vio_torch/ops/cuda/warp.cu",
+        replaces=f"cuahn_vio/ops/pallas/warp_kernel.py:{source_line}",
+        launches=launches, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=bound_by, library_ms=row["library_ms"],
+    )
 
 
 def main() -> int:
@@ -305,6 +612,13 @@ def main() -> int:
     if not os.path.exists(WEIGHTS):
         print(f"chip_smoke: weights missing: {WEIGHTS}", file=sys.stderr)
         return 2
+    if not all(BATCH_ATE_BARS_M):
+        print("chip_smoke: BATCH_ATE_BARS_M not set (smoke_reference.py)", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from cuahn_vio_torch.eval.align import ate_rmse
+
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     f32_parity_mode()
@@ -313,19 +627,24 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = warp_cuda.build_kernel()
-    phase("build", t0, nvcc_s=f"{build_s:.3f}")
+    phase("build", t0, library=os.path.relpath(warp_cuda.SOURCE, REPO),
+          nvcc_s=f"{build_s:.3f}")
 
     t0 = time.perf_counter()
-    max_err = check_kernel(torch, dev)
-    phase("parity", t0, max_abs_err=f"{max_err:.3e}")
+    warp_err = check_kernel(torch, dev)
+    rowskip_err = check_rowskip(torch, dev)
+    sample_err = check_sample(torch, dev)
+    phase("parity", t0, warp_max_abs_err=f"{warp_err:.3e}",
+          rowskip_max_abs_err=f"{rowskip_err:.3e}", sampler_max_abs_err=f"{sample_err:.3e}")
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)
+    sample_time = time_sample(torch, dev)
     gpu = gpu_name_and_power()
     phase("timing", t0, gpu=f"'{gpu}'")
 
     t0 = time.perf_counter()
-    launches, steps, iekf, ms_frame, ate_pos, ate_ori = run_slice(torch, dev)
+    launches, steps, iekf, ms_frame, ate_pos, ate_ori, (seq, opts, model) = run_slice(torch, dev)
     warp_launches = launches[warp_cuda.KERNEL]
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
           warp_launches=warp_launches, ate_pos_m=f"{ate_pos:.5f}",
@@ -337,19 +656,62 @@ def main() -> int:
     if not ate_pos <= ATE_BAR_M:
         raise AssertionError(f"ATE {ate_pos:.5f} m above the bar {ATE_BAR_M:.5f} m")
 
-    kernels = [dict(
-        name=warp_cuda.KERNEL,
-        route="cuda",
-        source="cuahn_vio_torch/ops/cuda/warp.cu",
-        replaces="cuahn_vio/ops/pallas/warp_kernel.py:154",
-        launches=warp_launches,
-        max_abs_err=max_err,
-        ms=times[("uint8", 1)]["ms"],
-        plain_ms=times[("uint8", 1)]["plain_ms"],
-        bound_ms=times[("uint8", 1)]["bound_ms"],
-        bound_by="bytes",
-        library_ms=times[("uint8", 1)]["library_ms"],
-    )]
+    t0 = time.perf_counter()
+    tex_seqs, tex_launches, rendered = make_textured(torch, dev)
+    sample_launches = tex_launches[warp_cuda.SAMPLE_KERNEL]
+    phase("textured", t0, sequences=len(tex_seqs), frames=rendered,
+          sampler_launches=sample_launches)
+    if sample_launches != rendered:
+        raise AssertionError(f"sampler launched {sample_launches}x for {rendered} frames")
+
+    t0 = time.perf_counter()
+    batch_seqs = [seq] + tex_seqs
+    results, b_launches, b_seconds = run_batched(torch, dev, batch_seqs, opts, model)
+    n_frames = [len(r.times) for r in results]
+    f_max = max(n_frames)
+    batch_warp_launches = b_launches[warp_cuda.KERNEL]
+    ates = [ate_rmse(r.times, r.pose_w, s.gt_times, s.gt_pose_w)[1]
+            for r, s in zip(results, batch_seqs)]
+    phase("batched", t0, sequences=len(results), frames=n_frames, lockstep_frames=f_max,
+          ms_per_lockstep_frame=f"{b_seconds * 1e3 / f_max:.3f}",
+          sequence_frames_per_s=f"{sum(n_frames) / b_seconds:.2f}",
+          warp_launches=batch_warp_launches,
+          ate_pos_m="[" + ", ".join(f"{a:.5f}" for a in ates) + "]",
+          ate_bars_m="[" + ", ".join(f"{b:.5f}" for b in BATCH_ATE_BARS_M) + "]")
+    if batch_warp_launches != 3 * f_max * iekf:
+        raise AssertionError(f"batched warp launched {batch_warp_launches}x, "
+                             f"expected 3 x {f_max} x {iekf}")
+    if b_launches[warp_cuda.ROWSKIP_KERNEL] != 0:
+        raise AssertionError("the row-band warp ran under BATCH_SAMPLER='full'")
+    for i, (a, bar) in enumerate(zip(ates, BATCH_ATE_BARS_M)):
+        if not a <= bar:
+            raise AssertionError(f"batched sequence {i}: ATE {a:.5f} m above the bar {bar:.5f} m")
+
+    t0 = time.perf_counter()
+    skip_results, s_launches = run_rowskip(torch, dev, batch_seqs, opts, model, ROWSKIP_FRAMES)
+    rowskip_launches = s_launches[warp_cuda.ROWSKIP_KERNEL]
+    pos_diff = max(float(np.abs(r.pose_w[:, :3] - f.pose_w[:len(r.times), :3]).max())
+                   for r, f in zip(skip_results, results))
+    phase("rowskip", t0, lockstep_frames=ROWSKIP_FRAMES, rowskip_launches=rowskip_launches,
+          warp_launches=s_launches[warp_cuda.KERNEL], max_pos_diff_m=f"{pos_diff:.3e}",
+          tol_m=f"{ROWSKIP_POS_TOL_M:.0e}")
+    if rowskip_launches != 3 * ROWSKIP_FRAMES * iekf or s_launches[warp_cuda.KERNEL] != 0:
+        raise AssertionError(f"rowskip run: {s_launches}, expected "
+                             f"3 x {ROWSKIP_FRAMES} x {iekf} row-band launches only")
+    if not pos_diff <= ROWSKIP_POS_TOL_M:
+        raise AssertionError(f"rowskip poses {pos_diff:.3e} m from the full run's")
+
+    kernels = [
+        kernel_entry("homography_warp (B=1, single-stream run-vio)", 154, warp_launches,
+                     warp_err, times[("warp", "uint8", 1)]),
+        kernel_entry(f"homography_warp (B={len(batch_seqs)}, run-vio-batch)", 468,
+                     batch_warp_launches, warp_err, times[("warp", "uint8", len(batch_seqs))]),
+        kernel_entry(f"homography_warp_rowskip (B={len(batch_seqs)}, run-vio-batch)", 403,
+                     rowskip_launches, rowskip_err,
+                     times[("rowskip", "uint8", len(batch_seqs))]),
+        kernel_entry("bilinear_sample (make-synthetic texture)", 174, sample_launches,
+                     sample_err, sample_time),
+    ]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -1,10 +1,18 @@
-"""Command line of the port: ``python -m cuahn_vio_torch.cli run-vio ...``.
+"""Command line of the port: ``python -m cuahn_vio_torch.cli VERB ...``.
 
-``run-vio`` takes the same sequence file, flags and outputs as
-``python -m cuahn_vio.cli run-vio`` and runs ``run_offline`` on the card
-(``--device cuda``, the default; it fails when no GPU is found). Flags of
-the JAX CLI that the port does not implement yet are refused, never
-ignored.
+Each verb takes the same files, flags and outputs as the JAX CLI's verb
+(``python -m cuahn_vio.cli``) and runs on the card (``--device cuda``, the
+default; it fails when no GPU is found):
+
+- ``run-vio``: one sequence through ``run_offline``;
+- ``run-vio-batch``: many sequences in lockstep on one card
+  (``run_offline_batch``), one pose file per input;
+- ``make-synthetic``: a synthetic sequence (procedural or photo-texture
+  ground), written as ``.npz``, ``_gt.txt``, ``_state_gt.txt`` and
+  ``_config.yaml`` (the last needs PyYAML).
+
+Flags of the JAX CLI that the port does not implement yet are refused,
+never ignored.
 """
 
 from __future__ import annotations
@@ -21,6 +29,56 @@ NOT_YET = {
     "bf16": "--bf16 (bfloat16 conv towers)",
     "odom_out": "--odom-out (FRD odometry file)",
 }
+NOT_YET_BATCH = {
+    "mesh": "--mesh (sharding the batch over a device mesh)",
+}
+NOT_YET_SYNTHETIC = {
+    "traj_file": "--traj-file (B-spline trajectories)",
+    "exposure_ms": "--exposure-ms > 0 (motion blur)",
+    "effects": "--effects (the sensor-effect chain)",
+}
+
+
+def _refuse(args, not_yet: dict, verb: str) -> None:
+    refused = [flag for name, flag in not_yet.items() if getattr(args, name)]
+    if refused:
+        raise SystemExit(
+            "not implemented in cuahn_vio_torch yet: " + ", ".join(refused)
+            + f" (use python -m cuahn_vio.cli {verb})"
+        )
+
+
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device found; pass --device cpu to run on the CPU")
+    return device
+
+
+def _model(opts, weights, device):
+    """The UAHN with ``weights`` (random init when None), built with
+    ``opts.mc_dropout`` (the JAX CLI always uses the UAHN default, 0.05)."""
+    import torch
+
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    torch.manual_seed(0)  # random init only matters without weights
+    return build_uahn(
+        load_params(weights) if weights else None, device=device,
+        dropout_rate=opts.mc_dropout, blocks_to_run=opts.blocks_to_run,
+    )
+
+
+def _load_sequence(path: str):
+    if not path.endswith(".npz"):
+        raise SystemExit(
+            "expected an .npz sequence file with imu_t/imu_w/imu_a/cam_t/frames"
+        )
+    d = np.load(path)
+    return d["imu_t"], d["imu_w"], d["imu_a"], d["cam_t"], d["frames"]
 
 
 def _options(args):
@@ -57,39 +115,18 @@ def _options(args):
 
 
 def cmd_run_vio(args):
-    import torch
-
     from cuahn_vio_torch.eval.traj_io import save_pose_file
-    from cuahn_vio_torch.models.uahn import build_uahn
     from cuahn_vio_torch.pipeline.runner import run_offline
-    from cuahn_vio_torch.utils.checkpoint import load_params
 
-    refused = [flag for name, flag in NOT_YET.items() if getattr(args, name)]
-    if refused:
-        raise SystemExit(
-            "not implemented in cuahn_vio_torch yet: " + ", ".join(refused)
-            + " (use python -m cuahn_vio.cli run-vio)"
-        )
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device found; pass --device cpu to run on the CPU")
+    _refuse(args, NOT_YET, "run-vio")
+    device = _device(args.device)
     opts = _options(args)
-    if not args.sequence.endswith(".npz"):
-        raise SystemExit(
-            "expected an .npz sequence file with imu_t/imu_w/imu_a/cam_t/frames"
-        )
-    d = np.load(args.sequence)
+    seq = _load_sequence(args.sequence)
     model = None
     if not args.no_network:
-        weights = args.weights or opts.network_weights_path
-        torch.manual_seed(0)  # random init only matters without weights
-        model = build_uahn(
-            load_params(weights) if weights else None, device=device,
-            dropout_rate=opts.mc_dropout, blocks_to_run=opts.blocks_to_run,
-        )
+        model = _model(opts, args.weights or opts.network_weights_path, device)
     res = run_offline(
-        d["imu_t"], d["imu_w"], d["imu_a"], d["cam_t"], d["frames"],
-        model, opts.filter_params(device), opts.vio_config(),
+        *seq, model, opts.filter_params(device), opts.vio_config(),
         opts.runner_options(), seed=args.seed, device=device,
     )
     save_pose_file(args.out, res.times, res.pose_w, res.cov_ori, res.cov_pos)
@@ -115,6 +152,103 @@ def cmd_run_vio(args):
                 f"{np.median(chi2):.1f}, p95 {np.percentile(chi2, 95):.1f}; "
                 f"{rejected} of {len(res.net_chi2)} measurements gated out"
             )
+
+
+def cmd_run_vio_batch(args):
+    """Many sequences in lockstep on one card; one pose txt per input."""
+    import os
+
+    from cuahn_vio_torch.eval.traj_io import save_pose_file
+    from cuahn_vio_torch.pipeline.runner import run_offline_batch
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    _refuse(args, NOT_YET_BATCH, "run-vio-batch")
+    device = _device(args.device)
+    opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
+    # the same profile resolution as run-vio
+    if args.profile is not None:
+        opts = opts.apply_profile(args.profile)
+    elif not args.config:
+        opts = opts.apply_profile("calibrated")
+    if args.init_height is not None:
+        opts.init_height = args.init_height
+    model = None if args.no_network else _model(opts, args.weights, device)
+    results = run_offline_batch(
+        [_load_sequence(path) for path in args.sequences], model,
+        opts.filter_params(device), opts.vio_config(), opts.runner_options(),
+        seed=args.seed, device=device,
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+    for path, res in zip(args.sequences, results):
+        name = os.path.splitext(os.path.basename(path))[0] + ".txt"
+        dst = os.path.join(args.out_dir, name)
+        save_pose_file(dst, res.times, res.pose_w, res.cov_ori, res.cov_pos)
+        print(f"{path}: {len(res.times)} frames -> {dst}")
+
+
+def cmd_make_synthetic(args):
+    import os
+
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, make_sequence
+    from cuahn_vio_torch.eval.simulation import StateGT, save_state_gt
+    from cuahn_vio_torch.eval.traj_io import save_pose_file
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    _refuse(args, NOT_YET_SYNTHETIC, "make-synthetic")
+    device = _device(args.device)
+    # the written _config.yaml records the operating point: a bare
+    # invocation bakes the calibrated profile in, a user --config passes
+    # through untouched
+    opts = (
+        VioOptions.from_yaml(args.config) if args.config
+        else VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
+    )
+    texture = tex_params = None
+    if args.texture != "none":
+        from cuahn_vio_torch.data.textures import (
+            default_tex_params,
+            get_texture_bank,
+            heldout_indices,
+            train_indices,
+        )
+
+        bank = get_texture_bank()
+        split = (
+            heldout_indices(len(bank)) if args.texture == "heldout"
+            else train_indices(len(bank))
+        )
+        pick = args.texture_pick if args.texture_pick is not None else args.seed
+        idx = int(split[pick % len(split)])
+        texture = bank[idx]
+        tex_params = default_tex_params(args.tex_scale)
+        print(f"ground texture: bank[{idx}] of {len(bank)} ({args.texture} split), "
+              f"{args.tex_scale} m/period")
+    seq = make_sequence(
+        AnalyticTrajectory(), np.asarray(opts.t_imu_to_cam),
+        duration=args.duration, seed=args.seed,
+        sigma_w=args.sigma_w, sigma_a=args.sigma_a,
+        bias_g=args.bias_g, bias_a=args.bias_a, texture_seed=args.seed,
+        texture=texture, tex_params=tex_params, device=device,
+    )
+    np.savez_compressed(
+        args.out, imu_t=seq.imu_t, imu_w=seq.imu_w, imu_a=seq.imu_a,
+        cam_t=seq.cam_t, frames=seq.frames,
+    )
+    stem = os.path.splitext(args.out)[0]
+    save_pose_file(stem + "_gt.txt", seq.gt_times, seq.gt_pose_w)
+    n = len(seq.gt_times)
+    save_state_gt(stem + "_state_gt.txt", StateGT(
+        times=seq.gt_times, pose=seq.gt_pose_w, vel=seq.gt_vel_w,
+        bg=np.tile(seq.true_bg, (n, 1)), ba=np.tile(seq.true_ba, (n, 1)),
+    ))
+    # a config whose init/calib knobs match this sequence (no cam-imu time
+    # offset; hover altitude as init_height; gentle motion-onset jerk)
+    opts.calib_camimu_dt = 0.0
+    opts.init_height = float(seq.gt_pose_w[0, 2])
+    opts.init_imu_thresh = 0.2
+    opts.to_yaml(stem + "_config.yaml")
+    print(f"wrote {args.out}, {stem}_gt.txt, {stem}_state_gt.txt and "
+          f"{stem}_config.yaml")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,6 +287,45 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--bf16", action="store_true", help="not implemented yet")
     s.add_argument("--odom-out", default=None, help="not implemented yet")
     s.set_defaults(fn=cmd_run_vio)
+
+    s = sub.add_parser("run-vio-batch", help="many sequences in lockstep on one card")
+    s.add_argument("sequences", nargs="+", help=".npz sequence files")
+    s.add_argument("--out-dir", default="batch_out")
+    s.add_argument("--config", default=None)
+    s.add_argument("--profile", choices=["launch", "calibrated"], default=None)
+    s.add_argument("--weights", default=None)
+    s.add_argument("--no-network", action="store_true")
+    s.add_argument("--init-height", type=float, default=None)
+    s.add_argument("--seed", type=int, default=0, help="MC-dropout generator seed")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # accepted only to be refused with a clear message (see NOT_YET_BATCH)
+    s.add_argument("--mesh", action="store_true", help="not implemented yet")
+    s.set_defaults(fn=cmd_run_vio_batch)
+
+    s = sub.add_parser("make-synthetic", help="generate a synthetic sequence")
+    s.add_argument("--out", default="synthetic_seq.npz")
+    s.add_argument("--duration", type=float, default=20.0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--sigma-w", type=float, default=0.0)
+    s.add_argument("--sigma-a", type=float, default=0.0)
+    s.add_argument("--bias-g", type=float, default=0.0)
+    s.add_argument("--bias-a", type=float, default=0.0)
+    s.add_argument("--config", default=None)
+    s.add_argument("--texture", choices=["none", "train", "heldout"], default="none",
+                   help="ground imagery: procedural sinusoids (none), or a photo "
+                        "from the texture bank's train/held-out split")
+    s.add_argument("--texture-pick", type=int, default=None,
+                   help="index into the chosen split (default: seed)")
+    s.add_argument("--tex-scale", type=float, default=4.0,
+                   help="metres per texture period")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # accepted only to be refused with a clear message (see NOT_YET_SYNTHETIC)
+    s.add_argument("--traj-file", default=None, help="not implemented yet")
+    s.add_argument("--spline-dt", type=float, default=0.5, help="not implemented yet")
+    s.add_argument("--traj-z-offset", type=float, default=0.0, help="not implemented yet")
+    s.add_argument("--exposure-ms", type=float, default=0.0, help="not implemented yet")
+    s.add_argument("--effects", action="store_true", help="not implemented yet")
+    s.set_defaults(fn=cmd_make_synthetic)
     return p
 
 

@@ -1,14 +1,16 @@
 """Homography-aware synthetic data: planar ground scenes + exact IMU.
 
-Counterpart of ``cuahn_vio.data.synthetic``, procedural-texture path only
-(no photo texture, exposure blur or sensor effects yet):
+Counterpart of ``cuahn_vio.data.synthetic`` with the procedural and the
+photo-texture ground (exposure blur and sensor effects are not ported
+yet, and are refused):
 
 - ``AnalyticTrajectory``: closed-form p(t), q(t); body rates and specific
   force from ``torch.func.jacfwd`` of the closed forms (exact IMU);
 - ``ground_texture``: a sum of random sinusoids; its frequencies, signs
   and phases are arrays, so a caller can pass in any draw;
 - ``render_frame``: ray-casts every virtual-camera pixel (f = 159.5) onto
-  the z = 0 ground plane and samples the texture;
+  the z = 0 ground plane and samples the procedural ground or a photo
+  texture (``data/textures.sample_plane``, the B4 kernel on CUDA);
 - ``make_sequence``: IMU stream (optional noise/biases from a numpy seed)
   + uint8 camera frames + ground truth.
 """
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from cuahn_vio_torch.data.textures import default_tex_params, sample_plane, texture_u8
 from cuahn_vio_torch.ops.quat import quat_exp, quat_mul, quat_to_rot
 from cuahn_vio_torch.ops.warp import virtual_cam_k
 
@@ -103,10 +106,18 @@ def ground_texture(xy: torch.Tensor, freqs: torch.Tensor, signs: torch.Tensor,
     return 0.5 + 0.5 * (waves @ (amps / amps.sum()))
 
 
-def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, freqs, signs, phases,
-                 height: int = 224, width: int = 320) -> torch.Tensor:
+def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
+                 height: int = 224, width: int = 320,
+                 texture: Optional[torch.Tensor] = None,
+                 tex_params: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The virtual camera's (H, W) float32 view of the textured ground, in
-    [0, 1]; rays that miss the plane render 0."""
+    [0, 1]; rays that miss the plane render 0.
+
+    The ground is the photo ``texture`` ((T, T) uint8 or float32 on the
+    device, mapped by ``tex_params``, default ``default_tex_params()``)
+    when given, else the procedural ground of ``waves`` = (freqs, signs,
+    phases) tensors.
+    """
     dev = p_w.device
     _, k_inv = virtual_cam_k(height, width, device=dev)
     rot_i2w = quat_to_rot(q_i2w)
@@ -119,7 +130,12 @@ def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, freqs, signs, phases,
     d_w = (pix @ k_inv.T) @ rot_c2w.T
     lam = -cam_center[2] / d_w[..., 2]
     ground = cam_center[None, None, :2] + lam[..., None] * d_w[..., :2]
-    tex = ground_texture(ground, freqs, signs, phases)
+    if texture is not None:
+        if tex_params is None:
+            tex_params = default_tex_params().to(dev)
+        tex = sample_plane(texture, ground, tex_params)
+    else:
+        tex = ground_texture(ground, *waves)
     return torch.where(lam > 0, tex, torch.zeros_like(tex))
 
 
@@ -150,16 +166,31 @@ def make_sequence(
     bias_a: float = 0.0,
     texture_seed: int = 0,
     gravity_mag: float = 9.81,
-    texture: Optional[tuple] = None,
+    texture=None,
+    tex_params=None,
+    exposure_s: float = 0.0,
+    effects=None,
     device="cuda",
 ) -> SyntheticSequence:
     """Synthetic flight: t_still seconds hovering at traj(0) (so the jerk
     initializer fires), then the analytic trajectory.
 
-    ``texture`` is a (freqs, signs, phases) draw; None draws one from
-    ``texture_seed`` with ``texture_draws``. Frames are rendered on
-    ``device``; everything returned is numpy.
+    The ground:
+        texture: None draws a procedural ground from ``texture_seed`` with
+            ``texture_draws``; a (freqs, signs, phases) tuple is such a
+            draw; a (T, T) array is a photo texture at uint8 levels (a
+            ``data/textures`` bank entry, float32 k/255 or uint8), held on
+            ``device`` as uint8 once for the whole sequence and mapped onto
+            the ground by ``tex_params`` (5,) (default
+            ``default_tex_params()``).
+        exposure_s > 0 (motion blur) and ``effects`` (the sensor-effect
+            chain) are not ported yet and raise.
+    Frames are rendered on ``device``; everything returned is numpy.
     """
+    if exposure_s > 0.0:
+        raise NotImplementedError("exposure blur (exposure_s > 0) is not ported yet")
+    if effects is not None:
+        raise NotImplementedError("sensor effects are not ported yet")
     rng = np.random.default_rng(seed)
     t_imu_to_cam = np.asarray(t_imu_to_cam, np.float64)
     c_rot_i = torch.tensor(t_imu_to_cam[:3, :3], dtype=torch.float32, device=device)
@@ -187,17 +218,22 @@ def make_sequence(
     imu_a = a_true + ba + rng.normal(size=a_true.shape) * sigma_a
 
     cam_t = np.arange(t_still + 0.2, t_still + duration, 1.0 / cam_hz)
-    tex = texture_draws(texture_seed) if texture is None else texture
-    freqs, signs, phases = (
-        torch.tensor(np.asarray(x, np.float32), device=device) for x in tex
-    )
+    waves = tex_dev = tp_dev = None
+    if texture is None or isinstance(texture, tuple):
+        draws = texture_draws(texture_seed) if texture is None else texture
+        waves = [torch.tensor(np.asarray(x, np.float32), device=device) for x in draws]
+    else:
+        tex_dev = torch.as_tensor(texture_u8(texture), device=device)
+        params = default_tex_params() if tex_params is None else tex_params
+        tp_dev = torch.as_tensor(np.asarray(params, np.float32), device=device)
     cam_dev = torch.tensor(cam_t - t_still, dtype=torch.float32, device=device)
     p_cam, q_cam = vmap(lambda t: (traj.pos_w(t), traj.quat_i2w(t)))(
         torch.clamp(cam_dev, min=0.0)
     )
     frames = np.zeros((len(cam_t), 224, 320), np.uint8)
     for i in range(len(cam_t)):
-        img = render_frame(p_cam[i], q_cam[i], c_rot_i, i_t_i2c, freqs, signs, phases)
+        img = render_frame(p_cam[i], q_cam[i], c_rot_i, i_t_i2c, waves,
+                           texture=tex_dev, tex_params=tp_dev)
         frames[i] = (img * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
 
     # GT at IMU rate, world frame, file convention [x y z qx qy qz qw]

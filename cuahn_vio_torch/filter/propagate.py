@@ -11,6 +11,10 @@ Counterpart of ``cuahn_vio.filter.propagate`` (Propagator.cpp):
 A dt = 0 step is an exact identity, as in the JAX package, so padded
 windows give the same state; ``propagate_window`` skips the padding when
 told how many intervals are real (``n_used``), which saves launches.
+
+The functions take one state; ``torch.func.vmap`` runs them over a batch
+of states (``pipeline/vio.py``). So F and Fw are made with ``new_zeros``
+of a state tensor, which is batched under vmap, and filled in place.
 """
 
 from __future__ import annotations
@@ -110,7 +114,7 @@ def compute_jacobians(state: FilterState, params: FilterParams, w_m, a_m, dt):
     wc, vc, muc, dc = _camera_terms(state, params, w_hat, rot, muw)
     pts = xy1 + state.off
 
-    f = torch.zeros((27, 27), dtype=dtype, device=dev)
+    f = state.p.new_zeros((27, 27))
     sk_w = skew(w_hat)
     f[0:3, 0:3] = eye3 - dt * sk_w
     f[0:3, 6:9] = dt * eye3
@@ -146,9 +150,10 @@ def compute_jacobians(state: FilterState, params: FilterParams, w_m, a_m, dt):
     f[15:27, 3:6] = blk_q.reshape(12, 3)
     f[15:27, 6:9] = blk_v.reshape(12, 3)
     f[15:27, 12:15] = blk_bg.reshape(12, 3)
-    f[15:27, 15:27] = torch.block_diag(*blk_pt.unbind(0))
+    for k in range(4):  # block diagonal over the corners
+        f[15 + 3 * k:18 + 3 * k, 15 + 3 * k:18 + 3 * k] = blk_pt[k]
 
-    fw = torch.zeros((27, 15), dtype=dtype, device=dev)
+    fw = state.p.new_zeros((27, 15))
     fw[0:3, 0:3] = -f[0:3, 12:15]
     fw[0:3, 12:15] = dt * eye3
     fw[3:6, 0:3] = -f[3:6, 12:15]

@@ -22,4 +22,6 @@ from cuahn_vio_torch.ops.warp import (  # noqa: F401
     pixel_grid_uv1,
     homography_warp,
     homography_warp_plain,
+    bilinear_sample,
+    bilinear_sample_flat,
 )

@@ -1,4 +1,8 @@
-"""ctypes binding and wrapper of the homography-warp kernel (``warp.cu``).
+"""ctypes bindings and wrappers of the sampling kernels (``warp.cu``).
+
+- ``homography_warp_cuda``: the homography warp (B1, and B2 with B > 1);
+- ``homography_warp_rowskip_cuda``: the row-band batched warp (B3);
+- ``bilinear_sample_cuda``: the flat-coordinate sampler (B4).
 
 The library is built with nvcc at first use (``build.py``), never at
 import, so this module imports on a machine without CUDA.
@@ -13,26 +17,34 @@ import os
 import torch
 
 from cuahn_vio_torch.ops.cuda import build, launch_counts
-from cuahn_vio_torch.ops.warp import check_warp_args
+from cuahn_vio_torch.ops.warp import check_sample_args, check_warp_args
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "warp.cu")
 KERNEL = "homography_warp"
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # imgs, hs, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # image strides
-    ctypes.c_longlong,  # homography batch stride
-    ctypes.c_void_p,  # stream
-]
+ROWSKIP_KERNEL = "homography_warp_rowskip"
+SAMPLE_KERNEL = "bilinear_sample"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = {
+    # imgs, hs, out, B, H, W, image strides (3), homography batch stride, stream
+    "homography_warp": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
+    # imgs (contiguous), hs, out, B, H, W, homography batch stride, stream
+    "homography_warp_rowskip": [_P, _P, _P, _I, _I, _I, _L, _P],
+    # img, su, sv, out, N, H, W, image strides (2), stream
+    "bilinear_sample": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+}
+_INT_MAX = 2**31 - 1
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    for name in ("homography_warp_u8", "homography_warp_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for stem, argtypes in _ARGTYPES.items():
+        for suffix in ("u8", "f32"):
+            fn = getattr(lib, f"{stem}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -44,30 +56,76 @@ def build_kernel() -> float:
     return seconds
 
 
+def _entry(stem: str, dtype: torch.dtype):
+    return getattr(_library(), f"{stem}_{'u8' if dtype == torch.uint8 else 'f32'}")
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    """All on one CUDA device and contiguous."""
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"tensors on several devices: {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA kernels take contiguous tensors")
+
+
+def _check_warp(imgs: torch.Tensor, h_uv: torch.Tensor) -> None:
+    check_warp_args(imgs, h_uv)
+    _check_cuda(imgs, h_uv)
+    b, hgt, wid = imgs.shape
+    if not 0 < b <= 65535:
+        raise ValueError(f"batch {b} outside the kernel's grid (1..65535)")
+    if hgt * wid > _INT_MAX - 256:
+        raise ValueError(f"{hgt}x{wid} pixels exceed the kernel's int indexing")
+
+
+def _launch(name: str, fn, *args, device: torch.device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launch_counts[name] += 1
+
+
 def homography_warp_cuda(imgs: torch.Tensor, h_uv: torch.Tensor) -> torch.Tensor:
     """Launch the warp kernel on (B, H, W) uint8|float32 CUDA images and
     (B, 3, 3) float32 homographies; returns (B, H, W) float32. Raises on
     anything the kernel does not take and on a failed launch."""
-    check_warp_args(imgs, h_uv)
-    if not (imgs.is_cuda and h_uv.is_cuda):
-        raise ValueError("homography_warp_cuda takes CUDA tensors")
-    if imgs.device != h_uv.device:
-        raise ValueError(f"imgs on {imgs.device}, h_uv on {h_uv.device}")
-    if not (imgs.is_contiguous() and h_uv.is_contiguous()):
-        raise ValueError("imgs and h_uv must be contiguous")
+    _check_warp(imgs, h_uv)
     b, hgt, wid = imgs.shape
-    if not 0 < b <= 65535:
-        raise ValueError(f"batch {b} outside the kernel's grid (1..65535)")
     out = torch.empty((b, hgt, wid), dtype=torch.float32, device=imgs.device)
-    lib = _library()
-    fn = lib.homography_warp_u8 if imgs.dtype == torch.uint8 else lib.homography_warp_f32
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = fn(
+    _launch(KERNEL, _entry("homography_warp", imgs.dtype),
             imgs.data_ptr(), h_uv.data_ptr(), out.data_ptr(),
-            b, hgt, wid, *imgs.stride(), h_uv.stride(0), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"homography_warp kernel launch failed: cudaError {err}")
-    launch_counts[KERNEL] += 1
+            b, hgt, wid, *imgs.stride(), h_uv.stride(0), device=imgs.device)
+    return out
+
+
+def homography_warp_rowskip_cuda(imgs: torch.Tensor, h_uv: torch.Tensor) -> torch.Tensor:
+    """The row-band batched warp: the same function as
+    ``homography_warp_cuda``, bit for bit, with each tile of output pixels
+    sampling a shared-memory copy of only the image rows its taps read."""
+    _check_warp(imgs, h_uv)
+    b, hgt, wid = imgs.shape
+    out = torch.empty((b, hgt, wid), dtype=torch.float32, device=imgs.device)
+    _launch(ROWSKIP_KERNEL, _entry("homography_warp_rowskip", imgs.dtype),
+            imgs.data_ptr(), h_uv.data_ptr(), out.data_ptr(),
+            b, hgt, wid, h_uv.stride(0), device=imgs.device)
+    return out
+
+
+def bilinear_sample_cuda(img: torch.Tensor, su: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
+    """Sample one (H, W) uint8|float32 CUDA image at (N,) float32 pixel
+    coordinates; returns (N,) float32."""
+    check_sample_args(img, su, sv)
+    _check_cuda(img, su, sv)
+    n = su.shape[0]
+    if not 0 < n <= _INT_MAX - 256:
+        raise ValueError(f"{n} sample points outside the kernel's grid")
+    hgt, wid = img.shape
+    out = torch.empty((n,), dtype=torch.float32, device=img.device)
+    _launch(SAMPLE_KERNEL, _entry("bilinear_sample", img.dtype),
+            img.data_ptr(), su.data_ptr(), sv.data_ptr(), out.data_ptr(),
+            n, hgt, wid, *img.stride(), device=img.device)
     return out

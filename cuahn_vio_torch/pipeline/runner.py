@@ -3,8 +3,11 @@
 Counterpart of ``cuahn_vio.pipeline.runner.run_offline``: the host replays
 the IMU stream into the initializer (feed_measurement_imu semantics),
 builds the per-frame IMU windows, and runs the step over every frame pair
-on the device. The per-frame stage timer (``run_stepwise``) and the
-health rollback are not ported yet.
+on the device. ``run_offline_batch`` runs many sequences in lockstep
+(``run-vio-batch``): ``prepare_batch`` pads them to a common frame count,
+``parallel.sharded_eval.batched_run_sequences`` runs them and
+``batch_results`` trims each back to its own frames. The per-frame stage
+timer (``run_stepwise``) and the health rollback are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from cuahn_vio_torch.filter.initializer import initial_state, try_initialize
 from cuahn_vio_torch.filter.propagate import propagate_window
-from cuahn_vio_torch.filter.state import FilterParams, with_bias_block
+from cuahn_vio_torch.filter.state import FilterParams, FilterState, with_bias_block
 from cuahn_vio_torch.ops.homography import f32_parity_mode
 from cuahn_vio_torch.pipeline.imu_window import build_imu_windows, select_imu_readings
 from cuahn_vio_torch.pipeline.vio import FrameOutput, VioConfig, run_sequence
@@ -135,6 +138,26 @@ def prepare_sequence(imu_t, imu_w, imu_a, cam_t, frames_u8, opts: RunnerOptions,
     return init, state0, win, cam_used, frames_used
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` with its index: a bare "cuda" is the current CUDA device,
+    which is where tensors made with device="cuda" live."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_devices(model, fparams: FilterParams, device) -> torch.device:
+    device = resolve_device(device)
+    if fparams.q_noise.device != device:
+        raise ValueError(f"fparams on {fparams.q_noise.device}, run on {device}")
+    if model is not None:
+        dev_model = next(model.parameters()).device
+        if dev_model != device:
+            raise ValueError(f"model on {dev_model}, run on {device}")
+    return device
+
+
 def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
                 model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
                 opts: RunnerOptions, seed: int = 0, device="cuda") -> RunResult:
@@ -145,13 +168,7 @@ def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
     live on ``device``. MC-dropout masks come from a ``torch.Generator``
     on ``device`` seeded with ``seed``, drawn in frame order.
     """
-    device = torch.device(device)
-    if fparams.q_noise.device != device:
-        raise ValueError(f"fparams on {fparams.q_noise.device}, run on {device}")
-    if model is not None:
-        dev_model = next(model.parameters()).device
-        if dev_model != device:
-            raise ValueError(f"model on {dev_model}, run on {device}")
+    device = _check_devices(model, fparams, device)
     f32_parity_mode()
     init, state0, win, cam_used, frames_used = prepare_sequence(
         imu_t, imu_w, imu_a, cam_t, frames_u8, opts, fparams, device
@@ -169,3 +186,87 @@ def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
     )
     times_out = cam_used[1:] + opts.calib_camimu_dt
     return _outputs_to_result(outs, times_out, init.t0)
+
+
+class BatchInputs(NamedTuple):
+    """B sequences padded to F = the longest frame count, on the device."""
+
+    states0: FilterState  # every tensor with a leading B
+    imgs_u8: torch.Tensor  # (B, F+1, H, W) uint8
+    w_win: torch.Tensor  # (B, F, T, 3)
+    a_win: torch.Tensor  # (B, F, T, 3)
+    dt_win: torch.Tensor  # (B, F, T); 0 = padding
+    n_used: np.ndarray  # (B, F) real IMU intervals; 0 on padded frames
+    n_frames: list  # each sequence's own frame count
+    times: list  # each sequence's (n_frames,) output timestamps
+    t0: list  # each sequence's initialization time
+
+
+def prepare_batch(sequences, opts: RunnerOptions, fparams: FilterParams,
+                  device="cuda") -> BatchInputs:
+    """Initialize and window each of ``sequences`` ((imu_t, imu_w, imu_a,
+    cam_t, frames_u8) tuples), pad them to a common frame count and stack
+    them. Padded frames repeat the last frame and integrate zero-dt
+    windows; ``batch_results`` trims them away."""
+    preps = [prepare_sequence(*seq, opts, fparams, device) for seq in sequences]
+    if not preps:
+        raise ValueError("no sequences")
+    n_frames = [win.dt.shape[0] for _, _, win, _, _ in preps]
+    f_max = max(n_frames)
+    if f_max == 0:
+        raise ValueError("no sequence has a frame pair after initialization")
+    imgs, ws, a_s, dts, ns = [], [], [], [], []
+    for (_, _, win, _, frames_used), nf in zip(preps, n_frames):
+        pad_f = f_max - nf
+        imgs.append(np.concatenate([frames_used, np.repeat(frames_used[-1:], pad_f, 0)]))
+        ws.append(np.pad(win.w_mid, ((0, pad_f), (0, 0), (0, 0))))
+        a_s.append(np.pad(win.a_mid, ((0, pad_f), (0, 0), (0, 0))))
+        dts.append(np.pad(win.dt, ((0, pad_f), (0, 0))))
+        ns.append(np.pad(win.n_used, (0, pad_f)))
+    states = [state0 for _, state0, _, _, _ in preps]
+    states0 = FilterState(*(
+        None if xs[0] is None else torch.stack(xs) for xs in zip(*states)
+    ))
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(np.stack(x)), device=device)
+
+    return BatchInputs(
+        states0=states0,
+        imgs_u8=dev([np.asarray(x, np.uint8) for x in imgs]),
+        w_win=dev(ws), a_win=dev(a_s), dt_win=dev(dts),
+        n_used=np.stack(ns),
+        n_frames=n_frames,
+        times=[cam_used[1:nf + 1] + opts.calib_camimu_dt
+               for (_, _, _, cam_used, _), nf in zip(preps, n_frames)],
+        t0=[init.t0 for init, _, _, _, _ in preps],
+    )
+
+
+def batch_results(outs: FrameOutput, batch: BatchInputs) -> list:
+    """One RunResult per sequence, trimmed to its own frames."""
+    return [
+        _outputs_to_result(FrameOutput(*(x[i, :nf] for x in outs)), times, t0)
+        for i, (nf, times, t0) in enumerate(zip(batch.n_frames, batch.times, batch.t0))
+    ]
+
+
+def run_offline_batch(sequences, model: Optional[Any], fparams: FilterParams,
+                      cfg: VioConfig, opts: RunnerOptions, seed: int = 0,
+                      device="cuda") -> list:
+    """``run_offline`` for many sequences in lockstep on one device: one
+    RunResult per sequence. The model runs once per lockstep frame on all
+    B frame pairs; MC-dropout masks come from one generator seeded with
+    ``seed``, drawn per frame for the whole batch."""
+    from cuahn_vio_torch.parallel.sharded_eval import batched_run_sequences
+
+    device = _check_devices(model, fparams, device)
+    f32_parity_mode()
+    batch = prepare_batch(sequences, opts, fparams, device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    _, outs = batched_run_sequences(
+        batch.states0, model, fparams, cfg, batch.imgs_u8, batch.w_win,
+        batch.a_win, batch.dt_win, batch.n_used, generator,
+    )
+    return batch_results(outs, batch)

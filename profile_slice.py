@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's ``run-vio`` slice goes, on one GPU.
 
-    python3 profile_slice.py
+    python3 profile_slice.py [--batch]
 
 Runs the slice of ``chip_smoke.py`` (same synthetic sequence, v10 weights,
 calibrated profile, 16-member MC dropout) on its first FRAMES frame
 pairs, after initialization and the first (seconds-long) IMU window: once
 plain for the host-clock ms/frame, once under ``torch.profiler`` (CPU +
-CUDA activity). Prints one JSON line with:
+CUDA activity). With ``--batch``, the same for the smoke's batched phase:
+its four sequences (the slice's and ``chip_smoke.TEX_SEQS``) in lockstep,
+``BATCH_SAMPLER = "full"``; "frame" then means a lockstep frame of B = 4
+sequences. Prints one JSON line with:
 
 - ``ms_per_frame``: host clock of the frame loop, profiler off;
   ``ms_per_frame_profiled``: the same under the profiler;
@@ -38,6 +41,8 @@ FRAMES = 16  # past the 10-frame update gate; the trace stays ~1 min to read
 
 
 def main() -> int:
+    import argparse
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -45,33 +50,42 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", action="store_true",
+                    help="profile the batched phase (B = 4, lockstep) instead")
+    args = ap.parse_args()
     import chip_smoke
     from cuahn_vio_torch.ops.homography import f32_parity_mode
-    from cuahn_vio_torch.pipeline.runner import prepare_sequence
+    from cuahn_vio_torch.pipeline.runner import prepare_batch
     from cuahn_vio_torch.pipeline.vio import run_sequence
 
     dev = torch.device("cuda:0")
     f32_parity_mode()
     seq, opts, model = chip_smoke.slice_setup(torch, dev)
+    seqs = [seq] + (chip_smoke.textured_sequences(dev) if args.batch else [])
     n = FRAMES
-    cut = (seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t[: n + 1], seq.frames[: n + 1])
+    cuts = [(s.imu_t, s.imu_w, s.imu_a, s.cam_t[: n + 1], s.frames[: n + 1]) for s in seqs]
 
     fparams, cfg = opts.filter_params(dev), opts.vio_config()
     # initialization and the seconds-long first IMU window run once per
     # sequence: kept out of the profiled steps
-    _, state0, win, _, frames_used = prepare_sequence(
-        *cut, opts.runner_options(), fparams, dev
-    )
-    frames_dev = torch.as_tensor(frames_used, device=dev)
-    w, a, dt = (torch.as_tensor(x, device=dev) for x in (win.w_mid, win.a_mid, win.dt))
-    steps = w.shape[0]
+    batch = prepare_batch(cuts, opts.runner_options(), fparams, dev)
+    if args.batch:
+        inputs = (batch.states0, batch.imgs_u8, batch.w_win, batch.a_win, batch.dt_win,
+                  batch.n_used.max(axis=0))
+    else:  # the single-stream tensors, without the batch dim
+        inputs = (type(batch.states0)(*(None if x is None else x[0] for x in batch.states0)),
+                  batch.imgs_u8[0], batch.w_win[0], batch.a_win[0], batch.dt_win[0],
+                  batch.n_used[0])
+    state0, frames_dev, w, a, dt, n_used = inputs
+    steps = w.shape[-3]
 
     def run():
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_sequence(state0, model, fparams, cfg, frames_dev, w, a, dt, win.n_used, gen)
+        run_sequence(state0, model, fparams, cfg, frames_dev, w, a, dt, n_used, gen)
         torch.cuda.synchronize()
         return None, time.perf_counter() - t0
 
@@ -113,6 +127,7 @@ def main() -> int:
         for k, v in sorted(stages.items())
     }
     out = dict(
+        path="batched, B = %d" % len(seqs) if args.batch else "single stream",
         frames=steps,
         ms_per_frame=plain_s * 1e3 / steps,
         ms_per_frame_profiled=prof_s * 1e3 / steps,

@@ -1,10 +1,13 @@
-"""The port's CUDA kernel on the card (skips without a GPU).
+"""The port's CUDA kernels on the card (skips without a GPU).
 
 A CUDA kernel has no CPU mode, so these run only where a GPU is present:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the GPU
-machine (the suite's conftest imports JAX; these tests do not need it). The
-kernel is held to its plain PyTorch version on the same CUDA tensors:
-max abs error 1e-5, NaN exactly where the plain version has NaN.
+machine (the suite's conftest imports JAX; these tests do not need it).
+Each kernel is held to its plain PyTorch version on the same CUDA tensors,
+NaN exactly where the plain version has NaN: the warp (B1/B2) and the
+flat sampler (B4) to max abs error 1e-5, the row-band warp (B3) to the
+warp kernel bit for bit (0.0). The batched path and the CLI run on the
+card too.
 """
 
 import numpy as np
@@ -78,3 +81,119 @@ def test_warp_wrapper_rejects_what_the_kernel_does_not_take(gpu):
         homography_warp_cuda(imgs, hs.cpu().contiguous())
     with pytest.raises(TypeError):
         homography_warp_cuda(imgs.half(), hs.contiguous())
+
+
+def _roll_cases(rng, b, dtype, dev):
+    """_cases plus an extreme (90 deg) and a 20 deg roll about the centre."""
+    imgs, hs = _cases(rng, b, dtype, dev)
+    if b >= 6:
+        for i, deg in ((4, 90.0), (5, 20.0)):
+            c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+            hs[i] = torch.tensor([[c, -s, 159.5 - c * 159.5 + s * 111.5],
+                                  [s, c, 111.5 - s * 159.5 - c * 111.5],
+                                  [0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+    return imgs, hs
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b", [1, 8])
+def test_rowskip_kernel_is_bit_identical_to_the_warp_kernel(gpu, dtype, b):
+    from cuahn_vio_torch.ops import warp
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, homography_warp_rowskip_cuda
+
+    imgs, hs = _roll_cases(np.random.default_rng(10 + b), b, dtype, gpu)
+    before = dict(tcuda.launch_counts)
+    out = homography_warp_rowskip_cuda(imgs, hs)
+    full = homography_warp_cuda(imgs, hs)
+    ref = homography_warp_plain(imgs, hs)
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["homography_warp_rowskip"] == before["homography_warp_rowskip"] + 1
+    assert torch.equal(torch.isnan(out), torch.isnan(full))
+    assert torch.equal(out.nan_to_num(), full.nan_to_num())
+    assert torch.equal(out.nan_to_num(), ref.nan_to_num())
+    # the selector routes a CUDA batch to the row-band kernel
+    warp.BATCH_SAMPLER = "rowskip"
+    try:
+        routed = warp.homography_warp(imgs, hs)
+    finally:
+        warp.BATCH_SAMPLER = "full"
+    torch.cuda.synchronize()
+    want = 2 if b > 1 else 1  # a single frame stays on the warp kernel
+    assert tcuda.launch_counts["homography_warp_rowskip"] == before["homography_warp_rowskip"] + want
+    assert torch.equal(routed.nan_to_num(), full.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_flat_sampler_matches_plain_version(gpu, dtype):
+    from cuahn_vio_torch.ops.warp import bilinear_sample, bilinear_sample_flat
+
+    rng = np.random.default_rng(20)
+    tex = (rng.integers(0, 256, (512, 512)).astype(np.uint8) if dtype == torch.uint8
+           else rng.random((512, 512)).astype(np.float32))
+    coords = np.concatenate([
+        rng.uniform(-2.0, 513.0, (2, 5000)),
+        np.array([[0.0, 511.0, -0.5, 511.5, -1.0, 512.0, np.inf, -np.inf, np.nan, 3.0],
+                  [511.0, 0.0, 3.0, 7.0, 2.0, 2.0, 5.0, 5.0, 5.0, np.nan]]),
+    ], axis=1).astype(np.float32)
+    tex = torch.as_tensor(tex, device=gpu)
+    su, sv = (torch.as_tensor(np.ascontiguousarray(c), device=gpu) for c in coords)
+    before = tcuda.launch_counts["bilinear_sample"]
+    out = bilinear_sample(tex, su, sv)
+    ref = bilinear_sample_flat(tex, su, sv)
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["bilinear_sample"] == before + 1
+    assert torch.equal(torch.isnan(out), torch.isnan(ref)) and torch.isnan(out).sum() == 2
+    finite = ~torch.isnan(ref)
+    assert (out - ref).abs()[finite].max().item() <= TOL
+
+
+def _short_sequences(dev):
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, make_sequence
+    from cuahn_vio_torch.data.textures import _procedural_extras, quantize_u8
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    t_ic = np.asarray(VioOptions().t_imu_to_cam)
+    tex = quantize_u8(_procedural_extras(512)[0])
+    tcuda.reset_launch_counts()
+    seqs = [make_sequence(AnalyticTrajectory(), t_ic, duration=d, seed=s, texture=tex,
+                          device=dev) for d, s in ((0.6, 1), (0.45, 2))]
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["bilinear_sample"] == sum(len(q.cam_t) for q in seqs)
+    return seqs
+
+
+def test_batched_path_on_gpu_warps_once_per_site_and_frame(gpu):
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.pipeline.runner import run_offline, run_offline_batch
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    opts = VioOptions().apply_profile("calibrated")
+    opts.calib_camimu_dt, opts.init_height, opts.init_imu_thresh = 0.0, 1.5, 0.2
+    seqs = [(q.imu_t, q.imu_w, q.imu_a, q.cam_t, q.frames) for q in _short_sequences(gpu)]
+    model = build_uahn(None, device=gpu, dropout_rate=0.0)
+    fp, cfg, ro = opts.filter_params(gpu), opts.vio_config(), opts.runner_options()
+    tcuda.reset_launch_counts()
+    res = run_offline_batch(seqs, model, fp, cfg, ro, device="cuda")
+    torch.cuda.synchronize()
+    f_max = max(len(r.times) for r in res)
+    assert tcuda.launch_counts["homography_warp"] == 3 * f_max
+    for seq, r in zip(seqs, res):
+        single = run_offline(*seq, model, fp, cfg, ro, device="cuda")
+        np.testing.assert_allclose(r.pose_w[:, :3], single.pose_w[:, :3], atol=2e-5, rtol=0)
+
+
+def test_cli_runs_on_the_gpu_by_default(gpu, tmp_path):
+    from cuahn_vio_torch import cli
+
+    paths = []
+    for i, q in enumerate(_short_sequences(gpu)):
+        paths.append(str(tmp_path / f"s{i}.npz"))
+        np.savez(paths[-1], imu_t=q.imu_t, imu_w=q.imu_w, imu_a=q.imu_a,
+                 cam_t=q.cam_t, frames=q.frames)
+    flags = ["--no-network", "--init-height", "1.5", "--calib-dt", "0",
+             "--init-imu-thresh", "0.2"]
+    cli.main(["run-vio", paths[0], "--out", str(tmp_path / "est.txt"), *flags])
+    cli.main(["run-vio-batch", *paths, "--out-dir", str(tmp_path / "b"), "--no-network",
+              "--init-height", "1.5"])
+    assert (tmp_path / "est.txt").exists()
+    assert all((tmp_path / "b" / f"s{i}.txt").exists() for i in range(2))
