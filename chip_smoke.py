@@ -13,14 +13,16 @@ Phases, each printed on its own line with its seconds:
    z <= 0, NaN and rolled homographies; max abs error <= 1e-5); the
    row-band warp at B in {1, 4, 8} on the same cases against the warp
    kernel and the plain version (max abs error 0.0); the flat sampler on a
-   512x512 texture at in-range, edge, off-image, +-inf and NaN coordinates
+   512x512 texture at the 71,680 coordinates of one rendered frame (the
+   main path's shape) and at in-range, edge, off-image, +-inf and NaN ones
    (max abs error <= 1e-5); NaN exactly where the plain version has NaN;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
    (the numbers kept) and eager call-to-call time. The warp at B = 1, 4
    and 64 (uint8 and float32), the row-band warp at B = 4, 8 and 64
-   (uint8), the flat sampler at 71,680 points on a 512x512 uint8 texture;
+   (uint8), the flat sampler at one rendered frame's 71,680 coordinates on
+   a 512x512 uint8 texture;
 4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
    port's ``make_sequence``, run through ``run_offline`` with the shipped
    v10 weights and 16-member MC dropout (p = 0.05, seeded generator); the
@@ -248,28 +250,52 @@ def sample_cases(torch, rng, dtype, dev):
             torch.as_tensor(sv.astype(np.float32), device=dev))
 
 
+def frame_sample_coords(torch, dev):
+    """The (P,) coordinates, P = 224 x 320, at which ``sample_plane`` has
+    the flat sampler read the texture for one rendered frame: the first
+    TEX_SEQS flight 2 s into its motion, mirror-tiled onto a 512x512
+    texture at TEX_SCALE_M (the main path's input shape and grid)."""
+    import numpy as np
+
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, ground_points
+    from cuahn_vio_torch.data.textures import default_tex_params, plane_coords
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    t_imu_to_cam = np.asarray(VioOptions.uzhfpv_indoor45().t_imu_to_cam, np.float64)
+    c_rot_i = torch.tensor(t_imu_to_cam[:3, :3], dtype=torch.float32, device=dev)
+    i_t_i2c = torch.tensor(-t_imu_to_cam[:3, :3].T @ t_imu_to_cam[:3, 3],
+                           dtype=torch.float32, device=dev)
+    traj, t = AnalyticTrajectory(), torch.tensor(2.0, device=dev)
+    ground, _ = ground_points(traj.pos_w(t), traj.quat_i2w(t), c_rot_i, i_t_i2c, H, W)
+    su, sv = plane_coords(TEX_SIZE, ground, default_tex_params(TEX_SCALE_M).to(dev))
+    return su.reshape(-1).contiguous(), sv.reshape(-1).contiguous()
+
+
 def check_sample(torch, dev):
-    """Phase 2, B4: the flat sampler against its plain version. Returns
-    the max abs error."""
+    """Phase 2, B4: the flat sampler against its plain version, at one
+    rendered frame's coordinates (the main path's shape) and at the special
+    ones. Returns (max abs error at the frame's coordinates, over all)."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
     from cuahn_vio_torch.ops.warp import bilinear_sample_flat
 
     rng = np.random.default_rng(3)
-    worst = 0.0
+    frame_su, frame_sv = frame_sample_coords(torch, dev)
+    worst = {"frame": 0.0, "special": 0.0}
     for dtype in (torch.uint8, torch.float32):
         tex, su, sv = sample_cases(torch, rng, dtype, dev)
-        out = bilinear_sample_cuda(tex, su, sv)
-        ref = bilinear_sample_flat(tex, su, sv)
-        torch.cuda.synchronize()
-        err = nan_checked_err(torch, out, ref, f"flat sampler {dtype}")
-        print(f"  sampler parity {str(dtype):13s} N={su.numel()}: max abs err {err:.3e}, "
-              f"NaN points {int(torch.isnan(ref).sum())}", flush=True)
-        if not err <= PARITY_TOL:
-            raise AssertionError(f"sampler vs plain {err:.3e} > {PARITY_TOL}")
-        worst = max(worst, err)
-    return worst
+        for case, (csu, csv) in (("frame", (frame_su, frame_sv)), ("special", (su, sv))):
+            out = bilinear_sample_cuda(tex, csu, csv)
+            ref = bilinear_sample_flat(tex, csu, csv)
+            torch.cuda.synchronize()
+            err = nan_checked_err(torch, out, ref, f"flat sampler {dtype} {case}")
+            print(f"  sampler parity {str(dtype):13s} {case:7s} N={csu.numel()}: max abs err "
+                  f"{err:.3e}, NaN points {int(torch.isnan(ref).sum())}", flush=True)
+            if not err <= PARITY_TOL:
+                raise AssertionError(f"sampler vs plain {err:.3e} > {PARITY_TOL}")
+            worst[case] = max(worst[case], err)
+    return worst["frame"], max(worst.values())
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -387,10 +413,10 @@ def time_kernel(torch, dev):
 
 
 def time_sample(torch, dev):
-    """Phase 3, B4: the flat sampler at one frame's 71,680 points on a
-    512x512 uint8 texture, the points of a scaled, rotated image grid.
+    """Phase 3, B4: the flat sampler at one rendered frame's 71,680
+    coordinates (``frame_sample_coords``) on a 512x512 uint8 texture.
     Returns {ms, plain_ms, library_ms, bound_ms}; the bound counts the
-    texels this call's taps read."""
+    texels this call's in-image taps read."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -400,14 +426,13 @@ def time_sample(torch, dev):
     t = TEX_SIZE
     rng = np.random.default_rng(4)
     tex = torch.as_tensor(rng.integers(0, 256, (t, t)).astype(np.uint8), device=dev)
-    u = torch.arange(W, device=dev, dtype=torch.float32)[None, :].expand(H, W)
-    v = torch.arange(H, device=dev, dtype=torch.float32)[:, None].expand(H, W)
-    su = (60.0 + 1.15 * u + 0.2 * v).reshape(-1).contiguous()
-    sv = (80.0 - 0.2 * u + 1.15 * v).reshape(-1).contiguous()
+    su, sv = frame_sample_coords(torch, dev)
     n = su.numel()
     x0, y0 = torch.floor(su).long(), torch.floor(sv).long()
     taps = torch.cat([(y0 + dy) * t + (x0 + dx) for dy in (0, 1) for dx in (0, 1)])
-    texels = int(torch.unique(taps).numel())  # all in the image here
+    inside = torch.cat([(y0 + dy >= 0) & (y0 + dy < t) & (x0 + dx >= 0) & (x0 + dx < t)
+                        for dy in (0, 1) for dx in (0, 1)])
+    texels = int(torch.unique(taps[inside]).numel())
     bytes_moved = 2 * n * 4 + texels * tex.element_size() + n * 4
     bound = max(bytes_moved / HBM_BYTES_PER_S,
                 n * SAMPLE_FLOPS_PER_POINT / F32_FLOPS_PER_S) * 1e3
@@ -633,9 +658,11 @@ def main() -> int:
     t0 = time.perf_counter()
     warp_err = check_kernel(torch, dev)
     rowskip_err = check_rowskip(torch, dev)
-    sample_err = check_sample(torch, dev)
+    sample_err, sample_worst = check_sample(torch, dev)
     phase("parity", t0, warp_max_abs_err=f"{warp_err:.3e}",
-          rowskip_max_abs_err=f"{rowskip_err:.3e}", sampler_max_abs_err=f"{sample_err:.3e}")
+          rowskip_max_abs_err=f"{rowskip_err:.3e}",
+          sampler_frame_max_abs_err=f"{sample_err:.3e}",
+          sampler_max_abs_err=f"{sample_worst:.3e}")
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)

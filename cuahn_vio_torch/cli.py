@@ -319,10 +319,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--tex-scale", type=float, default=4.0,
                    help="metres per texture period")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # shape a --traj-file trajectory only; without one they change nothing,
+    # as in the JAX verb
+    s.add_argument("--spline-dt", type=float, default=0.5,
+                   help="B-spline knot spacing of --traj-file (unused without it)")
+    s.add_argument("--traj-z-offset", type=float, default=0.0,
+                   help="height offset of --traj-file (unused without it)")
     # accepted only to be refused with a clear message (see NOT_YET_SYNTHETIC)
     s.add_argument("--traj-file", default=None, help="not implemented yet")
-    s.add_argument("--spline-dt", type=float, default=0.5, help="not implemented yet")
-    s.add_argument("--traj-z-offset", type=float, default=0.0, help="not implemented yet")
     s.add_argument("--exposure-ms", type=float, default=0.0, help="not implemented yet")
     s.add_argument("--effects", action="store_true", help="not implemented yet")
     s.set_defaults(fn=cmd_make_synthetic)

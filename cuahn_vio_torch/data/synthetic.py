@@ -106,6 +106,24 @@ def ground_texture(xy: torch.Tensor, freqs: torch.Tensor, signs: torch.Tensor,
     return 0.5 + 0.5 * (waves @ (amps / amps.sum()))
 
 
+def ground_points(p_w, q_i2w, c_rot_i, i_t_i2c, height: int = 224, width: int = 320):
+    """Where each pixel's ray meets the ground plane z = 0: (H, W, 2) world
+    (x, y), and the (H, W) ray parameter, > 0 where the ray hits the plane
+    in front of the camera."""
+    dev = p_w.device
+    _, k_inv = virtual_cam_k(height, width, device=dev)
+    rot_i2w = quat_to_rot(q_i2w)
+    rot_c2w = rot_i2w @ c_rot_i.T
+    cam_center = p_w + rot_i2w @ i_t_i2c
+    u = torch.arange(width, dtype=torch.float32, device=dev)
+    v = torch.arange(height, dtype=torch.float32, device=dev)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    pix = torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)  # (H, W, 3)
+    d_w = (pix @ k_inv.T) @ rot_c2w.T
+    lam = -cam_center[2] / d_w[..., 2]
+    return cam_center[None, None, :2] + lam[..., None] * d_w[..., :2], lam
+
+
 def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
                  height: int = 224, width: int = 320,
                  texture: Optional[torch.Tensor] = None,
@@ -118,21 +136,10 @@ def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
     when given, else the procedural ground of ``waves`` = (freqs, signs,
     phases) tensors.
     """
-    dev = p_w.device
-    _, k_inv = virtual_cam_k(height, width, device=dev)
-    rot_i2w = quat_to_rot(q_i2w)
-    rot_c2w = rot_i2w @ c_rot_i.T
-    cam_center = p_w + rot_i2w @ i_t_i2c
-    u = torch.arange(width, dtype=torch.float32, device=dev)
-    v = torch.arange(height, dtype=torch.float32, device=dev)
-    vv, uu = torch.meshgrid(v, u, indexing="ij")
-    pix = torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)  # (H, W, 3)
-    d_w = (pix @ k_inv.T) @ rot_c2w.T
-    lam = -cam_center[2] / d_w[..., 2]
-    ground = cam_center[None, None, :2] + lam[..., None] * d_w[..., :2]
+    ground, lam = ground_points(p_w, q_i2w, c_rot_i, i_t_i2c, height, width)
     if texture is not None:
         if tex_params is None:
-            tex_params = default_tex_params().to(dev)
+            tex_params = default_tex_params().to(p_w.device)
         tex = sample_plane(texture, ground, tex_params)
     else:
         tex = ground_texture(ground, *waves)

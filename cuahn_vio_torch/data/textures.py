@@ -251,14 +251,18 @@ def sample_plane(texture: torch.Tensor, xy: torch.Tensor, params: torch.Tensor) 
     Returns:
         (...,) float32 sampled intensities.
     """
-    t = texture.shape[0]
+    x, y = plane_coords(texture.shape[0], xy, params)
+    out = bilinear_sample(texture, x.reshape(-1).contiguous(), y.reshape(-1).contiguous())
+    return out.reshape(x.shape)
+
+
+def plane_coords(t: int, xy: torch.Tensor, params: torch.Tensor):
+    """The (...,) pixel coordinates (x, y) of a (t, t) texture, mirror-tiled,
+    at which ``sample_plane`` samples world points ``xy`` (..., 2)."""
     scale, c, s, ou, ov = params.unbind()
     u = (c * xy[..., 0] - s * xy[..., 1]) / scale + ou
     v = (s * xy[..., 0] + c * xy[..., 1]) / scale + ov
     # mirror tiling: continuous triangular wave with period 2 -> [0, 1]
     u = 1.0 - torch.abs(1.0 - torch.remainder(u, 2.0))
     v = 1.0 - torch.abs(1.0 - torch.remainder(v, 2.0))
-    x = u * (t - 1)
-    y = v * (t - 1)
-    out = bilinear_sample(texture, x.reshape(-1).contiguous(), y.reshape(-1).contiguous())
-    return out.reshape(x.shape)
+    return u * (t - 1), v * (t - 1)

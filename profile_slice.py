@@ -56,7 +56,7 @@ def main() -> int:
     args = ap.parse_args()
     import chip_smoke
     from cuahn_vio_torch.ops.homography import f32_parity_mode
-    from cuahn_vio_torch.pipeline.runner import prepare_batch
+    from cuahn_vio_torch.pipeline.runner import prepare_batch, prepare_sequence
     from cuahn_vio_torch.pipeline.vio import run_sequence
 
     dev = torch.device("cuda:0")
@@ -69,15 +69,18 @@ def main() -> int:
     fparams, cfg = opts.filter_params(dev), opts.vio_config()
     # initialization and the seconds-long first IMU window run once per
     # sequence: kept out of the profiled steps
-    batch = prepare_batch(cuts, opts.runner_options(), fparams, dev)
     if args.batch:
-        inputs = (batch.states0, batch.imgs_u8, batch.w_win, batch.a_win, batch.dt_win,
-                  batch.n_used.max(axis=0))
-    else:  # the single-stream tensors, without the batch dim
-        inputs = (type(batch.states0)(*(None if x is None else x[0] for x in batch.states0)),
-                  batch.imgs_u8[0], batch.w_win[0], batch.a_win[0], batch.dt_win[0],
-                  batch.n_used[0])
-    state0, frames_dev, w, a, dt, n_used = inputs
+        batch = prepare_batch(cuts, opts.runner_options(), fparams, dev)
+        state0, frames_dev, w, a, dt = (batch.states0, batch.imgs_u8, batch.w_win,
+                                        batch.a_win, batch.dt_win)
+        n_used = batch.n_used.max(axis=0)
+    else:
+        _, state0, win, _, frames_used = prepare_sequence(
+            *cuts[0], opts.runner_options(), fparams, dev
+        )
+        frames_dev = torch.as_tensor(frames_used, device=dev)
+        w, a, dt = (torch.as_tensor(x, device=dev) for x in (win.w_mid, win.a_mid, win.dt))
+        n_used = win.n_used
     steps = w.shape[-3]
 
     def run():

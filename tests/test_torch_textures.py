@@ -188,3 +188,31 @@ def test_texture_bank_cache_is_the_ports_own(tmp_path, monkeypatch):
     assert bank.shape == (1, 8, 8)
     files = sorted(p.name for p in tmp_path.iterdir())
     assert files == ["cuahn_vio_torch_texture_bank_8.npz"]
+
+
+def test_smoke_sampler_coords_are_a_rendered_frames(monkeypatch):
+    """``chip_smoke.py`` holds the flat sampler to its plain version, and
+    times it, at the coordinates ``sample_plane`` hands it for one rendered
+    frame: the main path's shape (224 x 320 points) and values."""
+    import chip_smoke
+    from cuahn_vio_torch.data.synthetic import render_frame
+
+    seen = []
+
+    def spy(texture, su, sv):
+        seen.append((su, sv))
+        return bilinear_sample(texture, su, sv)
+
+    monkeypatch.setattr(ttex, "bilinear_sample", spy)
+    t_ic = np.asarray(VioOptions.uzhfpv_indoor45().t_imu_to_cam, np.float64)
+    c_rot_i = torch.tensor(t_ic[:3, :3], dtype=torch.float32)
+    i_t_i2c = torch.tensor(-t_ic[:3, :3].T @ t_ic[:3, 3], dtype=torch.float32)
+    traj, t = AnalyticTrajectory(), torch.tensor(2.0)
+    tex = torch.zeros((chip_smoke.TEX_SIZE,) * 2, dtype=torch.uint8)
+    render_frame(traj.pos_w(t), traj.quat_i2w(t), c_rot_i, i_t_i2c, texture=tex,
+                 tex_params=ttex.default_tex_params(chip_smoke.TEX_SCALE_M))
+    su, sv = chip_smoke.frame_sample_coords(torch, "cpu")
+    assert len(seen) == 1 and su.shape == (224 * 320,)
+    assert torch.equal(seen[0][0], su) and torch.equal(seen[0][1], sv)
+    # mirror tiling keeps every point on the texture
+    assert 0.0 <= float(su.min()) and float(su.max()) <= chip_smoke.TEX_SIZE - 1
