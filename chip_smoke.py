@@ -7,22 +7,27 @@ Phases, each printed on its own line with its seconds:
 
 1. build the sampling kernels (``cuahn_vio_torch/ops/cuda/warp.cu``: the
    warp B1/B2, the row-band warp B3 and the flat sampler B4) with nvcc for
-   sm_90a;
-2. hold each kernel to its plain PyTorch version on the card, 224x320,
-   uint8 and float32: the warp at B in {1, 8} (near-identity, off-image,
-   z <= 0, NaN and rolled homographies; max abs error <= 1e-5); the
-   row-band warp at B in {1, 4, 8} on the same cases against the warp
-   kernel and the plain version (max abs error 0.0); the flat sampler on a
-   512x512 texture at the 71,680 coordinates of one rendered frame (the
-   main path's shape) and at in-range, edge, off-image, +-inf and NaN ones
-   (max abs error <= 1e-5); NaN exactly where the plain version has NaN;
+   sm_90a, and print each kernel's registers, shared memory and spill bytes
+   (``-Xptxas -v``);
+2. hold each kernel to its plain PyTorch version on the card, uint8 and
+   float32, bit for bit (max abs error 0.0, NaN exactly where the plain
+   version has NaN): the warp at 224x320 with B in {1, 4, 8, 65}, at the
+   ragged 224x317, 7x5 and 6x3 (B = 8) and on 50,000 6x3 images (widths
+   that are not a multiple of a thread's pixels, narrower than one
+   thread's 8 pixels) with near-identity, off-image, z <= 0, NaN, z = 0
+   (+-inf and NaN coordinates) and rolled homographies; the row-band warp on the same cases and on rolls whose
+   tiles' bands lie just under and just over its shared band (8.8 deg for
+   uint8, 1.8 deg for float32), against the warp kernel and the plain
+   version; the flat sampler on a 512x512 texture at the 71,680
+   coordinates of one rendered frame (the main path's shape) and at
+   in-range, edge, off-image, +-inf and NaN ones;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
-   (the numbers kept) and eager call-to-call time. The warp at B = 1, 4
-   and 64 (uint8 and float32), the row-band warp at B = 4, 8 and 64
-   (uint8), the flat sampler at one rendered frame's 71,680 coordinates on
-   a 512x512 uint8 texture;
+   (the median of three, taken in turns; the numbers kept), the kernel's
+   ratio to grid_sample, and eager call-to-call time. The warp at B = 1, 4 and 64 (uint8 and float32), the
+   row-band warp at B = 4, 8 and 64 (uint8), the flat sampler at one
+   rendered frame's 71,680 coordinates on a 512x512 uint8 texture;
 4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
    port's ``make_sequence``, run through ``run_offline`` with the shipped
    v10 weights and 16-member MC dropout (p = 0.05, seeded generator); the
@@ -61,7 +66,11 @@ WEIGHTS = os.path.join(REPO, "weights", "uahn_fil_v10.msgpack")
 WALL_LIMIT_S = 1000  # hard stop well inside the 1200 s budget
 
 H, W = 224, 320
-PARITY_TOL = 1e-5  # max abs error, kernel vs plain version
+# parity shapes beside 224x320, (B, H, W): a ragged width, tiny images,
+# and a batch large enough for 8 pixels a thread on images 3 pixels wide
+RAGGED_SHAPES = ((8, 224, 317), (8, 7, 5), (8, 6, 3), (50000, 6, 3))
+# rolls (deg) whose row-band tiles straddle the shared band's size
+BAND_EDGE_ROLL_DEG = {1: 8.8, 4: 1.8}  # by image element bytes; any pixels per thread
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 WARP_FLOPS_PER_PIXEL = 38  # 15 coords, 2 div, 4 clip, 17 bilinear
@@ -126,25 +135,26 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rolled(deg: float):
+def rolled(deg: float, hgt: int = H, wid: int = W):
     """Pixel homography of a camera roll by ``deg`` about the image centre."""
     import math
 
     c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
-    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    cx, cy = (wid - 1) / 2.0, (hgt - 1) / 2.0
     return [[c, -s, cx - c * cx + s * cy], [s, c, cy - s * cx - c * cy], [0.0, 0.0, 1.0]]
 
 
-def parity_cases(torch, rng, b: int, dtype):
+def parity_cases(torch, rng, b: int, dtype, hgt: int = H, wid: int = W):
     """(imgs, homographies) at B = b: random near-identity homographies,
-    then (when b >= 4) off-image, z <= 0 and NaN ones, and (when b >= 6)
-    an extreme (90 deg) and a 20 deg roll."""
+    then (when b >= 4) off-image, z <= 0 and NaN ones, (when b >= 6) an
+    extreme (90 deg) and a 20 deg roll, and (when b >= 7) z = 0 everywhere
+    (+-inf coordinates, NaN at u = v = 0)."""
     import numpy as np
 
     if dtype == torch.uint8:
-        imgs = rng.integers(0, 256, (b, H, W)).astype(np.uint8)
+        imgs = rng.integers(0, 256, (b, hgt, wid)).astype(np.uint8)
     else:
-        imgs = rng.random((b, H, W)).astype(np.float32)
+        imgs = rng.random((b, hgt, wid)).astype(np.float32)
     hs = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
     hs[:, :2, :2] += rng.normal(0, 0.03, (b, 2, 2)).astype(np.float32)
     hs[:, :2, 2] += rng.normal(0, 8.0, (b, 2)).astype(np.float32)
@@ -154,9 +164,45 @@ def parity_cases(torch, rng, b: int, dtype):
         hs[2] = [[1, 0, 0], [0, 1, 0], [0.01, 0, -1.6]]  # z <= 0 left of u=160
         hs[3, 0, 0] = np.nan  # NaN everywhere
     if b >= 6:
-        hs[4] = rolled(90.0)  # every output row sweeps a full image column
-        hs[5] = rolled(20.0)
+        hs[4] = rolled(90.0, hgt, wid)  # every output row sweeps a full image column
+        hs[5] = rolled(20.0, hgt, wid)
+    if b >= 7:
+        hs[6] = [[1, 0, 0], [0, 1, 0], [0, 0, 0]]  # x/0, y/0: +-inf, and 0/0
     return imgs, hs
+
+
+def tile_bands(torch, hs, hgt: int, wid: int, itemsize: int):
+    """(B, tiles) bytes of the row band that each tile of the row-band
+    kernel copies for homographies ``hs`` (0: no in-image tap): the rows of
+    the in-image taps of its pixels, the tiles being WARP_THREADS runs of
+    each thread's pixels (``warp.cu``; the card's build says how many)."""
+    from cuahn_vio_torch.ops.cuda.warp import DEFINES, pixels_per_thread
+    from cuahn_vio_torch.ops.warp import COORD_CLIP, _row_dot
+
+    b, dev = hs.shape[0], hs.device
+    u = torch.arange(wid, dtype=torch.float32, device=dev)[None, None, :]
+    v = torch.arange(hgt, dtype=torch.float32, device=dev)[None, :, None]
+    h = hs[:, :, :, None, None]
+    x, y, z = (_row_dot(h[:, i], u, v) for i in range(3))
+    su, sv = x / z, y / z
+    nan = torch.isnan(su) | torch.isnan(sv)
+    xi = torch.floor(su.clamp(-COORD_CLIP, COORD_CLIP)).nan_to_num(0.0).long()
+    yi = torch.floor(sv.clamp(-COORD_CLIP, COORD_CLIP)).nan_to_num(0.0).long()
+    lo, hi = yi.clamp(min=0), (yi + 1).clamp(max=hgt - 1)
+    ok = ~nan & (xi + 1 >= 0) & (xi < wid) & (lo <= hi)
+    ppt, threads = pixels_per_thread(b, hgt, wid), DEFINES["WARP_THREADS"]
+    groups = (wid + ppt - 1) // ppt
+    r = torch.arange(hgt, device=dev)[:, None]
+    c = torch.arange(wid, device=dev)[None, :]
+    tile = ((r * groups + c // ppt) // threads).expand(b, hgt, wid)
+    n_tiles = int(tile.max()) + 1
+    idx = (torch.arange(b, device=dev)[:, None, None] * n_tiles + tile).reshape(-1)
+    rmin = torch.full((b * n_tiles,), hgt, device=dev).scatter_reduce(
+        0, idx, torch.where(ok, lo, hgt).reshape(-1), "amin")
+    rmax = torch.full((b * n_tiles,), -1, device=dev).scatter_reduce(
+        0, idx, torch.where(ok, hi, -1).reshape(-1), "amax")
+    rows = torch.where(rmax >= rmin, rmax - rmin + 1, 0)
+    return (rows * wid * itemsize).reshape(b, n_tiles)
 
 
 def nan_checked_err(torch, out, ref, what: str) -> float:
@@ -169,65 +215,90 @@ def nan_checked_err(torch, out, ref, what: str) -> float:
     return diff.max().item() if diff.numel() else 0.0
 
 
+def warp_parity_inputs(torch, rng, dtype, dev):
+    """(label, imgs, hs) of the warps' parity phase: 224x320 at B = 1, 4,
+    8 and 65 (1, 2, 4 and 8 pixels a thread on the H100), and the
+    RAGGED_SHAPES (parity_cases)."""
+    for b, hgt, wid in [(b, H, W) for b in (1, 4, 8, 65)] + list(RAGGED_SHAPES):
+        imgs, hs = parity_cases(torch, rng, b, dtype, hgt, wid)
+        yield (f"{str(dtype):13s} B={b} {hgt}x{wid}", torch.as_tensor(imgs, device=dev),
+               torch.as_tensor(hs, device=dev))
+
+
 def check_kernel(torch, dev):
-    """Phase 2, B1/B2: the warp kernel against its plain version. Returns
-    the max abs error."""
+    """Phase 2, B1/B2: the warp kernel against its plain version, bit for
+    bit. Returns the max abs error (0.0)."""
     import numpy as np
 
-    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, pixels_per_thread
     from cuahn_vio_torch.ops.warp import homography_warp_plain
 
     rng = np.random.default_rng(0)
-    worst = 0.0
     for dtype in (torch.uint8, torch.float32):
-        for b in (1, 8):
-            imgs, hs = parity_cases(torch, rng, b, dtype)
-            imgs = torch.as_tensor(imgs, device=dev)
-            hs = torch.as_tensor(hs, device=dev)
+        for label, imgs, hs in warp_parity_inputs(torch, rng, dtype, dev):
             out = homography_warp_cuda(imgs, hs)
             ref = homography_warp_plain(imgs, hs)
             torch.cuda.synchronize()
-            err = nan_checked_err(torch, out, ref, f"warp {dtype} B={b}")
+            err = nan_checked_err(torch, out, ref, f"warp {label}")
             nan_ref = torch.isnan(ref)
-            if b >= 4 and not (
+            if imgs.shape[0] >= 7 and not (
                 nan_ref[3].all() and (ref[1] == 0).all() and (out[1] == 0).all()
+                and nan_ref[6].any() and not nan_ref[6].all()
             ):
                 raise AssertionError("special homographies lost their meaning")
-            print(f"  warp parity {str(dtype):13s} B={b}: max abs err {err:.3e}, "
-                  f"NaN pixels {int(nan_ref.sum())}", flush=True)
-            if not err <= PARITY_TOL:
-                raise AssertionError(f"kernel vs plain {err:.3e} > {PARITY_TOL}")
-            worst = max(worst, err)
-    return worst
+            print(f"  warp parity {label} ({pixels_per_thread(*imgs.shape)} pixels a "
+                  f"thread): max abs err {err:.3e}, NaN pixels {int(nan_ref.sum())}",
+                  flush=True)
+            if err != 0.0:
+                raise AssertionError(f"warp kernel vs plain {err:.3e}: not bit-identical")
+    return 0.0
 
 
 def check_rowskip(torch, dev):
     """Phase 2, B3: the row-band warp against the warp kernel and the plain
-    version, which it must equal bit for bit. Returns the max abs error."""
+    version, which it must equal bit for bit, on the warp's cases and on
+    rolls whose tiles' bands lie just under and just over the shared band
+    (one image row either side). Returns the max abs error (0.0)."""
     import numpy as np
 
-    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, homography_warp_rowskip_cuda
+    from cuahn_vio_torch.ops.cuda.warp import (
+        DEFINES,
+        homography_warp_cuda,
+        homography_warp_rowskip_cuda,
+    )
     from cuahn_vio_torch.ops.warp import homography_warp_plain
 
     rng = np.random.default_rng(2)
-    worst = 0.0
+    limit = DEFINES["BAND_BYTES"]
     for dtype in (torch.uint8, torch.float32):
-        for b in (1, 4, 8):
-            imgs, hs = parity_cases(torch, rng, b, dtype)
-            imgs = torch.as_tensor(imgs, device=dev)
-            hs = torch.as_tensor(hs, device=dev)
+        cases = list(warp_parity_inputs(torch, rng, dtype, dev))
+        item = torch.tensor([], dtype=dtype).element_size()
+        deg = BAND_EDGE_ROLL_DEG[item]
+        imgs, hs = parity_cases(torch, rng, 2, dtype)
+        hs[:] = rolled(deg)
+        hs[1] = rolled(-deg)
+        hs = torch.as_tensor(hs, device=dev)
+        bands = tile_bands(torch, hs, H, W, item)
+        under = int(((bands <= limit) & (bands > limit - W * item)).sum())
+        over = int(((bands > limit) & (bands <= limit + W * item)).sum())
+        if not (under and over):
+            raise AssertionError(f"{deg} deg roll: no tile band just under ({under}) and "
+                                 f"just over ({over}) {limit} B")
+        cases.append((f"{str(dtype):13s} B=2 {H}x{W} +-{deg} deg roll, tile bands "
+                      f"{under} just under / {over} just over {limit} B",
+                      torch.as_tensor(imgs, device=dev), hs))
+        for label, imgs, hs in cases:
             out = homography_warp_rowskip_cuda(imgs, hs)
             full = homography_warp_cuda(imgs, hs)
             ref = homography_warp_plain(imgs, hs)
             torch.cuda.synchronize()
-            err_full = nan_checked_err(torch, out, full, f"rowskip vs warp {dtype} B={b}")
-            err_plain = nan_checked_err(torch, out, ref, f"rowskip vs plain {dtype} B={b}")
-            print(f"  rowskip parity {str(dtype):13s} B={b}: max abs err vs warp kernel "
+            err_full = nan_checked_err(torch, out, full, f"rowskip vs warp {label}")
+            err_plain = nan_checked_err(torch, out, ref, f"rowskip vs plain {label}")
+            print(f"  rowskip parity {label}: max abs err vs warp kernel "
                   f"{err_full:.3e}, vs plain {err_plain:.3e}", flush=True)
             if not (err_full == 0.0 and err_plain == 0.0):
                 raise AssertionError("the row-band warp is not bit-identical")
-            worst = max(worst, err_full, err_plain)
-    return worst
+    return 0.0
 
 
 def sample_cases(torch, rng, dtype, dev):
@@ -272,9 +343,10 @@ def frame_sample_coords(torch, dev):
 
 
 def check_sample(torch, dev):
-    """Phase 2, B4: the flat sampler against its plain version, at one
-    rendered frame's coordinates (the main path's shape) and at the special
-    ones. Returns (max abs error at the frame's coordinates, over all)."""
+    """Phase 2, B4: the flat sampler against its plain version, bit for bit,
+    at one rendered frame's coordinates (the main path's shape) and at the
+    special ones. Returns (max abs error at the frame's coordinates, over
+    all)."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
@@ -292,8 +364,8 @@ def check_sample(torch, dev):
             err = nan_checked_err(torch, out, ref, f"flat sampler {dtype} {case}")
             print(f"  sampler parity {str(dtype):13s} {case:7s} N={csu.numel()}: max abs err "
                   f"{err:.3e}, NaN points {int(torch.isnan(ref).sum())}", flush=True)
-            if not err <= PARITY_TOL:
-                raise AssertionError(f"sampler vs plain {err:.3e} > {PARITY_TOL}")
+            if err != 0.0:
+                raise AssertionError(f"sampler vs plain {err:.3e}: not bit-identical")
             worst[case] = max(worst[case], err)
     return worst["frame"], max(worst.values())
 
@@ -348,13 +420,34 @@ def warp_bound_ms(b: int, pixel_bytes: int) -> float:
     return max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
 
 
-def timed(torch, fns: dict, bound_ms: float, iters: int):
+def timed(torch, fns: dict, bound_ms: float, iters: int, rounds: int = 3):
     """(device times from CUDA-graph replays + bound_ms, eager times) of
-    ``fns`` {key: fn}."""
-    row = {k: time_graph_ms(torch, fn) for k, fn in fns.items()}
+    ``fns`` {key: fn}; each device time is the median of ``rounds``
+    measurements, taken in turns over ``fns``."""
+    import statistics
+
+    runs = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            runs[k].append(time_graph_ms(torch, fn))
+    row = {k: statistics.median(v) for k, v in runs.items()}
     row["bound_ms"] = bound_ms
     eager = {k: time_ms(torch, fn, iters) for k, fn in fns.items()}
     return row, eager
+
+
+def library_grid(torch, hs):
+    """grid_sample's (B, H, W, 2) normalized (align_corners=True) grid of
+    the points at which the warp samples under ``hs`` (the library
+    yardstick's input)."""
+    dev = hs.device
+    u = torch.arange(W, device=dev, dtype=torch.float32)[None, None, :]
+    v = torch.arange(H, device=dev, dtype=torch.float32)[None, :, None]
+    h = hs[:, :, :, None, None]
+    z = h[:, 2, 0] * u + h[:, 2, 1] * v + h[:, 2, 2]
+    su = (h[:, 0, 0] * u + h[:, 0, 1] * v + h[:, 0, 2]) / z
+    sv = (h[:, 1, 0] * u + h[:, 1, 1] * v + h[:, 1, 2]) / z
+    return torch.stack([2 * su / (W - 1) - 1, 2 * sv / (H - 1) - 1], dim=-1)
 
 
 def time_kernel(torch, dev):
@@ -371,8 +464,9 @@ def time_kernel(torch, dev):
     rows = {}
     cases = (("warp", torch.uint8, 1, 500), ("warp", torch.uint8, 4, 200),
              ("warp", torch.uint8, 64, 50), ("warp", torch.float32, 1, 500),
-             ("warp", torch.float32, 64, 50), ("rowskip", torch.uint8, 4, 200),
-             ("rowskip", torch.uint8, 8, 200), ("rowskip", torch.uint8, 64, 50))
+             ("warp", torch.float32, 4, 200), ("warp", torch.float32, 64, 50),
+             ("rowskip", torch.uint8, 4, 200), ("rowskip", torch.uint8, 8, 200),
+             ("rowskip", torch.uint8, 64, 50))
     for kernel, dtype, b, iters in cases:
         name = "uint8" if dtype == torch.uint8 else "float32"
         imgs, hs = parity_cases(torch, rng, b, dtype)
@@ -380,15 +474,9 @@ def time_kernel(torch, dev):
         imgs = torch.as_tensor(imgs, device=dev)
         hs = torch.as_tensor(hs, device=dev)
         # grid_sample's input: the same images as float, and the same
-        # sample points as a normalized (align_corners=True) grid
+        # sample points as a normalized grid
         img_f = (imgs.float() / 255.0 if name == "uint8" else imgs)[:, None]
-        u = torch.arange(W, device=dev, dtype=torch.float32)[None, None, :]
-        v = torch.arange(H, device=dev, dtype=torch.float32)[None, :, None]
-        h = hs[:, :, :, None, None]
-        z = h[:, 2, 0] * u + h[:, 2, 1] * v + h[:, 2, 2]
-        su = (h[:, 0, 0] * u + h[:, 0, 1] * v + h[:, 0, 2]) / z
-        sv = (h[:, 1, 0] * u + h[:, 1, 1] * v + h[:, 1, 2]) / z
-        grid = torch.stack([2 * su / (W - 1) - 1, 2 * sv / (H - 1) - 1], dim=-1)
+        grid = library_grid(torch, hs)
 
         def library():
             return F.grid_sample(img_f, grid, mode="bilinear",
@@ -404,8 +492,9 @@ def time_kernel(torch, dev):
         rows[(kernel, name, b)] = row
         print(f"  {kernel} {name} B={b} device time (CUDA graph): kernel {row['ms']:.5f} ms"
               f" | plain {row['plain_ms']:.5f} ms | grid_sample "
-              f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | byte bound "
-              f"{row['bound_ms']:.5f} ms", flush=True)
+              f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | kernel / grid_sample "
+              f"{row['ms'] / row['library_ms']:.3f} | byte bound {row['bound_ms']:.5f} ms",
+              flush=True)
         print(f"  {kernel} {name} B={b} eager call to call: kernel {eager['ms']:.5f} ms | "
               f"plain {eager['plain_ms']:.5f} ms | grid_sample "
               f"{eager['library_ms']:.5f} ms", flush=True)
@@ -451,8 +540,9 @@ def time_sample(torch, dev):
     ), bound, 500)
     print(f"  sampler uint8 N={n} ({texels} texels) device time (CUDA graph): kernel "
           f"{row['ms']:.5f} ms | plain {row['plain_ms']:.5f} ms | grid_sample "
-          f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | byte bound "
-          f"{row['bound_ms']:.5f} ms", flush=True)
+          f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | kernel / grid_sample "
+          f"{row['ms'] / row['library_ms']:.3f} | byte bound {row['bound_ms']:.5f} ms",
+          flush=True)
     print(f"  sampler uint8 N={n} eager call to call: kernel {eager['ms']:.5f} ms | "
           f"plain {eager['plain_ms']:.5f} ms | grid_sample {eager['library_ms']:.5f} ms",
           flush=True)
@@ -609,12 +699,16 @@ def run_rowskip(torch, dev, seqs, opts, model, frames: int):
     return batch_results(outs, cut), launches
 
 
-def kernel_entry(name, source_line, launches, err, row, bound_by="bytes"):
+def kernel_entry(name, source_line, launches, err, row, ptxas, bound_by="bytes"):
+    """One entry of the kernels line; ``ptxas`` is the kernel's
+    ``build.ptxas_report`` entry (registers and spill bytes)."""
     return dict(
         name=name, route="cuda", source="cuahn_vio_torch/ops/cuda/warp.cu",
         replaces=f"cuahn_vio/ops/pallas/warp_kernel.py:{source_line}",
         launches=launches, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=bound_by, library_ms=row["library_ms"],
+        registers=ptxas["registers"], spill_stores=ptxas["spill_stores"],
+        spill_loads=ptxas["spill_loads"],
     )
 
 
@@ -652,8 +746,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = warp_cuda.build_kernel()
+    ptxas = warp_cuda.ptxas_report()
+    for kern, info in sorted(ptxas.items()):
+        print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
+              f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
+              f"spill loads {info['spill_loads']} B", flush=True)
     phase("build", t0, library=os.path.relpath(warp_cuda.SOURCE, REPO),
-          nvcc_s=f"{build_s:.3f}")
+          nvcc_s=f"{build_s:.3f}", defines=warp_cuda.DEFINES)
 
     t0 = time.perf_counter()
     warp_err = check_kernel(torch, dev)
@@ -728,16 +827,21 @@ def main() -> int:
     if not pos_diff <= ROWSKIP_POS_TOL_M:
         raise AssertionError(f"rowskip poses {pos_diff:.3e} m from the full run's")
 
+    nb = len(batch_seqs)
+
+    def compiled(kernel: str, b: int) -> dict:  # the instantiation a B-image launch runs
+        return ptxas[f"{kernel}<h,{warp_cuda.pixels_per_thread(b, H, W)}>"]
+
     kernels = [
         kernel_entry("homography_warp (B=1, single-stream run-vio)", 154, warp_launches,
-                     warp_err, times[("warp", "uint8", 1)]),
-        kernel_entry(f"homography_warp (B={len(batch_seqs)}, run-vio-batch)", 468,
-                     batch_warp_launches, warp_err, times[("warp", "uint8", len(batch_seqs))]),
-        kernel_entry(f"homography_warp_rowskip (B={len(batch_seqs)}, run-vio-batch)", 403,
-                     rowskip_launches, rowskip_err,
-                     times[("rowskip", "uint8", len(batch_seqs))]),
+                     warp_err, times[("warp", "uint8", 1)], compiled("warp_kernel", 1)),
+        kernel_entry(f"homography_warp (B={nb}, run-vio-batch)", 468, batch_warp_launches,
+                     warp_err, times[("warp", "uint8", nb)], compiled("warp_kernel", nb)),
+        kernel_entry(f"homography_warp_rowskip (B={nb}, run-vio-batch)", 403,
+                     rowskip_launches, rowskip_err, times[("rowskip", "uint8", nb)],
+                     compiled("rowskip_kernel", nb)),
         kernel_entry("bilinear_sample (make-synthetic texture)", 174, sample_launches,
-                     sample_err, sample_time),
+                     sample_err, sample_time, ptxas["flat_kernel<h>"]),
     ]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -172,7 +172,10 @@ def cmd_run_vio_batch(args):
         opts = opts.apply_profile("calibrated")
     if args.init_height is not None:
         opts.init_height = args.init_height
-    model = None if args.no_network else _model(opts, args.weights, device)
+    # the config's weights when --weights is not given, as run-vio does
+    # (the JAX verb reads only --weights)
+    model = (None if args.no_network
+             else _model(opts, args.weights or opts.network_weights_path, device))
     results = run_offline_batch(
         [_load_sequence(path) for path in args.sequences], model,
         opts.filter_params(device), opts.vio_config(), opts.runner_options(),
@@ -293,7 +296,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--out-dir", default="batch_out")
     s.add_argument("--config", default=None)
     s.add_argument("--profile", choices=["launch", "calibrated"], default=None)
-    s.add_argument("--weights", default=None)
+    s.add_argument("--weights", default=None,
+                   help="UAHN weights; default: the config's network_weights_path, as "
+                        "run-vio (the JAX verb reads only --weights and otherwise runs "
+                        "a randomly initialized UAHN)")
     s.add_argument("--no-network", action="store_true")
     s.add_argument("--init-height", type=float, default=None)
     s.add_argument("--seed", type=int, default=0, help="MC-dropout generator seed")

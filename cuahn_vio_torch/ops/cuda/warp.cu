@@ -13,98 +13,170 @@
 //
 // What every kernel computes, per sample point: source coordinates (su, sv),
 // for the warps [x, y, z] = H_b [u, v, 1] in float32 (see row_dot) and
-// su = x/z, sv = y/z; a NaN coordinate gives NaN; otherwise both are clipped
-// to +-1e4 (an infinite coordinate then samples nothing and gives 0) and the
-// image is sampled bilinearly with zeros padding (grid_sample bilinear /
-// zeros / align_corners=True, in pixel coordinates). uint8 images are read
-// directly and the blend of the raw values is multiplied by 1/255; float32
-// images are sampled as they are. All three share sample_bilinear, so the
-// tap arithmetic is one piece of code.
+// su = x/z, sv = y/z (IEEE divisions); a NaN coordinate gives NaN; otherwise
+// both are clipped to +-1e4 (an infinite coordinate then samples nothing and
+// gives 0) and the image is sampled bilinearly with zeros padding
+// (grid_sample bilinear / zeros / align_corners=True, in pixel coordinates).
+// uint8 images are read directly and the blend of the raw values is
+// multiplied by 1/255; float32 images are sampled as they are. All three
+// share sample_bilinear, so the tap arithmetic is one piece of code, and
+// each is bit-identical to the plain version (ops/warp.py): built with
+// -fmad=false, the only fma is row_dot's, which the plain version repeats.
 //
-// What bounds them: bytes. A 224x320 frame is 71,680 B of uint8 read and
-// 286,720 B of float32 written; the arithmetic is ~40 flops per pixel. At
-// 3.35 TB/s that is ~0.11 us of traffic per frame, far below the launch
-// latency of a few microseconds, so at B = 1 (single-stream run-vio) the
-// launch itself is the bound, and at B = 64 the bytes are. The flat sampler
+// What bounds them: a 224x320 frame is 71,680 B of uint8 read and 286,720 B
+// of float32 written, ~0.11 us at 3.35 TB/s, far below a launch's few
+// microseconds; at B = 64 the bytes take ~7 us. The arithmetic is ~40 flops
+// a pixel, but two IEEE divisions (each a reciprocal, five fmas and a
+// slow-path check), four gathers and their addressing make each pixel
+// ~100-150 instructions: at large B the warps are bound by instruction issue
+// before bytes, at small B by the launch and one chain of dependent loads
+// (homography, taps) that the card's threads must hide. The flat sampler
 // reads 8 B of coordinates and writes 4 B per point, plus the texture.
 //
 // What the design does about it: the TPU kernels avoid gathers with
-// one-hot bf16 MXU matmuls, which Hopper does not need. Here each thread
-// owns one output point and reads its four taps; neighbouring threads write
-// neighbouring floats, so stores are coalesced.
-//   warp_kernel reads its taps through the read-only (L1) path; the grid is
-//   (pixel tiles of 256, B), one launch for the whole batch.
+// one-hot bf16 MXU matmuls, which Hopper does not need; here taps are
+// gathers through the read-only path.
+//   warp_kernel: each thread owns P adjacent output pixels of one row. Its
+//   row and first column come from one division per thread, not per pixel;
+//   the 9 homography floats are loaded once into registers; offsets inside
+//   an image are 32-bit (the wrapper refuses larger images); each tap is
+//   read at an in-image index (an off-image one mapped there by one
+//   unsigned min) and an off-image tap is selected to 0 (its weight is
+//   >= 0, so w * 0 = +0 and the sum is unchanged bit for bit), so there is
+//   no branch per tap; a row's outputs go out as 8- or 16-byte stores when
+//   the width allows. P (1, 2, 4 or 8) is chosen per launch from its size:
+//   the fewest pixels a thread whose threads all fit on the card at once
+//   (a small launch is bound by the latency of its loads, which more
+//   threads hide), else the most (a large one is bound by instruction
+//   issue, which per-thread work spread over more pixels saves). The grid
+//   is (pixel tiles of kThreads x P, B), one launch for the whole batch.
 //   rowskip_kernel is the TPU row-skip translated: the TPU prefetched each
 //   tile's touched row range from the host and skipped 128-row image blocks
-//   outside it; here a block computes its own range. Each thread computes
-//   its pixel's coordinates, a block reduction (shared-memory atomics) gives
-//   the rows [rmin, rmax] that the tile's in-image taps read, the block
-//   copies only those rows into shared memory with 16-byte loads and samples
-//   from there. A tile whose band exceeds kBandBytes reads its taps from
-//   global memory instead, as warp_kernel does (the TPU's straddling tile
-//   likewise pays for every block it needs); a tile with no in-image tap
-//   loads nothing. The band holds copies of the very values warp_kernel
-//   reads, so the two are bit-identical.
-//   flat_kernel takes coordinates instead of a homography: grid over points.
+//   outside it; here a block computes its own range. It tiles as
+//   warp_kernel does. Each thread computes its pixels' coordinates once and
+//   keeps them in registers; a warp min/max reduction and one shared slot
+//   per warp give the rows [rmin, rmax] that the tile's in-image taps read;
+//   one thread copies just those rows into shared memory with a bulk
+//   asynchronous copy (cp.async.bulk, completion on an mbarrier) when the
+//   band is 16-byte aligned, else every thread copies 16-byte words or
+//   bytes; the block samples from there. A tile whose band exceeds
+//   kBandBytes reads its taps from global memory as warp_kernel does (the
+//   TPU's straddling tile likewise pays for every block it needs); a tile
+//   with no in-image tap loads nothing. The band holds copies of the very
+//   values warp_kernel reads, so the two are bit-identical.
+//   flat_kernel takes coordinates instead of a homography: one thread a
+//   point.
+//
+// Build: the tile and band sizes come from the -D flags that
+// cuahn_vio_torch/ops/cuda/warp.py (DEFINES) passes to nvcc; tune_warp.py
+// times the alternatives (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#if !defined(WARP_THREADS) || !defined(WARP_PIXELS_MIN) || !defined(WARP_PIXELS_MAX) || \
+    !defined(BAND_BYTES) || !defined(BAND_COPY)
+#error "build with the -D flags of cuahn_vio_torch/ops/cuda/warp.py (DEFINES)"
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = WARP_THREADS;  // threads per block of the warps
+// adjacent output pixels per thread of the warps: a power of two in
+// [kPixelsMin, kPixelsMax], chosen per launch (pixels_per_thread)
+constexpr int kPixelsMin = WARP_PIXELS_MIN;
+constexpr int kPixelsMax = WARP_PIXELS_MAX;
+constexpr int kBandBytes = BAND_BYTES;  // rowskip_kernel's shared row band
+constexpr int kWarps = kThreads / 32;
+constexpr int kFlatThreads = 256;
 constexpr float kClip = 1e4f;
-constexpr int kBandBytes = 16384;  // rowskip_kernel's shared row band
+// How rowskip_kernel copies an aligned band: one bulk asynchronous copy,
+// 16-byte cp.async copies by every thread, or 16-byte loads and stores by
+// every thread. An unaligned band is always copied by the threads.
+enum BandCopy { kBulk = 0, kAsync16 = 1, kLoop16 = 2 };
+constexpr BandCopy kBandCopy = static_cast<BandCopy>(BAND_COPY);
+
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps per block");
+static_assert((kPixelsMin & (kPixelsMin - 1)) == 0 && (kPixelsMax & (kPixelsMax - 1)) == 0 &&
+                  1 <= kPixelsMin && kPixelsMin <= kPixelsMax && kPixelsMax <= 8,
+              "powers of two, 1 <= WARP_PIXELS_MIN <= WARP_PIXELS_MAX <= 8");
+static_assert(kBandBytes % 16 == 0 && kBandBytes <= 32768, "band of 16-byte words");
+static_assert(BAND_COPY >= 0 && BAND_COPY <= 2, "BAND_COPY is 0, 1 or 2");
 
 // h0*u + h1*v + h2, rounded as fma(h1, v, h0*u) + h2: the rounding of the
-// reference's float32 H @ grid matmul (and of the plain version).
-__device__ __forceinline__ float row_dot(const float* h, float u, float v) {
-  return __fadd_rn(__fmaf_rn(h[1], v, __fmul_rn(h[0], u)), h[2]);
+// reference's float32 H @ grid matmul (and of the plain version). The fma
+// rounds once over h1*v + h0*u, so no part of it can be hoisted per row.
+__device__ __forceinline__ float row_dot(float h0, float h1, float h2, float u, float v) {
+  return __fadd_rn(__fmaf_rn(h1, v, __fmul_rn(h0, u)), h2);
 }
 
-// Source coordinates of output pixel p of a w-wide image under H (row-major 3x3).
-__device__ __forceinline__ void warp_coords(const float* hm, int p, int w, float* su,
-                                            float* sv) {
-  const int v = p / w;
-  const float fu = static_cast<float>(p - v * w);
-  const float fv = static_cast<float>(v);
-  const float x = row_dot(hm, fu, fv);
-  const float y = row_dot(hm + 3, fu, fv);
-  const float z = row_dot(hm + 6, fu, fv);
-  *su = x / z;
-  *sv = y / z;
+struct Homography {  // one row-major 3x3, held in registers
+  float m[9];
+  __device__ __forceinline__ explicit Homography(const float* hs) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) m[i] = __ldg(hs + i);
+  }
+  // source coordinates of output pixel (u, v)
+  __device__ __forceinline__ void coords(float u, float v, float* su, float* sv) const {
+    const float x = row_dot(m[0], m[1], m[2], u, v);
+    const float y = row_dot(m[3], m[4], m[5], u, v);
+    const float z = row_dot(m[6], m[7], m[8], u, v);
+    *su = __fdiv_rn(x, z);
+    *sv = __fdiv_rn(y, z);
+  }
+};
+
+// Tap readers: a tap row's and column's offsets, and the raw value at row
+// offset + column offset. An in-image tap's index is its own; any other is
+// mapped to some index the reader may touch (one unsigned min: a negative
+// index wraps to the last), whose value sample_bilinear then discards.
+__device__ __forceinline__ unsigned inside(int i, int last) {
+  return min(static_cast<unsigned>(i), static_cast<unsigned>(last));
 }
 
-// Tap readers: the raw value of an in-image tap (row y, column x).
+// p, as a value the compiler keeps in registers: without this it
+// recomputes an image's address from the kernel parameters (two constant
+// loads, a multiply and a sign extension) for every tap.
 template <typename T>
-struct GlobalTaps {
-  const T* img;
-  long long sh, sw;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    return static_cast<float>(__ldg(img + y * sh + x * sw));
+__device__ __forceinline__ const T* opaque(const T* p) {
+  asm("" : "+l"(p));
+  return p;
+}
+
+template <typename T>
+struct GlobalTaps {  // a whole image in global memory, read-only path
+  const T* img;  // opaque()
+  int h, w, sh, sw;
+  __device__ __forceinline__ unsigned row(int y) const { return inside(y, h - 1) * sh; }
+  __device__ __forceinline__ unsigned col(int x) const { return inside(x, w - 1) * sw; }
+  __device__ __forceinline__ float at(unsigned off) const {
+    return static_cast<float>(__ldg(img + off));
   }
 };
 
 template <typename T>
-struct BandTaps {  // rows row0.. of a contiguous image, copied to shared memory
+struct BandTaps {  // rows r0..r1 of a contiguous w-wide image, in shared memory
   const T* band;
-  int row0, w;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    return static_cast<float>(band[(y - row0) * w + x]);
+  int r0, r1, w;
+  __device__ __forceinline__ unsigned row(int y) const { return inside(y - r0, r1 - r0) * w; }
+  __device__ __forceinline__ unsigned col(int x) const { return inside(x, w - 1); }
+  __device__ __forceinline__ float at(unsigned off) const {
+    return static_cast<float>(band[off]);
   }
 };
 
-template <typename Taps>
-__device__ __forceinline__ float tap(const Taps& taps, int y, int x, int h, int w) {
-  if (x < 0 || x >= w || y < 0 || y >= h) return 0.0f;
-  return taps(y, x);
-}
+struct NoTaps {  // a tile none of whose taps is in the image
+  __device__ __forceinline__ unsigned row(int) const { return 0; }
+  __device__ __forceinline__ unsigned col(int) const { return 0; }
+  __device__ __forceinline__ float at(unsigned) const { return 0.0f; }
+};
 
-// The bilinear tap-and-blend of every entry point (see the header).
+// The bilinear tap-and-blend of every entry point (see the header). An
+// off-image tap is read at a clamped index and selected to 0.
 template <typename Taps>
 __device__ __forceinline__ float sample_bilinear(float su, float sv, int h, int w,
                                                  float scale, const Taps& taps) {
-  if (isnan(su) || isnan(sv)) return __int_as_float(0x7fc00000);  // NaN in, NaN out
+  const bool nan = isnan(su) || isnan(sv);  // before clipping: fminf/fmaxf drop NaN
   su = fminf(fmaxf(su, -kClip), kClip);
   sv = fminf(fmaxf(sv, -kClip), kClip);
   const float x0 = floorf(su);
@@ -113,135 +185,347 @@ __device__ __forceinline__ float sample_bilinear(float su, float sv, int h, int 
   const float wy = sv - y0;
   const int xi = static_cast<int>(x0);
   const int yi = static_cast<int>(y0);
-  const float acc = (1.0f - wx) * (1.0f - wy) * tap(taps, yi, xi, h, w) +
-                    wx * (1.0f - wy) * tap(taps, yi, xi + 1, h, w) +
-                    (1.0f - wx) * wy * tap(taps, yi + 1, xi, h, w) +
-                    wx * wy * tap(taps, yi + 1, xi + 1, h, w);
-  return acc * scale;
+  const bool xa = static_cast<unsigned>(xi) < static_cast<unsigned>(w);
+  const bool xb = static_cast<unsigned>(xi + 1) < static_cast<unsigned>(w);
+  const bool ya = static_cast<unsigned>(yi) < static_cast<unsigned>(h);
+  const bool yb = static_cast<unsigned>(yi + 1) < static_cast<unsigned>(h);
+  const unsigned ra = taps.row(yi), rb = taps.row(yi + 1);
+  const unsigned ca = taps.col(xi), cb = taps.col(xi + 1);
+  const float t00 = ya && xa ? taps.at(ra + ca) : 0.0f;
+  const float t01 = ya && xb ? taps.at(ra + cb) : 0.0f;
+  const float t10 = yb && xa ? taps.at(rb + ca) : 0.0f;
+  const float t11 = yb && xb ? taps.at(rb + cb) : 0.0f;
+  const float acc = (1.0f - wx) * (1.0f - wy) * t00 + wx * (1.0f - wy) * t01 +
+                    (1.0f - wx) * wy * t10 + wx * wy * t11;
+  return nan ? __int_as_float(0x7fc00000) : acc * scale;
 }
 
-template <typename T>
+// Rows [lo, hi] of the in-image taps sample_bilinear reads at (su, sv),
+// merged into *lo, *hi (nothing for a NaN coordinate or no in-image tap).
+__device__ __forceinline__ void tap_rows(float su, float sv, int h, int w, int* lo, int* hi) {
+  if (isnan(su) || isnan(sv)) return;
+  const int xi = static_cast<int>(floorf(fminf(fmaxf(su, -kClip), kClip)));
+  const int yi = static_cast<int>(floorf(fminf(fmaxf(sv, -kClip), kClip)));
+  const int rlo = max(yi, 0);
+  const int rhi = min(yi + 1, h - 1);
+  if (xi + 1 >= 0 && xi < w && rlo <= rhi) {
+    *lo = min(*lo, rlo);
+    *hi = max(*hi, rhi);
+  }
+}
+
+// The thread's output pixels: P adjacent columns of one row, from one
+// division per thread. row >= h for a thread past the image.
+struct Slot {
+  int row, col;
+};
+template <int P>
+__device__ __forceinline__ Slot thread_slot(int w) {
+  const int groups = (w + P - 1) / P;  // thread slots per row
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int row = g / groups;
+  return {row, (g - row * groups) * P};
+}
+
+// Floats per vector store of a thread's P pixels.
+template <int P>
+__host__ __device__ constexpr int vec_width() {
+  return P >= 4 ? 4 : P;
+}
+
+// Samples the thread's P pixels and stores the `valid` (> 0) of them that
+// lie in the row at o: whole vectors when `vec` (w % vec_width == 0 and the
+// output 16-byte aligned, so o is aligned), else one float at a time.
+template <int P, typename Taps>
+__device__ __forceinline__ void sample_store(const float (&su)[P], const float (&sv)[P], int h,
+                                             int w, float scale, const Taps& taps, float* o,
+                                             int valid, bool vec) {
+  constexpr int V = vec_width<P>();
+  float res[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) res[k] = sample_bilinear(su[k], sv[k], h, w, scale, taps);
+  if (V > 1 && vec) {
+#pragma unroll
+    for (int j = 0; j < P; j += V) {
+      if (j >= valid) break;
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(o + j) = make_float4(res[j], res[j + 1], res[j + 2], res[j + 3]);
+      } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(o + j) = make_float2(res[j], res[j + 1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (k < valid) o[k] = res[k];
+    }
+  }
+}
+
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const T* __restrict__ imgs, const float* __restrict__ hs,
-            float* __restrict__ out, int h, int w, long long sb, long long sh,
-            long long sw, long long hb, float scale) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+            float* __restrict__ out, int h, int w, int sb, int sh, int sw, int hb,
+            float scale, bool vec) {
+  const Slot s = thread_slot<P>(w);
+  if (s.row >= h) return;
   const int b = blockIdx.y;
-  if (p >= h * w) return;
-  float su, sv;
-  warp_coords(hs + b * hb, p, w, &su, &sv);
-  out[static_cast<long long>(b) * h * w + p] =
-      sample_bilinear(su, sv, h, w, scale, GlobalTaps<T>{imgs + b * sb, sh, sw});
+  const Homography hm(hs + b * hb);
+  float su[P], sv[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    hm.coords(static_cast<float>(s.col + k), static_cast<float>(s.row), &su[k], &sv[k]);
+  }
+  sample_store(su, sv, h, w, scale, GlobalTaps<T>{opaque(imgs + b * sb), h, w, sh, sw},
+               out + b * h * w + s.row * w + s.col, w - s.col, vec);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies n bytes (0 < n <= kBandBytes) from src to band. Every thread of
+// the block calls it; it returns when the whole band is in shared memory.
+// `bar` is an mbarrier initialized for one arrival (mbarrier_init).
+__device__ __forceinline__ void copy_band(unsigned char* band, const unsigned char* src, int n,
+                                          uint64_t* bar) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(src) | n) & 15) == 0;
+  if (kBandCopy == kBulk && aligned) {
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %3;\n"
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %3, [%2];\n" ::"r"(smem_addr(band)),
+          "l"(src), "r"(smem_addr(bar)), "r"(n)
+          : "memory");
+    }
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_addr(bar))
+          : "memory");
+    }
+    return;
+  }
+  if (kBandCopy == kAsync16 && aligned) {
+    for (int i = threadIdx.x; i < n / 16; i += kThreads) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(band + 16 * i)),
+                   "l"(src + 16 * i)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  } else if (aligned) {
+    const uint4* src16 = reinterpret_cast<const uint4*>(src);
+    uint4* dst16 = reinterpret_cast<uint4*>(band);
+    for (int i = threadIdx.x; i < n / 16; i += kThreads) dst16[i] = __ldg(src16 + i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) band[i] = __ldg(src + i);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
+      : "memory");
 }
 
 // Batched warp of contiguous (B, h, w) images through a per-tile row band.
-template <typename T>
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
 rowskip_kernel(const T* __restrict__ imgs, const float* __restrict__ hs,
-               float* __restrict__ out, int h, int w, long long hb, float scale) {
-  __shared__ __align__(16) unsigned char band[kBandBytes];
-  __shared__ int s_rmin, s_rmax;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+               float* __restrict__ out, int h, int w, int hb, float scale, bool vec) {
+  __shared__ __align__(128) unsigned char band[kBandBytes];
+  __shared__ int s_lo[kWarps], s_hi[kWarps];
+  __shared__ uint64_t copied;  // mbarrier of the bulk band copy
+  const Slot s = thread_slot<P>(w);
+  const bool live = s.row < h;
   const int b = blockIdx.y;
-  const bool live = p < h * w;
-  const T* img = imgs + static_cast<long long>(b) * h * w;
+  const T* img = imgs + b * h * w;
+  if (kBandCopy == kBulk && threadIdx.x == 0) mbarrier_init(&copied);
 
-  if (threadIdx.x == 0) {
-    s_rmin = h;
-    s_rmax = -1;
-  }
-  __syncthreads();
-  float su = 0.0f, sv = 0.0f;
+  float su[P] = {}, sv[P] = {};
+  int lo = h, hi = -1;
   if (live) {
-    warp_coords(hs + b * hb, p, w, &su, &sv);
-    if (!isnan(su) && !isnan(sv)) {
-      // the rows of this pixel's in-image taps (sample_bilinear's xi, yi)
-      const int xi = static_cast<int>(floorf(fminf(fmaxf(su, -kClip), kClip)));
-      const int yi = static_cast<int>(floorf(fminf(fmaxf(sv, -kClip), kClip)));
-      const int lo = max(yi, 0);
-      const int hi = min(yi + 1, h - 1);
-      if (xi + 1 >= 0 && xi < w && lo <= hi) {
-        atomicMin(&s_rmin, lo);
-        atomicMax(&s_rmax, hi);
-      }
+    const Homography hm(hs + b * hb);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      hm.coords(static_cast<float>(s.col + k), static_cast<float>(s.row), &su[k], &sv[k]);
+      if (s.col + k < w) tap_rows(su[k], sv[k], h, w, &lo, &hi);
     }
   }
-  __syncthreads();
-  const int rmin = s_rmin;
-  const int rmax = s_rmax;
-  const long long band_bytes =
-      rmax >= rmin ? static_cast<long long>(rmax - rmin + 1) * w * sizeof(T) : 0;
-  const bool in_band = band_bytes <= kBandBytes;
-  if (band_bytes > 0 && in_band) {
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>(img + static_cast<long long>(rmin) * w);
-    const int n = static_cast<int>(band_bytes);
-    if (((reinterpret_cast<uintptr_t>(src) | n) & 15) == 0) {
-      const uint4* src16 = reinterpret_cast<const uint4*>(src);
-      uint4* dst16 = reinterpret_cast<uint4*>(band);
-      for (int i = threadIdx.x; i < n / 16; i += kThreads) dst16[i] = __ldg(src16 + i);
-    } else {
-      for (int i = threadIdx.x; i < n; i += kThreads) band[i] = __ldg(src + i);
-    }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((threadIdx.x & 31) == 0) {
+    s_lo[threadIdx.x / 32] = lo;
+    s_hi[threadIdx.x / 32] = hi;
   }
-  __syncthreads();
-  if (!live) return;
-  float* o = out + static_cast<long long>(b) * h * w + p;
-  if (in_band) {
-    *o = sample_bilinear(su, sv, h, w, scale,
-                         BandTaps<T>{reinterpret_cast<const T*>(band), rmin, w});
-  } else {
-    *o = sample_bilinear(su, sv, h, w, scale, GlobalTaps<T>{img, w, 1});
+  __syncthreads();  // also publishes the mbarrier's initialization
+  int rmin = s_lo[0], rmax = s_hi[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) {
+    rmin = min(rmin, s_lo[i]);
+    rmax = max(rmax, s_hi[i]);
+  }
+  // at most h*w*sizeof(T) bytes, which the wrapper keeps in int range
+  const int band_bytes = rmax >= rmin ? (rmax - rmin + 1) * w * static_cast<int>(sizeof(T)) : 0;
+  float* o = out + b * h * w + s.row * w + s.col;
+  if (band_bytes > kBandBytes) {  // too tall for the band: taps from global memory
+    if (live) {
+      sample_store(su, sv, h, w, scale, GlobalTaps<T>{opaque(img), h, w, w, 1}, o, w - s.col,
+                   vec);
+    }
+    return;
+  }
+  if (band_bytes == 0) {  // no in-image tap: load nothing
+    if (live) sample_store(su, sv, h, w, scale, NoTaps{}, o, w - s.col, vec);
+    return;
+  }
+  copy_band(band, reinterpret_cast<const unsigned char*>(img + rmin * w), band_bytes, &copied);
+  if (live) {
+    sample_store(su, sv, h, w, scale,
+                 BandTaps<T>{reinterpret_cast<const T*>(band), rmin, rmax, w}, o, w - s.col,
+                 vec);
   }
 }
 
 // One (h, w) image sampled at n flat coordinates.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 flat_kernel(const T* __restrict__ img, const float* __restrict__ su,
             const float* __restrict__ sv, float* __restrict__ out, int n, int h, int w,
-            long long sh, long long sw, float scale) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+            int sh, int sw, float scale) {
+  const int i = blockIdx.x * kFlatThreads + threadIdx.x;
   if (i >= n) return;
   out[i] = sample_bilinear(__ldg(su + i), __ldg(sv + i), h, w, scale,
-                           GlobalTaps<T>{img, sh, sw});
+                           GlobalTaps<T>{opaque(img), h, w, sh, sw});
+}
+
+constexpr long long kIntMax = 2147483647LL;
+
+// The kernels index with int: every element offset they form, and every
+// thread index (up to a block past the last pixel), must fit.
+bool int_indexable(int b, int h, int w, long long sb, long long sh, long long sw) {
+  if (b <= 0 || h <= 0 || w <= 0 || sb < 0 || sh < 0 || sw < 0) return false;
+  const long long last = (b - 1LL) * sb + (h - 1LL) * sh + (w - 1LL) * sw;
+  return static_cast<long long>(b) * h * w <= kIntMax - 1024 && last <= kIntMax &&
+         sb <= kIntMax && sh <= kIntMax && sw <= kIntMax;
+}
+
+long long thread_slots(int b, int h, int w, int pixels) {
+  return static_cast<long long>(b) * h * ((w + pixels - 1) / pixels);
+}
+
+// Threads the current card holds at once (its SMs x threads per SM), or -1.
+long long resident_threads() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return static_cast<long long>(sms) * per_sm;
+}
+
+// Pixels per thread of a warp launch: the fewest whose threads all fit on
+// the card at once, else kPixelsMax. A launch that fits is bound by the
+// latency of its chain of loads, which more threads hide; one that does not
+// by instruction issue, which fewer threads, each on more pixels, save.
+int pixels_per_thread(int b, int h, int w) {
+  const long long resident = resident_threads();
+  int p = kPixelsMin;
+  while (p < kPixelsMax && (resident <= 0 || thread_slots(b, h, w, p) > resident)) p *= 2;
+  return p;
+}
+
+template <int P>
+dim3 warp_grid(int b, int h, int w) {
+  const long long slots = thread_slots(1, h, w, P);
+  return dim3(static_cast<unsigned>((slots + kThreads - 1) / kThreads), b);
+}
+
+template <int P>
+bool vec_stores(const void* out, int w) {
+  return w % vec_width<P>() == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+template <typename T, int P>
+void start_warp(const void* imgs, const void* hs, void* out, int b, int h, int w, int sb,
+                int sh, int sw, int hb, float scale, cudaStream_t stream) {
+  warp_kernel<T, P><<<warp_grid<P>(b, h, w), kThreads, 0, stream>>>(
+      static_cast<const T*>(imgs), static_cast<const float*>(hs), static_cast<float*>(out), h,
+      w, sb, sh, sw, hb, scale, vec_stores<P>(out, w));
 }
 
 template <typename T>
 int launch_warp(const void* imgs, const void* hs, void* out, int b, int h, int w,
                 long long sb, long long sh, long long sw, long long hb, float scale,
                 void* stream) {
-  const dim3 grid((h * w + kThreads - 1) / kThreads, b);
-  warp_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(imgs), static_cast<const float*>(hs),
-      static_cast<float*>(out), h, w, sb, sh, sw, hb, scale);
+  if (!int_indexable(b, h, w, sb, sh, sw) || hb < 0 || (b - 1LL) * hb + 9 > kIntMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto start = start_warp<T, 8>;
+  switch (pixels_per_thread(b, h, w)) {
+    case 1: start = start_warp<T, 1>; break;
+    case 2: start = start_warp<T, 2>; break;
+    case 4: start = start_warp<T, 4>; break;
+  }
+  start(imgs, hs, out, b, h, w, static_cast<int>(sb), static_cast<int>(sh),
+        static_cast<int>(sw), static_cast<int>(hb), scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int P>
+void start_rowskip(const void* imgs, const void* hs, void* out, int b, int h, int w, int hb,
+                   float scale, cudaStream_t stream) {
+  rowskip_kernel<T, P><<<warp_grid<P>(b, h, w), kThreads, 0, stream>>>(
+      static_cast<const T*>(imgs), static_cast<const float*>(hs), static_cast<float*>(out), h,
+      w, hb, scale, vec_stores<P>(out, w));
 }
 
 template <typename T>
 int launch_rowskip(const void* imgs, const void* hs, void* out, int b, int h, int w,
                    long long hb, float scale, void* stream) {
-  const dim3 grid((h * w + kThreads - 1) / kThreads, b);
-  rowskip_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(imgs), static_cast<const float*>(hs),
-      static_cast<float*>(out), h, w, hb, scale);
+  const long long frame = static_cast<long long>(h) * w;
+  if (!int_indexable(b, h, w, frame, w, 1) || frame * sizeof(T) > kIntMax || hb < 0 ||
+      (b - 1LL) * hb + 9 > kIntMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto start = start_rowskip<T, 8>;
+  switch (pixels_per_thread(b, h, w)) {
+    case 1: start = start_rowskip<T, 1>; break;
+    case 2: start = start_rowskip<T, 2>; break;
+    case 4: start = start_rowskip<T, 4>; break;
+  }
+  start(imgs, hs, out, b, h, w, static_cast<int>(hb), scale,
+        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_flat(const void* img, const void* su, const void* sv, void* out, int n,
-                int h, int w, long long sh, long long sw, float scale, void* stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads);
-  flat_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(img), static_cast<const float*>(su),
-      static_cast<const float*>(sv), static_cast<float*>(out), n, h, w, sh, sw, scale);
+int launch_flat(const void* img, const void* su, const void* sv, void* out, int n, int h,
+                int w, long long sh, long long sw, float scale, void* stream) {
+  if (n <= 0 || !int_indexable(1, h, w, 0, sh, sw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((n + kFlatThreads - 1) / kFlatThreads);
+  flat_kernel<T><<<grid, kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(img), static_cast<const float*>(su), static_cast<const float*>(sv),
+      static_cast<float*>(out), n, h, w, static_cast<int>(sh), static_cast<int>(sw), scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C launchers (bound with ctypes). Strides are in elements; outputs
-// are contiguous. Each returns cudaGetLastError().
+// are contiguous. Each returns cudaGetLastError(), or cudaErrorInvalidValue
+// (launching nothing) for arguments outside the kernels' int indexing.
 extern "C" int homography_warp_u8(const void* imgs, const void* hs, void* out, int b,
                                   int h, int w, long long sb, long long sh,
                                   long long sw, long long hb, void* stream) {
@@ -266,6 +550,12 @@ extern "C" int homography_warp_rowskip_f32(const void* imgs, const void* hs, voi
                                            int b, int h, int w, long long hb,
                                            void* stream) {
   return launch_rowskip<float>(imgs, hs, out, b, h, w, hb, 1.0f, stream);
+}
+
+// Adjacent output pixels per thread that a warp launch of B h x w images
+// uses (the tile geometry of the row-band kernel's bands).
+extern "C" int warp_pixels_per_thread(int b, int h, int w) {
+  return pixels_per_thread(b, h, w);
 }
 
 extern "C" int bilinear_sample_u8(const void* img, const void* su, const void* sv,

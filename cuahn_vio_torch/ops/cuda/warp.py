@@ -20,6 +20,15 @@ from cuahn_vio_torch.ops.cuda import build, launch_counts
 from cuahn_vio_torch.ops.warp import check_sample_args, check_warp_args
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "warp.cu")
+# nvcc -D flags of warp.cu: the warps' block of WARP_THREADS threads, each
+# on P adjacent pixels of a row, P the fewest power of two in
+# [WARP_PIXELS_MIN, WARP_PIXELS_MAX] whose launch fits on the card at once;
+# rowskip_kernel's shared band and how it copies an aligned band (0: one
+# bulk cp.async.bulk, 1: 16-byte cp.async by every thread, 2: 16-byte
+# loads by every thread). Chosen on the H100 with ``tune_warp.py``
+# (PERF.md).
+DEFINES = {"WARP_THREADS": 128, "WARP_PIXELS_MIN": 1, "WARP_PIXELS_MAX": 8,
+           "BAND_BYTES": 16384, "BAND_COPY": 0}
 KERNEL = "homography_warp"
 ROWSKIP_KERNEL = "homography_warp_rowskip"
 SAMPLE_KERNEL = "bilinear_sample"
@@ -39,7 +48,15 @@ _INT_MAX = 2**31 - 1
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    lib = bind(build.load(SOURCE, DEFINES))
+    lib.warp_pixels_per_thread.argtypes = [_I, _I, _I]
+    lib.warp_pixels_per_thread.restype = ctypes.c_int
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the kernels' C launchers in a library built from ``warp.cu``
+    (this one or an earlier one: they share these entry points)."""
     for stem, argtypes in _ARGTYPES.items():
         for suffix in ("u8", "f32"):
             fn = getattr(lib, f"{stem}_{suffix}")
@@ -51,9 +68,22 @@ def _library() -> ctypes.CDLL:
 def build_kernel() -> float:
     """Build and load the library now; returns the compile seconds (0.0 if
     it was already built)."""
-    _, seconds = build.build(SOURCE)
+    _, seconds = build.build(SOURCE, DEFINES)
     _library()
     return seconds
+
+
+def pixels_per_thread(b: int, hgt: int, wid: int) -> int:
+    """Adjacent output pixels per thread of the warp kernels' launch on B
+    hgt x wid images on the current card (the row-band kernel's tiles are
+    WARP_THREADS of these runs)."""
+    return _library().warp_pixels_per_thread(b, hgt, wid)
+
+
+def ptxas_report() -> dict:
+    """ptxas's registers, shared memory and spills of each kernel of the
+    built library (``build.ptxas_report``)."""
+    return build.ptxas_report(build.library_path(SOURCE, DEFINES))
 
 
 def _entry(stem: str, dtype: torch.dtype):
@@ -70,14 +100,27 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
         raise ValueError("the CUDA kernels take contiguous tensors")
 
 
+def check_int_indexing(shape, strides) -> None:
+    """The kernels index images, outputs and their threads with 32-bit
+    ints: raise unless the element count of ``shape`` (with a block of
+    threads to spare) and every element offset that ``strides`` give fit
+    in int."""
+    count, last = 1, 0
+    for n, st in zip(shape, strides):
+        count *= n
+        last += (n - 1) * st
+    if count > _INT_MAX - 1024 or last > _INT_MAX or max(strides) > _INT_MAX:
+        raise ValueError(f"shape {tuple(shape)}, strides {tuple(strides)} exceed the "
+                         "kernels' int indexing")
+
+
 def _check_warp(imgs: torch.Tensor, h_uv: torch.Tensor) -> None:
     check_warp_args(imgs, h_uv)
     _check_cuda(imgs, h_uv)
-    b, hgt, wid = imgs.shape
+    b = imgs.shape[0]
     if not 0 < b <= 65535:
         raise ValueError(f"batch {b} outside the kernel's grid (1..65535)")
-    if hgt * wid > _INT_MAX - 256:
-        raise ValueError(f"{hgt}x{wid} pixels exceed the kernel's int indexing")
+    check_int_indexing(imgs.shape, imgs.stride())
 
 
 def _launch(name: str, fn, *args, device: torch.device) -> None:
@@ -123,6 +166,7 @@ def bilinear_sample_cuda(img: torch.Tensor, su: torch.Tensor, sv: torch.Tensor) 
     n = su.shape[0]
     if not 0 < n <= _INT_MAX - 256:
         raise ValueError(f"{n} sample points outside the kernel's grid")
+    check_int_indexing(img.shape, img.stride())
     hgt, wid = img.shape
     out = torch.empty((n,), dtype=torch.float32, device=img.device)
     _launch(SAMPLE_KERNEL, _entry("bilinear_sample", img.dtype),

@@ -11,10 +11,19 @@ JAX CLI's on the CPU.
   (printed to 1e-6 and 1e-9); frames within one uint8 level on at least
   99.9 % of the pixels (measured: every pixel, 6.9 % of them one level
   apart on this photo; both renderers truncate intensity * 255, see
-  ``tests/test_torch_textures.py``).
+  ``tests/test_torch_textures.py``). The JAX verb renders on the CPU
+  through its gather sampler; the port samples as the JAX package's TPU
+  path does, and on a rendered frame truncates to the same level as that
+  path on all but 0.070 % of the pixels, against 0.566 % for the gather
+  path (``test_renderer_levels_follow_the_jax_tpu_sampler``): the
+  differences lie between the JAX package's two samplers.
+- ``run-vio-batch`` without ``--weights`` loads the config's
+  ``network_weights_path``, as ``run-vio`` does (the JAX verb does not).
 - Flags that are not ported are refused with a message naming them, and
   ``--device cuda`` fails without a GPU.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +36,8 @@ from cuahn_vio_torch.utils.config import VioOptions
 
 # the suite runs in several worker processes: keep torch to a few threads
 torch.set_num_threads(2)
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "weights", "uahn_fil_v10.msgpack")
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +66,37 @@ def test_cli_run_vio_batch_matches_jax_cli(npz_paths, tmp_path):
         np.testing.assert_array_equal(out[:, 0], ref[:, 0])
         np.testing.assert_allclose(out[:, 1:], ref[:, 1:], atol=2e-6, rtol=0)
     assert len(np.loadtxt(tmp_path / "t" / "s5.txt")) < len(np.loadtxt(tmp_path / "t" / "s4.txt"))
+
+
+def test_cli_run_vio_batch_reads_the_configs_weights(tmp_path):
+    """Without ``--weights``, ``run-vio-batch`` loads the config's
+    ``network_weights_path``, as ``run-vio`` does: the same pose file as
+    ``--weights`` with that path, and not the randomly initialized UAHN's.
+    (The JAX verb reads only ``--weights``, ``cuahn_vio/cli.py:1038-1044``.)
+    A 1 s flight, so that network updates pass the filter's first-frames
+    gate and move the poses."""
+    t_ic = np.asarray(VioOptions().t_imu_to_cam)
+    s = make_sequence(AnalyticTrajectory(), t_ic, duration=1.0, seed=5, sigma_w=0.002,
+                      sigma_a=0.02, texture_seed=5, device="cpu")
+    seq = str(tmp_path / "s.npz")
+    np.savez(seq, imu_t=s.imu_t, imu_w=s.imu_w, imu_a=s.imu_a, cam_t=s.cam_t, frames=s.frames)
+    opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
+    opts.init_height, opts.calib_camimu_dt, opts.mc_dropout = 1.5, 0.0, 0.0
+    plain = str(tmp_path / "plain.yaml")
+    opts.to_yaml(plain)
+    opts.network_weights_path = WEIGHTS
+    named = str(tmp_path / "named.yaml")
+    opts.to_yaml(named)
+    runs = {"config": ["--config", named], "flag": ["--config", plain, "--weights", WEIGHTS],
+            "random": ["--config", plain]}
+    poses = {}
+    for name, flags in runs.items():
+        tcli.main(["run-vio-batch", seq, "--device", "cpu", "--out-dir",
+                   str(tmp_path / name), *flags])
+        poses[name] = (tmp_path / name / "s.txt").read_text()
+    assert len(poses["config"].splitlines()) >= 15
+    assert poses["config"] == poses["flag"]
+    assert poses["random"] != poses["flag"]  # the weights do reach the poses
 
 
 def test_cli_run_vio_batch_refuses_mesh(npz_paths, tmp_path):

@@ -6,8 +6,11 @@ machine (the suite's conftest imports JAX; these tests do not need it).
 Each kernel is held to its plain PyTorch version on the same CUDA tensors,
 NaN exactly where the plain version has NaN: the warp (B1/B2) and the
 flat sampler (B4) to max abs error 1e-5, the row-band warp (B3) to the
-warp kernel bit for bit (0.0). The batched path and the CLI run on the
-card too.
+warp kernel bit for bit (0.0); at the shapes the tiling of several pixels
+per thread makes risky (ragged and tiny widths, B = 1 and 65, row bands
+just under and over the shared band) and at a rendered frame's texture
+coordinates, all three bit for bit (0.0). The batched path and the CLI run
+on the card too.
 """
 
 import numpy as np
@@ -197,3 +200,79 @@ def test_cli_runs_on_the_gpu_by_default(gpu, tmp_path):
               "--init-height", "1.5"])
     assert (tmp_path / "est.txt").exists()
     assert all((tmp_path / "b" / f"s{i}.txt").exists() for i in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b, hgt, wid", [(1, 224, 320), (4, 224, 320), (65, 224, 320),
+                                         (8, 224, 317), (8, 7, 5), (8, 6, 3), (50000, 6, 3)])
+def test_warp_kernels_are_bit_identical_at_ragged_shapes(gpu, dtype, b, hgt, wid):
+    """Widths that are not a multiple of a thread's pixels, images narrower
+    than them (50,000 images 3 wide take 8 pixels a thread), B = 1, 4 and
+    65, with chip_smoke's special homographies (off-image, z <= 0, NaN,
+    rolls, z = 0)."""
+    import chip_smoke
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, homography_warp_rowskip_cuda
+
+    imgs, hs = chip_smoke.parity_cases(torch, np.random.default_rng(b * wid), b, dtype, hgt, wid)
+    imgs, hs = torch.as_tensor(imgs, device=gpu), torch.as_tensor(hs, device=gpu)
+    out = homography_warp_cuda(imgs, hs)
+    band = homography_warp_rowskip_cuda(imgs, hs)
+    ref = homography_warp_plain(imgs, hs)
+    torch.cuda.synchronize()
+    for got in (out, band):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_rowskip_kernel_is_bit_identical_around_its_band_limit(gpu, dtype):
+    """A roll whose tiles' row bands lie just under and just over the
+    shared band (one image row either side): the kernel switches between
+    its shared band and global memory, and stays bit-identical."""
+    import chip_smoke
+    from cuahn_vio_torch.ops.cuda.warp import (
+        DEFINES,
+        homography_warp_cuda,
+        homography_warp_rowskip_cuda,
+    )
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    deg = chip_smoke.BAND_EDGE_ROLL_DEG[item]
+    imgs, _ = chip_smoke.parity_cases(torch, np.random.default_rng(40), 2, dtype)
+    imgs = torch.as_tensor(imgs, device=gpu)
+    hs = torch.tensor([chip_smoke.rolled(deg), chip_smoke.rolled(-deg)], dtype=torch.float32,
+                      device=gpu)
+    bands = chip_smoke.tile_bands(torch, hs, 224, 320, item)
+    limit, row = DEFINES["BAND_BYTES"], 320 * item
+    assert ((bands <= limit) & (bands > limit - row)).any()
+    assert ((bands > limit) & (bands <= limit + row)).any()
+    out = homography_warp_rowskip_cuda(imgs, hs)
+    full = homography_warp_cuda(imgs, hs)
+    ref = homography_warp_plain(imgs, hs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, full) and torch.equal(out, ref)
+
+
+def test_flat_sampler_is_bit_identical_at_a_rendered_frames_coordinates(gpu):
+    import chip_smoke
+    from cuahn_vio_torch.ops.warp import bilinear_sample, bilinear_sample_flat
+
+    su, sv = chip_smoke.frame_sample_coords(torch, gpu)
+    tex = torch.as_tensor(np.random.default_rng(41).integers(0, 256, (512, 512)).astype(np.uint8),
+                          device=gpu)
+    out = bilinear_sample(tex, su, sv)
+    ref = bilinear_sample_flat(tex, su, sv)
+    torch.cuda.synchronize()
+    assert su.numel() == 224 * 320 and torch.equal(out, ref)
+
+
+def test_warp_wrapper_refuses_what_int_cannot_index(gpu):
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda
+
+    b = 2**31 // (224 * 320) + 1  # 2.15e9 pixels: past int
+    imgs = torch.empty((b, 224, 320), dtype=torch.uint8, device=gpu)
+    hs = torch.eye(3, device=gpu).expand(b, 3, 3).contiguous()
+    before = tcuda.launch_counts["homography_warp"]
+    with pytest.raises(ValueError, match="int indexing"):
+        homography_warp_cuda(imgs, hs)
+    assert tcuda.launch_counts["homography_warp"] == before

@@ -3,7 +3,7 @@
 In a fresh interpreter where a ``sys.meta_path`` finder makes ``jax``,
 ``flax`` and ``cuahn_vio`` (and their submodules) unimportable, every
 module of ``cuahn_vio_torch`` and the port's scripts (``chip_smoke.py``,
-``profile_slice.py``, ``smoke_reference.py``) must import.
+``tune_warp.py``, ``profile_slice.py``, ``smoke_reference.py``) must import.
 """
 
 import os
@@ -38,7 +38,7 @@ import cuahn_vio_torch
 names = ["cuahn_vio_torch"] + [
     m.name for m in pkgutil.walk_packages(cuahn_vio_torch.__path__, "cuahn_vio_torch.")
 ]
-for name in names + ["chip_smoke", "profile_slice", "smoke_reference"]:
+for name in names + ["chip_smoke", "profile_slice", "smoke_reference", "tune_warp"]:
     importlib.import_module(name)
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not loaded, loaded
@@ -58,7 +58,7 @@ def test_the_guard_blocks_what_it_names():
     """The finder really refuses the JAX package (so the test above can
     fail)."""
     probe = GUARDED.replace(
-        'for name in names + ["chip_smoke", "profile_slice", "smoke_reference"]:',
+        'for name in names + ["chip_smoke", "profile_slice", "smoke_reference", "tune_warp"]:',
         'import cuahn_vio.ops.quat\nfor name in []:',
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -246,6 +246,53 @@ def test_kernel_build_is_keyed_by_source_and_flags(tmp_path):
     p2 = tbuild.library_path(str(src))
     assert p1 != p2 and p1.startswith(tbuild.BUILD_DIR)
     assert "arch=compute_90a,code=sm_90a" in tbuild.NVCC_FLAGS
+    # the -D defines are part of the key: each tiling is its own library
+    p3 = tbuild.library_path(str(src), {"WARP_PIXELS_MIN": 2})
+    assert len({p2, p3, tbuild.library_path(str(src), {"WARP_PIXELS_MIN": 4})}) == 3
+
+
+@pytest.mark.parametrize("shape, strides, ok", [
+    ((1, 224, 320), (71680, 320, 1), True),
+    ((65535, 224, 320), (71680, 320, 1), False),  # 4.7e9 output elements
+    ((29000, 274, 270), (73980, 270, 1), True),  # 2,145,420,000 < 2**31 - 1
+    ((2, 8, 8), (2**31, 8, 1), False),  # a batch stride past int
+    ((2, 8, 8), (2**30, 8, 1), True),
+])
+def test_kernel_int_indexing_check(shape, strides, ok):
+    """The warp wrappers refuse (never fall back on) images whose element
+    count or element offsets exceed the kernels' 32-bit indexing."""
+    from cuahn_vio_torch.ops.cuda.warp import check_int_indexing
+
+    if ok:
+        check_int_indexing(shape, strides)
+    else:
+        with pytest.raises(ValueError, match="int indexing"):
+            check_int_indexing(shape, strides)
+
+
+def test_ptxas_report_reads_each_kernel(tmp_path):
+    lib = tmp_path / "libwarp.so"
+    (tmp_path / "libwarp.so.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114rowskip_kernelIhLi2EEEvPKT_PKfPfiiifb' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_114rowskip_kernelIhLi2EEEvPKT_PKfPfiiifb\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 16424 bytes smem, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_111flat_kernelIfEEvPKT_PKfS4_Pfiiiiif' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_111flat_kernelIfEEvPKT_PKfS4_Pfiiiiif\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 25 registers, 400 bytes cmem[0]\n")
+    report = tbuild.ptxas_report(str(lib))
+    assert report == {
+        "rowskip_kernel<h,2>": dict(registers=40, smem_bytes=16424, stack_bytes=0,
+                                    spill_stores=0, spill_loads=0),
+        "flat_kernel<f>": dict(registers=25, smem_bytes=0, stack_bytes=8,
+                               spill_stores=4, spill_loads=8),
+    }
 
 
 # --------------------------------------------------------------- weights
