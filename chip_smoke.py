@@ -174,9 +174,10 @@ def parity_cases(torch, rng, b: int, dtype, hgt: int = H, wid: int = W):
 def tile_bands(torch, hs, hgt: int, wid: int, itemsize: int):
     """(B, tiles) bytes of the row band that each tile of the row-band
     kernel copies for homographies ``hs`` (0: no in-image tap): the rows of
-    the in-image taps of its pixels, the tiles being WARP_THREADS runs of
-    each thread's pixels (``warp.cu``; the card's build says how many)."""
-    from cuahn_vio_torch.ops.cuda.warp import DEFINES, pixels_per_thread
+    the in-image taps of its pixels, the tiles being runs of as many
+    threads' pixels as a block has (``warp.cu``; the card's build says how
+    many)."""
+    from cuahn_vio_torch.ops.cuda.warp import pixels_per_thread, threads_per_block
     from cuahn_vio_torch.ops.warp import COORD_CLIP, _row_dot
 
     b, dev = hs.shape[0], hs.device
@@ -190,7 +191,7 @@ def tile_bands(torch, hs, hgt: int, wid: int, itemsize: int):
     yi = torch.floor(sv.clamp(-COORD_CLIP, COORD_CLIP)).nan_to_num(0.0).long()
     lo, hi = yi.clamp(min=0), (yi + 1).clamp(max=hgt - 1)
     ok = ~nan & (xi + 1 >= 0) & (xi < wid) & (lo <= hi)
-    ppt, threads = pixels_per_thread(b, hgt, wid), DEFINES["WARP_THREADS"]
+    ppt, threads = pixels_per_thread(b, hgt, wid), threads_per_block()
     groups = (wid + ppt - 1) // ppt
     r = torch.arange(hgt, device=dev)[:, None]
     c = torch.arange(wid, device=dev)[None, :]
@@ -262,14 +263,14 @@ def check_rowskip(torch, dev):
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import (
-        DEFINES,
+        band_bytes,
         homography_warp_cuda,
         homography_warp_rowskip_cuda,
     )
     from cuahn_vio_torch.ops.warp import homography_warp_plain
 
     rng = np.random.default_rng(2)
-    limit = DEFINES["BAND_BYTES"]
+    limit = band_bytes()
     for dtype in (torch.uint8, torch.float32):
         cases = list(warp_parity_inputs(torch, rng, dtype, dev))
         item = torch.tensor([], dtype=dtype).element_size()
@@ -752,7 +753,8 @@ def main() -> int:
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
     phase("build", t0, library=os.path.relpath(warp_cuda.SOURCE, REPO),
-          nvcc_s=f"{build_s:.3f}", defines=warp_cuda.DEFINES)
+          nvcc_s=f"{build_s:.3f}", threads_per_block=warp_cuda.threads_per_block(),
+          band_bytes=warp_cuda.band_bytes())
 
     t0 = time.perf_counter()
     warp_err = check_kernel(torch, dev)

@@ -6,11 +6,10 @@ ninja and no ``torch.utils.cpp_extension`` lock file are involved, so a
 build takes seconds and a killed build cannot block the next one.
 
 Libraries go to ``cuahn_vio_torch/_build/<hash>/``, keyed by the source's
-bytes, the compiler flags and the ``-D`` defines. Each build writes to a
-temporary name and ``os.replace``s it into place, so a half-written
-library is never loaded. ptxas's report of each kernel (registers, shared
-memory, spills; ``-Xptxas -v``) is kept beside the library
-(``ptxas_report``).
+bytes and the compiler flags. Each build writes to a temporary name and
+``os.replace``s it into place, so a half-written library is never loaded.
+ptxas's report of each kernel (registers, shared memory, spills;
+``-Xptxas -v``) is kept beside the library (``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -49,23 +48,18 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _flags(defines: dict | None) -> list[str]:
-    return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))]
-
-
-def library_path(source: str, defines: dict | None = None) -> str:
-    """Where the library of ``source`` built with ``defines`` is (or will be)."""
+def library_path(source: str) -> str:
+    """Where the library of ``source`` is (or will be) built."""
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     name = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, digest, f"lib{name}.so")
 
 
-def build(source: str, defines: dict | None = None) -> tuple[str, float]:
-    """Compile ``source`` with ``-D`` ``defines`` unless its library exists.
-    Returns (path, seconds spent compiling, 0.0 when the library was
-    already built)."""
-    out = library_path(source, defines)
+def build(source: str) -> tuple[str, float]:
+    """Compile ``source`` unless its library exists. Returns (path, seconds
+    spent compiling, 0.0 when the library was already built)."""
+    out = library_path(source)
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -73,7 +67,7 @@ def build(source: str, defines: dict | None = None) -> tuple[str, float]:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [find_nvcc(), *_flags(defines), "-o", tmp, source],
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
             capture_output=True, text=True, timeout=NVCC_TIMEOUT_S,
         )
         if proc.returncode != 0:
@@ -90,9 +84,9 @@ def build(source: str, defines: dict | None = None) -> tuple[str, float]:
     return out, time.perf_counter() - t0
 
 
-def load(source: str, defines: dict | None = None) -> ctypes.CDLL:
+def load(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``source``."""
-    path, _ = build(source, defines)
+    path, _ = build(source)
     return ctypes.CDLL(path)
 
 

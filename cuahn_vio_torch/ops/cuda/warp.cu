@@ -58,50 +58,35 @@
 //   per warp give the rows [rmin, rmax] that the tile's in-image taps read;
 //   one thread copies just those rows into shared memory with a bulk
 //   asynchronous copy (cp.async.bulk, completion on an mbarrier) when the
-//   band is 16-byte aligned, else every thread copies 16-byte words or
-//   bytes; the block samples from there. A tile whose band exceeds
-//   kBandBytes reads its taps from global memory as warp_kernel does (the
-//   TPU's straddling tile likewise pays for every block it needs); a tile
-//   with no in-image tap loads nothing. The band holds copies of the very
-//   values warp_kernel reads, so the two are bit-identical.
+//   band is 16-byte aligned, else every thread copies bytes; the block
+//   samples from there. A tile whose band exceeds kBandBytes reads its taps
+//   from global memory as warp_kernel does (the TPU's straddling tile
+//   likewise pays for every block it needs); a tile with no in-image tap
+//   loads nothing. The band holds copies of the very values warp_kernel
+//   reads, so the two are bit-identical.
 //   flat_kernel takes coordinates instead of a homography: one thread a
 //   point.
 //
-// Build: the tile and band sizes come from the -D flags that
-// cuahn_vio_torch/ops/cuda/warp.py (DEFINES) passes to nvcc; tune_warp.py
-// times the alternatives (PERF.md).
+// The tile and band sizes and the bulk copy were chosen on the H100 by
+// timing alternatives (tune_warp.py builds a modified copy of this file
+// with --baseline; PERF.md has the table).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#if !defined(WARP_THREADS) || !defined(WARP_PIXELS_MIN) || !defined(WARP_PIXELS_MAX) || \
-    !defined(BAND_BYTES) || !defined(BAND_COPY)
-#error "build with the -D flags of cuahn_vio_torch/ops/cuda/warp.py (DEFINES)"
-#endif
+#include <atomic>
 
 namespace {
 
-constexpr int kThreads = WARP_THREADS;  // threads per block of the warps
+constexpr int kThreads = 128;  // threads per block of the warps
 // adjacent output pixels per thread of the warps: a power of two in
 // [kPixelsMin, kPixelsMax], chosen per launch (pixels_per_thread)
-constexpr int kPixelsMin = WARP_PIXELS_MIN;
-constexpr int kPixelsMax = WARP_PIXELS_MAX;
-constexpr int kBandBytes = BAND_BYTES;  // rowskip_kernel's shared row band
+constexpr int kPixelsMin = 1;
+constexpr int kPixelsMax = 8;
+constexpr int kBandBytes = 16384;  // rowskip_kernel's shared row band
 constexpr int kWarps = kThreads / 32;
 constexpr int kFlatThreads = 256;
 constexpr float kClip = 1e4f;
-// How rowskip_kernel copies an aligned band: one bulk asynchronous copy,
-// 16-byte cp.async copies by every thread, or 16-byte loads and stores by
-// every thread. An unaligned band is always copied by the threads.
-enum BandCopy { kBulk = 0, kAsync16 = 1, kLoop16 = 2 };
-constexpr BandCopy kBandCopy = static_cast<BandCopy>(BAND_COPY);
-
-static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps per block");
-static_assert((kPixelsMin & (kPixelsMin - 1)) == 0 && (kPixelsMax & (kPixelsMax - 1)) == 0 &&
-                  1 <= kPixelsMin && kPixelsMin <= kPixelsMax && kPixelsMax <= 8,
-              "powers of two, 1 <= WARP_PIXELS_MIN <= WARP_PIXELS_MAX <= 8");
-static_assert(kBandBytes % 16 == 0 && kBandBytes <= 32768, "band of 16-byte words");
-static_assert(BAND_COPY >= 0 && BAND_COPY <= 2, "BAND_COPY is 0, 1 or 2");
 
 // h0*u + h1*v + h2, rounded as fma(h1, v, h0*u) + h2: the rounding of the
 // reference's float32 H @ grid matmul (and of the plain version). The fma
@@ -289,43 +274,29 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // `bar` is an mbarrier initialized for one arrival (mbarrier_init).
 __device__ __forceinline__ void copy_band(unsigned char* band, const unsigned char* src, int n,
                                           uint64_t* bar) {
-  const bool aligned = ((reinterpret_cast<uintptr_t>(src) | n) & 15) == 0;
-  if (kBandCopy == kBulk && aligned) {
-    if (threadIdx.x == 0) {
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %3;\n"
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %3, [%2];\n" ::"r"(smem_addr(band)),
-          "l"(src), "r"(smem_addr(bar)), "r"(n)
-          : "memory");
-    }
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(smem_addr(bar))
-          : "memory");
-    }
+  if (((reinterpret_cast<uintptr_t>(src) | n) & 15) != 0) {  // unaligned: bytes
+    for (int i = threadIdx.x; i < n; i += kThreads) band[i] = __ldg(src + i);
+    __syncthreads();
     return;
   }
-  if (kBandCopy == kAsync16 && aligned) {
-    for (int i = threadIdx.x; i < n / 16; i += kThreads) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(band + 16 * i)),
-                   "l"(src + 16 * i)
-                   : "memory");
-    }
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-  } else if (aligned) {
-    const uint4* src16 = reinterpret_cast<const uint4*>(src);
-    uint4* dst16 = reinterpret_cast<uint4*>(band);
-    for (int i = threadIdx.x; i < n / 16; i += kThreads) dst16[i] = __ldg(src16 + i);
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) band[i] = __ldg(src + i);
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %3;\n"
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %3, [%2];\n" ::"r"(smem_addr(band)),
+        "l"(src), "r"(smem_addr(bar)), "r"(n)
+        : "memory");
   }
-  __syncthreads();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+  }
 }
 
 __device__ __forceinline__ void mbarrier_init(uint64_t* bar) {
@@ -347,7 +318,7 @@ rowskip_kernel(const T* __restrict__ imgs, const float* __restrict__ hs,
   const bool live = s.row < h;
   const int b = blockIdx.y;
   const T* img = imgs + b * h * w;
-  if (kBandCopy == kBulk && threadIdx.x == 0) mbarrier_init(&copied);
+  if (threadIdx.x == 0) mbarrier_init(&copied);
 
   float su[P] = {}, sv[P] = {};
   int lo = h, hi = -1;
@@ -421,22 +392,34 @@ long long thread_slots(int b, int h, int w, int pixels) {
   return static_cast<long long>(b) * h * ((w + pixels - 1) / pixels);
 }
 
-// Threads the current card holds at once (its SMs x threads per SM), or -1.
+constexpr int kMaxDevices = 64;
+
+// Threads the current card holds at once (its SMs x threads per SM), or -1;
+// read from the device once per device.
 long long resident_threads() {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+  static std::atomic<long long> cached[kMaxDevices];  // 0: not read yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  long long n = dev < kMaxDevices ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (n != 0) return n;
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev) !=
           cudaSuccess) {
     return -1;
   }
-  return static_cast<long long>(sms) * per_sm;
+  n = static_cast<long long>(sms) * per_sm;
+  if (dev < kMaxDevices) cached[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // Pixels per thread of a warp launch: the fewest whose threads all fit on
 // the card at once, else kPixelsMax. A launch that fits is bound by the
 // latency of its chain of loads, which more threads hide; one that does not
 // by instruction issue, which fewer threads, each on more pixels, save.
+// (On the H100, of the batches of 224x320 frames timed, this is the
+// fastest count but for warp_kernel at B = 16, where 4 pixels beat the 8
+// chosen by 4 %: PERF.md.)
 int pixels_per_thread(int b, int h, int w) {
   const long long resident = resident_threads();
   int p = kPixelsMin;
@@ -552,11 +535,16 @@ extern "C" int homography_warp_rowskip_f32(const void* imgs, const void* hs, voi
   return launch_rowskip<float>(imgs, hs, out, b, h, w, hb, 1.0f, stream);
 }
 
-// Adjacent output pixels per thread that a warp launch of B h x w images
-// uses (the tile geometry of the row-band kernel's bands).
+// The warps' tiling: threads per block, and adjacent output pixels per
+// thread of a launch on B h x w images (a row-band tile is their product);
+// the row-band kernel's shared band in bytes.
+extern "C" int warp_threads_per_block() { return kThreads; }
+
 extern "C" int warp_pixels_per_thread(int b, int h, int w) {
   return pixels_per_thread(b, h, w);
 }
+
+extern "C" int rowskip_band_bytes() { return kBandBytes; }
 
 extern "C" int bilinear_sample_u8(const void* img, const void* su, const void* sv,
                                   void* out, int n, int h, int w, long long sh,

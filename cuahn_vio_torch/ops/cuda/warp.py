@@ -20,15 +20,6 @@ from cuahn_vio_torch.ops.cuda import build, launch_counts
 from cuahn_vio_torch.ops.warp import check_sample_args, check_warp_args
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "warp.cu")
-# nvcc -D flags of warp.cu: the warps' block of WARP_THREADS threads, each
-# on P adjacent pixels of a row, P the fewest power of two in
-# [WARP_PIXELS_MIN, WARP_PIXELS_MAX] whose launch fits on the card at once;
-# rowskip_kernel's shared band and how it copies an aligned band (0: one
-# bulk cp.async.bulk, 1: 16-byte cp.async by every thread, 2: 16-byte
-# loads by every thread). Chosen on the H100 with ``tune_warp.py``
-# (PERF.md).
-DEFINES = {"WARP_THREADS": 128, "WARP_PIXELS_MIN": 1, "WARP_PIXELS_MAX": 8,
-           "BAND_BYTES": 16384, "BAND_COPY": 0}
 KERNEL = "homography_warp"
 ROWSKIP_KERNEL = "homography_warp_rowskip"
 SAMPLE_KERNEL = "bilinear_sample"
@@ -48,9 +39,10 @@ _INT_MAX = 2**31 - 1
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = bind(build.load(SOURCE, DEFINES))
+    lib = bind(build.load(SOURCE))
     lib.warp_pixels_per_thread.argtypes = [_I, _I, _I]
-    lib.warp_pixels_per_thread.restype = ctypes.c_int
+    for fn in (lib.warp_threads_per_block, lib.warp_pixels_per_thread, lib.rowskip_band_bytes):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -68,22 +60,33 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def build_kernel() -> float:
     """Build and load the library now; returns the compile seconds (0.0 if
     it was already built)."""
-    _, seconds = build.build(SOURCE, DEFINES)
+    _, seconds = build.build(SOURCE)
     _library()
     return seconds
 
 
+def threads_per_block() -> int:
+    """Threads per block of the warp kernels."""
+    return _library().warp_threads_per_block()
+
+
 def pixels_per_thread(b: int, hgt: int, wid: int) -> int:
     """Adjacent output pixels per thread of the warp kernels' launch on B
-    hgt x wid images on the current card (the row-band kernel's tiles are
-    WARP_THREADS of these runs)."""
+    hgt x wid images on the current card (a tile of the row-band kernel is
+    ``threads_per_block()`` of these runs)."""
     return _library().warp_pixels_per_thread(b, hgt, wid)
+
+
+def band_bytes() -> int:
+    """Bytes of the row-band kernel's shared band: a tile whose rows need
+    more reads its taps from global memory."""
+    return _library().rowskip_band_bytes()
 
 
 def ptxas_report() -> dict:
     """ptxas's registers, shared memory and spills of each kernel of the
     built library (``build.ptxas_report``)."""
-    return build.ptxas_report(build.library_path(SOURCE, DEFINES))
+    return build.ptxas_report(build.library_path(SOURCE))
 
 
 def _entry(stem: str, dtype: torch.dtype):

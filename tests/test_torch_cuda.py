@@ -231,7 +231,7 @@ def test_rowskip_kernel_is_bit_identical_around_its_band_limit(gpu, dtype):
     its shared band and global memory, and stays bit-identical."""
     import chip_smoke
     from cuahn_vio_torch.ops.cuda.warp import (
-        DEFINES,
+        band_bytes,
         homography_warp_cuda,
         homography_warp_rowskip_cuda,
     )
@@ -243,7 +243,7 @@ def test_rowskip_kernel_is_bit_identical_around_its_band_limit(gpu, dtype):
     hs = torch.tensor([chip_smoke.rolled(deg), chip_smoke.rolled(-deg)], dtype=torch.float32,
                       device=gpu)
     bands = chip_smoke.tile_bands(torch, hs, 224, 320, item)
-    limit, row = DEFINES["BAND_BYTES"], 320 * item
+    limit, row = band_bytes(), 320 * item
     assert ((bands <= limit) & (bands > limit - row)).any()
     assert ((bands > limit) & (bands <= limit + row)).any()
     out = homography_warp_rowskip_cuda(imgs, hs)

@@ -246,9 +246,6 @@ def test_kernel_build_is_keyed_by_source_and_flags(tmp_path):
     p2 = tbuild.library_path(str(src))
     assert p1 != p2 and p1.startswith(tbuild.BUILD_DIR)
     assert "arch=compute_90a,code=sm_90a" in tbuild.NVCC_FLAGS
-    # the -D defines are part of the key: each tiling is its own library
-    p3 = tbuild.library_path(str(src), {"WARP_PIXELS_MIN": 2})
-    assert len({p2, p3, tbuild.library_path(str(src), {"WARP_PIXELS_MIN": 4})}) == 3
 
 
 @pytest.mark.parametrize("shape, strides, ok", [

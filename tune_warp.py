@@ -1,13 +1,12 @@
 #!/usr/bin/env python3
-"""Tune and dissect the warp kernels of ``cuahn_vio_torch/ops/cuda/warp.cu``
-on one GPU.
+"""Dissect and time the warp kernels of ``cuahn_vio_torch/ops/cuda/warp.cu``
+on one GPU, beside earlier or modified copies of it.
 
-    python3 tune_warp.py [--baseline OLD_warp.cu ...] [--out FILE.json]
+    python3 tune_warp.py [--baseline OTHER_warp.cu ...] [--out FILE.json]
 
-Builds ``warp.cu`` once for each variant of its ``-D`` flags (``VARIANTS``:
-threads per block x pixels per thread, and the three ways rowskip_kernel
-copies its band), and each ``--baseline``, an earlier ``warp.cu`` with the
-same C entry points (built with the same nvcc flags and no ``-D``), all in
+Builds ``warp.cu`` and each ``--baseline`` (a warp.cu with the same C
+entry points: an earlier one, e.g. from ``git show REV:...``, or a copy
+with another tile size or band copy), with the same nvcc flags, all in
 parallel. Then:
 
 1. per kernel of each library: ptxas's registers, shared memory and spill
@@ -15,19 +14,19 @@ parallel. Then:
    ``cuobjdump -sass``: the whole function, and its main body (before the
    first subroutine, i.e. without the IEEE division's slow path) per output
    pixel;
-2. parity of every variant with the plain version on ``chip_smoke.py``'s
-   warp cases (224x320 at B = 1, 8, 65 and the ragged shapes, uint8 and
+2. parity of every library with the plain version on ``chip_smoke.py``'s
+   warp cases (224x320 at B = 1, 4, 8, 65 and the ragged shapes, uint8 and
    float32): max abs error must be 0.0 and NaN where the plain version has
    NaN;
 3. device time per call from CUDA-graph replays (as ``chip_smoke.py`` phase
-   3) of every variant and of ``grid_sample`` on the same points, at the
-   phase-3 cases, in turns: each case runs the variants in one order, then
+   3) of every library and of ``grid_sample`` on the same points, at the
+   phase-3 cases, in turns: each case runs the libraries in one order, then
    in the reverse order, and both times are kept.
 
 Prints one line per measurement and writes every number to ``--out``
 (default ``cuahn_vio_torch/_build/tune_warp.json``), and each library's
-SASS beside it (``sass_<variant>.txt``). Fails without a CUDA device.
-Uses only the port.
+SASS beside it (``sass_<name>.txt``; ``current`` is this ``warp.cu``).
+Fails without a CUDA device. Uses only the port.
 """
 
 from __future__ import annotations
@@ -45,18 +44,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WALL_LIMIT_S = 800
-# name: -D overrides of warp.DEFINES ("p<N>": N pixels a thread at every size)
-VARIANTS = {
-    "p1": dict(WARP_PIXELS_MIN=1, WARP_PIXELS_MAX=1),
-    "p2": dict(WARP_PIXELS_MIN=2, WARP_PIXELS_MAX=2),
-    "p4": dict(WARP_PIXELS_MIN=4, WARP_PIXELS_MAX=4),
-    "p8": dict(WARP_PIXELS_MIN=8, WARP_PIXELS_MAX=8),
-    "t256": dict(WARP_THREADS=256),
-    "max4": dict(WARP_PIXELS_MAX=4),
-    "band_bulk": dict(BAND_COPY=0),
-    "band_async16": dict(BAND_COPY=1),
-    "band_loop16": dict(BAND_COPY=2),
-}
 # (kernel, dtype name, B): chip_smoke.py phase 3's cases, float32 at B = 4,
 # and the batch sizes between 4 and 64
 CASES = (("warp", "uint8", 1), ("warp", "uint8", 4), ("warp", "uint8", 8),
@@ -137,7 +124,7 @@ def caller(torch, lib, kernel: str, imgs, hs):
     return call, out
 
 
-def check_variants(torch, chip_smoke, libs: dict, imgs, hs) -> None:
+def check_libraries(torch, chip_smoke, libs: dict, imgs, hs) -> None:
     """Both warps of every library in ``libs`` against the plain version on
     (imgs, hs): max abs error 0.0 and NaN where it has NaN, or raise."""
     from cuahn_vio_torch.ops.warp import homography_warp_plain
@@ -158,7 +145,7 @@ def main() -> int:
     faulthandler.dump_traceback_later(WALL_LIMIT_S, exit=True)
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", action="append", default=[],
-                    help="an earlier warp.cu to build and time (repeatable)")
+                    help="another warp.cu to build and time beside this one (repeatable)")
     ap.add_argument("--out", default=None,
                     help="JSON of every number (default: _build/tune_warp.json of the port)")
     args = ap.parse_args()
@@ -181,24 +168,19 @@ def main() -> int:
     gpu = chip_smoke.gpu_name_and_power()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {gpu}", flush=True)
 
-    specs = {name: (warp_cuda.SOURCE, {**warp_cuda.DEFINES, **over})
-             for name, over in VARIANTS.items()}
-    for path in args.baseline:
-        specs[os.path.splitext(os.path.basename(path))[0]] = (os.path.abspath(path), None)
+    sources = {"current": warp_cuda.SOURCE}
+    for i, path in enumerate(args.baseline):
+        name = os.path.splitext(os.path.basename(path))[0]
+        sources[name if name not in sources else f"{name}{i}"] = os.path.abspath(path)
     t0 = time.perf_counter()
-    # one build per distinct library (a variant may equal the defaults)
-    unique = {build.library_path(src, d): (src, d) for src, d in specs.values()}
-    with concurrent.futures.ThreadPoolExecutor(len(unique)) as pool:
-        for f in [pool.submit(build.build, src, d) for src, d in unique.values()]:
-            f.result()
-    paths = {name: build.library_path(src, d) for name, (src, d) in specs.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        paths = dict(zip(sources, pool.map(lambda src: build.build(src)[0], sources.values())))
     print(f"[build] {time.perf_counter() - t0:.1f} s, {len(paths)} libraries", flush=True)
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    result = {"gpu": gpu, "variants": {}, "times": []}
+    result = {"gpu": gpu, "libraries": {}, "times": []}
     for name, path in paths.items():
-        defines = specs[name][1]
         ptxas = build.ptxas_report(path)
         text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
                               check=True, timeout=120).stdout
@@ -216,15 +198,15 @@ def main() -> int:
                   f"{info.get('smem_bytes')} spill st/ld {info.get('spill_stores')}/"
                   f"{info.get('spill_loads')} | SASS {info['sass_total']} total, "
                   f"{info['sass_main']} main, {per_px:.1f} per pixel", flush=True)
-        result["variants"][name] = dict(defines=defines, kernels=ptxas)
+        result["libraries"][name] = dict(source=sources[name], kernels=ptxas)
     libs = {name: warp_cuda.bind(ctypes.CDLL(path)) for name, path in paths.items()}
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(30)
     for dtype in (torch.uint8, torch.float32):
         for _, imgs, hs in chip_smoke.warp_parity_inputs(torch, rng, dtype, dev):
-            check_variants(torch, chip_smoke, libs, imgs, hs)
-    print(f"[parity] {time.perf_counter() - t0:.1f} s: every variant bit-identical to "
+            check_libraries(torch, chip_smoke, libs, imgs, hs)
+    print(f"[parity] {time.perf_counter() - t0:.1f} s: every library bit-identical to "
           "the plain version", flush=True)
 
     rng = np.random.default_rng(1)
