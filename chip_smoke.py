@@ -18,24 +18,33 @@ Phases, each printed on its own line with its seconds:
    (+-inf and NaN coordinates) and rolled homographies; the row-band warp on the same cases and on rolls whose
    tiles' bands lie just under and just over its shared band (8.8 deg for
    uint8, 1.8 deg for float32), against the warp kernel and the plain
-   version; the flat sampler on a 512x512 texture at the 71,680
-   coordinates of one rendered frame (the main path's shape) and at
-   in-range, edge, off-image, +-inf and NaN ones;
+   version; the flat sampler (``sample_parity_inputs``) at its three
+   shapes (a rendered frame's 71,680 coordinates on a 512x512 texture, a
+   blurred frame's 3 x 71,680 at ``--exposure-ms 8``, and 16 bank
+   textures at a blurred frame's coordinates each, the JAX trainer's
+   batch), at ragged N, at 4-byte-misaligned coordinates, on a texture
+   whose rows are not whole 4-byte words, and at in-range, edge,
+   off-image, +-inf and NaN ones;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
    (the median of three, taken in turns; the numbers kept), the kernel's
    ratio to grid_sample, and eager call-to-call time. The warp at B = 1, 4 and 64 (uint8 and float32), the
-   row-band warp at B = 4, 8 and 64 (uint8), the flat sampler at one
-   rendered frame's 71,680 coordinates on a 512x512 uint8 texture;
+   row-band warp at B = 4, 8 and 64 (uint8), the flat sampler at its
+   three shapes on uint8 textures, beside the launch floor (a one-element
+   ``add_`` in the same CUDA graph);
 4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
    port's ``make_sequence``, run through ``run_offline`` with the shipped
    v10 weights and 16-member MC dropout (p = 0.05, seeded generator); the
    warp launch count must be 3 x steps x IEKF iterations, every pose finite
    and the ATE under the bar below;
 5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
-   with ``make_sequence`` on the card; the flat sampler must launch once
-   per rendered frame;
+   with ``make_sequence`` on the card, and one motion-blurred one
+   (``BLUR_SEQ``, ``exposure_s = EXPOSURE_S``: each frame the mean of 3
+   renders); the flat sampler must launch once per rendered frame, and
+   each blurred frame must equal, bit for bit, the uint8 of the mean of
+   its three taps rendered one by one on the card (and differ from its
+   sharp render);
 6. the batched path: ``run_offline_batch`` over the slice's sequence and
    the three textured ones (B = 4, lockstep, padded to the longest) with
    ``BATCH_SAMPLER = "full"``; the warp kernel must launch 3 x F x IEKF
@@ -104,6 +113,13 @@ TEX_SEQS = (
 )
 TEX_SIZE = 512
 TEX_SCALE_M = 4.0
+# make-synthetic --exposure-ms 8: the blurred render's exposure, which
+# gives the flat sampler its 3-tap shape (phases 2, 3 and 5)
+EXPOSURE_S = 0.008
+BLUR_SEQ = dict(texture=0, duration=1.0, seed=14)
+# the JAX trainer's batch (trainer.py batch_size): textures per launch of
+# the flat sampler at shape 3
+BATCH_TEXTURES = 16
 # ATE bars of the batched phase, one per sequence (SEQ, then TEX_SEQS).
 # Reference: ``python3 smoke_reference.py OUT_DIR --part batch`` makes the
 # same four sequences with the port's make_sequence on the CPU and runs them
@@ -322,53 +338,137 @@ def sample_cases(torch, rng, dtype, dev):
             torch.as_tensor(sv.astype(np.float32), device=dev))
 
 
-def frame_sample_coords(torch, dev):
-    """The (P,) coordinates, P = 224 x 320, at which ``sample_plane`` has
-    the flat sampler read the texture for one rendered frame: the first
-    TEX_SEQS flight 2 s into its motion, mirror-tiled onto a 512x512
-    texture at TEX_SCALE_M (the main path's input shape and grid)."""
+def camera(torch, dev):
+    """(c_rot_i, i_t_i2c) of the smoke's sequences (the UZH-FPV indoor 45
+    extrinsics) on ``dev``."""
     import numpy as np
 
-    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, ground_points
-    from cuahn_vio_torch.data.textures import default_tex_params, plane_coords
     from cuahn_vio_torch.utils.config import VioOptions
 
     t_imu_to_cam = np.asarray(VioOptions.uzhfpv_indoor45().t_imu_to_cam, np.float64)
-    c_rot_i = torch.tensor(t_imu_to_cam[:3, :3], dtype=torch.float32, device=dev)
-    i_t_i2c = torch.tensor(-t_imu_to_cam[:3, :3].T @ t_imu_to_cam[:3, 3],
-                           dtype=torch.float32, device=dev)
-    traj, t = AnalyticTrajectory(), torch.tensor(2.0, device=dev)
-    ground, _ = ground_points(traj.pos_w(t), traj.quat_i2w(t), c_rot_i, i_t_i2c, H, W)
+    return (torch.tensor(t_imu_to_cam[:3, :3], dtype=torch.float32, device=dev),
+            torch.tensor(-t_imu_to_cam[:3, :3].T @ t_imu_to_cam[:3, 3], dtype=torch.float32,
+                         device=dev))
+
+
+def frame_sample_coords(torch, dev, exposure_s: float = 0.0):
+    """The (P,) coordinates at which ``sample_plane`` has the flat sampler
+    read the texture for one rendered frame: the first TEX_SEQS flight 2 s
+    into its motion, mirror-tiled onto a 512x512 texture at TEX_SCALE_M.
+    Sharp (``exposure_s`` 0): P = 224 x 320, shape 1; blurred over
+    ``exposure_s`` (``render_frame_blurred``, its 3 taps in one call): P =
+    3 x 224 x 320, shape 2."""
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, exposure_taps, ground_points
+    from cuahn_vio_torch.data.textures import default_tex_params, plane_coords
+
+    p, q = exposure_taps(AnalyticTrajectory(), [2.0], exposure_s, dev)
+    if exposure_s == 0.0:
+        p, q = p[:, 0], q[:, 0]  # render_frame's single pose
+    ground, _ = ground_points(p[0], q[0], *camera(torch, dev), H, W)
     su, sv = plane_coords(TEX_SIZE, ground, default_tex_params(TEX_SCALE_M).to(dev))
     return su.reshape(-1).contiguous(), sv.reshape(-1).contiguous()
 
 
-def check_sample(torch, dev):
-    """Phase 2, B4: the flat sampler against its plain version, bit for bit,
-    at one rendered frame's coordinates (the main path's shape) and at the
-    special ones. Returns (max abs error at the frame's coordinates, over
-    all)."""
+def batch_sample_inputs(torch, dev, dtype):
+    """Shape 3, the JAX trainer's batch (``trainer.make_batch``, ``vmap`` of
+    ``sample_pair`` over 16 samples): BATCH_TEXTURES bank textures
+    (``_procedural_extras(512)`` in turn, at uint8 levels; float32 k/255
+    for ``dtype`` float32), each at the coordinates of one blurred frame
+    (EXPOSURE_S, 3 taps) at a random time of the analytic flight, under
+    random tex params across the trainer's range (scale 1.5-10 m
+    log-uniform, rotation 0-2 pi, offset 0-2), from a numpy seed. Returns
+    (textures (B, 512, 512), su, sv (B, 3 x 224 x 320))."""
     import numpy as np
 
-    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, exposure_taps, ground_points
+    from cuahn_vio_torch.data.textures import (
+        _procedural_extras,
+        plane_coords,
+        quantize_u8,
+        texture_u8,
+    )
+
+    b = BATCH_TEXTURES
+    rng = np.random.default_rng(6)
+    extras = _procedural_extras(TEX_SIZE)
+    bank = [quantize_u8(extras[i % len(extras)]) for i in range(b)]
+    tex = np.stack([texture_u8(t) for t in bank] if dtype == torch.uint8 else bank)
+    p, q = exposure_taps(AnalyticTrajectory(), rng.uniform(0.5, 6.0, b), EXPOSURE_S, dev)
+    th = rng.uniform(0.0, 2 * np.pi, b)
+    params = np.stack([np.exp(rng.uniform(np.log(1.5), np.log(10.0), b)), np.cos(th),
+                       np.sin(th), *rng.uniform(0.0, 2.0, (2, b))], axis=1)
+    ground, _ = ground_points(p, q, *camera(torch, dev), H, W)  # (B, 3, H, W, 2)
+    su, sv = plane_coords(TEX_SIZE, ground,
+                          torch.tensor(params, dtype=torch.float32, device=dev))
+    return (torch.as_tensor(tex, device=dev), su.reshape(b, -1).contiguous(),
+            sv.reshape(b, -1).contiguous())
+
+
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary (as ``su[1:]`` of a fresh tensor does)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def sample_parity_inputs(torch, rng, dtype, dev):
+    """(label, images, su, sv) of the flat sampler's parity phase: shapes 1,
+    2 and 3 (a frame's, a blurred frame's and the trainer batch's
+    coordinates), the batch's first 2 and 4 textures, ragged N (N mod 8 !=
+    0), 4-byte-misaligned coordinates, all of shape 3's points on one
+    texture (8 points a thread in one row), and the special coordinates
+    (in-range, edges, off-image, +-inf, NaN) on one texture, on a texture
+    509 wide (rows not whole 4-byte words: one load a uint8 tap) and on
+    3."""
+    tex, su, sv = sample_cases(torch, rng, dtype, dev)
+    frame = frame_sample_coords(torch, dev)
+    blurred = frame_sample_coords(torch, dev, EXPOSURE_S)
+    texs, bsu, bsv = batch_sample_inputs(torch, dev, dtype)
+    cut = bsu.shape[1] - 5
+    yield "shape 1 (frame)", tex, *frame
+    yield "shape 2 (blurred frame)", tex, *blurred
+    yield "shape 3 (trainer batch)", texs, bsu, bsv
+    for b in (2, 4):
+        yield f"batch of {b}", texs[:b], bsu[:b], bsv[:b]
+    yield "shape 1 ragged", tex, frame[0][:-3], frame[1][:-3]
+    yield "shape 3 ragged", texs, bsu[:, :cut].contiguous(), bsv[:, :cut].contiguous()
+    yield "shape 3 on one texture, ragged", texs[0], bsu.reshape(-1)[:-5], bsv.reshape(-1)[:-5]
+    yield "shape 2 at su[1:], sv[1:]", tex, blurred[0][1:], blurred[1][1:]
+    yield "shape 3 misaligned", texs, misaligned(torch, bsu), misaligned(torch, bsv)
+    yield "special", tex, su, sv
+    yield "special on a 509-wide texture", tex[:509, :509].contiguous(), su, sv
+    yield "special on 3 textures", texs[:3], *(torch.stack([x, x.flip(0), x.roll(7)]) for x in (su, sv))
+
+
+def check_sample(torch, dev):
+    """Phase 2, B4: the flat sampler against its plain version, bit for bit,
+    on ``sample_parity_inputs``, uint8 and float32. Returns (max abs error
+    at the three shapes, over all)."""
+    import numpy as np
+
+    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda, pixels_per_thread
     from cuahn_vio_torch.ops.warp import bilinear_sample_flat
 
     rng = np.random.default_rng(3)
-    frame_su, frame_sv = frame_sample_coords(torch, dev)
-    worst = {"frame": 0.0, "special": 0.0}
+    worst = {"shapes": 0.0, "other": 0.0}
     for dtype in (torch.uint8, torch.float32):
-        tex, su, sv = sample_cases(torch, rng, dtype, dev)
-        for case, (csu, csv) in (("frame", (frame_su, frame_sv)), ("special", (su, sv))):
+        for label, tex, csu, csv in sample_parity_inputs(torch, rng, dtype, dev):
             out = bilinear_sample_cuda(tex, csu, csv)
             ref = bilinear_sample_flat(tex, csu, csv)
             torch.cuda.synchronize()
-            err = nan_checked_err(torch, out, ref, f"flat sampler {dtype} {case}")
-            print(f"  sampler parity {str(dtype):13s} {case:7s} N={csu.numel()}: max abs err "
-                  f"{err:.3e}, NaN points {int(torch.isnan(ref).sum())}", flush=True)
+            err = nan_checked_err(torch, out, ref, f"flat sampler {dtype} {label}")
+            b = tex.shape[0] if tex.dim() == 3 else 1
+            print(f"  sampler parity {str(dtype):13s} {label} B={b} N={csu.shape[-1]} "
+                  f"({pixels_per_thread(b, 1, csu.shape[-1])} points a thread, su at "
+                  f"{csu.data_ptr() % 16} mod 16 B): max abs err {err:.3e}, NaN points "
+                  f"{int(torch.isnan(ref).sum())}", flush=True)
             if err != 0.0:
                 raise AssertionError(f"sampler vs plain {err:.3e}: not bit-identical")
-            worst[case] = max(worst[case], err)
-    return worst["frame"], max(worst.values())
+            key = "shapes" if label.split(" (")[0] in ("shape 1", "shape 2", "shape 3") else "other"
+            worst[key] = max(worst[key], err)
+    return worst["shapes"], max(worst.values())
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -502,52 +602,81 @@ def time_kernel(torch, dev):
     return rows
 
 
+def sample_bound_ms(torch, tex, su, sv) -> tuple[float, int]:
+    """(least ms, distinct texels read) of one flat-sampler call: 8 B of
+    coordinates and 4 B of output a point, and each texel that an in-image
+    tap of this call reads, once, against the float32 work."""
+    t = tex.shape[-1]
+    b = tex.shape[0] if tex.dim() == 3 else 1
+    x0, y0 = torch.floor(su).long(), torch.floor(sv).long()
+    base = (torch.arange(b, device=su.device) * (t * t)).reshape(b, *[1] * (su.dim() - 1))
+    taps = torch.cat([(base + (y0 + dy) * t + (x0 + dx)).reshape(-1)
+                      for dy in (0, 1) for dx in (0, 1)])
+    inside = torch.cat([((y0 + dy >= 0) & (y0 + dy < t) & (x0 + dx >= 0) & (x0 + dx < t))
+                        .reshape(-1) for dy in (0, 1) for dx in (0, 1)])
+    texels = int(torch.unique(taps[inside]).numel())
+    n = su.numel()
+    bytes_moved = 3 * n * 4 + texels * tex.element_size()
+    return max(bytes_moved / HBM_BYTES_PER_S,
+               n * SAMPLE_FLOPS_PER_POINT / F32_FLOPS_PER_S) * 1e3, texels
+
+
 def time_sample(torch, dev):
-    """Phase 3, B4: the flat sampler at one rendered frame's 71,680
-    coordinates (``frame_sample_coords``) on a 512x512 uint8 texture.
-    Returns {ms, plain_ms, library_ms, bound_ms}; the bound counts the
-    texels this call's in-image taps read."""
+    """Phase 3, B4: the flat sampler on uint8 textures at its three shapes:
+    1, one rendered frame's 71,680 coordinates on a 512x512 texture; 2, a
+    blurred frame's 3 x 71,680 (EXPOSURE_S); 3, the trainer batch's
+    BATCH_TEXTURES textures at 3 x 71,680 each. Beside it, in the same
+    turns: its plain version, batched grid_sample on the same points, and
+    the launch floor (a one-element ``add_`` in the same CUDA graph).
+    Returns {shape: {ms, plain_ms, library_ms, floor_ms, bound_ms, points,
+    texels}}."""
     import numpy as np
     import torch.nn.functional as F
 
-    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
+    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda, pixels_per_thread
     from cuahn_vio_torch.ops.warp import bilinear_sample_flat
 
     t = TEX_SIZE
     rng = np.random.default_rng(4)
     tex = torch.as_tensor(rng.integers(0, 256, (t, t)).astype(np.uint8), device=dev)
-    su, sv = frame_sample_coords(torch, dev)
-    n = su.numel()
-    x0, y0 = torch.floor(su).long(), torch.floor(sv).long()
-    taps = torch.cat([(y0 + dy) * t + (x0 + dx) for dy in (0, 1) for dx in (0, 1)])
-    inside = torch.cat([(y0 + dy >= 0) & (y0 + dy < t) & (x0 + dx >= 0) & (x0 + dx < t)
-                        for dy in (0, 1) for dx in (0, 1)])
-    texels = int(torch.unique(taps[inside]).numel())
-    bytes_moved = 2 * n * 4 + texels * tex.element_size() + n * 4
-    bound = max(bytes_moved / HBM_BYTES_PER_S,
-                n * SAMPLE_FLOPS_PER_POINT / F32_FLOPS_PER_S) * 1e3
-    tex_f = (tex.float() / 255.0)[None, None]
-    grid = torch.stack([2 * su / (t - 1) - 1, 2 * sv / (t - 1) - 1], dim=-1)[None, None]
+    texs, bsu, bsv = batch_sample_inputs(torch, dev, torch.uint8)
+    shapes = {1: (tex, *frame_sample_coords(torch, dev)),
+              2: (tex, *frame_sample_coords(torch, dev, EXPOSURE_S)),
+              3: (texs, bsu, bsv)}
+    one = torch.zeros(1, device=dev)
+    rows = {}
+    for shape, (img, su, sv) in shapes.items():
+        imgs, su2, sv2 = (img if img.dim() == 3 else img[None],
+                          su.reshape(-1, su.shape[-1]), sv.reshape(-1, sv.shape[-1]))
+        b, n = su2.shape
+        bound, texels = sample_bound_ms(torch, img, su, sv)
+        tex_f = (imgs.float() / 255.0)[:, None]
+        grid = torch.stack([2 * su2 / (t - 1) - 1, 2 * sv2 / (t - 1) - 1], dim=-1)[:, None]
 
-    def library():
-        return F.grid_sample(tex_f, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
+        def library():
+            return F.grid_sample(tex_f, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
 
-    lib_err = (library().reshape(-1) - bilinear_sample_flat(tex, su, sv)).abs().max().item()
-    row, eager = timed(torch, dict(
-        ms=lambda: bilinear_sample_cuda(tex, su, sv),
-        plain_ms=lambda: bilinear_sample_flat(tex, su, sv),
-        library_ms=library,
-    ), bound, 500)
-    print(f"  sampler uint8 N={n} ({texels} texels) device time (CUDA graph): kernel "
-          f"{row['ms']:.5f} ms | plain {row['plain_ms']:.5f} ms | grid_sample "
-          f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | kernel / grid_sample "
-          f"{row['ms'] / row['library_ms']:.3f} | byte bound {row['bound_ms']:.5f} ms",
-          flush=True)
-    print(f"  sampler uint8 N={n} eager call to call: kernel {eager['ms']:.5f} ms | "
-          f"plain {eager['plain_ms']:.5f} ms | grid_sample {eager['library_ms']:.5f} ms",
-          flush=True)
-    return row
+        lib_err = (library().reshape(b, n) - bilinear_sample_flat(imgs, su2, sv2)).abs().max()
+        row, eager = timed(torch, dict(
+            ms=lambda: bilinear_sample_cuda(img, su, sv),
+            plain_ms=lambda: bilinear_sample_flat(img, su, sv),
+            library_ms=library,
+            floor_ms=lambda: one.add_(1.0),
+        ), bound, 500 if shape < 3 else 50)
+        row.update(points=b * n, texels=texels)
+        rows[shape] = row
+        print(f"  sampler shape {shape} uint8 B={b} N={n} ({pixels_per_thread(b, 1, n)} points "
+              f"a thread, {texels} texels) device time (CUDA graph): kernel {row['ms']:.5f} ms"
+              f" | plain {row['plain_ms']:.5f} ms | grid_sample {row['library_ms']:.5f} ms "
+              f"(|diff| {lib_err.item():.2e}) | kernel / grid_sample "
+              f"{row['ms'] / row['library_ms']:.3f} | byte bound {row['bound_ms']:.5f} ms | "
+              f"kernel / bound {row['ms'] / row['bound_ms']:.2f} | launch floor "
+              f"{row['floor_ms']:.5f} ms", flush=True)
+        print(f"  sampler shape {shape} eager call to call: kernel {eager['ms']:.5f} ms | "
+              f"plain {eager['plain_ms']:.5f} ms | grid_sample {eager['library_ms']:.5f} ms",
+              flush=True)
+    return rows
 
 
 def slice_setup(torch, dev):
@@ -639,6 +768,55 @@ def make_textured(torch, dev):
     return seqs, dict(launch_counts), sum(len(s.cam_t) for s in seqs)
 
 
+def make_blurred(torch, dev):
+    """Phase 5, blurred: one short photo-texture sequence (BLUR_SEQ) made
+    with ``exposure_s = EXPOSURE_S`` on the card; then each of its frames
+    against the uint8 of the mean of its three taps rendered one by one
+    (``render_frame`` at the same poses) on the card. Returns (frames,
+    sampler launches in make_sequence, frames that differ from that mean,
+    frames that differ from the sharp render at the last tap)."""
+    import numpy as np
+
+    from cuahn_vio_torch.data.synthetic import (
+        AnalyticTrajectory,
+        exposure_taps,
+        make_sequence,
+        render_frame,
+    )
+    from cuahn_vio_torch.data.textures import (
+        _procedural_extras,
+        default_tex_params,
+        quantize_u8,
+        texture_u8,
+    )
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    texture = quantize_u8(_procedural_extras(TEX_SIZE)[BLUR_SEQ["texture"]])
+    traj, t_still = AnalyticTrajectory(), SEQ["t_still"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    seq = make_sequence(traj, np.asarray(VioOptions.uzhfpv_indoor45().t_imu_to_cam),
+                        duration=BLUR_SEQ["duration"], seed=BLUR_SEQ["seed"], t_still=t_still,
+                        texture=texture, tex_params=default_tex_params(TEX_SCALE_M),
+                        exposure_s=EXPOSURE_S, device=dev)
+    torch.cuda.synchronize()
+    launches = launch_counts["bilinear_sample"]
+    tex = torch.as_tensor(texture_u8(texture), device=dev)
+    params = default_tex_params(TEX_SCALE_M).to(dev)
+    p, q = exposure_taps(traj, seq.cam_t - t_still, EXPOSURE_S, dev)
+    unequal = unblurred = 0
+    for i, frame in enumerate(seq.frames):
+        taps = [render_frame(p[i, k], q[i, k], *camera(torch, dev), texture=tex,
+                             tex_params=params) for k in range(p.shape[1])]
+        mean = torch.stack(taps).sum(dim=0) / len(taps)
+        want = (mean * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
+        sharp = (taps[-1] * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
+        unequal += not np.array_equal(frame, want)
+        unblurred += np.array_equal(frame, sharp)
+    return len(seq.frames), launches, unequal, unblurred
+
+
 def run_batched(torch, dev, seqs, opts, model):
     """Phase 6: run_offline_batch over ``seqs`` in lockstep with the "full"
     batched sampler. Returns (results, launches, seconds)."""
@@ -713,6 +891,28 @@ def kernel_entry(name, source_line, launches, err, row, ptxas, bound_by="bytes")
     )
 
 
+def sample_entry(sharp_launches, blur_launches, err, rows, ptxas, points_per_thread):
+    """B4's entry of the kernels line: its launches at shapes 1 (sharp
+    frames) and 2 (blurred frames) in phase 5, the times of shape 1 in the
+    common fields, and each shape's times and bound under ``shapes``."""
+    def compiled(shape):  # the instantiation a launch at ``shape`` runs (whole-word rows)
+        b = BATCH_TEXTURES if shape == 3 else 1
+        p = points_per_thread(b, 1, rows[shape]["points"] // b)
+        return ptxas[f"flat_kernel<h,{p},1>"]
+
+    entry = kernel_entry("bilinear_sample (make-synthetic texture, sharp and --exposure-ms)",
+                         174, sharp_launches + blur_launches, err, rows[1], compiled(1))
+    entry["launches_by_shape"] = {"1": sharp_launches, "2": blur_launches}
+    entry["shapes"] = {
+        str(shape): dict(points=row["points"], texels=row["texels"], ms=row["ms"],
+                         plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                         bound_ms=row["bound_ms"], launch_floor_ms=row["floor_ms"],
+                         registers=compiled(shape)["registers"])
+        for shape, row in rows.items()
+    }
+    return entry
+
+
 def main() -> int:
     t_all = time.perf_counter()
     faulthandler.dump_traceback_later(WALL_LIMIT_S, exit=True)
@@ -762,7 +962,7 @@ def main() -> int:
     sample_err, sample_worst = check_sample(torch, dev)
     phase("parity", t0, warp_max_abs_err=f"{warp_err:.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
-          sampler_frame_max_abs_err=f"{sample_err:.3e}",
+          sampler_shapes_max_abs_err=f"{sample_err:.3e}",
           sampler_max_abs_err=f"{sample_worst:.3e}")
 
     t0 = time.perf_counter()
@@ -791,6 +991,16 @@ def main() -> int:
           sampler_launches=sample_launches)
     if sample_launches != rendered:
         raise AssertionError(f"sampler launched {sample_launches}x for {rendered} frames")
+    t0 = time.perf_counter()
+    blur_frames, blur_launches, unequal, unblurred = make_blurred(torch, dev)
+    phase("blurred", t0, exposure_ms=EXPOSURE_S * 1e3, frames=blur_frames,
+          sampler_launches=blur_launches, frames_unequal_to_tap_mean=unequal,
+          frames_equal_to_sharp=unblurred)
+    if blur_launches != blur_frames:
+        raise AssertionError(f"sampler launched {blur_launches}x for {blur_frames} blurred frames")
+    if unequal or unblurred:
+        raise AssertionError(f"{unequal} blurred frames differ from the mean of their taps, "
+                             f"{unblurred} equal their sharp render")
 
     t0 = time.perf_counter()
     batch_seqs = [seq] + tex_seqs
@@ -842,8 +1052,8 @@ def main() -> int:
         kernel_entry(f"homography_warp_rowskip (B={nb}, run-vio-batch)", 403,
                      rowskip_launches, rowskip_err, times[("rowskip", "uint8", nb)],
                      compiled("rowskip_kernel", nb)),
-        kernel_entry("bilinear_sample (make-synthetic texture)", 174, sample_launches,
-                     sample_err, sample_time, ptxas["flat_kernel<h>"]),
+        sample_entry(sample_launches, blur_launches, sample_err, sample_time, ptxas,
+                     warp_cuda.pixels_per_thread),
     ]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,8 +8,8 @@ default; it fails when no GPU is found):
 - ``run-vio-batch``: many sequences in lockstep on one card
   (``run_offline_batch``), one pose file per input;
 - ``make-synthetic``: a synthetic sequence (procedural or photo-texture
-  ground), written as ``.npz``, ``_gt.txt``, ``_state_gt.txt`` and
-  ``_config.yaml`` (the last needs PyYAML).
+  ground, sharp or motion-blurred), written as ``.npz``, ``_gt.txt``,
+  ``_state_gt.txt`` and ``_config.yaml`` (the last needs PyYAML).
 
 Flags of the JAX CLI that the port does not implement yet are refused,
 never ignored.
@@ -34,7 +34,6 @@ NOT_YET_BATCH = {
 }
 NOT_YET_SYNTHETIC = {
     "traj_file": "--traj-file (B-spline trajectories)",
-    "exposure_ms": "--exposure-ms > 0 (motion blur)",
     "effects": "--effects (the sensor-effect chain)",
 }
 
@@ -231,7 +230,8 @@ def cmd_make_synthetic(args):
         duration=args.duration, seed=args.seed,
         sigma_w=args.sigma_w, sigma_a=args.sigma_a,
         bias_g=args.bias_g, bias_a=args.bias_a, texture_seed=args.seed,
-        texture=texture, tex_params=tex_params, device=device,
+        texture=texture, tex_params=tex_params, exposure_s=args.exposure_ms * 1e-3,
+        device=device,
     )
     np.savez_compressed(
         args.out, imu_t=seq.imu_t, imu_w=seq.imu_w, imu_a=seq.imu_a,
@@ -324,6 +324,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="index into the chosen split (default: seed)")
     s.add_argument("--tex-scale", type=float, default=4.0,
                    help="metres per texture period")
+    s.add_argument("--exposure-ms", type=float, default=0.0,
+                   help="camera exposure time; > 0 renders each frame as the mean "
+                        "of 3 poses across the exposure window (physical motion blur)")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # shape a --traj-file trajectory only; without one they change nothing,
     # as in the JAX verb
@@ -333,7 +336,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="height offset of --traj-file (unused without it)")
     # accepted only to be refused with a clear message (see NOT_YET_SYNTHETIC)
     s.add_argument("--traj-file", default=None, help="not implemented yet")
-    s.add_argument("--exposure-ms", type=float, default=0.0, help="not implemented yet")
     s.add_argument("--effects", action="store_true", help="not implemented yet")
     s.set_defaults(fn=cmd_make_synthetic)
     return p

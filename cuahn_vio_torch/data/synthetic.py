@@ -1,7 +1,7 @@
 """Homography-aware synthetic data: planar ground scenes + exact IMU.
 
 Counterpart of ``cuahn_vio.data.synthetic`` with the procedural and the
-photo-texture ground (exposure blur and sensor effects are not ported
+photo-texture ground and exposure blur (sensor effects are not ported
 yet, and are refused):
 
 - ``AnalyticTrajectory``: closed-form p(t), q(t); body rates and specific
@@ -10,7 +10,10 @@ yet, and are refused):
   and phases are arrays, so a caller can pass in any draw;
 - ``render_frame``: ray-casts every virtual-camera pixel (f = 159.5) onto
   the z = 0 ground plane and samples the procedural ground or a photo
-  texture (``data/textures.sample_plane``, the B4 kernel on CUDA);
+  texture (``data/textures.sample_plane``, the B4 kernel on CUDA), at one
+  pose or at many in one pass;
+- ``render_frame_blurred``: the mean of the renders at the poses of an
+  exposure window (motion blur);
 - ``make_sequence``: IMU stream (optional noise/biases from a numpy seed)
   + uint8 camera frames + ground truth.
 """
@@ -106,22 +109,35 @@ def ground_texture(xy: torch.Tensor, freqs: torch.Tensor, signs: torch.Tensor,
     return 0.5 + 0.5 * (waves @ (amps / amps.sum()))
 
 
+def _mat3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for (..., 3, 3) @ (..., 3, n) as elementwise products and adds,
+    so that each matrix of a stack is rounded as it is alone (a batched
+    matmul may take another kernel, and another rounding, per batch size)."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
+
+
 def ground_points(p_w, q_i2w, c_rot_i, i_t_i2c, height: int = 224, width: int = 320):
     """Where each pixel's ray meets the ground plane z = 0: (H, W, 2) world
     (x, y), and the (H, W) ray parameter, > 0 where the ray hits the plane
-    in front of the camera."""
+    in front of the camera. Poses (K, 3) / (K, 4) give (K, H, W, 2) and
+    (K, H, W) in one pass, each tap equal bit for bit to its pose alone."""
     dev = p_w.device
     _, k_inv = virtual_cam_k(height, width, device=dev)
     rot_i2w = quat_to_rot(q_i2w)
-    rot_c2w = rot_i2w @ c_rot_i.T
-    cam_center = p_w + rot_i2w @ i_t_i2c
+    rot_c2w = _mat3(rot_i2w, c_rot_i.T)
+    cam_center = p_w + _mat3(rot_i2w, i_t_i2c[:, None])[..., 0]
     u = torch.arange(width, dtype=torch.float32, device=dev)
     v = torch.arange(height, dtype=torch.float32, device=dev)
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     pix = torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)  # (H, W, 3)
-    d_w = (pix @ k_inv.T) @ rot_c2w.T
-    lam = -cam_center[2] / d_w[..., 2]
-    return cam_center[None, None, :2] + lam[..., None] * d_w[..., :2], lam
+    d_cam = pix @ k_inv.T  # the same for every pose
+    r = rot_c2w[..., None, None, :, :]  # (..., 1, 1, 3, 3)
+    d_w = (d_cam[..., 0:1] * r[..., 0] + d_cam[..., 1:2] * r[..., 1]
+           + d_cam[..., 2:3] * r[..., 2])  # (..., H, W, 3)
+    c = cam_center[..., None, None, :]
+    lam = -c[..., 2] / d_w[..., 2]
+    return c[..., :2] + lam[..., None] * d_w[..., :2], lam
 
 
 def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
@@ -129,7 +145,8 @@ def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
                  texture: Optional[torch.Tensor] = None,
                  tex_params: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The virtual camera's (H, W) float32 view of the textured ground, in
-    [0, 1]; rays that miss the plane render 0.
+    [0, 1]; rays that miss the plane render 0. Poses (K, 3) / (K, 4) give
+    the (K, H, W) views in one pass, with one texture lookup for all.
 
     The ground is the photo ``texture`` ((T, T) uint8 or float32 on the
     device, mapped by ``tex_params``, default ``default_tex_params()``)
@@ -144,6 +161,35 @@ def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
     else:
         tex = ground_texture(ground, *waves)
     return torch.where(lam > 0, tex, torch.zeros_like(tex))
+
+
+def render_frame_blurred(p_taps, q_taps, c_rot_i, i_t_i2c, waves=None,
+                         height: int = 224, width: int = 320,
+                         texture: Optional[torch.Tensor] = None,
+                         tex_params: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Motion-blurred frame: the float32 mean of ``render_frame`` at the K
+    exposure-window poses ``p_taps`` (K, 3) / ``q_taps`` (K, 4), each tap a
+    sharp render of the same rigid scene. All K taps are rendered in one
+    pass (on a photo texture, one launch of the sampler over K x H x W
+    points), each equal bit for bit to its ``render_frame``."""
+    imgs = render_frame(p_taps, q_taps, c_rot_i, i_t_i2c, waves, height, width, texture,
+                        tex_params)
+    return imgs.sum(dim=0) / imgs.shape[0]
+
+
+def exposure_taps(traj: AnalyticTrajectory, times, exposure_s: float, device):
+    """(F, K, 3) positions and (F, K, 4) quaternions of each frame's render
+    poses: K = 3 spread over the exposure window that ends at ``times``
+    (F,) seconds into the motion, or K = 1 at ``times`` when ``exposure_s``
+    is 0. Tap times are clamped to >= 0, so frames of the still phase stay
+    still."""
+    n_taps = 3 if exposure_s > 0.0 else 1
+    tap_off = np.linspace(-exposure_s, 0.0, n_taps)
+    tap_t = np.maximum(np.asarray(times, np.float64)[:, None] + tap_off[None, :], 0.0)
+    p, q = vmap(lambda t: (traj.pos_w(t), traj.quat_i2w(t)))(
+        torch.tensor(tap_t.reshape(-1), dtype=torch.float32, device=device)
+    )
+    return p.reshape(len(tap_t), n_taps, 3), q.reshape(len(tap_t), n_taps, 4)
 
 
 class SyntheticSequence(NamedTuple):
@@ -190,12 +236,13 @@ def make_sequence(
             ``device`` as uint8 once for the whole sequence and mapped onto
             the ground by ``tex_params`` (5,) (default
             ``default_tex_params()``).
-        exposure_s > 0 (motion blur) and ``effects`` (the sensor-effect
-            chain) are not ported yet and raise.
-    Frames are rendered on ``device``; everything returned is numpy.
+        exposure_s: camera exposure time; > 0 renders each frame as
+            ``render_frame_blurred`` over 3 poses spread across the exposure
+            window that ends at the frame's time (physical motion blur).
+        effects (the sensor-effect chain) is not ported yet and raises.
+    Frames are rendered on ``device``, one texture lookup each (one launch
+    of the sampler on a photo texture); everything returned is numpy.
     """
-    if exposure_s > 0.0:
-        raise NotImplementedError("exposure blur (exposure_s > 0) is not ported yet")
     if effects is not None:
         raise NotImplementedError("sensor effects are not ported yet")
     rng = np.random.default_rng(seed)
@@ -233,14 +280,11 @@ def make_sequence(
         tex_dev = torch.as_tensor(texture_u8(texture), device=device)
         params = default_tex_params() if tex_params is None else tex_params
         tp_dev = torch.as_tensor(np.asarray(params, np.float32), device=device)
-    cam_dev = torch.tensor(cam_t - t_still, dtype=torch.float32, device=device)
-    p_cam, q_cam = vmap(lambda t: (traj.pos_w(t), traj.quat_i2w(t)))(
-        torch.clamp(cam_dev, min=0.0)
-    )
+    p_taps, q_taps = exposure_taps(traj, cam_t - t_still, exposure_s, device)
     frames = np.zeros((len(cam_t), 224, 320), np.uint8)
     for i in range(len(cam_t)):
-        img = render_frame(p_cam[i], q_cam[i], c_rot_i, i_t_i2c, waves,
-                           texture=tex_dev, tex_params=tp_dev)
+        img = render_frame_blurred(p_taps[i], q_taps[i], c_rot_i, i_t_i2c, waves,
+                                   texture=tex_dev, tex_params=tp_dev)
         frames[i] = (img * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
 
     # GT at IMU rate, world frame, file convention [x y z qx qy qz qw]

@@ -16,8 +16,10 @@ the numpy code that builds the bank; it imports nothing of the JAX package):
 - the train/held-out split: every ``HELDOUT_EVERY``-th texture (by bank
   index) is held out for evaluation.
 - ``sample_plane``: mirror-tiled bilinear lookup of world (x, y) metres
-  through a similarity transform. The mirror tiling is torch arithmetic;
-  the lookup is ``ops.warp.bilinear_sample``, the flat-coordinate kernel
+  through a similarity transform, on one texture or on a batch of
+  textures each with its own points and transform (the JAX trainer's
+  ``vmap``). The mirror tiling is torch arithmetic; the lookup is
+  ``ops.warp.bilinear_sample``, one launch of the flat-coordinate kernel
   (B4) on CUDA. A uint8 texture is sampled on its raw levels and the blend
   scaled by 1/255, which is the JAX package's ``exact_u8`` Pallas call.
 
@@ -243,23 +245,32 @@ def sample_plane(texture: torch.Tensor, xy: torch.Tensor, params: torch.Tensor) 
     """Mirror-tiled bilinear texture lookup at world points.
 
     Args:
-        texture: (T, T) uint8 (levels k, sampled as k/255) or float32, on
-            the device of ``xy``.
-        xy: (..., 2) float32 world-plane coordinates in metres.
-        params: (5,) float32 [scale_m, cos, sin, off_u, off_v]: one texture
-            period spans ``scale_m`` metres, rotated and offset.
+        texture: (B, T, T) uint8 (levels k, sampled as k/255) or float32,
+            on the device of ``xy``; or one (T, T) texture.
+        xy: (B, ..., 2) float32 world-plane coordinates in metres, row b on
+            texture b; (..., 2) for one texture.
+        params: (B, 5) float32 [scale_m, cos, sin, off_u, off_v], row b
+            for texture b: one texture period spans ``scale_m`` metres,
+            rotated and offset; (5,) for one texture.
     Returns:
-        (...,) float32 sampled intensities.
+        (B, ...) float32 sampled intensities ((...) for one texture), from
+        one launch of the flat sampler: the JAX trainer's ``vmap`` of
+        ``sample_plane`` written out as a batch dim.
     """
-    x, y = plane_coords(texture.shape[0], xy, params)
-    out = bilinear_sample(texture, x.reshape(-1).contiguous(), y.reshape(-1).contiguous())
+    x, y = plane_coords(texture.shape[-1], xy, params)
+    rows = (texture.shape[0], -1) if texture.dim() == 3 else (-1,)
+    out = bilinear_sample(texture, x.reshape(rows).contiguous(), y.reshape(rows).contiguous())
     return out.reshape(x.shape)
 
 
 def plane_coords(t: int, xy: torch.Tensor, params: torch.Tensor):
-    """The (...,) pixel coordinates (x, y) of a (t, t) texture, mirror-tiled,
-    at which ``sample_plane`` samples world points ``xy`` (..., 2)."""
-    scale, c, s, ou, ov = params.unbind()
+    """The pixel coordinates (x, y) of a (t, t) texture, mirror-tiled, at
+    which ``sample_plane`` samples world points ``xy`` (..., 2) under
+    ``params`` (5,), or (B, ..., 2) under (B, 5), each of xy's shape
+    without its last dim."""
+    # each parameter as (B, 1, ..., 1), or a scalar, against xy[..., 0]
+    shape = (5, *params.shape[:-1], *[1] * (xy.dim() - params.dim()))
+    scale, c, s, ou, ov = params.movedim(-1, 0).reshape(shape).unbind()
     u = (c * xy[..., 0] - s * xy[..., 1]) / scale + ou
     v = (s * xy[..., 0] + c * xy[..., 1]) / scale + ov
     # mirror tiling: continuous triangular wave with period 2 -> [0, 1]

@@ -93,18 +93,19 @@ def load(source: str) -> ctypes.CDLL:
 _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
-_KERNEL = re.compile(r"([a-z]+_kernel)I([a-z])(?:Li(\d+)E)?")
+_KERNEL = re.compile(r"([a-z]+_kernel)I([a-z])(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
 def kernel_name(mangled: str) -> str | None:
     """``warp_kernel<h,2>`` for the mangled ``warp_kernel<uint8_t, 2>`` (the
-    Itanium type code: h uint8, f float), ``flat_kernel<f>`` for
+    Itanium type code: h uint8, f float), ``flat_kernel<h,8,1>`` for
+    ``flat_kernel<uint8_t, 8, true>``, ``flat_kernel<f>`` for
     ``flat_kernel<float>``; None for a function that is not a kernel
     template of warp.cu."""
     k = _KERNEL.search(mangled)
     if not k:
         return None
-    return f"{k.group(1)}<{k.group(2)}{',' + k.group(3) if k.group(3) else ''}>"
+    return "{}<{}>".format(k.group(1), ",".join(g for g in k.groups()[1:] if g))
 
 
 def ptxas_report(library: str) -> dict:

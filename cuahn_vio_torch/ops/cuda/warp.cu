@@ -9,7 +9,8 @@
 //   rowskip_kernel   _sample_lanes_rowskip (:290-417, call :403), the batched
 //                    warp under BATCH_SAMPLER = "rowskip";
 //   flat_kernel      bilinear_sample_pallas (:173-188, via _sample_flat), the
-//                    texture sampler of data/textures.py sample_plane.
+//                    texture sampler of data/textures.py sample_plane, and
+//                    its batch over textures (jax.vmap in the JAX trainer).
 //
 // What every kernel computes, per sample point: source coordinates (su, sv),
 // for the warps [x, y, z] = H_b [u, v, 1] in float32 (see row_dot) and
@@ -64,11 +65,31 @@
 //   likewise pays for every block it needs); a tile with no in-image tap
 //   loads nothing. The band holds copies of the very values warp_kernel
 //   reads, so the two are bit-identical.
-//   flat_kernel takes coordinates instead of a homography: one thread a
-//   point.
+//   flat_kernel takes coordinates instead of a homography, for B textures
+//   at once (B = 1 for a render). Its shapes: a sharp frame, 71,680
+//   points; a blurred frame, 3 x 71,680 in one launch; the trainer's
+//   batch, 16 textures x 215,040. The first two fit on the card in one
+//   wave, so the launch (~1.3 us of a ~2.9 us call) and two dependent
+//   round trips (the coordinates, then the taps they address) bound them.
+//   At the third, 41 MB of coordinates and outputs cross device memory
+//   (~12 us at 3.35 TB/s), but the taps bound it: at the trainer's texture
+//   scales the points of a warp scatter over the texture, and each load
+//   of a warp costs one L1 wavefront per distinct line it touches, up to
+//   32. So a block takes kFlatThreads x P adjacent points and a thread
+//   every kFlatThreads-th of them (P per launch by the warps' rule,
+//   pixels_per_thread on B rows of n points: 1 at the first two shapes,
+//   8 at the third): each load of a warp covers 32 adjacent points, whose
+//   coordinates and outputs are whole lines and whose taps lie close.
+//   (P adjacent points a thread with 16-byte coordinate loads spread each
+//   tap load over P times the texture and was 1.5x slower at the third
+//   shape; PERF.md.) uint8 rows of whole 4-byte words read both taps of a
+//   row from one word (WordTaps): two or three loads a point instead of
+//   four. The grid is (point tiles, B), each
+//   texture's pointer in a register (opaque), offsets 32-bit within a
+//   texture and over the B x n points.
 //
-// The tile and band sizes and the bulk copy were chosen on the H100 by
-// timing alternatives (tune_warp.py builds a modified copy of this file
+// The tile and band sizes, the bulk copy and the flat sampler's point
+// layout and word taps were chosen on the H100 by timing alternatives (tune_warp.py builds a modified copy of this file
 // with --baseline; PERF.md has the table).
 
 #include <cuda_runtime.h>
@@ -85,7 +106,7 @@ constexpr int kPixelsMin = 1;
 constexpr int kPixelsMax = 8;
 constexpr int kBandBytes = 16384;  // rowskip_kernel's shared row band
 constexpr int kWarps = kThreads / 32;
-constexpr int kFlatThreads = 256;
+constexpr int kFlatThreads = 256;  // threads per block of the flat sampler
 constexpr float kClip = 1e4f;
 
 // h0*u + h1*v + h2, rounded as fma(h1, v, h0*u) + h2: the rounding of the
@@ -130,6 +151,7 @@ __device__ __forceinline__ const T* opaque(const T* p) {
 
 template <typename T>
 struct GlobalTaps {  // a whole image in global memory, read-only path
+  static constexpr bool kPairs = false;
   const T* img;  // opaque()
   int h, w, sh, sw;
   __device__ __forceinline__ unsigned row(int y) const { return inside(y, h - 1) * sh; }
@@ -141,6 +163,7 @@ struct GlobalTaps {  // a whole image in global memory, read-only path
 
 template <typename T>
 struct BandTaps {  // rows r0..r1 of a contiguous w-wide image, in shared memory
+  static constexpr bool kPairs = false;
   const T* band;
   int r0, r1, w;
   __device__ __forceinline__ unsigned row(int y) const { return inside(y - r0, r1 - r0) * w; }
@@ -151,9 +174,34 @@ struct BandTaps {  // rows r0..r1 of a contiguous w-wide image, in shared memory
 };
 
 struct NoTaps {  // a tile none of whose taps is in the image
+  static constexpr bool kPairs = false;
   __device__ __forceinline__ unsigned row(int) const { return 0; }
   __device__ __forceinline__ unsigned col(int) const { return 0; }
   __device__ __forceinline__ float at(unsigned) const { return 0.0f; }
+};
+
+// uint8 rows that are whole 4-byte words (w % 4 == 0, each row 4-byte
+// aligned), read a row's two taps (x, x + 1) at a time: both from the one
+// aligned word that holds them, or from two where they straddle words (x %
+// 4 == 3), so a point takes two or three loads instead of four. The loads
+// are what bound the flat sampler when a warp's taps scatter over the
+// texture (one L1 wavefront per distinct line a load touches).
+struct WordTaps {
+  static constexpr bool kPairs = true;
+  const uint8_t* img;  // opaque()
+  int h, w, sh;
+  // row y's taps at x (if a) and x + 1 (if b); each 0 where not read
+  __device__ __forceinline__ void pair(int y, int x, bool a, bool b, float* ta,
+                                       float* tb) const {
+    const unsigned* row = reinterpret_cast<const unsigned*>(img + inside(y, h - 1) * sh);
+    const int q = min(max(x, 0), w - 1) >> 2;  // the word of x (of x + 1 = 0 when x = -1)
+    const int k = x - 4 * q;                    // x's byte in it: -1..3 where a tap is read
+    const unsigned lo = __ldg(row + q);
+    const unsigned hi = b && k == 3 ? __ldg(row + q + 1) : 0u;
+    const unsigned two = __byte_perm(lo, hi, max(k, 0) | ((k + 1) & 7) << 4);
+    *ta = a ? static_cast<float>(two & 0xffu) : 0.0f;
+    *tb = b ? static_cast<float>((two >> 8) & 0xffu) : 0.0f;
+  }
 };
 
 // The bilinear tap-and-blend of every entry point (see the header). An
@@ -174,12 +222,18 @@ __device__ __forceinline__ float sample_bilinear(float su, float sv, int h, int 
   const bool xb = static_cast<unsigned>(xi + 1) < static_cast<unsigned>(w);
   const bool ya = static_cast<unsigned>(yi) < static_cast<unsigned>(h);
   const bool yb = static_cast<unsigned>(yi + 1) < static_cast<unsigned>(h);
-  const unsigned ra = taps.row(yi), rb = taps.row(yi + 1);
-  const unsigned ca = taps.col(xi), cb = taps.col(xi + 1);
-  const float t00 = ya && xa ? taps.at(ra + ca) : 0.0f;
-  const float t01 = ya && xb ? taps.at(ra + cb) : 0.0f;
-  const float t10 = yb && xa ? taps.at(rb + ca) : 0.0f;
-  const float t11 = yb && xb ? taps.at(rb + cb) : 0.0f;
+  float t00, t01, t10, t11;
+  if constexpr (Taps::kPairs) {
+    taps.pair(yi, xi, ya && xa, ya && xb, &t00, &t01);
+    taps.pair(yi + 1, xi, yb && xa, yb && xb, &t10, &t11);
+  } else {
+    const unsigned ra = taps.row(yi), rb = taps.row(yi + 1);
+    const unsigned ca = taps.col(xi), cb = taps.col(xi + 1);
+    t00 = ya && xa ? taps.at(ra + ca) : 0.0f;
+    t01 = ya && xb ? taps.at(ra + cb) : 0.0f;
+    t10 = yb && xa ? taps.at(rb + ca) : 0.0f;
+    t11 = yb && xb ? taps.at(rb + cb) : 0.0f;
+  }
   const float acc = (1.0f - wx) * (1.0f - wy) * t00 + wx * (1.0f - wy) * t01 +
                     (1.0f - wx) * wy * t10 + wx * wy * t11;
   return nan ? __int_as_float(0x7fc00000) : acc * scale;
@@ -365,16 +419,41 @@ rowskip_kernel(const T* __restrict__ imgs, const float* __restrict__ hs,
   }
 }
 
-// One (h, w) image sampled at n flat coordinates.
-template <typename T>
+// Image b of (B, h, w) sampled at row b of (B, n) flat coordinates. A
+// block takes kFlatThreads x P adjacent points of a row and a thread every
+// kFlatThreads-th of them, so each load of a warp covers 32 adjacent
+// points: coordinates and outputs move in whole lines, and the taps of
+// adjacent points, which lie close on the texture, share lines. kWords:
+// uint8 rows read a word at a time (WordTaps).
+template <typename T, int P, bool kWords>
 __global__ void __launch_bounds__(kFlatThreads)
-flat_kernel(const T* __restrict__ img, const float* __restrict__ su,
+flat_kernel(const T* __restrict__ imgs, const float* __restrict__ su,
             const float* __restrict__ sv, float* __restrict__ out, int n, int h, int w,
-            int sh, int sw, float scale) {
-  const int i = blockIdx.x * kFlatThreads + threadIdx.x;
-  if (i >= n) return;
-  out[i] = sample_bilinear(__ldg(su + i), __ldg(sv + i), h, w, scale,
-                           GlobalTaps<T>{opaque(img), h, w, sh, sw});
+            long long sb, int sh, int sw, float scale) {
+  const int first = blockIdx.x * (kFlatThreads * P) + threadIdx.x;
+  const int b = blockIdx.y;
+  const int row = b * n;  // B * n fits in int (the launcher checks)
+  const T* img = opaque(imgs + b * sb);
+  float x[P], y[P], res[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = first + k * kFlatThreads;
+    x[k] = i < n ? __ldg(su + row + i) : 0.0f;
+    y[k] = i < n ? __ldg(sv + row + i) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if constexpr (kWords) {
+      res[k] = sample_bilinear(x[k], y[k], h, w, scale, WordTaps{img, h, w, sh});
+    } else {
+      res[k] = sample_bilinear(x[k], y[k], h, w, scale, GlobalTaps<T>{img, h, w, sh, sw});
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = first + k * kFlatThreads;
+    if (i < n) out[row + i] = res[k];
+  }
 }
 
 constexpr long long kIntMax = 2147483647LL;
@@ -491,16 +570,44 @@ int launch_rowskip(const void* imgs, const void* hs, void* out, int b, int h, in
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int P, bool kWords>
+void start_flat(const void* imgs, const void* su, const void* sv, void* out, int b, int n,
+                int h, int w, long long sb, int sh, int sw, float scale, cudaStream_t stream) {
+  const unsigned tiles = static_cast<unsigned>((n + kFlatThreads * P - 1LL) / (kFlatThreads * P));
+  flat_kernel<T, P, kWords><<<dim3(tiles, b), kFlatThreads, 0, stream>>>(
+      static_cast<const T*>(imgs), static_cast<const float*>(su), static_cast<const float*>(sv),
+      static_cast<float*>(out), n, h, w, sb, sh, sw, scale);
+}
+
+template <typename T, bool kWords>
+auto flat_start(int points_per_thread) {
+  auto start = start_flat<T, 8, kWords>;
+  switch (points_per_thread) {
+    case 1: start = start_flat<T, 1, kWords>; break;
+    case 2: start = start_flat<T, 2, kWords>; break;
+    case 4: start = start_flat<T, 4, kWords>; break;
+  }
+  return start;
+}
+
 template <typename T>
-int launch_flat(const void* img, const void* su, const void* sv, void* out, int n, int h,
-                int w, long long sh, long long sw, float scale, void* stream) {
-  if (n <= 0 || !int_indexable(1, h, w, 0, sh, sw)) {
+int launch_flat(const void* imgs, const void* su, const void* sv, void* out, int b, int n,
+                int h, int w, long long sb, long long sh, long long sw, float scale,
+                void* stream) {
+  if (b <= 0 || b > 65535 || n <= 0 || sb < 0 || !int_indexable(1, h, w, 0, sh, sw) ||
+      static_cast<long long>(b) * n > kIntMax - kFlatThreads * kPixelsMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kFlatThreads - 1) / kFlatThreads);
-  flat_kernel<T><<<grid, kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(img), static_cast<const float*>(su), static_cast<const float*>(sv),
-      static_cast<float*>(out), n, h, w, static_cast<int>(sh), static_cast<int>(sw), scale);
+  const int p = pixels_per_thread(b, 1, n);  // B rows of n points
+  auto start = flat_start<T, false>(p);
+  if constexpr (sizeof(T) == 1) {  // rows of whole, aligned words: WordTaps
+    if (sw == 1 && w % 4 == 0 && sh % 4 == 0 && sb % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(imgs) % 4 == 0) {
+      start = flat_start<T, true>(p);
+    }
+  }
+  start(imgs, su, sv, out, b, n, h, w, sb, static_cast<int>(sh), static_cast<int>(sw), scale,
+        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,14 +653,15 @@ extern "C" int warp_pixels_per_thread(int b, int h, int w) {
 
 extern "C" int rowskip_band_bytes() { return kBandBytes; }
 
-extern "C" int bilinear_sample_u8(const void* img, const void* su, const void* sv,
-                                  void* out, int n, int h, int w, long long sh,
-                                  long long sw, void* stream) {
-  return launch_flat<uint8_t>(img, su, sv, out, n, h, w, sh, sw, 1.0f / 255.0f, stream);
+// imgs: B images of h x w (image stride sb); su, sv, out: contiguous (B, n).
+extern "C" int bilinear_sample_batch_u8(const void* imgs, const void* su, const void* sv,
+                                        void* out, int b, int n, int h, int w, long long sb,
+                                        long long sh, long long sw, void* stream) {
+  return launch_flat<uint8_t>(imgs, su, sv, out, b, n, h, w, sb, sh, sw, 1.0f / 255.0f, stream);
 }
 
-extern "C" int bilinear_sample_f32(const void* img, const void* su, const void* sv,
-                                   void* out, int n, int h, int w, long long sh,
-                                   long long sw, void* stream) {
-  return launch_flat<float>(img, su, sv, out, n, h, w, sh, sw, 1.0f, stream);
+extern "C" int bilinear_sample_batch_f32(const void* imgs, const void* su, const void* sv,
+                                         void* out, int b, int n, int h, int w, long long sb,
+                                         long long sh, long long sw, void* stream) {
+  return launch_flat<float>(imgs, su, sv, out, b, n, h, w, sb, sh, sw, 1.0f, stream);
 }

@@ -31,8 +31,8 @@ _ARGTYPES = {
     "homography_warp": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
     # imgs (contiguous), hs, out, B, H, W, homography batch stride, stream
     "homography_warp_rowskip": [_P, _P, _P, _I, _I, _I, _L, _P],
-    # img, su, sv, out, N, H, W, image strides (2), stream
-    "bilinear_sample": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    # imgs, su, sv, out (contiguous (B, N)), B, N, H, W, image strides (3), stream
+    "bilinear_sample_batch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
 }
 _INT_MAX = 2**31 - 1
 
@@ -48,10 +48,12 @@ def _library() -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the kernels' C launchers in a library built from ``warp.cu``
-    (this one or an earlier one: they share these entry points)."""
+    (this one, or an earlier one, which may lack some of them)."""
     for stem, argtypes in _ARGTYPES.items():
         for suffix in ("u8", "f32"):
-            fn = getattr(lib, f"{stem}_{suffix}")
+            fn = getattr(lib, f"{stem}_{suffix}", None)
+            if fn is None:
+                continue
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
@@ -163,16 +165,19 @@ def homography_warp_rowskip_cuda(imgs: torch.Tensor, h_uv: torch.Tensor) -> torc
 
 def bilinear_sample_cuda(img: torch.Tensor, su: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
     """Sample one (H, W) uint8|float32 CUDA image at (N,) float32 pixel
-    coordinates; returns (N,) float32."""
+    coordinates -> (N,) float32, or (B, H, W) images, each at its row of
+    (B, N) coordinates -> (B, N): one launch of the flat sampler."""
     check_sample_args(img, su, sv)
     _check_cuda(img, su, sv)
-    n = su.shape[0]
-    if not 0 < n <= _INT_MAX - 256:
-        raise ValueError(f"{n} sample points outside the kernel's grid")
-    check_int_indexing(img.shape, img.stride())
-    hgt, wid = img.shape
-    out = torch.empty((n,), dtype=torch.float32, device=img.device)
-    _launch(SAMPLE_KERNEL, _entry("bilinear_sample", img.dtype),
-            img.data_ptr(), su.data_ptr(), sv.data_ptr(), out.data_ptr(),
-            n, hgt, wid, *img.stride(), device=img.device)
+    imgs = img if img.dim() == 3 else img[None]
+    b, n = imgs.shape[0], su.shape[-1]
+    if not 0 < b <= 65535:
+        raise ValueError(f"batch {b} outside the kernel's grid (1..65535)")
+    if not 0 < b * n <= _INT_MAX - 2048:
+        raise ValueError(f"{b} x {n} sample points outside the kernel's int indexing")
+    check_int_indexing(imgs.shape[1:], imgs.stride()[1:])
+    out = torch.empty(su.shape, dtype=torch.float32, device=img.device)
+    _launch(SAMPLE_KERNEL, _entry("bilinear_sample_batch", img.dtype),
+            imgs.data_ptr(), su.data_ptr(), sv.data_ptr(), out.data_ptr(),
+            b, n, *imgs.shape[1:], *imgs.stride(), device=img.device)
     return out

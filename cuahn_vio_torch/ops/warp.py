@@ -11,9 +11,10 @@ Counterpart of ``cuahn_vio.ops.warp`` and of the Pallas kernels of
   kernel (B3). A CPU tensor goes to ``homography_warp_plain``, the plain
   PyTorch version of both: B3 computes B2's function bit for bit, so the
   two kernels share one plain version.
-- ``bilinear_sample``: one image sampled at flat coordinates, the texture
-  sampler's entry point: the flat-coordinate kernel (B4) on CUDA,
-  ``bilinear_sample_flat`` on the CPU.
+- ``bilinear_sample``: an image (or a batch of images, each at its own
+  points) sampled at flat coordinates, the texture sampler's entry point:
+  the flat-coordinate kernel (B4) on CUDA, ``bilinear_sample_flat`` on the
+  CPU.
 
 Semantics are those of the Pallas kernels: for each output pixel (u, v),
 ``[x, y, z] = H [u, v, 1]`` in float32 (rounded like the reference's
@@ -90,13 +91,17 @@ def check_warp_args(imgs: torch.Tensor, h_uv: torch.Tensor) -> None:
 
 
 def check_sample_args(img: torch.Tensor, su: torch.Tensor, sv: torch.Tensor) -> None:
-    """Shapes and dtypes that both versions of the flat sampler take."""
-    if img.dim() != 2:
-        raise ValueError(f"img must be (H, W), got {tuple(img.shape)}")
+    """Shapes and dtypes that both versions of the flat sampler take: an
+    (H, W) image with (N,) coordinates, or (B, H, W) images with (B, N)."""
+    if img.dim() not in (2, 3):
+        raise ValueError(f"img must be (H, W) or (B, H, W), got {tuple(img.shape)}")
     if img.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"img must be uint8 or float32, got {img.dtype}")
-    if su.dim() != 1 or su.shape != sv.shape:
-        raise ValueError(f"su, sv must be (N,) each, got {tuple(su.shape)}, {tuple(sv.shape)}")
+    want = "(N,)" if img.dim() == 2 else f"(B, N) with B={img.shape[0]}"
+    if (su.dim() != img.dim() - 1 or su.shape != sv.shape
+            or (img.dim() == 3 and su.shape[0] != img.shape[0])):
+        raise ValueError(f"su, sv must be {want} each for img {tuple(img.shape)}, got "
+                         f"{tuple(su.shape)}, {tuple(sv.shape)}")
     if su.dtype != torch.float32 or sv.dtype != torch.float32:
         raise TypeError(f"su, sv must be float32, got {su.dtype}, {sv.dtype}")
 
@@ -167,18 +172,22 @@ def homography_warp_plain(imgs: torch.Tensor, h_uv: torch.Tensor) -> torch.Tenso
 
 
 def bilinear_sample_flat(img: torch.Tensor, su: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the flat-coordinate kernel (B4): one
-    (H, W) uint8|float32 image at (N,) float32 pixel coordinates -> (N,)
-    float32, with ``_sample_flat``'s semantics (clip to ±1e4, taps off the
-    image weigh 0, a NaN coordinate gives NaN)."""
+    """Plain PyTorch version of the flat-coordinate kernel (B4): an (H, W)
+    uint8|float32 image at (N,) float32 pixel coordinates -> (N,) float32,
+    or (B, H, W) images, each at its own row of (B, N) coordinates -> (B,
+    N), with ``_sample_flat``'s semantics (clip to ±1e4, taps off the image
+    weigh 0, a NaN coordinate gives NaN)."""
     check_sample_args(img, su, sv)
-    return _sample_plain(img[None], su[None], sv[None])[0]
+    if img.dim() == 2:
+        return _sample_plain(img[None], su[None], sv[None])[0]
+    return _sample_plain(img, su, sv)
 
 
 def bilinear_sample(img: torch.Tensor, su: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
-    """Sample (H, W) ``img`` at flat (N,) pixel coordinates -> (N,) float32.
-    CUDA tensors launch the flat-coordinate kernel (or raise); CPU tensors
-    take the plain version."""
+    """Sample (H, W) ``img`` at flat (N,) pixel coordinates -> (N,) float32,
+    or (B, H, W) images at (B, N) coordinates -> (B, N). CUDA tensors
+    launch the flat-coordinate kernel (or raise); CPU tensors take the
+    plain version."""
     if img.is_cuda:
         from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
 

@@ -135,8 +135,7 @@ def test_cli_make_synthetic_matches_jax_cli(tmp_path):
     assert (tmp_path / "t_config.yaml").read_text() == (tmp_path / "j_config.yaml").read_text()
 
 
-@pytest.mark.parametrize("flag", [["--traj-file", "traj.txt"], ["--exposure-ms", "8"],
-                                  ["--effects"]])
+@pytest.mark.parametrize("flag", [["--traj-file", "traj.txt"], ["--effects"]])
 def test_cli_make_synthetic_refuses_flags_not_ported(flag, tmp_path):
     with pytest.raises(SystemExit, match=flag[0]):
         tcli.main(["make-synthetic", "--device", "cpu", "--out", str(tmp_path / "o.npz"),

@@ -9,8 +9,9 @@ flat sampler (B4) to max abs error 1e-5, the row-band warp (B3) to the
 warp kernel bit for bit (0.0); at the shapes the tiling of several pixels
 per thread makes risky (ragged and tiny widths, B = 1 and 65, row bands
 just under and over the shared band) and at a rendered frame's texture
-coordinates, all three bit for bit (0.0). The batched path and the CLI run
-on the card too.
+coordinates, all three bit for bit (0.0); the flat sampler's batched form
+(B = 1, 3 and 16 textures, ragged N, misaligned coordinates) bit for bit
+too. The batched path, the blurred render and the CLI run on the card too.
 """
 
 import numpy as np
@@ -276,3 +277,64 @@ def test_warp_wrapper_refuses_what_int_cannot_index(gpu):
     with pytest.raises(ValueError, match="int indexing"):
         homography_warp_cuda(imgs, hs)
     assert tcuda.launch_counts["homography_warp"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_batched_flat_sampler_is_bit_identical(gpu, dtype, b):
+    """B textures, each at its own row of blurred-frame coordinates (the
+    trainer batch's shape at B = 16), whole, at a ragged N (N mod 8 != 0)
+    and 4 bytes past alignment: one launch each, bit for bit."""
+    import chip_smoke
+    from cuahn_vio_torch.ops.warp import bilinear_sample, bilinear_sample_flat
+
+    texs, su, sv = chip_smoke.batch_sample_inputs(torch, gpu, dtype)
+    texs, su, sv = texs[:b], su[:b], sv[:b]
+    cut = su.shape[1] - 5
+    cases = [(su, sv), (su[:, :cut].contiguous(), sv[:, :cut].contiguous()),
+             (chip_smoke.misaligned(torch, su), chip_smoke.misaligned(torch, sv))]
+    for csu, csv in cases:
+        before = tcuda.launch_counts["bilinear_sample"]
+        out = bilinear_sample(texs, csu, csv)
+        ref = bilinear_sample_flat(texs, csu, csv)
+        torch.cuda.synchronize()
+        assert tcuda.launch_counts["bilinear_sample"] == before + 1
+        assert out.shape == csu.shape and torch.equal(out, ref)
+    one = bilinear_sample(texs[0], su[0][1:], sv[0][1:])  # su[1:]: 4-byte aligned only
+    assert torch.equal(one, bilinear_sample_flat(texs[0], su[0][1:], sv[0][1:]))
+
+
+def test_flat_sampler_wrapper_refuses_what_the_kernel_does_not_take(gpu):
+    from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda
+
+    tex = torch.zeros((3, 16, 16), dtype=torch.uint8, device=gpu)
+    su = torch.zeros((3, 10), device=gpu)
+    before = tcuda.launch_counts["bilinear_sample"]
+    with pytest.raises(ValueError, match="devices|CUDA"):
+        bilinear_sample_cuda(tex, su, su.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        bilinear_sample_cuda(tex, su[:, ::2], su[:, ::2])
+    with pytest.raises(ValueError):  # a batch of textures takes (B, N) coordinates
+        bilinear_sample_cuda(tex[:1], su[0], su[0])
+    big = torch.empty((2, 2**30), device=gpu)  # B x N = 2**31: past int
+    with pytest.raises(ValueError, match="int indexing"):
+        bilinear_sample_cuda(tex[:2], big, big)
+    assert tcuda.launch_counts["bilinear_sample"] == before
+
+
+def test_blurred_make_sequence_samples_once_per_frame(gpu):
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, make_sequence
+    from cuahn_vio_torch.data.textures import _procedural_extras, quantize_u8
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    t_ic = np.asarray(VioOptions().t_imu_to_cam)
+    tex = quantize_u8(_procedural_extras(512)[2])
+    tcuda.reset_launch_counts()
+    seq = make_sequence(AnalyticTrajectory(), t_ic, duration=0.5, seed=3, texture=tex,
+                        exposure_s=0.008, device=gpu)
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["bilinear_sample"] == len(seq.cam_t) == len(seq.frames)
+    cpu = make_sequence(AnalyticTrajectory(), t_ic, duration=0.5, seed=3, texture=tex,
+                        exposure_s=0.008, device="cpu")
+    diff = np.abs(seq.frames.astype(int) - cpu.frames.astype(int))
+    assert (diff <= 1).mean() >= 0.999

@@ -292,6 +292,20 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
     }
 
 
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN12_GLOBAL__N_111warp_kernelIhLi4EEEvPKT_PKfPfiiiiiifb", "warp_kernel<h,4>"),
+    ("_ZN12_GLOBAL__N_111flat_kernelIfEEvPKT_PKfS4_Pfiiiiif", "flat_kernel<f>"),
+    ("_ZN12_GLOBAL__N_111flat_kernelIhLi8ELb1EEEvPKT_PKfS5_Pfiiixiif", "flat_kernel<h,8,1>"),
+    ("_ZN12_GLOBAL__N_111flat_kernelIfLi1ELb0EEEvPKT_PKfS5_Pfiiixiif", "flat_kernel<f,1,0>"),
+    ("_ZN12_GLOBAL__N_113resident_threadsEv", None),
+])
+def test_kernel_name_keeps_every_template_argument(mangled, name):
+    """Each instantiation of a kernel template gets its own name (type,
+    points a thread and, for the flat sampler, whether it reads whole
+    words), so no two share an entry of the ptxas report."""
+    assert tbuild.kernel_name(mangled) == name
+
+
 # --------------------------------------------------------------- weights
 @pytest.fixture(scope="module")
 def weight_trees():

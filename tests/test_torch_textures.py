@@ -182,8 +182,6 @@ def test_textured_make_sequence_matches_jax():
 
 def test_make_sequence_refuses_what_is_not_ported():
     t_ic = np.asarray(VioOptions().t_imu_to_cam)
-    with pytest.raises(NotImplementedError, match="exposure"):
-        make_sequence(AnalyticTrajectory(), t_ic, duration=0.3, exposure_s=0.008, device="cpu")
     with pytest.raises(NotImplementedError, match="sensor effects"):
         make_sequence(AnalyticTrajectory(), t_ic, duration=0.3, effects=object(), device="cpu")
 

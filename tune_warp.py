@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Dissect and time the warp kernels of ``cuahn_vio_torch/ops/cuda/warp.cu``
-on one GPU, beside earlier or modified copies of it.
+"""Dissect and time the kernels of ``cuahn_vio_torch/ops/cuda/warp.cu`` on
+one GPU, beside earlier or modified copies of it.
 
     python3 tune_warp.py [--baseline OTHER_warp.cu ...] [--out FILE.json]
 
@@ -13,7 +13,7 @@ parallel. Then:
    bytes (``-Xptxas -v``), and the SASS instruction count from
    ``cuobjdump -sass``: the whole function, and its main body (before the
    first subroutine, i.e. without the IEEE division's slow path) per output
-   pixel;
+   pixel (per point of the flat sampler);
 2. parity of every library with the plain version on ``chip_smoke.py``'s
    warp cases (224x320 at B = 1, 4, 8, 65 and the ragged shapes, uint8 and
    float32): max abs error must be 0.0 and NaN where the plain version has
@@ -21,7 +21,14 @@ parallel. Then:
 3. device time per call from CUDA-graph replays (as ``chip_smoke.py`` phase
    3) of every library and of ``grid_sample`` on the same points, at the
    phase-3 cases, in turns: each case runs the libraries in one order, then
-   in the reverse order, and both times are kept.
+   in the reverse order, and both times are kept;
+4. the flat sampler (B4) of every library at its three shapes
+   (``chip_smoke.py`` phase 3: a frame's, a blurred frame's and the
+   trainer batch's coordinates, uint8): bit for bit against the plain
+   version, then device time beside ``grid_sample`` and the launch floor,
+   in turns as above. A library whose sampler takes no batch (a
+   ``warp.cu`` from before the batched sampler) is called once per
+   texture at shape 3, and the output says so.
 
 Prints one line per measurement and writes every number to ``--out``
 (default ``cuahn_vio_torch/_build/tune_warp.json``), and each library's
@@ -124,6 +131,42 @@ def caller(torch, lib, kernel: str, imgs, hs):
     return call, out
 
 
+# the flat sampler's entry in a warp.cu from before it took a batch (commit
+# 2e2cbb8 and earlier): img, su, sv, out, N, H, W, image strides (2), stream
+UNBATCHED_SAMPLE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+    [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+
+
+def sample_caller(torch, lib, imgs, su, sv):
+    """A no-argument call of ``lib``'s flat sampler on (B, H, W) ``imgs``
+    at (B, N) coordinates into a fixed output, on the current stream:
+    one launch, or, for a library whose sampler takes no batch, one
+    launch per image. Returns (call, launches per call)."""
+    b, n = su.shape
+    hgt, wid = imgs.shape[1:]
+    out = torch.empty((b, n), dtype=torch.float32, device=imgs.device)
+    sfx = "u8" if imgs.dtype == torch.uint8 else "f32"
+    batched = getattr(lib, f"bilinear_sample_batch_{sfx}", None)
+    if batched is not None:
+        calls = [(batched, (imgs.data_ptr(), su.data_ptr(), sv.data_ptr(), out.data_ptr(), b,
+                            n, hgt, wid, *imgs.stride()))]
+    else:
+        fn = getattr(lib, f"bilinear_sample_{sfx}")
+        fn.argtypes, fn.restype = UNBATCHED_SAMPLE_ARGTYPES, ctypes.c_int
+        calls = [(fn, (imgs[k].data_ptr(), su[k].data_ptr(), sv[k].data_ptr(),
+                       out[k].data_ptr(), n, hgt, wid, *imgs.stride()[1:])) for k in range(b)]
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        for fn, args in calls:
+            err = fn(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"flat sampler launch failed: cudaError {err}")
+        return out
+
+    return call, len(calls)
+
+
 def check_libraries(torch, chip_smoke, libs: dict, imgs, hs) -> None:
     """Both warps of every library in ``libs`` against the plain version on
     (imgs, hs): max abs error 0.0 and NaN where it has NaN, or raise."""
@@ -189,7 +232,7 @@ def main() -> int:
             f.write(text)
         sass = sass_counts(text)
         for kern, info in sorted(ptxas.items()):
-            pix = int(kern[:-1].split(",")[1]) if "," in kern else 1  # warp_kernel<h,P>
+            pix = int(kern[:-1].split(",")[1]) if "," in kern else 1  # <h,P>
             per_px = sass.get(kern, {}).get("main", 0) / pix
             info.update(sass_total=sass.get(kern, {}).get("total"),
                         sass_main=sass.get(kern, {}).get("main"),
@@ -238,6 +281,54 @@ def main() -> int:
             mean = sum(times[n]) / 2
             print(f"    {n:13s} {times[n][0]:.5f}/{times[n][1]:.5f} ms, "
                   f"{mean / lib_mean:.3f}x grid_sample, {mean / bound:.2f}x bound", flush=True)
+
+    # the flat sampler (B4) at its three shapes (chip_smoke.py phase 3):
+    # parity with the plain version, then device time in turns
+    from cuahn_vio_torch.ops.warp import bilinear_sample_flat
+
+    rng = np.random.default_rng(4)
+    tex = torch.as_tensor(rng.integers(0, 256, (1, 512, 512)).astype(np.uint8), device=dev)
+    texs, bsu, bsv = chip_smoke.batch_sample_inputs(torch, dev, torch.uint8)
+    shapes = {1: (tex, *(c[None] for c in chip_smoke.frame_sample_coords(torch, dev))),
+              2: (tex, *(c[None] for c in chip_smoke.frame_sample_coords(
+                  torch, dev, chip_smoke.EXPOSURE_S))),
+              3: (texs, bsu, bsv)}
+    one = torch.zeros(1, device=dev)
+    for shape, (imgs, su, sv) in shapes.items():
+        ref = bilinear_sample_flat(imgs, su, sv)
+        calls = {n: sample_caller(torch, libs[n], imgs, su, sv) for n in names}
+        for n, (call, _) in calls.items():
+            out = call().clone()
+            torch.cuda.synchronize()
+            err = chip_smoke.nan_checked_err(torch, out, ref, f"{n} sampler shape {shape}")
+            if err != 0.0:
+                raise AssertionError(f"{n} sampler shape {shape}: max abs err {err:.3e}")
+        img_f = (imgs.float() / 255.0)[:, None]
+        grid = torch.stack([2 * su / 511 - 1, 2 * sv / 511 - 1], dim=-1)[:, None]
+        times = {n: [] for n in names}
+        lib_ms, floor_ms = [], []
+        for order in (names, names[::-1]):
+            lib_ms.append(chip_smoke.time_graph_ms(torch, lambda: F.grid_sample(
+                img_f, grid, mode="bilinear", padding_mode="zeros", align_corners=True)))
+            floor_ms.append(chip_smoke.time_graph_ms(torch, lambda: one.add_(1.0)))
+            for n in order:
+                times[n].append(chip_smoke.time_graph_ms(torch, calls[n][0]))
+        bound, texels = chip_smoke.sample_bound_ms(torch, imgs, su, sv)
+        result["times"].append(dict(kernel="sample", dtype="uint8", shape=shape,
+                                    b=su.shape[0], n=su.shape[1], bound_ms=bound,
+                                    grid_sample_ms=lib_ms, launch_floor_ms=floor_ms,
+                                    launches={n: calls[n][1] for n in names}, ms=times))
+        lib_mean = sum(lib_ms) / 2
+        print(f"  sampler shape {shape} uint8 B={su.shape[0]} N={su.shape[1]} (bit-identical to "
+              f"the plain version): grid_sample {lib_ms[0]:.5f}/{lib_ms[1]:.5f} ms, launch "
+              f"floor {floor_ms[0]:.5f}/{floor_ms[1]:.5f} ms, bound {bound:.5f} ms "
+              f"({texels} texels)", flush=True)
+        for n in names:
+            mean = sum(times[n]) / 2
+            per = f", {calls[n][1]} launches: its sampler takes no batch" if calls[n][1] > 1 else ""
+            print(f"    {n:13s} {times[n][0]:.5f}/{times[n][1]:.5f} ms, "
+                  f"{mean / lib_mean:.3f}x grid_sample, {mean / bound:.2f}x bound{per}",
+                  flush=True)
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
