@@ -53,7 +53,30 @@ Phases, each printed on its own line with its seconds:
 7. the first ``ROWSKIP_FRAMES`` lockstep frames again with
    ``BATCH_SAMPLER = "rowskip"`` and the same generator seed: the row-band
    kernel must launch 3 x frames x IEKF times, the warp kernel never, and
-   the poses must agree with the "full" run's within ``ROWSKIP_POS_TOL_M``.
+   the poses must agree with the "full" run's within ``ROWSKIP_POS_TOL_M``;
+8. the stepwise runner: phase 4's sequence, model and seed through
+   ``run_stepwise``, staged (each stage closed by a device synchronize)
+   and fused; each run must make 3 x (steps + 1) x IEKF warp launches (the
+   warm-up step on frame 0 launches too) and no other sampler launch,
+   recover from no divergence, give finite poses, ``stage_ms`` of shape
+   (F, 5), and poses within ``STEPWISE_POS_TOL_M`` of phase 4's (the same
+   operations and generator stream); prints each staged column's median
+   and the fused total;
+9. bfloat16 conv towers: phase 4's sequence through ``run_offline`` with
+   a bf16 UAHN; 3 x steps x IEKF warp launches, finite poses, the ATE
+   under ``BF16_ATE_BAR_M``; ms/frame beside phase 4's float32;
+10. the CLI, as subprocesses of ``python -m cuahn_vio_torch.cli`` (each
+   prints its kernels' launch counts after the verb) in a temporary
+   directory: ``make-synthetic`` over photo-texture ground (all four
+   files, ``_config.yaml`` included; one flat-sampler launch a frame),
+   ``run-vio --config --weights --timing-out --odom-out --state-out
+   --cov-calib`` (3 x (poses + 1) x IEKF warp launches) and the same
+   ``run-vio`` without the stepwise flags, whose covariance inflated by
+   the factors must be the first run's npz covariance; then
+   ``error-singlerun se3``, ``timing-percentages`` and
+   ``error-simulation`` on what ``run-vio`` wrote. Every exit code must be
+   0 and the timing csv must have one row of 5 stages a pose. Prints
+   whether PyYAML is installed: the port needs none.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -68,6 +91,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -136,6 +160,21 @@ JAX_REF_BATCH_ATE_M = (0.03259, 0.04432, 0.01796, 0.00617)
 BATCH_ATE_BARS_M = tuple(round(a + ATE_MARGIN_M, 5) for a in JAX_REF_BATCH_ATE_M)
 ROWSKIP_FRAMES = 40
 ROWSKIP_POS_TOL_M = 1e-5  # rowskip vs full run, world positions
+# run_stepwise (staged and fused) against phase 4's run_offline, world
+# positions: the same operations on the same generator stream, so 0.0 is
+# expected; the bound allows only float32 rounding of another cuDNN choice
+STEPWISE_POS_TOL_M = 1e-5
+# ATE bar of the bf16 phase. Reference: ``python3 smoke_reference.py
+# OUT_DIR --part bf16`` runs SEQ through the JAX package's ``run-vio
+# --bf16`` with the v10 weights on the CPU, scored with its
+# ``error-singlerun se3``: seeds 0/1/2 0.03245/0.03185/0.03167 m, mean
+# 0.03199 m (the port's ``run-vio --bf16`` on the CPU: 0.03189/0.03193/
+# 0.03250 m); the bar is that mean + ATE_MARGIN_M.
+REF_BF16_ATE_M = 0.03199
+BF16_ATE_BAR_M = REF_BF16_ATE_M + ATE_MARGIN_M
+# phase 10's make-synthetic: seconds of motion after the still phase
+CLI_DURATION_S = 3.0
+CLI_COV_CALIB = "pos:2,ori:2"
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -730,7 +769,7 @@ def textured_sequences(dev):
 
 def run_slice(torch, dev):
     """Phase 4: the single-stream main path. Returns (launches, steps,
-    iekf, ms/frame, ATE pos m, ATE ori deg, (seq, opts, model))."""
+    iekf, ms/frame, ATE pos m, ATE ori deg, (seq, opts, model, result))."""
     import numpy as np
 
     from cuahn_vio_torch.eval.align import ate_rmse
@@ -753,7 +792,7 @@ def run_slice(torch, dev):
         raise AssertionError("non-finite pose in the slice")
     ori, pos = ate_rmse(res.times, res.pose_w, seq.gt_times, seq.gt_pose_w)
     return (launches, steps, cfg.max_iekf_iterations, seconds * 1e3 / steps, pos, ori,
-            (seq, opts, model))
+            (seq, opts, model, res))
 
 
 def make_textured(torch, dev):
@@ -878,6 +917,126 @@ def run_rowskip(torch, dev, seqs, opts, model, frames: int):
     return batch_results(outs, cut), launches
 
 
+def run_stepwise_phase(torch, dev, seq, opts, model, staged: bool):
+    """Phase 8: phase 4's sequence, model and seed through run_stepwise.
+    Returns (result, launches, seconds)."""
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.pipeline.runner import run_stepwise
+
+    fparams = opts.filter_params(dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_stepwise(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t, seq.frames, model,
+                       fparams, opts.vio_config(), opts.runner_options(), seed=0,
+                       device=dev, staged_timing=staged)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, dict(launch_counts), seconds
+
+
+def run_bf16(torch, dev, seq, opts):
+    """Phase 9: phase 4's sequence through run_offline with bfloat16 conv
+    towers. Returns (result, launches, ms/frame)."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.pipeline.runner import run_offline
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    model = build_uahn(load_params(WEIGHTS), device=dev, dropout_rate=opts.mc_dropout,
+                       blocks_to_run=opts.blocks_to_run, compute_dtype=torch.bfloat16)
+    warm = torch.as_tensor(seq.frames[:1], device=dev)  # first bf16 cuDNN calls
+    model(warm, warm, torch.zeros((1, 4, 2), device=dev), use_prior=True,
+          generator=torch.Generator(device=dev))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_offline(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t, seq.frames, model,
+                      opts.filter_params(dev), opts.vio_config(), opts.runner_options(),
+                      seed=0, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, dict(launch_counts), seconds * 1e3 / len(res.times)
+
+
+# runs ``python -m cuahn_vio_torch.cli ARGS`` (runpy, as -m does), then
+# prints the kernels' launch counts of that process as its last line
+CLI_RUNNER = (
+    "import json, runpy; from cuahn_vio_torch.ops.cuda import launch_counts; "
+    "runpy.run_module('cuahn_vio_torch.cli', run_name='__main__', alter_sys=True); "
+    "print('launch_counts ' + json.dumps(launch_counts))"
+)
+
+
+def cli(args, cwd: str) -> tuple[str, dict]:
+    """One verb of the port's CLI in a subprocess on the card. Returns (its
+    output, its launch counts); raises when it exits non-zero."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    out, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+    return out, json.loads(last.split(" ", 1)[1])
+
+
+def run_cli(tmp: str) -> dict:
+    """Phase 10: the verbs through ``python -m cuahn_vio_torch.cli`` in
+    ``tmp``. Returns what the checks found."""
+    import importlib.util
+
+    import numpy as np
+
+    from cuahn_vio_torch.eval.calibration import apply_cov_inflation
+    from cuahn_vio_torch.eval.traj_io import load_pose_file, load_timing_file
+    from cuahn_vio_torch.ops.cuda.warp import KERNEL, SAMPLE_KERNEL
+
+    out = {"pyyaml_installed": importlib.util.find_spec("yaml") is not None}
+    noise = ["--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003",
+             "--bias-a", "0.02"]
+    _, counts = cli(["make-synthetic", "--out", "seq.npz", "--duration", str(CLI_DURATION_S),
+                     "--texture", "heldout", "--seed", "7", *noise], tmp)
+    written = sorted(os.listdir(tmp))
+    if written != ["seq.npz", "seq_config.yaml", "seq_gt.txt", "seq_state_gt.txt"]:
+        raise AssertionError(f"make-synthetic wrote {written}")
+    frames = len(np.load(os.path.join(tmp, "seq.npz"))["frames"])
+    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
+    if counts[SAMPLE_KERNEL] != frames:
+        raise AssertionError(f"make-synthetic: {counts[SAMPLE_KERNEL]} sampler launches for "
+                             f"{frames} frames")
+    run = ["run-vio", "seq.npz", "--config", "seq_config.yaml", "--weights", WEIGHTS]
+    said, counts = cli([*run, "--out", "est.txt", "--timing-out", "t.csv", "--odom-out",
+                        "odom.txt", "--state-out", "state.npz", "--cov-calib",
+                        CLI_COV_CALIB], tmp)
+    poses = load_pose_file(os.path.join(tmp, "est.txt"))
+    times, stages = load_timing_file(os.path.join(tmp, "t.csv"))
+    out.update(poses=len(poses.times), warp_launches=counts[KERNEL],
+               other_launches=counts[SAMPLE_KERNEL] + counts["homography_warp_rowskip"])
+    # the pose file prints times to 5 decimals, the timing csv to 15
+    if stages.shape != (len(poses.times), 5) or not np.allclose(times, poses.times, atol=1e-5):
+        raise AssertionError(f"timing csv {stages.shape} for {len(poses.times)} poses")
+    if not np.isfinite(poses.poses).all() or "divergence guard" in said:
+        raise AssertionError("run-vio --timing-out: non-finite poses or a rollback")
+    odom = np.loadtxt(os.path.join(tmp, "odom.txt"))
+    if odom.shape != (len(poses.times), 10):
+        raise AssertionError(f"odometry file {odom.shape}")
+    cli([*run, "--out", "plain.txt", "--state-out", "plain.npz"], tmp)
+    state, plain = (np.load(os.path.join(tmp, f)) for f in ("state.npz", "plain.npz"))
+    factors = {k: float(v) for k, v in (kv.split(":") for kv in CLI_COV_CALIB.split(","))}
+    want = apply_cov_inflation(plain["cov_core"], factors)
+    out.update(cov_rel_diff=float(np.abs(state["cov_core"] - want).max()
+                                  / np.abs(want).max()),
+               pos_diff_m=float(np.abs(state["pose"][:, :3] - plain["pose"][:, :3]).max()),
+               cov_calib_factors=state["cov_calib_factors"].tolist())
+    said, _ = cli(["error-singlerun", "se3", "seq_gt.txt", "est.txt"], tmp)
+    out["ate_pos_m"] = float(said.split("pos: rmse ")[1].split()[0])
+    said, _ = cli(["timing-percentages", "t.csv"], tmp)
+    out["fps"] = float(said.split("=> ")[1].split()[0])
+    said, _ = cli(["error-simulation", "state.npz", "seq_state_gt.txt"], tmp)
+    out["sim_pos_rmse_m"] = float(said.split("pos_rmse")[1].split()[0])
+    return out
+
+
 def kernel_entry(name, source_line, launches, err, row, ptxas, bound_by="bytes"):
     """One entry of the kernels line; ``ptxas`` is the kernel's
     ``build.ptxas_report`` entry (registers and spill bytes)."""
@@ -972,7 +1131,8 @@ def main() -> int:
     phase("timing", t0, gpu=f"'{gpu}'")
 
     t0 = time.perf_counter()
-    launches, steps, iekf, ms_frame, ate_pos, ate_ori, (seq, opts, model) = run_slice(torch, dev)
+    launches, steps, iekf, ms_frame, ate_pos, ate_ori, (seq, opts, model, slice_res) = \
+        run_slice(torch, dev)
     warp_launches = launches[warp_cuda.KERNEL]
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
           warp_launches=warp_launches, ate_pos_m=f"{ate_pos:.5f}",
@@ -1039,6 +1199,60 @@ def main() -> int:
     if not pos_diff <= ROWSKIP_POS_TOL_M:
         raise AssertionError(f"rowskip poses {pos_diff:.3e} m from the full run's")
 
+    b1_launches = {"4": warp_launches}
+    for staged in (True, False):
+        t0 = time.perf_counter()
+        sw, sw_launches, sw_seconds = run_stepwise_phase(torch, dev, seq, opts, model, staged)
+        mode = "staged" if staged else "fused"
+        b1_launches[f"8 {mode}"] = sw_launches[warp_cuda.KERNEL]
+        diff = float(np.abs(sw.pose_w[:, :3] - slice_res.pose_w[:, :3]).max())
+        median = np.median(sw.stage_ms, axis=0)  # fused: the whole step under "net"
+        phase("stepwise", t0, mode=mode, frames=len(sw.times),
+              ms_per_frame=f"{sw_seconds * 1e3 / len(sw.times):.3f}",
+              warp_launches=sw_launches[warp_cuda.KERNEL],
+              n_recoveries=sw.n_recoveries, max_pos_diff_m=f"{diff:.3e}",
+              tol_m=f"{STEPWISE_POS_TOL_M:.0e}",
+              **{f"median_{c}_ms": f"{m:.3f}" for c, m in zip(
+                  ("load", "prop", "net", "update", "total"), median)})
+        want = 3 * (len(sw.times) + 1) * iekf  # + the warm-up step
+        if (sw_launches[warp_cuda.KERNEL] != want
+                or sw_launches[warp_cuda.ROWSKIP_KERNEL] or sw_launches[warp_cuda.SAMPLE_KERNEL]):
+            raise AssertionError(f"stepwise {mode}: {sw_launches}, expected {want} warp "
+                                 "launches only")
+        if sw.n_recoveries or not np.isfinite(sw.pose_w).all():
+            raise AssertionError(f"stepwise {mode}: {sw.n_recoveries} rollbacks or "
+                                 "non-finite poses")
+        if sw.stage_ms.shape != (len(sw.times), 5) or len(sw.times) != steps:
+            raise AssertionError(f"stepwise {mode}: stage_ms {sw.stage_ms.shape}")
+        if not diff <= STEPWISE_POS_TOL_M:
+            raise AssertionError(f"stepwise {mode}: poses {diff:.3e} m from phase 4's")
+
+    t0 = time.perf_counter()
+    bf, bf_launches, bf_ms = run_bf16(torch, dev, seq, opts)
+    b1_launches["9"] = bf_launches[warp_cuda.KERNEL]
+    bf_ori, bf_pos = ate_rmse(bf.times, bf.pose_w, seq.gt_times, seq.gt_pose_w)
+    phase("bf16", t0, frames=len(bf.times), ms_per_frame=f"{bf_ms:.3f}",
+          float32_ms_per_frame=f"{ms_frame:.3f}", warp_launches=bf_launches[warp_cuda.KERNEL],
+          ate_pos_m=f"{bf_pos:.5f}", ate_ori_deg=f"{bf_ori:.4f}",
+          ate_bar_m=f"{BF16_ATE_BAR_M:.5f}")
+    if bf_launches[warp_cuda.KERNEL] != 3 * steps * iekf or not np.isfinite(bf.pose_w).all():
+        raise AssertionError(f"bf16 run: {bf_launches}, expected 3 x {steps} x {iekf} warp "
+                             "launches and finite poses")
+    if not bf_pos <= BF16_ATE_BAR_M:
+        raise AssertionError(f"bf16 ATE {bf_pos:.5f} m above the bar {BF16_ATE_BAR_M:.5f} m")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        found = run_cli(tmp)
+    b1_launches["10"] = found["warp_launches"]
+    phase("cli", t0, **found)
+    if found["warp_launches"] != 3 * (found["poses"] + 1) * iekf or found["other_launches"]:
+        raise AssertionError(f"run-vio --timing-out: {found['warp_launches']} warp launches "
+                             f"for {found['poses']} poses")
+    if not found["cov_rel_diff"] <= 1e-6:
+        raise AssertionError(f"--cov-calib: npz covariance {found['cov_rel_diff']:.3e} from the "
+                             "inflated plain run's")
+
     nb = len(batch_seqs)
 
     def compiled(kernel: str, b: int) -> dict:  # the instantiation a B-image launch runs
@@ -1055,6 +1269,9 @@ def main() -> int:
         sample_entry(sample_launches, blur_launches, sample_err, sample_time, ptxas,
                      warp_cuda.pixels_per_thread),
     ]
+    kernels[0]["launches_by_phase"] = b1_launches
+    kernels[3]["launches_by_phase"] = {"5": sample_launches + blur_launches,
+                                       "10": found["sampler_launches"]}
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -1,15 +1,26 @@
 """Command line of the port: ``python -m cuahn_vio_torch.cli VERB ...``.
 
 Each verb takes the same files, flags and outputs as the JAX CLI's verb
-(``python -m cuahn_vio.cli``) and runs on the card (``--device cuda``, the
-default; it fails when no GPU is found):
+(``python -m cuahn_vio.cli``). The VIO verbs run on the card (``--device
+cuda``, the default; they fail when no GPU is found):
 
-- ``run-vio``: one sequence through ``run_offline``;
+- ``run-vio``: one sequence through ``run_offline``, or frame by frame
+  through ``run_stepwise`` with ``--timing-out`` (the per-stage timing
+  csv and the divergence guard); ``--bf16`` (bfloat16 conv towers),
+  ``--cov-calib`` (reported-covariance inflation), ``--state-out`` and
+  ``--odom-out`` (FRD odometry);
 - ``run-vio-batch``: many sequences in lockstep on one card
   (``run_offline_batch``), one pose file per input;
 - ``make-synthetic``: a synthetic sequence (procedural or photo-texture
   ground, sharp or motion-blurred), written as ``.npz``, ``_gt.txt``,
-  ``_state_gt.txt`` and ``_config.yaml`` (the last needs PyYAML).
+  ``_state_gt.txt`` and ``_config.yaml``.
+
+The eval verbs score those outputs on the host (numpy only):
+``error-singlerun`` (ATE / RPE / NEES of a pose file against GT),
+``timing-percentages`` (the timing csv's stage split) and
+``error-simulation`` (state errors and NEES of a ``--state-out`` npz
+against the simulator GT). No verb needs PyYAML: configs go through the
+port's own ``utils.yaml_io``.
 
 Flags of the JAX CLI that the port does not implement yet are refused,
 never ignored.
@@ -22,19 +33,16 @@ import sys
 
 import numpy as np
 
-# run-vio flags of the JAX CLI that the port does not implement yet
-NOT_YET = {
-    "timing_out": "--timing-out (the per-stage timed runner)",
-    "cov_calib": "--cov-calib (reported-covariance calibration)",
-    "bf16": "--bf16 (bfloat16 conv towers)",
-    "odom_out": "--odom-out (FRD odometry file)",
-}
+# flags of the JAX CLI that the port does not implement yet
 NOT_YET_BATCH = {
     "mesh": "--mesh (sharding the batch over a device mesh)",
 }
 NOT_YET_SYNTHETIC = {
     "traj_file": "--traj-file (B-spline trajectories)",
     "effects": "--effects (the sensor-effect chain)",
+}
+NOT_YET_SIMULATION = {
+    "plot": "--plot (error / 3-sigma plots; needs matplotlib)",
 }
 
 
@@ -56,9 +64,10 @@ def _device(name: str):
     return device
 
 
-def _model(opts, weights, device):
+def _model(opts, weights, device, bf16: bool = False):
     """The UAHN with ``weights`` (random init when None), built with
-    ``opts.mc_dropout`` (the JAX CLI always uses the UAHN default, 0.05)."""
+    ``opts.mc_dropout`` (the JAX CLI always uses the UAHN default, 0.05);
+    ``bf16``: bfloat16 conv towers."""
     import torch
 
     from cuahn_vio_torch.models.uahn import build_uahn
@@ -68,7 +77,20 @@ def _model(opts, weights, device):
     return build_uahn(
         load_params(weights) if weights else None, device=device,
         dropout_rate=opts.mc_dropout, blocks_to_run=opts.blocks_to_run,
+        compute_dtype=torch.bfloat16 if bf16 else torch.float32,
     )
+
+
+def _cov_factors(text: str) -> dict:
+    """``pos:2,ori:3`` -> {"pos": 2.0, "ori": 3.0}; a block name outside
+    ``COV_BLOCKS`` is refused (the JAX verb ignores it)."""
+    from cuahn_vio_torch.eval.calibration import COV_BLOCKS
+
+    factors = {k: float(v) for k, v in (kv.split(":") for kv in text.split(","))}
+    unknown = sorted(set(factors) - set(COV_BLOCKS))
+    if unknown:
+        raise SystemExit(f"--cov-calib: unknown blocks {unknown} (of {list(COV_BLOCKS)})")
+    return factors
 
 
 def _load_sequence(path: str):
@@ -114,22 +136,43 @@ def _options(args):
 
 
 def cmd_run_vio(args):
-    from cuahn_vio_torch.eval.traj_io import save_pose_file
-    from cuahn_vio_torch.pipeline.runner import run_offline
+    from cuahn_vio_torch.eval.traj_io import save_pose_file, save_timing_file
+    from cuahn_vio_torch.pipeline.runner import run_offline, run_stepwise
 
-    _refuse(args, NOT_YET, "run-vio")
     device = _device(args.device)
     opts = _options(args)
+    factors = _cov_factors(args.cov_calib) if args.cov_calib else None
     seq = _load_sequence(args.sequence)
     model = None
     if not args.no_network:
-        model = _model(opts, args.weights or opts.network_weights_path, device)
-    res = run_offline(
+        model = _model(opts, args.weights or opts.network_weights_path, device, args.bf16)
+    runner = run_stepwise if args.timing_out else run_offline
+    res = runner(
         *seq, model, opts.filter_params(device), opts.vio_config(),
         opts.runner_options(), seed=args.seed, device=device,
     )
+    calib = {}  # the npz of --state-out records the factors applied
+    if factors is not None:
+        # reported-covariance calibration: scales the output covariance
+        # only; the filter's gains are untouched
+        from cuahn_vio_torch.eval.calibration import COV_BLOCKS, apply_cov_inflation
+
+        calib = dict(cov_calib_blocks=np.array(COV_BLOCKS), cov_calib_factors=np.array(
+            [factors.get(name, 1.0) for name in COV_BLOCKS]))
+        cal = apply_cov_inflation(res.cov_core, factors)
+        res = res._replace(
+            cov_core=cal,
+            cov_diag=np.einsum("fii->fi", cal).copy(),
+            cov_ori=cal[:, 3:6, 3:6],
+            cov_pos=cal[:, 0:3, 0:3],
+        )
+        print(f"applied reported-covariance calibration: {factors}")
+
     save_pose_file(args.out, res.times, res.pose_w, res.cov_ori, res.cov_pos)
     print(f"wrote {len(res.times)} poses -> {args.out}")
+    if args.timing_out and res.stage_ms is not None:
+        save_timing_file(args.timing_out, res.times, res.stage_ms)
+        print(f"wrote timing -> {args.timing_out}")
     if args.state_out:
         np.savez_compressed(
             args.state_out,
@@ -138,9 +181,16 @@ def cmd_run_vio(args):
             cov_core=res.cov_core,
             net_chi2=res.net_chi2, net_inno=res.net_inno,
             cov_meas=res.cov_meas, net_cov88=res.net_cov88,
-            net_mean=res.net_mean,
+            net_mean=res.net_mean, **calib,
         )
         print(f"wrote full state -> {args.state_out}")
+    if args.odom_out:
+        from cuahn_vio_torch.eval.traj_io import save_odom_file
+
+        save_odom_file(args.odom_out, res.times, res.pose_w, res.v_body)
+        print(f"wrote odometry -> {args.odom_out}")
+    if res.n_recoveries:
+        print(f"divergence guard fired {res.n_recoveries}x (state rolled back)")
     if model is not None:
         finite = np.isfinite(res.net_chi2)
         rejected = int((res.net_chi2 >= opts.chi2_gate).sum()) + int((~finite).sum())
@@ -254,9 +304,119 @@ def cmd_make_synthetic(args):
           f"{stem}_config.yaml")
 
 
+def cmd_error_singlerun(args):
+    from cuahn_vio_torch.eval.metrics import ResultTrajectory
+
+    rt = ResultTrajectory.from_files(args.est, args.gt, args.align)
+    length = rt.trajectory_length()
+    print(f"[COMP]: {len(rt.times)} matched poses, {length:.3f} m trajectory")
+
+    ori, pos = rt.calculate_ate()
+    print("=" * 60)
+    print("Absolute Trajectory Error (ATE)")
+    print(f"  ori: rmse {ori.rmse:.5f} deg | mean {ori.mean:.5f} | std {ori.std:.5f}")
+    print(f"  pos: rmse {pos.rmse:.5f} m   | mean {pos.mean:.5f} | std {pos.std:.5f}")
+
+    ori2, pos2 = rt.calculate_ate_2d()
+    print("ATE 2D")
+    print(f"  yaw: rmse {ori2.rmse:.5f} deg | pos-xy: rmse {pos2.rmse:.5f} m")
+
+    segments = [float(x) for x in args.segments.split(",")] if args.segments else [
+        length * f for f in (0.1, 0.2, 0.3, 0.4, 0.5)
+    ]
+    rpe = rt.calculate_rpe(segments)
+    print("Relative Pose Error (RPE)")
+    for d, (o, p) in sorted(rpe.items()):
+        print(
+            f"  seg {d:7.2f} m: ori med {o.median:.4f} deg | pos med {p.median:.4f} m"
+            f" ({len(p.values)} samples)"
+        )
+    try:
+        no, npos = rt.calculate_nees()
+        print(f"NEES: ori mean {no.mean:.3f} | pos mean {npos.mean:.3f}")
+    except ValueError:
+        print("NEES: estimate has no covariance columns (skipped)")
+
+
+def cmd_timing_percentages(args):
+    from cuahn_vio_torch.eval.traj_io import load_timing_file
+
+    names = ["load_img", "propagation", "network", "ekf_update", "total"]
+    for path in args.files:
+        t, stages = load_timing_file(path)
+        total = stages[:, 4]
+        print(f"== {path} ({len(t)} frames)")
+        for i, n in enumerate(names[:4]):
+            pct = 100.0 * stages[:, i].sum() / max(total.sum(), 1e-9)
+            print(
+                f"  {n:12s} mean {stages[:, i].mean():8.3f} ms "
+                f"median {np.median(stages[:, i]):8.3f} ms  ({pct:5.1f} %)"
+            )
+        print(
+            f"  {'total':12s} mean {total.mean():8.3f} ms  "
+            f"=> {1000.0 / max(total.mean(), 1e-9):.1f} fps"
+        )
+
+
+def cmd_error_simulation(args):
+    """State/bias errors + NEES against simulator ground truth
+    (error_simulation.cpp / ResultSimulation analog)."""
+    from cuahn_vio_torch.eval.simulation import ResultSimulation, load_state_gt
+
+    _refuse(args, NOT_YET_SIMULATION, "error-simulation")
+    d = np.load(args.est)
+    gt = load_state_gt(args.gt)
+    sim = ResultSimulation(
+        d["times"], d["pose"], gt,
+        est_v_body=d.get("v_body"), est_ba=d.get("ba"), est_bg=d.get("bg"),
+        est_cov_diag=d.get("cov_diag"), est_cov_core=d.get("cov_core"),
+    )
+    summary = sim.summary()
+    print(f"matched {len(sim.times)} est/gt pairs")
+    for k, v in summary.items():
+        print(f"  {k:10s} {v:.6f}")
+    if sim.cov_core is not None:
+        obs = sim.calculate_nees_observable()
+        print("  observable-subspace NEES (gauge directions excluded — "
+              "world x/y + yaw are unobservable by construction):")
+        print(f"    height 1-DoF: mean {obs['height'].mean:9.3f} "
+              f"median {obs['height'].median:7.3f} (target ~1)")
+        print(f"    tilt   2-DoF: mean {obs['tilt'].mean:9.3f} "
+              f"median {obs['tilt'].median:7.3f} (target ~2)")
+        if obs["vel"] is not None:
+            print(f"    vel    3-DoF: mean {obs['vel'].mean:9.3f} "
+                  f"median {obs['vel'].median:7.3f} (target ~3)")
+    if sim.cov is not None:
+        neo, nep = sim.calculate_nees()
+        print("  full-state NEES (gauge-polluted: unobservable world-x/y "
+              "and yaw drift carry no covariance and leak into every "
+              "robocentric component — see calculate_nees_observable):")
+        print(f"    ori  mean {neo.mean:.3f} (roll/pitch 2-DoF)")
+        print(f"    pos  mean {nep.mean:.3f} median {nep.median:.3f}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cuahn_vio_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("error-singlerun", help="ATE/RPE/NEES of one run")
+    s.add_argument("align", choices=["posyaw", "posyawsingle", "se3", "se3single", "sim3",
+                                     "none"])
+    s.add_argument("gt")
+    s.add_argument("est")
+    s.add_argument("--segments", default=None, help="comma list of RPE segment lengths (m)")
+    s.set_defaults(fn=cmd_error_singlerun)
+
+    s = sub.add_parser("timing-percentages", help="stage timing breakdown")
+    s.add_argument("files", nargs="+")
+    s.set_defaults(fn=cmd_timing_percentages)
+
+    s = sub.add_parser("error-simulation", help="state/bias errors + NEES vs sim GT")
+    s.add_argument("est", help="state .npz from run-vio --state-out")
+    s.add_argument("gt", help="17-column sim state GT txt")
+    # accepted only to be refused with a clear message (see NOT_YET_SIMULATION)
+    s.add_argument("--plot", default=None, help="not implemented yet")
+    s.set_defaults(fn=cmd_error_simulation)
+
     s = sub.add_parser("run-vio", help="run the VIO on a sequence")
     s.add_argument("sequence", help=".npz with imu_t/imu_w/imu_a/cam_t/frames")
     s.add_argument("--config", default=None)
@@ -284,11 +444,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--echo-beta", type=float, default=None)
     s.add_argument("--seed", type=int, default=0, help="MC-dropout generator seed")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # accepted only to be refused with a clear message (see NOT_YET)
-    s.add_argument("--timing-out", default=None, help="not implemented yet")
-    s.add_argument("--cov-calib", default=None, help="not implemented yet")
-    s.add_argument("--bf16", action="store_true", help="not implemented yet")
-    s.add_argument("--odom-out", default=None, help="not implemented yet")
+    s.add_argument("--timing-out", default=None,
+                   help="per-frame stage timing csv; runs the stepwise runner "
+                        "(with the divergence guard)")
+    s.add_argument("--odom-out", default=None,
+                   help="FRD odometry txt (visualize_odometry analog)")
+    s.add_argument("--bf16", action="store_true", help="bfloat16 conv towers")
+    s.add_argument("--cov-calib", default=None,
+                   help="reported-covariance calibration factors, e.g. "
+                        "'pos:5.1,ori:3.4,vel:8.7' (output covariance only, gains "
+                        "untouched; the npz of --state-out records them)")
     s.set_defaults(fn=cmd_run_vio)
 
     s = sub.add_parser("run-vio-batch", help="many sequences in lockstep on one card")

@@ -5,7 +5,7 @@ ATE of ``cuahn_vio.eval.metrics.ResultTrajectory.calculate_ate``.
 
 Rebuilds ov_eval's alignment stack in numpy:
 - JPL quaternion helpers            <- ov_eval/src/utils/Math.h
-- ``associate_indices``             <- AlignUtils::perform_association
+- ``associate`` / ``associate_indices`` <- AlignUtils::perform_association
                                        (AlignUtils.cpp:93-186)
 - ``align_umeyama`` + get_best_yaw  <- AlignUtils.cpp:26-91, AlignUtils.h:52
 - ``align_trajectory`` dispatch     <- AlignTrajectory.cpp:26-55 (posyaw,
@@ -121,6 +121,37 @@ def associate_indices(
             ie.append(i)
             ig.append(best_idx)
     return np.asarray(ie, np.int64), np.asarray(ig, np.int64)
+
+
+def associate(
+    est_times, gt_times, est_poses, gt_poses,
+    offset: float = 0.0, max_difference: float = 0.02,
+    est_cov_ori=None, est_cov_pos=None, gt_cov_ori=None, gt_cov_pos=None,
+):
+    """Greedy injective timestamp association (AlignUtils.cpp:93-186).
+
+    Gather wrapper over ``associate_indices``. Returns matched (times,
+    est_poses, gt_poses, est_cov_ori, est_cov_pos, gt_cov_ori, gt_cov_pos);
+    matched times are the GT timestamps, as the reference stores them.
+    """
+    ie, ig = associate_indices(est_times, gt_times, offset, max_difference)
+    gt_times = np.asarray(gt_times)
+    m_ecovo = m_ecovp = m_gcovo = m_gcovp = None
+    if est_cov_ori is not None and len(ie):
+        m_ecovo = np.asarray(est_cov_ori)[ie]
+        m_ecovp = np.asarray(est_cov_pos)[ie]
+        if gt_cov_ori is not None:
+            m_gcovo = np.asarray(gt_cov_ori)[ig]
+            m_gcovp = np.asarray(gt_cov_pos)[ig]
+        else:
+            m_gcovo = np.zeros((len(ie), 3, 3))
+            m_gcovp = np.zeros((len(ie), 3, 3))
+    return (
+        gt_times[ig],
+        np.asarray(est_poses)[ie].reshape(-1, 7),
+        np.asarray(gt_poses)[ig].reshape(-1, 7),
+        m_ecovo, m_ecovp, m_gcovo, m_gcovp,
+    )
 
 
 # --------------------------------------------------------------- alignment

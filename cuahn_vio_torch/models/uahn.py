@@ -17,7 +17,9 @@ and in torch's NCHW layout:
 
 Parameter names match the flax tree (``block2.conv0.weight`` for flax's
 ``block2/conv0/kernel``), so ``utils.checkpoint.load_params`` fills it.
-MC-dropout masks come from an explicit ``torch.Generator``.
+MC-dropout masks come from an explicit ``torch.Generator``. With
+``compute_dtype=torch.bfloat16`` the four conv towers run in bfloat16
+(cuDNN bf16 convolutions on the card), as the JAX ``compute_dtype`` does.
 """
 
 from __future__ import annotations
@@ -47,19 +49,29 @@ LOGVAR_CLAMP = 11.5
 
 
 class ConvTower(nn.Module):
-    """(conv, LeakyReLU 0.1) layers; spec (out, k, stride), padding (k-1)//2."""
+    """(conv, LeakyReLU 0.1) layers; spec (out, k, stride), padding (k-1)//2.
 
-    def __init__(self, in_channels: int, specs: Sequence[tuple[int, int, int]]):
+    The layers run in ``compute_dtype``: the input and the (float32)
+    weights are cast to it per call, and the output is cast back to
+    float32 for the fc layers (the JAX ``ConvTower``'s ``dtype``)."""
+
+    def __init__(self, in_channels: int, specs: Sequence[tuple[int, int, int]],
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         c = in_channels
         for i, (feat, k, s) in enumerate(specs):
             self.add_module(f"conv{i}", nn.Conv2d(c, feat, k, s, (k - 1) // 2))
             c = feat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        x = x.to(dtype)
         for conv in self.children():
-            x = F.leaky_relu(conv(x), LEAK)
-        return x
+            x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
+                         conv.padding)
+            x = F.leaky_relu(x, LEAK)
+        return x.to(torch.float32)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
@@ -104,27 +116,28 @@ class UAHN(nn.Module):
       use_prior, blocks=1      -> block  {4} on H_prior
     """
 
-    def __init__(self, dropout_rate: float = 0.05, blocks_to_run: int = 3):
+    def __init__(self, dropout_rate: float = 0.05, blocks_to_run: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.blocks_to_run = blocks_to_run
-        p = CONV_PLANES
-        self.block1 = ConvTower(2, [(p[4], 7, 2), (p[4], 5, 2), (p[5], 3, 2)])
+        p, dt = CONV_PLANES, compute_dtype
+        self.block1 = ConvTower(2, [(p[4], 7, 2), (p[4], 5, 2), (p[5], 3, 2)], dt)
         self.fc_block1 = nn.Linear(FC_INPUT, 8)
         self.block2 = ConvTower(
-            2, [(p[3], 7, 2), (p[4], 5, 2), (p[5], 3, 2), (p[6], 3, 2)]
+            2, [(p[3], 7, 2), (p[4], 5, 2), (p[5], 3, 2), (p[6], 3, 2)], dt
         )
         self.fc_block2 = nn.Linear(FC_INPUT, 8)
         self.block3 = ConvTower(
             2,
             [(p[1], 7, 1), (p[2], 5, 2), (p[3], 3, 2), (p[4], 3, 2),
-             (p[5], 3, 2), (p[6], 3, 2)],
+             (p[5], 3, 2), (p[6], 3, 2)], dt,
         )
         self.fc_block3 = nn.Linear(FC_INPUT, 8)
         self.block4 = ConvTower(
             2,
             [(p[0], 7, 1), (p[1], 5, 2), (p[2], 3, 2), (p[3], 3, 2),
-             (p[4], 3, 2), (p[5], 3, 2), (p[6], 3, 2)],
+             (p[4], 3, 2), (p[5], 3, 2), (p[6], 3, 2)], dt,
         )
         self.head_mean = McHead(8)
         self.head_logvar = McHead(8)
@@ -209,10 +222,13 @@ class UAHN(nn.Module):
 
 
 def build_uahn(state_dict: Optional[dict] = None, device="cuda",
-               dropout_rate: float = 0.05, blocks_to_run: int = 3) -> UAHN:
+               dropout_rate: float = 0.05, blocks_to_run: int = 3,
+               compute_dtype: torch.dtype = torch.float32) -> UAHN:
     """The 224x320 UAHN on ``device``, in eval mode, with ``state_dict``
-    loaded (random init when None)."""
-    model = UAHN(dropout_rate, blocks_to_run)
+    loaded (random init when None). ``compute_dtype=torch.bfloat16`` runs
+    the conv towers in bfloat16 (``run-vio --bf16``); the weights stay
+    float32, and the warps, DLTs, fc heads and covariance path float32."""
+    model = UAHN(dropout_rate, blocks_to_run, compute_dtype)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model.to(device).eval()

@@ -6,8 +6,9 @@ builds the per-frame IMU windows, and runs the step over every frame pair
 on the device. ``run_offline_batch`` runs many sequences in lockstep
 (``run-vio-batch``): ``prepare_batch`` pads them to a common frame count,
 ``parallel.sharded_eval.batched_run_sequences`` runs them and
-``batch_results`` trims each back to its own frames. The per-frame stage
-timer (``run_stepwise``) and the health rollback are not ported yet.
+``batch_results`` trims each back to its own frames. ``run_stepwise`` runs
+the frames one by one with the reference's per-stage timer (the timing
+CSV of ``run-vio --timing-out``) and the divergence guard.
 """
 
 from __future__ import annotations
@@ -15,15 +16,27 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
+import time
+
 import numpy as np
 import torch
 
+from cuahn_vio_torch.filter.health import health_flags
 from cuahn_vio_torch.filter.initializer import initial_state, try_initialize
 from cuahn_vio_torch.filter.propagate import propagate_window
 from cuahn_vio_torch.filter.state import FilterParams, FilterState, with_bias_block
 from cuahn_vio_torch.ops.homography import f32_parity_mode
 from cuahn_vio_torch.pipeline.imu_window import build_imu_windows, select_imu_readings
-from cuahn_vio_torch.pipeline.vio import FrameOutput, VioConfig, run_sequence
+from cuahn_vio_torch.ops.quat import quat_to_rot
+from cuahn_vio_torch.pipeline.vio import (
+    NET,
+    PROP,
+    UPDATE,
+    FrameOutput,
+    VioConfig,
+    make_vio_step,
+    run_sequence,
+)
 
 
 @dataclass
@@ -54,6 +67,8 @@ class RunResult(NamedTuple):
     cov_meas: np.ndarray  # (F, 8, 8)
     net_cov88: np.ndarray  # (F, 8, 8)
     net_mean: np.ndarray  # (F, 8)
+    stage_ms: Optional[np.ndarray] = None  # (F, 5) timing rows (run_stepwise)
+    n_recoveries: int = 0  # divergence-guard rollbacks (run_stepwise)
 
 
 def _streaming_init(imu_t, imu_w, imu_a, cam_t, opts: RunnerOptions):
@@ -74,7 +89,7 @@ def _streaming_init(imu_t, imu_w, imu_a, cam_t, opts: RunnerOptions):
     return None, -1
 
 
-def _outputs_to_result(out: FrameOutput, times, t0) -> RunResult:
+def _outputs_to_result(out: FrameOutput, times, t0, stage_ms=None) -> RunResult:
     o = FrameOutput(*(x.detach().cpu().numpy() for x in out))
     pose = np.concatenate([o.p_world, o.q[:, [1, 2, 3, 0]]], axis=1)
     cov = o.cov_core
@@ -94,6 +109,7 @@ def _outputs_to_result(out: FrameOutput, times, t0) -> RunResult:
         cov_meas=o.cov_meas,
         net_cov88=o.net_cov88,
         net_mean=o.net_mean,
+        stage_ms=stage_ms,
     )
 
 
@@ -186,6 +202,133 @@ def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
     )
     times_out = cam_used[1:] + opts.calib_camimu_dt
     return _outputs_to_result(outs, times_out, init.t0)
+
+
+class _StageClock:
+    """Host wall time per step column, each stage closed by a device
+    synchronize (``jax.block_until_ready`` in the JAX runner)."""
+
+    def __init__(self, device: torch.device):
+        cuda = device.type == "cuda"
+        self.sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+        self.ms = [0.0] * 5
+        self.t = time.perf_counter()
+
+    def start(self) -> None:
+        self.ms = [0.0] * 5
+        self.t = time.perf_counter()
+
+    def __call__(self, column: int) -> None:
+        self.sync()
+        t = time.perf_counter()
+        self.ms[column] += (t - self.t) * 1e3
+        self.t = t
+
+
+def _state_output(state: FilterState, failed: FrameOutput) -> FrameOutput:
+    """The output of a rolled-back state: pose and covariance from the
+    recovered state, the network diagnostics of the failed attempt (they
+    describe what went wrong at this frame)."""
+    return failed._replace(
+        p_world=quat_to_rot(state.q) @ state.p, q=state.q, v_body=state.v,
+        cov_core=state.cov[:15, :15], ba=state.ba, bg=state.bg,
+    )
+
+
+def _recovered(state: FilterState) -> FilterState:
+    """The last healthy state with its covariance inflated, so that the
+    next update trusts the measurement more than the state."""
+    eye = torch.eye(state.cov.shape[-1], dtype=state.cov.dtype, device=state.cov.device)
+    state = state._replace(cov=state.cov * 10.0 + eye * 1e-6)
+    if state.cov_xb is not None:
+        # decorrelating the bias keeps the inflated joint covariance PSD
+        state = state._replace(cov_xb=torch.zeros_like(state.cov_xb))
+    return state
+
+
+def run_stepwise(imu_t, imu_w, imu_a, cam_t, frames_u8,
+                 model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
+                 opts: RunnerOptions, seed: int = 0, device="cuda",
+                 staged_timing: bool = True) -> RunResult:
+    """``run_offline`` frame by frame with host stage timers and the
+    divergence guard; ``stage_ms`` holds the reference's timing CSV columns
+    (VioManager.cpp:98) per frame: [load, prop, net, update, total] ms.
+
+    ``staged_timing`` (default): each stage of ``make_vio_stages`` is
+    closed by a device synchronize, so every column is a measurement (the
+    reference's inline stamps, VioManager.cpp:167-270); the offset prior
+    counts to the network. Otherwise the step runs unbroken and its whole
+    time goes to the network column, propagation and update reported as 0.
+
+    MC-dropout masks come from a generator seeded with ``seed``, drawn in
+    frame order: the stream of ``run_offline``, so at one seed the two give
+    one trajectory. The warm-up step (frame 0's inputs, result discarded)
+    draws from a generator of its own.
+
+    Divergence guard: when ``health_flags`` fails after a frame, the state
+    rolls back to the last healthy one with its covariance inflated
+    (``cov * 10 + 1e-6 I``, the bias cross-covariance zeroed), the frame
+    counter goes on from it, and the frame's output is the rolled-back
+    state's pose with the failed attempt's network diagnostics;
+    ``n_recoveries`` counts the rollbacks.
+    """
+    device = _check_devices(model, fparams, device)
+    f32_parity_mode()
+    init, state0, win, cam_used, frames_used = prepare_sequence(
+        imu_t, imu_w, imu_a, cam_t, frames_u8, opts, fparams, device
+    )
+    step = make_vio_step(model, fparams, cfg)
+    frames_dev = torch.as_tensor(np.ascontiguousarray(frames_used, np.uint8), device=device)
+    clock = _StageClock(device)
+
+    def inputs(k: int):
+        """Frame pair k -> k+1 and its IMU window on the device."""
+        return (frames_dev[k], frames_dev[k + 1],
+                *(torch.as_tensor(x[k], device=device) for x in (win.w_mid, win.a_mid, win.dt)),
+                int(win.n_used[k]))
+
+    # warm-up on frame 0's image (both frames) and the first window, so that
+    # the first row times steady state; its generator is not the run's
+    warm_gen = torch.Generator(device=device)
+    warm_gen.manual_seed(seed)
+    *_, w, a, dt, n = inputs(0)
+    step(state0, 0, frames_dev[0], frames_dev[0], w, a, dt, n, warm_gen)
+    clock.sync()
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    state, frame_idx = state0, 0
+    last_good, last_good_idx = state0, 0
+    n_recoveries = 0
+    outs, stage = [], []
+    for k in range(len(cam_used) - 1):
+        t_a = time.perf_counter()
+        img_prev, img_curr, w, a, dt, n = inputs(k)
+        clock.sync()
+        t_b = time.perf_counter()
+        clock.start()
+        state, out = step(state, frame_idx, img_prev, img_curr, w, a, dt, n, generator,
+                          clock if staged_timing else None)
+        clock.sync()
+        t_c = time.perf_counter()
+        if bool(health_flags(state).ok):
+            frame_idx += 1
+            last_good, last_good_idx = state, frame_idx
+        else:
+            n_recoveries += 1
+            state, frame_idx = _recovered(last_good), last_good_idx + 1
+            out = _state_output(state, out)
+        outs.append(out)
+        load_ms, total_ms = (t_b - t_a) * 1e3, (t_c - t_a) * 1e3
+        if staged_timing:
+            stage.append([load_ms, clock.ms[PROP], clock.ms[NET], clock.ms[UPDATE], total_ms])
+        else:
+            stage.append([load_ms, 0.0, (t_c - t_b) * 1e3, 0.0, total_ms])
+
+    stacked = FrameOutput(*(torch.stack(field) for field in zip(*outs)))
+    times_out = cam_used[1:] + opts.calib_camimu_dt
+    res = _outputs_to_result(stacked, times_out, init.t0, np.asarray(stage, np.float64))
+    return res._replace(n_recoveries=n_recoveries)
 
 
 class BatchInputs(NamedTuple):

@@ -11,10 +11,13 @@ do_feature_propagate_update, VioManager.cpp:200-315):
        (offsets not updated), gated until frame_idx > update_gate_frames;
     3. reset the 4-point offsets and their covariance.
 
-``run_sequence`` is a Python loop over frame pairs. All per-frame tensors
-stay on the device; outputs are stacked once at the end. The three stages
-carry ``record_function`` labels (vio.propagate, vio.network, vio.update)
-that a ``torch.profiler`` trace groups by (``profile_slice.py``).
+The step is composed of the stages of ``make_vio_stages`` (propagation,
+network, update, finish), which the stepwise runner also times one by
+one. ``run_sequence`` is a Python loop over frame pairs. All per-frame
+tensors stay on the device; outputs are stacked once at the end. The
+stages carry ``record_function`` labels (vio.propagate, vio.network,
+vio.update) that a ``torch.profiler`` trace groups by
+(``profile_slice.py``).
 
 Batched (``run_sequence`` on (B, F+1, H, W) frames, the JAX package's
 ``jax.vmap`` of ``run_sequence``): B sequences in lockstep. The filter
@@ -77,6 +80,11 @@ class FrameOutput(NamedTuple):
     net_cov88: torch.Tensor  # (8, 8) raw network covariance, px²
 
 
+# the per-stage columns of a step, in the reference's timing CSV order
+# (load and total are the runner's)
+PROP, NET, UPDATE = 1, 2, 3
+
+
 def _state_dims(state: FilterState) -> FilterState:
     """vmap dims of a state: its tensors are batched on dim 0; the bias
     fields stay None when the bias block is off."""
@@ -95,20 +103,78 @@ def _single(fn: Callable, state: FilterState, *args, out_dims=0):
     return fn(state, *args)
 
 
-def make_vio_step(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
-                  batched: bool = False):
-    """The per-frame step closure.
+class VioStages(NamedTuple):
+    """The step's stages (``make_vio_stages``); composed in order they are
+    ``make_vio_step``."""
 
-    Args:
-        model: a ``models.uahn.UAHN`` on the filter's device, or None for
-            filter-only dead reckoning.
-        batched: the state, images and windows carry a leading batch dim B
-            (B sequences in lockstep).
-    Returns ``vio_step(state, frame_idx, img_prev_u8, img_curr_u8, w_win,
-    a_win, dt_win, n_used, generator) -> (state, FrameOutput)``; ``n_used``
-    is a host int, the largest of the batch when batched.
+    prop_fn: Callable  # (state, w_win, a_win, dt_win, n_used) -> state
+    net_fn: Callable  # (prior8, img_prev_u8, img_curr_u8, generator) -> (flow8, cov88)
+    upd_fn: Callable  # (state, frame_idx, flow8, cov88) -> (state, (chi2, inno, cov_meas))
+    finish_fn: Callable  # (state, net_mean, net_cov88, calib) -> (state, FrameOutput)
+    refine_prior_fn: Callable  # (state, flow8, cov88) -> prior8
+    prior_fn: Callable  # state -> prior8, the propagated 4-point offset
+
+
+def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
+                    batched: bool = False) -> VioStages:
+    """The step split into stages, so that the stepwise runner can time
+    each column of the reference's timing CSV (VioManager.cpp:98: load /
+    propagation / inference / update / total). ``make_vio_step`` composes
+    the same stages, so the two runners run one sequence of operations.
+
+    Args as ``make_vio_step``. ``net_fn`` draws its MC-dropout masks from
+    the generator it is given (the JAX ``net_fn`` folds the IEKF iteration
+    into its key); called in frame order, then iteration order, the
+    stream is ``run_offline``'s.
     """
     run = _over_batch if batched else _single
+
+    def prop_fn(state: FilterState, w_win, a_win, dt_win, n_used) -> FilterState:
+        with record_function("vio.propagate"):
+            return run(
+                lambda s, w, a, dt: propagate_window(s, fparams, w, a, dt, n_used),
+                state, w_win, a_win, dt_win, out_dims=_state_dims(state),
+            )
+
+    def prior_fn(state: FilterState) -> torch.Tensor:
+        return run(propagated_offset8, state)
+
+    def net_fn(prior8, img_prev_u8, img_curr_u8, generator):
+        with record_function("vio.network"):
+            img1 = img_prev_u8 if batched else img_prev_u8[None]
+            img2 = img_curr_u8 if batched else img_curr_u8[None]
+            prior_px = (prior8 * FOCAL).reshape(-1, 4, 2)
+            flow8, cov88 = model(
+                img1, img2, prior_px if cfg.use_prior else None,
+                use_prior=cfg.use_prior, generator=generator,
+            )
+            return (flow8, cov88) if batched else (flow8[0], cov88[0])
+
+    def refine_prior_fn(state: FilterState, flow8, cov88) -> torch.Tensor:
+        """Mean-only refinement of the offset prior for the next IEKF
+        inference (never committed to the state)."""
+        with record_function("vio.update"):
+            return run(
+                lambda s, m, c: propagated_offset8(hnet_update(
+                    s, fparams, m, c, update_offset=True, cov_update=False,
+                )),
+                state, flow8, cov88,
+            )
+
+    def upd_fn(state: FilterState, frame_idx: int, flow8, cov88):
+        """Innovation statistics, then the EKF update (offsets not updated,
+        VioManager.cpp:261-263) once the frame is past the startup gate (a
+        host bool, shared by a batch)."""
+        with record_function("vio.update"):
+            inno, _, chi2, _, cov_meas = run(
+                lambda s, m, c: innovation_stats(s, fparams, m, c), state, flow8, cov88,
+            )
+            if frame_idx > cfg.update_gate_frames:
+                state = run(
+                    lambda s, m, c: hnet_update(s, fparams, m, c, update_offset=False),
+                    state, flow8, cov88, out_dims=_state_dims(state),
+                )
+            return state, (chi2, inno, cov_meas)
 
     def finish(state: FilterState, net_mean, net_cov88, net_chi2, net_inno, cov_meas):
         rot = quat_to_rot(state.q)
@@ -128,56 +194,63 @@ def make_vio_step(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
         )
         return reset_4pt_offset(state), out
 
-    def vio_step(state: FilterState, frame_idx: int, img_prev_u8, img_curr_u8,
-                 w_win, a_win, dt_win, n_used, generator):
-        sd = _state_dims(state)
-        with record_function("vio.propagate"):
-            state = run(
-                lambda s, w, a, dt: propagate_window(s, fparams, w, a, dt, n_used),
-                state, w_win, a_win, dt_win, out_dims=sd,
-            )
-        lead = state.p.shape[:-1]  # (B,) batched, () single
-        net_mean = net_inno = state.p.new_zeros(lead + (8,))
-        net_chi2 = state.p.new_zeros(lead)
-        cov_meas = net_cov88 = state.p.new_zeros(lead + (8, 8))
-        if model is not None:
-            img1 = img_prev_u8 if batched else img_prev_u8[None]
-            img2 = img_curr_u8 if batched else img_curr_u8[None]
-            gate = frame_idx > cfg.update_gate_frames
-            prior8 = run(propagated_offset8, state)
-            for it in range(cfg.max_iekf_iterations):
-                with record_function("vio.network"):
-                    prior_px = (prior8 * FOCAL).reshape(-1, 4, 2)
-                    flow8, cov88 = model(
-                        img1, img2, prior_px if cfg.use_prior else None,
-                        use_prior=cfg.use_prior, generator=generator,
-                    )
-                    if not batched:
-                        flow8, cov88 = flow8[0], cov88[0]
-                last = it == cfg.max_iekf_iterations - 1
-                with record_function("vio.update"):
-                    net_inno, _, net_chi2, _, cov_meas = run(
-                        lambda s, m, c: innovation_stats(s, fparams, m, c),
-                        state, flow8, cov88,
-                    )
-                    if last:
-                        if gate:
-                            state = run(
-                                lambda s, m, c: hnet_update(
-                                    s, fparams, m, c, update_offset=False
-                                ),
-                                state, flow8, cov88, out_dims=sd,
-                            )
-                    elif gate:
-                        prior8 = run(
-                            lambda s, m, c: propagated_offset8(hnet_update(
-                                s, fparams, m, c, update_offset=True, cov_update=False,
-                            )),
-                            state, flow8, cov88,
-                        )
-                net_mean, net_cov88 = flow8, cov88
+    def finish_fn(state: FilterState, net_mean, net_cov88, calib):
+        """The frame's outputs (world pose, RosVisualizer.cpp:171), then the
+        4-point offset reset (VioManager.cpp:275)."""
+        net_chi2, net_inno, cov_meas = calib
         return run(finish, state, net_mean, net_cov88, net_chi2, net_inno, cov_meas,
-                   out_dims=(sd, 0))
+                   out_dims=(_state_dims(state), 0))
+
+    return VioStages(prop_fn, net_fn, upd_fn, finish_fn, refine_prior_fn, prior_fn)
+
+
+def _no_network_outputs(state: FilterState):
+    """(net_mean, net_cov88, (chi2, inno, cov_meas)) of a frame without a
+    network measurement: zeros."""
+    lead = state.p.shape[:-1]  # (B,) batched, () single
+    vec8 = state.p.new_zeros(lead + (8,))
+    mat8 = state.p.new_zeros(lead + (8, 8))
+    return vec8, mat8, (state.p.new_zeros(lead), vec8, mat8)
+
+
+def make_vio_step(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
+                  batched: bool = False):
+    """The per-frame step closure, composed of ``make_vio_stages``.
+
+    Args:
+        model: a ``models.uahn.UAHN`` on the filter's device, or None for
+            filter-only dead reckoning.
+        batched: the state, images and windows carry a leading batch dim B
+            (B sequences in lockstep).
+    Returns ``vio_step(state, frame_idx, img_prev_u8, img_curr_u8, w_win,
+    a_win, dt_win, n_used, generator, clock=None) -> (state,
+    FrameOutput)``; ``n_used`` is a host int, the largest of the batch when
+    batched. ``clock(column)``, when given, is called as each stage ends
+    with the timing column it belongs to (``PROP``, ``NET``, ``UPDATE``).
+    """
+    stages = make_vio_stages(model, fparams, cfg, batched)
+
+    def vio_step(state: FilterState, frame_idx: int, img_prev_u8, img_curr_u8,
+                 w_win, a_win, dt_win, n_used, generator, clock=None):
+        tick = clock or (lambda column: None)
+        state = stages.prop_fn(state, w_win, a_win, dt_win, n_used)
+        tick(PROP)
+        net_mean, net_cov88, calib = _no_network_outputs(state)
+        if model is not None:
+            prior8 = stages.prior_fn(state)
+            for it in range(cfg.max_iekf_iterations):
+                flow8, cov88 = stages.net_fn(prior8, img_prev_u8, img_curr_u8, generator)
+                tick(NET)
+                if it == cfg.max_iekf_iterations - 1:
+                    state, calib = stages.upd_fn(state, frame_idx, flow8, cov88)
+                elif frame_idx > cfg.update_gate_frames:
+                    # the ephemeral refinement honors the real update's gate
+                    prior8 = stages.refine_prior_fn(state, flow8, cov88)
+                tick(UPDATE)
+                net_mean, net_cov88 = flow8, cov88
+        state, out = stages.finish_fn(state, net_mean, net_cov88, calib)
+        tick(UPDATE)
+        return state, out
 
     return vio_step
 

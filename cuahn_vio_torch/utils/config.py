@@ -1,8 +1,8 @@
 """Single config dataclass mirroring the reference's VioManagerOptions.
 
-A copy of ``cuahn_vio.utils.config`` for the port. ``yaml`` is imported
-only inside ``from_yaml`` / ``to_yaml``, so the port runs without PyYAML
-unless a YAML config is read or written.
+A copy of ``cuahn_vio.utils.config`` for the port. YAML is read and
+written by the port's own ``utils.yaml_io`` (the subset these configs
+use), so no config path needs PyYAML.
 
 One structure replaces the reference's three config sources (ROS params
 via parse_ros.h, CLI11 via parse_cmd.h, struct defaults in
@@ -26,6 +26,7 @@ import numpy as np
 from cuahn_vio_torch.filter.state import FilterParams, make_params
 from cuahn_vio_torch.pipeline.runner import RunnerOptions
 from cuahn_vio_torch.pipeline.vio import VioConfig
+from cuahn_vio_torch.utils import yaml_io
 
 # T_ItoCmono, sensor_config 1: indoor 45° down-facing (uzhfpv.launch:86-92)
 T_ITOC_INDOOR45 = [
@@ -194,10 +195,8 @@ class VioOptions:
 
     @classmethod
     def from_yaml(cls, path: str) -> "VioOptions":
-        import yaml
-
         with open(path) as f:
-            data = yaml.safe_load(f) or {}
+            data = yaml_io.load(f.read())
         valid = {f.name for f in dataclasses.fields(cls)}
         unknown = set(data) - valid
         if unknown:
@@ -205,10 +204,8 @@ class VioOptions:
         return cls(**data)
 
     def to_yaml(self, path: str) -> None:
-        import yaml
-
         with open(path, "w") as f:
-            yaml.safe_dump(dataclasses.asdict(self), f, sort_keys=False)
+            f.write(yaml_io.dump(dataclasses.asdict(self)))
 
     # ----------------------------------------------------------- converters
     def filter_params(self, device="cuda") -> FilterParams:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -22,6 +22,13 @@ cuahn_vio_torch.cli run-vio-batch --device cpu`` with the v10 weights and
 the slice's config, scores each sequence the same way, and prints per
 sequence the JAX package's mean ATE, its seed-to-seed spread (max - min)
 and the bar that ``chip_smoke.BATCH_ATE_BARS_M`` takes from them.
+
+``bf16`` (the bf16 phase's bar): runs the smoke's sequence for each seed
+through ``python -m cuahn_vio.cli run-vio --bf16`` (bfloat16 conv towers)
+and ``python -m cuahn_vio_torch.cli run-vio --bf16 --device cpu`` with the
+v10 weights, scores each the same way, and prints the JAX package's mean
+ATE and the bar that ``chip_smoke.BF16_ATE_BAR_M`` takes from it (+ 0.005
+m, the margin of ``chip_smoke.ATE_BAR_M``).
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -81,6 +88,25 @@ def single(env, out_dir: str, weights: str) -> None:
                   f"{ate(env, path('seq_gt.txt'), est):.5f} m", flush=True)
 
 
+def bf16(env, out_dir: str, weights: str, runs=RUNS) -> None:
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    jax_ates = []
+    for seed in SEEDS:
+        for package, extra in runs:
+            est = path(f"est_bf16_{package}_s{seed}.txt")
+            run(env, [f"{package}.cli", "run-vio", path("seq.npz"),
+                      "--config", path("seq_config.yaml"), "--weights", weights,
+                      "--out", est, "--seed", str(seed), "--bf16", *extra])
+            value = ate(env, path("seq_gt.txt"), est)
+            if package == "cuahn_vio":
+                jax_ates.append(value)
+            print(f"bf16 {package} seed {seed}: ATE pos rmse {value:.5f} m", flush=True)
+    if jax_ates:
+        mean = float(np.mean(jax_ates))
+        print(f"bf16 bar: JAX mean {mean:.5f} m, spread {float(np.ptp(jax_ates)):.5f} m, "
+              f"bar {mean + MARGIN_M:.5f} m", flush=True)
+
+
 def batch(env, out_dir: str, weights: str, stems: list) -> None:
     path = lambda name: os.path.join(out_dir, name)  # noqa: E731
     jax_ates = {stem: [] for stem in stems}
@@ -107,7 +133,7 @@ def batch(env, out_dir: str, weights: str, stems: list) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
-    ap.add_argument("--part", choices=["single", "batch", "both"], default="both")
+    ap.add_argument("--part", choices=["single", "batch", "bf16", "both"], default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -127,6 +153,8 @@ def main() -> int:
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     if args.part in ("single", "both"):
         single(env, args.out_dir, chip_smoke.WEIGHTS)
+    if args.part == "bf16":
+        bf16(env, args.out_dir, chip_smoke.WEIGHTS)
     if args.part in ("batch", "both"):
         stems = ["seq"]
         for i, tex_seq in enumerate(chip_smoke.textured_sequences("cpu")):

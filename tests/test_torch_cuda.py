@@ -11,7 +11,8 @@ per thread makes risky (ragged and tiny widths, B = 1 and 65, row bands
 just under and over the shared band) and at a rendered frame's texture
 coordinates, all three bit for bit (0.0); the flat sampler's batched form
 (B = 1, 3 and 16 textures, ragged N, misaligned coordinates) bit for bit
-too. The batched path, the blurred render and the CLI run on the card too.
+too. The batched path, the stepwise runner, the bf16 towers, the blurred
+render and the CLI run on the card too.
 """
 
 import numpy as np
@@ -184,6 +185,54 @@ def test_batched_path_on_gpu_warps_once_per_site_and_frame(gpu):
     for seq, r in zip(seqs, res):
         single = run_offline(*seq, model, fp, cfg, ro, device="cuda")
         np.testing.assert_allclose(r.pose_w[:, :3], single.pose_w[:, :3], atol=2e-5, rtol=0)
+
+
+def test_stepwise_runner_on_gpu_follows_run_offline(gpu):
+    """Staged and fused, at one generator seed with MC dropout on: the
+    poses of run_offline, a warp launch per site and frame (plus the
+    warm-up step's) and a stage row per frame."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.pipeline.runner import run_offline, run_stepwise
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    opts = VioOptions().apply_profile("calibrated")
+    opts.calib_camimu_dt, opts.init_height, opts.init_imu_thresh = 0.0, 1.5, 0.2
+    q = _short_sequences(gpu)[0]
+    model = build_uahn(None, device=gpu, dropout_rate=0.05)
+    args = (q.imu_t, q.imu_w, q.imu_a, q.cam_t, q.frames, model, opts.filter_params(gpu),
+            opts.vio_config(), opts.runner_options())
+    ref = run_offline(*args, seed=3, device="cuda")
+    for staged in (True, False):
+        tcuda.reset_launch_counts()
+        res = run_stepwise(*args, seed=3, device="cuda", staged_timing=staged)
+        assert tcuda.launch_counts["homography_warp"] == 3 * (len(res.times) + 1)
+        assert res.stage_ms.shape == (len(res.times), 5) and res.n_recoveries == 0
+        np.testing.assert_allclose(res.pose_w, ref.pose_w, atol=1e-6, rtol=0)
+
+
+def test_bf16_towers_on_gpu_stay_near_float32(gpu):
+    """The v10 UAHN with cuDNN bf16 towers: within bench.py:70's 0.05 px of
+    its float32 flow."""
+    import os
+
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    rng = np.random.default_rng(30)
+    base = rng.integers(0, 256, (232, 330)).astype(np.uint8)
+    img1 = torch.as_tensor(base[4:228, 5:325].copy(), device=gpu)[None]
+    img2 = torch.as_tensor(base[2:226, 2:322].copy(), device=gpu)[None]
+    prior = torch.as_tensor(rng.normal(0, 2.0, (1, 4, 2)).astype(np.float32), device=gpu)
+    weights = load_params(os.path.join(os.path.dirname(__file__), "..", "weights",
+                                       "uahn_fil_v10.msgpack"))
+    f32 = build_uahn(weights, device=gpu, dropout_rate=0.0)
+    bf16 = build_uahn(weights, device=gpu, dropout_rate=0.0, compute_dtype=torch.bfloat16)
+    tcuda.reset_launch_counts()
+    a, _ = f32(img1, img2, prior, use_prior=True)
+    b, cov = bf16(img1, img2, prior, use_prior=True)
+    assert tcuda.launch_counts["homography_warp"] == 6  # the warp stays the kernel
+    assert b.dtype == cov.dtype == torch.float32 and torch.isfinite(cov).all()
+    assert 0 < (a - b).abs().max().item() < 0.05
 
 
 def test_cli_runs_on_the_gpu_by_default(gpu, tmp_path):

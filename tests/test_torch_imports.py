@@ -1,9 +1,10 @@
-"""The port imports neither JAX, flax nor the JAX package.
+"""The port imports neither JAX, flax, PyYAML nor the JAX package.
 
 In a fresh interpreter where a ``sys.meta_path`` finder makes ``jax``,
-``flax`` and ``cuahn_vio`` (and their submodules) unimportable, every
-module of ``cuahn_vio_torch`` and the port's scripts (``chip_smoke.py``,
-``tune_warp.py``, ``profile_slice.py``, ``smoke_reference.py``) must import.
+``flax``, ``yaml`` and ``cuahn_vio`` (and their submodules) unimportable,
+every module of ``cuahn_vio_torch`` and the port's scripts
+(``chip_smoke.py``, ``tune_warp.py``, ``profile_slice.py``,
+``smoke_reference.py``) must import.
 """
 
 import os
@@ -18,7 +19,7 @@ import importlib.abc
 import pkgutil
 import sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "cuahn_vio")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cuahn_vio")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -51,7 +52,9 @@ def test_port_imports_without_jax_flax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", GUARDED], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30  # every module was walked
+    # every module was walked, this slice's too (filter.health,
+    # eval.calibration / metrics, utils.yaml_io)
+    assert int(proc.stdout.split()[-1]) >= 37
 
 
 def test_the_guard_blocks_what_it_names():
@@ -65,3 +68,16 @@ def test_the_guard_blocks_what_it_names():
     proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and "blocked import of cuahn_vio" in proc.stderr
+
+
+def test_the_guard_blocks_yaml():
+    """The finder refuses PyYAML too, so the port is shown to import (and
+    its config paths to load) without it."""
+    probe = GUARDED.replace(
+        'for name in names + ["chip_smoke", "profile_slice", "smoke_reference", "tune_warp"]:',
+        'import yaml\nfor name in []:',
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "blocked import of yaml" in proc.stderr

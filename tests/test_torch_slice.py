@@ -192,11 +192,18 @@ def test_cli_run_vio_on_cpu_writes_the_pose_file(sequence, tmp_path):
     assert set(np.load(state).files) >= {"pose", "cov_core", "net_chi2"}
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--timing-out", "t.csv"],
-                                  ["--cov-calib", "pos:2"], ["--odom-out", "o.txt"]])
-def test_cli_refuses_flags_not_ported(flag, tmp_path):
+@pytest.mark.parametrize("argv", [
+    ["run-vio-batch", "x.npz", "--device", "cpu", "--mesh"],
+    ["make-synthetic", "--device", "cpu", "--traj-file", "traj.csv"],
+    ["make-synthetic", "--device", "cpu", "--effects"],
+    ["error-simulation", "x.npz", "gt.txt", "--plot", "x.png"],
+], ids=["run-vio-batch --mesh", "make-synthetic --traj-file", "make-synthetic --effects",
+        "error-simulation --plot"])
+def test_cli_refuses_flags_not_ported(argv, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match="not implemented"):
-        tcli.main(["run-vio", str(tmp_path / "x.npz"), "--device", "cpu", *flag])
+        tcli.main(argv)
+    assert not list(tmp_path.iterdir())  # refused before anything was read or written
 
 
 def test_cli_refuses_cuda_without_a_gpu(tmp_path):
