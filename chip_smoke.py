@@ -11,7 +11,8 @@ Phases, each printed on its own line with its seconds:
    (``-Xptxas -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
    float32, bit for bit (max abs error 0.0, NaN exactly where the plain
-   version has NaN): the warp at 224x320 with B in {1, 4, 8, 65}, at the
+   version has NaN): the warp at 224x320 with B in {1, 4, 8, 65} (and, in
+   float32, at the trainer's B = 16 and its probe's B = 32), at the
    ragged 224x317, 7x5 and 6x3 (B = 8) and on 50,000 6x3 images (widths
    that are not a multiple of a thread's pixels, narrower than one
    thread's 8 pixels) with near-identity, off-image, z <= 0, NaN, z = 0
@@ -22,14 +23,15 @@ Phases, each printed on its own line with its seconds:
    shapes (a rendered frame's 71,680 coordinates on a 512x512 texture, a
    blurred frame's 3 x 71,680 at ``--exposure-ms 8``, and 16 bank
    textures at a blurred frame's coordinates each, the JAX trainer's
-   batch), at ragged N, at 4-byte-misaligned coordinates, on a texture
+   batch, and 32 of them, its probe's), at ragged N, at 4-byte-misaligned coordinates, on a texture
    whose rows are not whole 4-byte words, and at in-range, edge,
    off-image, +-inf and NaN ones;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
    (the median of three, taken in turns; the numbers kept), the kernel's
-   ratio to grid_sample, and eager call-to-call time. The warp at B = 1, 4 and 64 (uint8 and float32), the
+   ratio to grid_sample, and eager call-to-call time. The warp at B = 1, 4 and 64 (uint8 and float32)
+   and at B = 16 float32 (the trainer's warp), the
    row-band warp at B = 4, 8 and 64 (uint8), the flat sampler at its
    three shapes on uint8 textures, beside the launch floor (a one-element
    ``add_`` in the same CUDA graph);
@@ -76,7 +78,25 @@ Phases, each printed on its own line with its seconds:
    ``error-singlerun se3``, ``timing-percentages`` and
    ``error-simulation`` on what ``run-vio`` wrote. Every exit code must be
    0 and the timing csv must have one row of 5 stages a pose. Prints
-   whether PyYAML is installed: the port needs none.
+   whether PyYAML is installed: the port needs none;
+11. the trainer: ``train-uahn --resume`` v10 for TRAIN_STEPS steps at
+   224x320, batch TRAIN_BATCH, photo textures and effects on (the CLI's
+   default), twice at one seed, each run a subprocess that also records
+   the shape of every warp and flat-sampler launch and the host time at
+   the end of every step (a synchronize only after the first and the
+   last step). Each run must log a finite loss and ``skipped=`` on every logged
+   step; launch the flat sampler (B4) twice a step at shape 3 (16
+   textures x 3 x 224 x 320 points) and twice for the probe's 32
+   textures; launch the warp (B2) in float32 three times a step at B = 16
+   and six times for the probe at B = 32, and no other warp; write the
+   checkpoint and ``.best``, both read back by the port with every leaf
+   finite, of v10's shapes and not v10's values. Prints each run's ms per
+   step (the window from the end of the first step to the end of the
+   last, over its steps, the checkpoint write inside it; beside it the
+   median host gap between step ends) and samples/s beside the card's
+   name and power limit, how far apart the two runs' weights are, and the
+   ATE of ``run_offline`` with the first run's weights on phase 4's
+   sequence beside v10's (reports, not gates).
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -175,6 +195,12 @@ BF16_ATE_BAR_M = REF_BF16_ATE_M + ATE_MARGIN_M
 # phase 10's make-synthetic: seconds of motion after the still phase
 CLI_DURATION_S = 3.0
 CLI_COV_CALIB = "pos:2,ori:2"
+# phase 11's train-uahn runs: steps, batch (the JAX trainer's) and
+# checkpoint interval (the probe's batch is train.trainer.PROBE_SIZE)
+TRAIN_STEPS = 12
+TRAIN_BATCH = 16
+TRAIN_SAVE_EVERY = 6
+TRAIN_RUNS = 2  # at one seed: the step time's spread in one call, and the weights compared
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -272,26 +298,32 @@ def nan_checked_err(torch, out, ref, what: str) -> float:
 
 
 def warp_parity_inputs(torch, rng, dtype, dev):
-    """(label, imgs, hs) of the warps' parity phase: 224x320 at B = 1, 4,
-    8 and 65 (1, 2, 4 and 8 pixels a thread on the H100), and the
-    RAGGED_SHAPES (parity_cases)."""
-    for b, hgt, wid in [(b, H, W) for b in (1, 4, 8, 65)] + list(RAGGED_SHAPES):
+    """(B, label, imgs, hs) of the warps' parity phase: 224x320 at B = 1,
+    4, 8 and 65 (1, 2, 4 and 8 pixels a thread on the H100), in float32
+    also at the trainer's B = 16 and its probe's B = PROBE_SIZE, and the
+    RAGGED_SHAPES (parity_cases; B is None for these)."""
+    from cuahn_vio_torch.train.trainer import PROBE_SIZE
+
+    full = (1, 4, 8, 65) + ((TRAIN_BATCH, PROBE_SIZE) if dtype == torch.float32 else ())
+    for b, hgt, wid in [(b, H, W) for b in full] + list(RAGGED_SHAPES):
         imgs, hs = parity_cases(torch, rng, b, dtype, hgt, wid)
-        yield (f"{str(dtype):13s} B={b} {hgt}x{wid}", torch.as_tensor(imgs, device=dev),
-               torch.as_tensor(hs, device=dev))
+        yield ((b if (hgt, wid) == (H, W) else None), f"{str(dtype):13s} B={b} {hgt}x{wid}",
+               torch.as_tensor(imgs, device=dev), torch.as_tensor(hs, device=dev))
 
 
 def check_kernel(torch, dev):
     """Phase 2, B1/B2: the warp kernel against its plain version, bit for
-    bit. Returns the max abs error (0.0)."""
+    bit. Returns the max abs error at 224x320 by (dtype name, B), each
+    0.0."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, pixels_per_thread
     from cuahn_vio_torch.ops.warp import homography_warp_plain
 
     rng = np.random.default_rng(0)
+    errs = {}
     for dtype in (torch.uint8, torch.float32):
-        for label, imgs, hs in warp_parity_inputs(torch, rng, dtype, dev):
+        for b, label, imgs, hs in warp_parity_inputs(torch, rng, dtype, dev):
             out = homography_warp_cuda(imgs, hs)
             ref = homography_warp_plain(imgs, hs)
             torch.cuda.synchronize()
@@ -307,7 +339,9 @@ def check_kernel(torch, dev):
                   flush=True)
             if err != 0.0:
                 raise AssertionError(f"warp kernel vs plain {err:.3e}: not bit-identical")
-    return 0.0
+            if b is not None:
+                errs[(str(dtype).split(".")[-1], b)] = err
+    return errs
 
 
 def check_rowskip(torch, dev):
@@ -327,7 +361,7 @@ def check_rowskip(torch, dev):
     rng = np.random.default_rng(2)
     limit = band_bytes()
     for dtype in (torch.uint8, torch.float32):
-        cases = list(warp_parity_inputs(torch, rng, dtype, dev))
+        cases = [case[1:] for case in warp_parity_inputs(torch, rng, dtype, dev)]
         item = torch.tensor([], dtype=dtype).element_size()
         deg = BAND_EDGE_ROLL_DEG[item]
         imgs, hs = parity_cases(torch, rng, 2, dtype)
@@ -455,7 +489,9 @@ def misaligned(torch, x):
 def sample_parity_inputs(torch, rng, dtype, dev):
     """(label, images, su, sv) of the flat sampler's parity phase: shapes 1,
     2 and 3 (a frame's, a blurred frame's and the trainer batch's
-    coordinates), the batch's first 2 and 4 textures, ragged N (N mod 8 !=
+    coordinates), shape 3 at the probe's 32 textures (the batch twice, its
+    second half's coordinates rolled by one texture), the batch's first 2
+    and 4 textures, ragged N (N mod 8 !=
     0), 4-byte-misaligned coordinates, all of shape 3's points on one
     texture (8 points a thread in one row), and the special coordinates
     (in-range, edges, off-image, +-inf, NaN) on one texture, on a texture
@@ -469,6 +505,8 @@ def sample_parity_inputs(torch, rng, dtype, dev):
     yield "shape 1 (frame)", tex, *frame
     yield "shape 2 (blurred frame)", tex, *blurred
     yield "shape 3 (trainer batch)", texs, bsu, bsv
+    yield ("shape 3 (probe, 2 x the batch's textures)", torch.cat([texs, texs]),
+           torch.cat([bsu, bsu.roll(1, 0)]), torch.cat([bsv, bsv.roll(1, 0)]))
     for b in (2, 4):
         yield f"batch of {b}", texs[:b], bsu[:b], bsv[:b]
     yield "shape 1 ragged", tex, frame[0][:-3], frame[1][:-3]
@@ -483,15 +521,16 @@ def sample_parity_inputs(torch, rng, dtype, dev):
 
 def check_sample(torch, dev):
     """Phase 2, B4: the flat sampler against its plain version, bit for bit,
-    on ``sample_parity_inputs``, uint8 and float32. Returns (max abs error
-    at the three shapes, over all)."""
+    on ``sample_parity_inputs``, uint8 and float32. Returns the max abs
+    error at shapes 1-2 ("frame"), at shape 3 and the probe's 32 textures
+    ("batch") and over all ("all")."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda, pixels_per_thread
     from cuahn_vio_torch.ops.warp import bilinear_sample_flat
 
     rng = np.random.default_rng(3)
-    worst = {"shapes": 0.0, "other": 0.0}
+    worst = {"frame": 0.0, "batch": 0.0, "other": 0.0}
     for dtype in (torch.uint8, torch.float32):
         for label, tex, csu, csv in sample_parity_inputs(torch, rng, dtype, dev):
             out = bilinear_sample_cuda(tex, csu, csv)
@@ -505,9 +544,10 @@ def check_sample(torch, dev):
                   f"{int(torch.isnan(ref).sum())}", flush=True)
             if err != 0.0:
                 raise AssertionError(f"sampler vs plain {err:.3e}: not bit-identical")
-            key = "shapes" if label.split(" (")[0] in ("shape 1", "shape 2", "shape 3") else "other"
+            key = {"shape 1": "frame", "shape 2": "frame",
+                   "shape 3": "batch"}.get(label.split(" (")[0], "other")
             worst[key] = max(worst[key], err)
-    return worst["shapes"], max(worst.values())
+    return dict(worst, all=max(worst.values()))
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -604,7 +644,8 @@ def time_kernel(torch, dev):
     rows = {}
     cases = (("warp", torch.uint8, 1, 500), ("warp", torch.uint8, 4, 200),
              ("warp", torch.uint8, 64, 50), ("warp", torch.float32, 1, 500),
-             ("warp", torch.float32, 4, 200), ("warp", torch.float32, 64, 50),
+             ("warp", torch.float32, 4, 200), ("warp", torch.float32, 16, 200),
+             ("warp", torch.float32, 64, 50),
              ("rowskip", torch.uint8, 4, 200), ("rowskip", torch.uint8, 8, 200),
              ("rowskip", torch.uint8, 64, 50))
     for kernel, dtype, b, iters in cases:
@@ -1037,6 +1078,147 @@ def run_cli(tmp: str) -> dict:
     return out
 
 
+def train_child(argv) -> None:
+    """Phase 11's subprocess: ``python -m cuahn_vio_torch.cli`` ARGV, with
+    the warp and flat-sampler wrappers spied on (the shape of each launch;
+    the launch itself and its count are the wrapper's) and the host time
+    at the end of each training step recorded, with a synchronize after
+    the first and the last step only (the loop runs as ``train`` runs it
+    in between); prints them as the last line."""
+    import torch
+
+    from cuahn_vio_torch import cli
+    from cuahn_vio_torch.ops.cuda import launch_counts
+    from cuahn_vio_torch.ops.cuda import warp as cuda_warp
+    from cuahn_vio_torch.train import trainer
+
+    steps = int(argv[argv.index("--steps") + 1])
+    seen = {"warps": [], "samples": [], "step_ends": []}
+    warp, sample, make_step = (cuda_warp.homography_warp_cuda, cuda_warp.bilinear_sample_cuda,
+                               trainer.make_train_step)
+
+    def spy_warp(imgs, h_uv):
+        seen["warps"].append([imgs.shape[0], str(imgs.dtype).split(".")[-1]])
+        return warp(imgs, h_uv)
+
+    def spy_sample(img, su, sv):
+        seen["samples"].append([img.shape[0] if img.dim() == 3 else 1, su.shape[-1]])
+        return sample(img, su, sv)
+
+    def timed_step_maker(*args):
+        step = make_step(*args)
+
+        def timed(*a):
+            out = step(*a)
+            if len(seen["step_ends"]) in (0, steps - 1):
+                torch.cuda.synchronize()
+            seen["step_ends"].append(time.perf_counter())
+            return out
+
+        return timed
+
+    cuda_warp.homography_warp_cuda, cuda_warp.bilinear_sample_cuda = spy_warp, spy_sample
+    trainer.make_train_step = timed_step_maker
+    cli.main(argv)
+    print("train_child " + json.dumps(dict(seen, launch_counts=launch_counts)), flush=True)
+
+
+def train_once(torch, tmp: str, probe_size: int) -> dict:
+    """One ``train-uahn`` run from v10 in a subprocess (``train_child``)
+    writing ``tmp``/w.msgpack, with its checks: finite logged losses, the
+    launches of B4 and B2 at the trainer's shapes, the checkpoint and
+    ``.best`` read back. Returns what it found; raises on a failed check."""
+    import numpy as np
+
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    out_path = os.path.join(tmp, "w.msgpack")
+    args = ["train-uahn", "--resume", WEIGHTS, "--steps", str(TRAIN_STEPS), "--batch-size",
+            str(TRAIN_BATCH), "--save-every", str(TRAIN_SAVE_EVERY), "--out", out_path]
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "chip_smoke.train_child(sys.argv[1:])")
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=tmp,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train-uahn exited {proc.returncode}: {proc.stderr[-3000:]}")
+    said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+    seen = json.loads(last.split(" ", 1)[1])
+    for line in said.splitlines():
+        print(f"  train-uahn: {line}", flush=True)
+    logged = [line for line in said.splitlines() if line.startswith("step") and " loss " in line]
+    losses = [float(line.split(" loss ")[1].split()[0]) for line in logged]
+    if len(logged) < 2 or not all(np.isfinite(losses)) or not all(
+            "skipped=" in line for line in logged):
+        raise AssertionError(f"train-uahn logged {logged}")
+    probe = [line for line in said.splitlines() if "PROBE" in line]
+    n_points = 3 * H * W  # blur_taps x one frame's pixels
+    want_samples = sorted([[TRAIN_BATCH, n_points]] * (2 * TRAIN_STEPS)
+                          + [[probe_size, n_points]] * 2)
+    want_warps = sorted([[TRAIN_BATCH, "float32"]] * (3 * TRAIN_STEPS)
+                        + [[probe_size, "float32"]] * 6)
+    counts = seen["launch_counts"]
+    if sorted(seen["samples"]) != want_samples or counts["bilinear_sample"] != len(want_samples):
+        raise AssertionError(f"train-uahn flat-sampler launches {seen['samples']} "
+                             f"({counts['bilinear_sample']} counted)")
+    if (sorted(seen["warps"]) != want_warps or counts["homography_warp"] != len(want_warps)
+            or counts["homography_warp_rowskip"]):
+        raise AssertionError(f"train-uahn warp launches {seen['warps']} ({counts} counted)")
+    v10 = load_params(WEIGHTS)
+    written = {}
+    for path in (out_path, out_path + ".best"):
+        got = written[path] = load_params(path)
+        if got.keys() != v10.keys() or any(got[k].shape != v10[k].shape for k in v10):
+            raise AssertionError(f"{path}: not v10's tree")
+        if not all(torch.isfinite(got[k]).all() for k in got):
+            raise AssertionError(f"{path}: non-finite weights")
+        if all(torch.equal(got[k], v10[k]) for k in v10):
+            raise AssertionError(f"{path}: v10's weights unchanged")
+    ends = np.asarray(seen["step_ends"])
+    if len(ends) != TRAIN_STEPS or not probe:
+        raise AssertionError(f"train-uahn: {len(ends)} steps timed, probe lines {probe}")
+    # steps 1 .. TRAIN_STEPS - 1 as train() runs them, between two synchronizes
+    ms_step = float((ends[-1] - ends[0]) / (TRAIN_STEPS - 1) * 1e3)
+    return dict(logged_losses=losses, ms_per_step=ms_step,
+                median_gap_ms=float(np.median(np.diff(ends)) * 1e3),
+                samples_per_s=TRAIN_BATCH / ms_step * 1e3, warp_launches=len(seen["warps"]),
+                sampler_launches=len(seen["samples"]), probe=probe[-1].split(": ", 1)[1],
+                weights=written[out_path])
+
+
+def run_train(torch, dev, seq, opts) -> dict:
+    """Phase 11: TRAIN_RUNS ``train-uahn`` runs from v10 at one seed
+    (``train_once``), how far apart their written weights are, and
+    ``run_offline`` with the first run's weights on phase 4's sequence.
+    Returns what the checks found; raises on a failed one."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.align import ate_rmse
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.pipeline.runner import run_offline
+    from cuahn_vio_torch.train.trainer import PROBE_SIZE
+
+    runs = []
+    for _ in range(TRAIN_RUNS):
+        with tempfile.TemporaryDirectory() as tmp:
+            runs.append(train_once(torch, tmp, PROBE_SIZE))
+    first = runs[0]["weights"]
+    weights_diff = max(float((r["weights"][k] - first[k]).abs().max())
+                       for r in runs[1:] for k in first)
+    model = build_uahn(first, device=dev, dropout_rate=opts.mc_dropout,
+                       blocks_to_run=opts.blocks_to_run)
+    res = run_offline(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t, seq.frames, model,
+                      opts.filter_params(dev), opts.vio_config(), opts.runner_options(),
+                      seed=0, device=dev)
+    if not np.isfinite(res.pose_w).all():
+        raise AssertionError("run_offline with the trained weights: non-finite poses")
+    _, ate = ate_rmse(res.times, res.pose_w, seq.gt_times, seq.gt_pose_w)
+    for r in runs:
+        del r["weights"]
+    return dict(runs=runs, weights_max_abs_diff=weights_diff, trained_ate_pos_m=ate,
+                probe_size=PROBE_SIZE)
+
+
 def kernel_entry(name, source_line, launches, err, row, ptxas, bound_by="bytes"):
     """One entry of the kernels line; ``ptxas`` is the kernel's
     ``build.ptxas_report`` entry (registers and spill bytes)."""
@@ -1116,13 +1298,14 @@ def main() -> int:
           band_bytes=warp_cuda.band_bytes())
 
     t0 = time.perf_counter()
-    warp_err = check_kernel(torch, dev)
+    warp_errs = check_kernel(torch, dev)
     rowskip_err = check_rowskip(torch, dev)
-    sample_err, sample_worst = check_sample(torch, dev)
-    phase("parity", t0, warp_max_abs_err=f"{warp_err:.3e}",
+    sample_errs = check_sample(torch, dev)
+    phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
-          sampler_shapes_max_abs_err=f"{sample_err:.3e}",
-          sampler_max_abs_err=f"{sample_worst:.3e}")
+          sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
+          sampler_batch_shapes_max_abs_err=f"{sample_errs['batch']:.3e}",
+          sampler_max_abs_err=f"{sample_errs['all']:.3e}")
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)
@@ -1253,22 +1436,52 @@ def main() -> int:
         raise AssertionError(f"--cov-calib: npz covariance {found['cov_rel_diff']:.3e} from the "
                              "inflated plain run's")
 
+    t0 = time.perf_counter()
+    trained = run_train(torch, dev, seq, opts)
+    for i, run in enumerate(trained["runs"]):
+        step_ms = run["ms_per_step"]
+        phase("train", t0, run=i, gpu=f"'{gpu}'", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+              ms_per_step=f"{step_ms:.3f}", median_step_gap_ms=f"{run['median_gap_ms']:.3f}",
+              samples_per_s=f"{run['samples_per_s']:.1f}",
+              b4_share=f"{2 * sample_time[3]['ms'] / step_ms:.5f}",
+              b2_share=f"{3 * times[('warp', 'float32', TRAIN_BATCH)]['ms'] / step_ms:.5f}",
+              sampler_launches=run["sampler_launches"], warp_launches=run["warp_launches"],
+              losses=run["logged_losses"], probe=f"'{run['probe']}'")
+    phase("train", t0, weights_max_abs_diff_between_runs=f"{trained['weights_max_abs_diff']:.3e}",
+          trained_ate_pos_m=f"{trained['trained_ate_pos_m']:.5f}",
+          v10_ate_pos_m=f"{ate_pos:.5f}")
+    main_run = trained["runs"][0]  # the main path's launches: the first run's
+    probe_size = trained["probe_size"]
+
     nb = len(batch_seqs)
 
-    def compiled(kernel: str, b: int) -> dict:  # the instantiation a B-image launch runs
-        return ptxas[f"{kernel}<h,{warp_cuda.pixels_per_thread(b, H, W)}>"]
+    def compiled(kernel: str, b: int, t: str = "h") -> dict:  # a B-image launch's instantiation
+        return ptxas[f"{kernel}<{t},{warp_cuda.pixels_per_thread(b, H, W)}>"]
 
+    b4_points_per_thread = warp_cuda.pixels_per_thread(BATCH_TEXTURES, 1, 3 * H * W)
     kernels = [
         kernel_entry("homography_warp (B=1, single-stream run-vio)", 154, warp_launches,
-                     warp_err, times[("warp", "uint8", 1)], compiled("warp_kernel", 1)),
+                     warp_errs[("uint8", 1)], times[("warp", "uint8", 1)],
+                     compiled("warp_kernel", 1)),
         kernel_entry(f"homography_warp (B={nb}, run-vio-batch)", 468, batch_warp_launches,
-                     warp_err, times[("warp", "uint8", nb)], compiled("warp_kernel", nb)),
+                     warp_errs[("uint8", nb)], times[("warp", "uint8", nb)],
+                     compiled("warp_kernel", nb)),
         kernel_entry(f"homography_warp_rowskip (B={nb}, run-vio-batch)", 403,
                      rowskip_launches, rowskip_err, times[("rowskip", "uint8", nb)],
                      compiled("rowskip_kernel", nb)),
-        sample_entry(sample_launches, blur_launches, sample_err, sample_time, ptxas,
+        sample_entry(sample_launches, blur_launches, sample_errs["frame"], sample_time, ptxas,
                      warp_cuda.pixels_per_thread),
+        kernel_entry(f"homography_warp (B={TRAIN_BATCH} float32, train-uahn)", 475,
+                     main_run["warp_launches"],
+                     max(warp_errs[("float32", b)] for b in (TRAIN_BATCH, probe_size)),
+                     times[("warp", "float32", TRAIN_BATCH)],
+                     compiled("warp_kernel", TRAIN_BATCH, "f")),
+        kernel_entry("bilinear_sample (train-uahn batch, shape 3)", 174,
+                     main_run["sampler_launches"], sample_errs["batch"], sample_time[3],
+                     ptxas[f"flat_kernel<h,{b4_points_per_thread},1>"]),
     ]
+    kernels[4]["launches_by_batch"] = {str(TRAIN_BATCH): 3 * TRAIN_STEPS, str(probe_size): 6}
+    kernels[5]["launches_by_batch"] = {str(TRAIN_BATCH): 2 * TRAIN_STEPS, str(probe_size): 2}
     kernels[0]["launches_by_phase"] = b1_launches
     kernels[3]["launches_by_phase"] = {"5": sample_launches + blur_launches,
                                        "10": found["sampler_launches"]}

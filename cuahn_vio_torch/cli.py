@@ -12,8 +12,12 @@ cuda``, the default; they fail when no GPU is found):
 - ``run-vio-batch``: many sequences in lockstep on one card
   (``run_offline_batch``), one pose file per input;
 - ``make-synthetic``: a synthetic sequence (procedural or photo-texture
-  ground, sharp or motion-blurred), written as ``.npz``, ``_gt.txt``,
-  ``_state_gt.txt`` and ``_config.yaml``.
+  ground, sharp or motion-blurred, with or without the sensor-effect
+  chain), written as ``.npz``, ``_gt.txt``, ``_state_gt.txt`` and
+  ``_config.yaml``;
+- ``train-uahn``: trains UAHN weights (``train.trainer.train``) on
+  rendered pairs, from a Flax checkpoint (``--resume``) or from scratch,
+  and writes Flax checkpoints the JAX package reads.
 
 The eval verbs score those outputs on the host (numpy only):
 ``error-singlerun`` (ATE / RPE / NEES of a pose file against GT),
@@ -39,7 +43,6 @@ NOT_YET_BATCH = {
 }
 NOT_YET_SYNTHETIC = {
     "traj_file": "--traj-file (B-spline trajectories)",
-    "effects": "--effects (the sensor-effect chain)",
 }
 NOT_YET_SIMULATION = {
     "plot": "--plot (error / 3-sigma plots; needs matplotlib)",
@@ -255,6 +258,11 @@ def cmd_make_synthetic(args):
         VioOptions.from_yaml(args.config) if args.config
         else VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
     )
+    effects = None
+    if args.effects:
+        from cuahn_vio_torch.data.sensor_effects import EffectsConfig
+
+        effects = EffectsConfig()
     texture = tex_params = None
     if args.texture != "none":
         from cuahn_vio_torch.data.textures import (
@@ -281,7 +289,7 @@ def cmd_make_synthetic(args):
         sigma_w=args.sigma_w, sigma_a=args.sigma_a,
         bias_g=args.bias_g, bias_a=args.bias_a, texture_seed=args.seed,
         texture=texture, tex_params=tex_params, exposure_s=args.exposure_ms * 1e-3,
-        device=device,
+        effects=effects, effects_seed=args.seed, device=device,
     )
     np.savez_compressed(
         args.out, imu_t=seq.imu_t, imu_w=seq.imu_w, imu_a=seq.imu_a,
@@ -302,6 +310,48 @@ def cmd_make_synthetic(args):
     opts.to_yaml(stem + "_config.yaml")
     print(f"wrote {args.out}, {stem}_gt.txt, {stem}_state_gt.txt and "
           f"{stem}_config.yaml")
+
+
+def cmd_train_uahn(args):
+    import torch
+
+    from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
+    from cuahn_vio_torch.train import TrainConfig, train
+    from cuahn_vio_torch.utils.checkpoint import load_params, save_params
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    device = _device(args.device)
+    opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
+    model = init_like_flax_(UAHN(), torch.Generator().manual_seed(args.seed))
+    if args.resume:
+        model.load_state_dict(load_params(args.resume))
+        print(f"resumed from {args.resume}")
+    model.to(device)
+    t = np.asarray(opts.t_imu_to_cam, np.float64)
+    c_rot_i = torch.tensor(t[:3, :3], dtype=torch.float32, device=device)
+    i_t_i2c = torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32, device=device)
+    train(
+        model, c_rot_i, i_t_i2c,
+        TrainConfig(
+            batch_size=args.batch_size, lr=args.lr,
+            trans_sigma=args.trans_sigma, rot_sigma=args.rot_sigma,
+            prior_noise_lo=args.prior_noise_lo,
+            prior_noise_px=args.prior_noise_px,
+            height_range=(args.height_min, args.height_max),
+            tilt_sigma=args.tilt_sigma,
+            use_textures=not args.no_textures,
+            use_effects=not args.no_effects,
+            exposure_frac_max=args.exposure_frac_max,
+            max_flow_px=args.max_flow_px,
+            echo_weight=args.echo_weight,
+            big_baseline_prob=args.big_baseline_prob,
+            traj_pair_prob=args.traj_pair_prob,
+        ),
+        steps=args.steps, seed=args.seed,
+        checkpoint_path=args.out, save_every=args.save_every,
+    )
+    save_params(args.out, model.state_dict())
+    print(f"wrote weights -> {args.out}")
 
 
 def cmd_error_singlerun(args):
@@ -499,10 +549,59 @@ def build_parser() -> argparse.ArgumentParser:
                    help="B-spline knot spacing of --traj-file (unused without it)")
     s.add_argument("--traj-z-offset", type=float, default=0.0,
                    help="height offset of --traj-file (unused without it)")
+    s.add_argument("--effects", action="store_true",
+                   help="sensor-effect augmentation (vignette, exposure, noise, "
+                        "defocus), one draw per sequence from --seed")
     # accepted only to be refused with a clear message (see NOT_YET_SYNTHETIC)
     s.add_argument("--traj-file", default=None, help="not implemented yet")
-    s.add_argument("--effects", action="store_true", help="not implemented yet")
     s.set_defaults(fn=cmd_make_synthetic)
+
+    s = sub.add_parser("train-uahn", help="train network weights from scratch")
+    s.add_argument("--out", default="uahn_weights.msgpack")
+    s.add_argument("--steps", type=int, default=2000)
+    s.add_argument("--batch-size", type=int, default=16)
+    s.add_argument("--lr", type=float, default=2e-4)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--save-every", type=int, default=250)
+    s.add_argument("--config", default=None)
+    s.add_argument("--resume", default=None,
+                   help="continue from an existing weights checkpoint (Flax msgpack)")
+    s.add_argument("--trans-sigma", type=float, default=0.06,
+                   help="inter-frame translation sigma (m)")
+    s.add_argument("--rot-sigma", type=float, default=0.025)
+    s.add_argument("--prior-noise-px", type=float, default=3.0)
+    s.add_argument("--height-min", type=float, default=0.8,
+                   help="camera height range sampled during training (m); "
+                        "flow magnitude scales as translation/height, so the "
+                        "low end controls the hardest samples")
+    s.add_argument("--height-max", type=float, default=3.0)
+    s.add_argument("--tilt-sigma", type=float, default=0.12,
+                   help="absolute roll/pitch sigma (rad); large values "
+                        "include near-horizon views with little ground texture")
+    s.add_argument("--no-textures", action="store_true",
+                   help="disable the photo texture bank (procedural sinusoid ground)")
+    s.add_argument("--no-effects", action="store_true",
+                   help="disable sensor-effect augmentation (vignette, "
+                        "exposure, noise, defocus; the motion blur stays)")
+    s.add_argument("--exposure-frac-max", type=float, default=0.5,
+                   help="max motion-blur exposure, fraction of frame dt")
+    s.add_argument("--max-flow-px", type=float, default=80.0,
+                   help="samples with corner flow beyond this are masked")
+    s.add_argument("--prior-noise-lo", type=float, default=1.0,
+                   help="low end of the log-uniform simulated-prior noise "
+                        "sigma range (px)")
+    s.add_argument("--echo-weight", type=float, default=0.0,
+                   help="prior-echo decorrelation penalty weight "
+                        "(TrainConfig.echo_weight)")
+    s.add_argument("--big-baseline-prob", type=float, default=0.0,
+                   help="fraction of samples with stretched translation "
+                        "(loop-closure 100-250 px flow curriculum)")
+    s.add_argument("--traj-pair-prob", type=float, default=0.7,
+                   help="fraction of samples drawn from the real-flight "
+                        "pose-pair bank (data/trajpairs.py; random poses while "
+                        "its GT files are absent)")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_train_uahn)
     return p
 
 

@@ -1,0 +1,166 @@
+"""Camera sensor effects: the degradations real camera frames carry that
+a clean ray-cast render does not.
+
+Counterpart of ``cuahn_vio.data.sensor_effects``, on (B, H, W) frames with
+per-sample parameters. The photometric chain:
+
+    vignette -> exposure gain/gamma -> defocus blur -> shot+read noise
+    -> black-level offset -> clip
+
+The random draws are apart from the arithmetic: ``draw_params`` and
+``draw_effects_pair`` draw uniforms and normals from an explicit
+``torch.Generator`` and hand them to ``params_from_draws`` and
+``effects_pair_from_draws``; ``draw_noise`` draws the per-pixel noise.
+``apply_photometric`` and ``apply_effects_pair`` are deterministic, so the
+same drawn values give the JAX package's frames to float32 rounding.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class EffectsConfig:
+    """Maximum severities; each sample draws uniformly within these."""
+
+    vignette_max: float = 0.35  # relative corner falloff
+    gain_lo: float = 0.6  # exposure gain range (multiplicative)
+    gain_hi: float = 1.4
+    gain_drift: float = 0.06  # frame-to-frame auto-exposure drift (sigma)
+    gamma_lo: float = 0.75
+    gamma_hi: float = 1.30
+    offset_sigma: float = 0.02  # black-level offset
+    read_noise_max: float = 0.02  # additive Gaussian sigma, [0,1] units
+    shot_noise_max: float = 0.04  # sqrt(I)-scaled noise coefficient
+    defocus_sigma_max: float = 1.2  # px, Gaussian defocus
+    clean_prob: float = 0.2  # fraction of samples left fully clean
+
+
+def vignette_field(height: int, width: int, device=None) -> torch.Tensor:
+    """(H, W) float32 normalized squared radius from the image centre (1
+    at the farthest corner); times a strength, the falloff."""
+    v = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    u = torch.arange(width, dtype=torch.float32, device=device)[None, :]
+    cu, cv = (width - 1) / 2.0, (height - 1) / 2.0
+    r2 = ((u - cu) / cu) ** 2 + ((v - cv) / cv) ** 2
+    return r2 / r2.max()
+
+
+def _gauss_blur(img: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Separable 5-tap Gaussian of (B, H, W) frames, sigma (B,) per frame
+    (sigma < 0.01: identity), edge-replicate padding; the taps summed in
+    the JAX package's order, horizontal then vertical."""
+    x = torch.arange(-2, 3, dtype=torch.float32, device=img.device)
+    s = sigma[:, None]
+    w = torch.exp(-0.5 * (x / torch.clamp(s, min=1e-3)) ** 2)
+    delta = (x == 0).to(torch.float32)
+    w = torch.where(s < 1e-2, delta, w / w.sum(dim=1, keepdim=True))
+    w = w[:, :, None, None]  # (B, 5, 1, 1)
+    hgt, wid = img.shape[1:]
+    p = F.pad(img[:, None], (2, 2, 0, 0), mode="replicate")[:, 0]
+    out = w[:, 0] * p[:, :, 0:wid]
+    for k in range(1, 5):
+        out = out + w[:, k] * p[:, :, k:k + wid]
+    p = F.pad(out[:, None], (0, 0, 2, 2), mode="replicate")[:, 0]
+    out = w[:, 0] * p[:, 0:hgt]
+    for k in range(1, 5):
+        out = out + w[:, k] * p[:, k:k + hgt]
+    return out
+
+
+def params_from_draws(cfg: EffectsConfig, u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """(B, 6) [vignette, gain, gamma, offset, read_sigma, shot_coef] from B
+    rows of uniforms ``u`` (B, 6) in [0, 1) (vignette, gain, gamma, read,
+    shot, and the clean coin) and standard normals ``n`` (B,) (offset): a
+    row whose coin is under ``clean_prob`` is the neutral one."""
+    drawn = torch.stack([
+        u[:, 0] * cfg.vignette_max,
+        cfg.gain_lo + u[:, 1] * (cfg.gain_hi - cfg.gain_lo),
+        cfg.gamma_lo + u[:, 2] * (cfg.gamma_hi - cfg.gamma_lo),
+        n * cfg.offset_sigma,
+        u[:, 3] * cfg.read_noise_max,
+        u[:, 4] * cfg.shot_noise_max,
+    ], dim=1)
+    clean = (u[:, 5] < cfg.clean_prob)[:, None]
+    neutral = torch.zeros(6, device=u.device)
+    neutral[1:3] = 1.0  # no vignette, gain 1, gamma 1, no offset, no noise
+    return torch.where(clean, neutral, drawn)
+
+
+def draw_params(cfg: EffectsConfig, b: int, generator: torch.Generator) -> torch.Tensor:
+    """``params_from_draws`` of B rows drawn from ``generator``, on its
+    device."""
+    dev = generator.device
+    u = torch.rand((b, 6), generator=generator, device=dev)
+    return params_from_draws(cfg, u, torch.randn((b,), generator=generator, device=dev))
+
+
+def draw_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """(2, *shape) standard normals: the read and the shot noise of frames
+    of ``shape``, on the generator's device."""
+    return torch.randn((2, *shape), generator=generator, device=generator.device)
+
+
+def apply_photometric(img: torch.Tensor, params: torch.Tensor, defocus_sigma,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """The photometric chain on (B, H, W) float frames in [0, 1].
+
+    Args:
+        params: (B, 6) rows of ``draw_params``.
+        defocus_sigma: (B,) defocus blur in pixels, or one float for all.
+        noise: (2, B, H, W) standard normals (``draw_noise``): the read and
+            the shot noise, scaled here by each row's read_sigma and
+            shot_coef * sqrt(intensity).
+    """
+    vig, gain, gamma, off, read, shot = (params[:, i, None, None] for i in range(6))
+    img = img * (1.0 - vig * vignette_field(*img.shape[1:], device=img.device))
+    img = gain * torch.pow(torch.clamp(img, 1e-4, 1.0), gamma) + off
+    sigma = torch.as_tensor(defocus_sigma, dtype=torch.float32, device=img.device)
+    img = _gauss_blur(img, sigma.expand(img.shape[0]))
+    img = img + (read * noise[0] + shot * torch.sqrt(torch.clamp(img, 0.0, 1.0)) * noise[1])
+    return torch.clamp(img, 0.0, 1.0)
+
+
+class EffectsDraw(NamedTuple):
+    """The parameters of a batch of frame pairs (``draw_effects_pair``)."""
+
+    params1: torch.Tensor  # (B, 6) first frame
+    params2: torch.Tensor  # (B, 6) second frame: the gain drifted
+    sigma: torch.Tensor  # (B,) defocus, px, shared by the pair
+
+
+def effects_pair_from_draws(cfg: EffectsConfig, params: torch.Tensor, u: torch.Tensor,
+                            n: torch.Tensor) -> EffectsDraw:
+    """The parameters of B frame pairs from their first frame's ``params``
+    (B, 6), uniforms ``u`` (B,) (defocus) and standard normals ``n`` (B,)
+    (gain drift): lens and exposure shared by a pair (one camera,
+    consecutive frames), the second frame's gain drifted (auto exposure);
+    clean samples keep their neutral gain and skip defocus."""
+    neutral = params[:, 1] == 1.0
+    sigma = u * cfg.defocus_sigma_max * (~neutral)
+    drift = 1.0 + n * cfg.gain_drift
+    params2 = params.clone()
+    params2[:, 1] = params[:, 1] * torch.where(neutral, torch.ones_like(drift), drift)
+    return EffectsDraw(params, params2, sigma)
+
+
+def draw_effects_pair(cfg: EffectsConfig, b: int, generator: torch.Generator) -> EffectsDraw:
+    """``effects_pair_from_draws`` of B pairs drawn from ``generator``."""
+    dev = generator.device
+    params = draw_params(cfg, b, generator)
+    u = torch.rand((b,), generator=generator, device=dev)
+    return effects_pair_from_draws(cfg, params, u,
+                                   torch.randn((b,), generator=generator, device=dev))
+
+
+def apply_effects_pair(img1: torch.Tensor, img2: torch.Tensor, draw: EffectsDraw,
+                       noise1: torch.Tensor, noise2: torch.Tensor):
+    """Degrade B training pairs (B, H, W) with ``draw``; the noise of each
+    frame is its own (``draw_noise``). Returns (out1, out2)."""
+    return (apply_photometric(img1, draw.params1, draw.sigma, noise1),
+            apply_photometric(img2, draw.params2, draw.sigma, noise2))

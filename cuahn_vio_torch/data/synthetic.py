@@ -1,8 +1,7 @@
 """Homography-aware synthetic data: planar ground scenes + exact IMU.
 
 Counterpart of ``cuahn_vio.data.synthetic`` with the procedural and the
-photo-texture ground and exposure blur (sensor effects are not ported
-yet, and are refused):
+photo-texture ground, exposure blur and the sensor-effect chain:
 
 - ``AnalyticTrajectory``: closed-form p(t), q(t); body rates and specific
   force from ``torch.func.jacfwd`` of the closed forms (exact IMU);
@@ -11,11 +10,13 @@ yet, and are refused):
 - ``render_frame``: ray-casts every virtual-camera pixel (f = 159.5) onto
   the z = 0 ground plane and samples the procedural ground or a photo
   texture (``data/textures.sample_plane``, the B4 kernel on CUDA), at one
-  pose or at many in one pass;
+  pose or at many in one pass, and a batch of textures each at its own
+  poses (the trainer's batch) in one pass too;
 - ``render_frame_blurred``: the mean of the renders at the poses of an
   exposure window (motion blur);
 - ``make_sequence``: IMU stream (optional noise/biases from a numpy seed)
-  + uint8 camera frames + ground truth.
+  + uint8 camera frames (optionally through ``data/sensor_effects``) +
+  ground truth.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from cuahn_vio_torch.data.sensor_effects import apply_photometric, draw_noise, draw_params
 from cuahn_vio_torch.data.textures import default_tex_params, sample_plane, texture_u8
 from cuahn_vio_torch.ops.quat import quat_exp, quat_mul, quat_to_rot
 from cuahn_vio_torch.ops.warp import virtual_cam_k
@@ -87,14 +89,29 @@ class AnalyticTrajectory:
         return w_body, f_body
 
 
-def texture_draws(texture_seed: int = 0, n_waves: int = 24):
+N_WAVES = 24  # sinusoids of a procedural ground
+WAVE_FREQS = (0.5, 14.0)  # range of each wave's per-axis frequency (rad/m)
+
+
+def texture_draws(texture_seed: int = 0, n_waves: int = N_WAVES):
     """The port's own random ground: (freqs (n, 2), signs (n, 2), phases
     (n,)) from a numpy seed."""
     rng = np.random.default_rng(texture_seed)
-    freqs = rng.uniform(0.5, 14.0, (n_waves, 2))
+    freqs = rng.uniform(*WAVE_FREQS, (n_waves, 2))
     signs = np.sign(rng.normal(size=(n_waves, 2)))
     phases = rng.uniform(0.0, 2 * math.pi, n_waves)
     return freqs.astype(np.float32), signs.astype(np.float32), phases.astype(np.float32)
+
+
+def random_texture_draws(b: int, generator: torch.Generator, n_waves: int = N_WAVES):
+    """B random grounds, ``texture_draws``' ranges drawn from ``generator``
+    on its device: (freqs (B, n, 2), signs (B, n, 2), phases (B, n))."""
+    dev = generator.device
+    lo, hi = WAVE_FREQS
+    freqs = lo + torch.rand((b, n_waves, 2), generator=generator, device=dev) * (hi - lo)
+    signs = torch.sign(torch.randn((b, n_waves, 2), generator=generator, device=dev))
+    phases = torch.rand((b, n_waves), generator=generator, device=dev) * (2 * math.pi)
+    return freqs, signs, phases
 
 
 def ground_texture(xy: torch.Tensor, freqs: torch.Tensor, signs: torch.Tensor,
@@ -151,7 +168,9 @@ def render_frame(p_w, q_i2w, c_rot_i, i_t_i2c, waves=None,
     The ground is the photo ``texture`` ((T, T) uint8 or float32 on the
     device, mapped by ``tex_params``, default ``default_tex_params()``)
     when given, else the procedural ground of ``waves`` = (freqs, signs,
-    phases) tensors.
+    phases) tensors. B textures (B, T, T) under (B, 5) params with poses
+    (B, K, 3) / (B, K, 4) give (B, K, H, W), texture b seen from row b's
+    poses, in one texture lookup.
     """
     ground, lam = ground_points(p_w, q_i2w, c_rot_i, i_t_i2c, height, width)
     if texture is not None:
@@ -171,10 +190,11 @@ def render_frame_blurred(p_taps, q_taps, c_rot_i, i_t_i2c, waves=None,
     exposure-window poses ``p_taps`` (K, 3) / ``q_taps`` (K, 4), each tap a
     sharp render of the same rigid scene. All K taps are rendered in one
     pass (on a photo texture, one launch of the sampler over K x H x W
-    points), each equal bit for bit to its ``render_frame``."""
+    points), each equal bit for bit to its ``render_frame``. With B
+    textures and (B, K, ...) taps: the (B, H, W) frames in one launch."""
     imgs = render_frame(p_taps, q_taps, c_rot_i, i_t_i2c, waves, height, width, texture,
                         tex_params)
-    return imgs.sum(dim=0) / imgs.shape[0]
+    return imgs.sum(dim=-3) / imgs.shape[-3]
 
 
 def exposure_taps(traj: AnalyticTrajectory, times, exposure_s: float, device):
@@ -223,6 +243,7 @@ def make_sequence(
     tex_params=None,
     exposure_s: float = 0.0,
     effects=None,
+    effects_seed: int = 0,
     device="cuda",
 ) -> SyntheticSequence:
     """Synthetic flight: t_still seconds hovering at traj(0) (so the jerk
@@ -239,12 +260,16 @@ def make_sequence(
         exposure_s: camera exposure time; > 0 renders each frame as
             ``render_frame_blurred`` over 3 poses spread across the exposure
             window that ends at the frame's time (physical motion blur).
-        effects (the sensor-effect chain) is not ported yet and raises.
+        effects: a ``sensor_effects.EffectsConfig`` degrades every frame:
+            one parameter draw and one defocus for the sequence, from a
+            generator seeded with ``effects_seed`` on ``device``; a slow
+            auto-exposure drift of the gain, a numpy random walk from
+            ``effects_seed`` (the JAX package's walk, value for value); and
+            each frame's noise from that generator (the JAX package draws
+            its draws from ``jax.random`` keys instead).
     Frames are rendered on ``device``, one texture lookup each (one launch
     of the sampler on a photo texture); everything returned is numpy.
     """
-    if effects is not None:
-        raise NotImplementedError("sensor effects are not ported yet")
     rng = np.random.default_rng(seed)
     t_imu_to_cam = np.asarray(t_imu_to_cam, np.float64)
     c_rot_i = torch.tensor(t_imu_to_cam[:3, :3], dtype=torch.float32, device=device)
@@ -281,10 +306,22 @@ def make_sequence(
         params = default_tex_params() if tex_params is None else tex_params
         tp_dev = torch.as_tensor(np.asarray(params, np.float32), device=device)
     p_taps, q_taps = exposure_taps(traj, cam_t - t_still, exposure_s, device)
+    if effects is not None:
+        fx_gen = torch.Generator(device=device).manual_seed(effects_seed)
+        fx_params = draw_params(effects, 1, fx_gen)
+        defocus = torch.rand((1,), generator=fx_gen, device=fx_gen.device) * (
+            effects.defocus_sigma_max)
+        drift = np.clip(np.cumsum(np.random.default_rng(effects_seed).normal(
+            0.0, effects.gain_drift / 5.0, len(cam_t))), -0.25, 0.25).astype(np.float32)
     frames = np.zeros((len(cam_t), 224, 320), np.uint8)
     for i in range(len(cam_t)):
         img = render_frame_blurred(p_taps[i], q_taps[i], c_rot_i, i_t_i2c, waves,
                                    texture=tex_dev, tex_params=tp_dev)
+        if effects is not None:
+            params = fx_params.clone()
+            params[:, 1] = fx_params[:, 1] * (1.0 + torch.as_tensor(drift[i]))  # auto exposure
+            img = apply_photometric(img[None], params, defocus,
+                                    draw_noise((1, *img.shape), fx_gen))[0]
         frames[i] = (img * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
 
     # GT at IMU rate, world frame, file convention [x y z qx qy qz qw]

@@ -12,7 +12,8 @@ the numpy code that builds the bank; it imports nothing of the JAX package):
   packages is installed, the bank is the 12 procedural textures alone, and
   PIL is then never imported.
 - ``get_texture_bank``: the bank cached per process and in the temporary
-  directory, under a file name of the port's own.
+  directory, under a file name of the port's own; ``texture_bank_u8``:
+  the same on a device as uint8.
 - the train/held-out split: every ``HELDOUT_EVERY``-th texture (by bank
   index) is held out for evaluation.
 - ``sample_plane``: mirror-tiled bilinear lookup of world (x, y) metres
@@ -23,12 +24,14 @@ the numpy code that builds the bank; it imports nothing of the JAX package):
   (B4) on CUDA. A uint8 texture is sampled on its raw levels and the blend
   scaled by 1/255, which is the JAX package's ``exact_u8`` Pallas call.
 
-``random_tex_params`` (the trainer's random draw) waits for the trainer.
+- ``random_tex_params``: the trainer's random similarity transforms, drawn
+  from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import glob
+import math
 import os
 import sysconfig
 import tempfile
@@ -224,6 +227,34 @@ def default_tex_params(scale_m: float = 4.0) -> torch.Tensor:
     """(5,) float32 [scale_m, cos, sin, off_u, off_v]: one texture period
     spans ``scale_m`` metres, unrotated, no offset."""
     return torch.tensor([scale_m, 1.0, 0.0, 0.0, 0.0], dtype=torch.float32)
+
+
+def tex_params_from_draws(u: torch.Tensor,
+                          scale_range: tuple[float, float] = (1.5, 10.0)) -> torch.Tensor:
+    """(B, 5) float32 [scale_m, cos, sin, off_u, off_v] from uniforms ``u``
+    (B, 4) in [0, 1): scale log-uniform in ``scale_range`` (the same photo
+    as fine gravel or as large floor slabs), rotation uniform in [0, 2 pi),
+    offsets uniform in [0, 2)."""
+    lo, hi = math.log(scale_range[0]), math.log(scale_range[1])
+    th = u[:, 1] * (2 * math.pi)
+    return torch.stack([torch.exp(lo + u[:, 0] * (hi - lo)), torch.cos(th), torch.sin(th),
+                        2.0 * u[:, 2], 2.0 * u[:, 3]], dim=1)
+
+
+def random_tex_params(b: int, generator: torch.Generator,
+                      scale_range: tuple[float, float] = (1.5, 10.0)) -> torch.Tensor:
+    """``tex_params_from_draws`` of B rows drawn from ``generator``, on its
+    device."""
+    u = torch.rand((b, 4), generator=generator, device=generator.device)
+    return tex_params_from_draws(u, scale_range)
+
+
+def texture_bank_u8(device) -> torch.Tensor:
+    """The bank (``get_texture_bank``) as (N, T, T) uint8 on ``device``,
+    the form the flat sampler reads (one launch samples a batch of its
+    textures)."""
+    return torch.as_tensor(np.stack([texture_u8(t) for t in get_texture_bank()]),
+                           device=device)
 
 
 def texture_u8(texture) -> np.ndarray:

@@ -15,6 +15,11 @@ and in torch's NCHW layout:
   scaled by 1e-3 and clamped to ±11.5.
 - Covariance transfer into the original img2 frame, 8x8 block diagonal.
 
+Training uses ``cascade_flows`` (the cumulative corner flow after each
+part-1 block) and ``last_block_members``; every homography is detached
+before it warps, as the JAX model stops its gradient, so no gradient
+reaches a warp. No method depends on ``train()``/``eval()``.
+
 Parameter names match the flax tree (``block2.conv0.weight`` for flax's
 ``block2/conv0/kernel``), so ``utils.checkpoint.load_params`` fills it.
 MC-dropout masks come from an explicit ``torch.Generator``. With
@@ -39,8 +44,7 @@ from cuahn_vio_torch.ops.homography import (
 from cuahn_vio_torch.ops.warp import homography_warp
 
 CONV_PLANES = (8, 16, 32, 64, 128, 256, 256)  # model_to_trace.py:88-89
-IMG_HEIGHT, IMG_WIDTH = 224, 320  # the virtual camera; FC_INPUT depends on it
-FC_INPUT = 5120  # = 256 * 4 * 5
+IMG_HEIGHT, IMG_WIDTH = 224, 320  # the virtual camera
 MC_DROPOUT_NUM = 16  # model_to_trace.py:201
 LEAK = 0.1  # LeakyReLU slope, model_to_trace.py:12
 # bound on the scaled aleatoric log-variance: exp(11.5) ~ 1e5 px^2 already
@@ -85,11 +89,11 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator])
 
 class McHead(nn.Module):
     """A 2-layer fc head run as a 16-member MC-dropout ensemble:
-    (B, 5120) -> (B, 16, out)."""
+    (B, fc_input) -> (B, 16, out)."""
 
-    def __init__(self, out_dim: int):
+    def __init__(self, fc_input: int, out_dim: int):
         super().__init__()
-        self.fc0 = nn.Linear(FC_INPUT, 256)
+        self.fc0 = nn.Linear(fc_input, 256)
         self.fc1 = nn.Linear(256, out_dim)
 
     def forward(self, feat, rate: float, generator: Optional[torch.Generator]):
@@ -100,14 +104,27 @@ class McHead(nn.Module):
         return self.fc1(x)
 
 
+def fc_input(img_height: int, img_width: int) -> int:
+    """Features of a tower's last map: 256 channels after the frame is
+    halved six times (pooling by 2-8, then stride-2 convs padded by
+    (k-1)//2, which round up): 5120 = 256 x 4 x 5 at 224x320, as the JAX
+    model's lazily sized ``nn.Dense`` finds."""
+    def halved(n: int) -> int:
+        for _ in range(6):
+            n = (n + 1) // 2
+        return n
+
+    return CONV_PLANES[6] * halved(img_height) * halved(img_width)
+
+
 def _as_float(img: torch.Tensor) -> torch.Tensor:
     """uint8 frame -> float32 in [0, 1]; float32 passes through."""
     return img.to(torch.float32) / 255.0 if img.dtype == torch.uint8 else img
 
 
 class UAHN(nn.Module):
-    """The full 4-block network on (B, 224, 320) frames (uint8, or float32
-    in [0, 1]).
+    """The full 4-block network on (B, img_height, img_width) frames (uint8,
+    or float32 in [0, 1]); 224x320 by default, the shipped size.
 
     ``use_prior`` and ``blocks_to_run`` select the cascade:
       use_prior=False          -> blocks {1,2,3,4}
@@ -117,37 +134,45 @@ class UAHN(nn.Module):
     """
 
     def __init__(self, dropout_rate: float = 0.05, blocks_to_run: int = 3,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 img_height: int = IMG_HEIGHT, img_width: int = IMG_WIDTH):
         super().__init__()
+        self.img_height, self.img_width = img_height, img_width
         self.dropout_rate = dropout_rate
         self.blocks_to_run = blocks_to_run
-        p, dt = CONV_PLANES, compute_dtype
+        p, dt, n_fc = CONV_PLANES, compute_dtype, fc_input(img_height, img_width)
         self.block1 = ConvTower(2, [(p[4], 7, 2), (p[4], 5, 2), (p[5], 3, 2)], dt)
-        self.fc_block1 = nn.Linear(FC_INPUT, 8)
+        self.fc_block1 = nn.Linear(n_fc, 8)
         self.block2 = ConvTower(
             2, [(p[3], 7, 2), (p[4], 5, 2), (p[5], 3, 2), (p[6], 3, 2)], dt
         )
-        self.fc_block2 = nn.Linear(FC_INPUT, 8)
+        self.fc_block2 = nn.Linear(n_fc, 8)
         self.block3 = ConvTower(
             2,
             [(p[1], 7, 1), (p[2], 5, 2), (p[3], 3, 2), (p[4], 3, 2),
              (p[5], 3, 2), (p[6], 3, 2)], dt,
         )
-        self.fc_block3 = nn.Linear(FC_INPUT, 8)
+        self.fc_block3 = nn.Linear(n_fc, 8)
         self.block4 = ConvTower(
             2,
             [(p[0], 7, 1), (p[1], 5, 2), (p[2], 3, 2), (p[3], 3, 2),
              (p[4], 3, 2), (p[5], 3, 2), (p[6], 3, 2)], dt,
         )
-        self.head_mean = McHead(8)
-        self.head_logvar = McHead(8)
+        self.head_mean = McHead(n_fc, 8)
+        self.head_logvar = McHead(n_fc, 8)
         self.register_buffer(
-            "corners", corner_points(IMG_HEIGHT, IMG_WIDTH), persistent=False
+            "corners", corner_points(img_height, img_width), persistent=False
         )
 
     def _refine(self, tower, fc, img1, img2, h_uv, pool: int):
         """One cascade block: warp img2 by the current H (none for block 1),
-        pool, predict a residual offset, DLT, right-compose."""
+        pool, predict a residual offset, DLT, right-compose.
+
+        The incoming H is a constant to backprop (detached, the JAX model's
+        ``stop_gradient``): each block learns to refine whatever estimate
+        it is handed."""
+        if h_uv is not None:
+            h_uv = h_uv.detach()
         img2_in = _as_float(img2) if h_uv is None else homography_warp(img2, h_uv)
         pair = torch.stack([_as_float(img1), img2_in], dim=1)  # (B, 2, H, W)
         x = tower(F.avg_pool2d(pair, pool, pool))
@@ -176,11 +201,13 @@ class UAHN(nn.Module):
 
     def last_block_members(self, img1, img2, h_uv,
                            generator: Optional[torch.Generator] = None):
-        """Block 4 tower (once) + the 16 MC-dropout members.
+        """Block 4 tower (once) + the 16 MC-dropout members on img2 warped
+        by ``h_uv``, a constant to backprop (detached, as every caller of
+        the JAX method stops its gradient).
         Returns (means (B, 16, 4, 2), logvars (B, 16, 4, 2)) in the
         warped-img2 frame."""
-        pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv)], dim=1)
-        feat = torch.flatten(self.block4(pair), 1)  # (B, 5120)
+        pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv.detach())], dim=1)
+        feat = torch.flatten(self.block4(pair), 1)  # (B, fc_input)
         b = feat.shape[0]
         means = self.head_mean(feat, self.dropout_rate, generator)
         logvars = self.head_logvar(feat, self.dropout_rate, generator) * 1e-3
@@ -197,6 +224,41 @@ class UAHN(nn.Module):
         var_avg = torch.exp(logvars).mean(dim=1)
         emp_var = torch.square(means - mean_avg[:, None]).mean(dim=1)
         return self.corners + mean_avg, emp_var + var_avg
+
+    def _flow_of(self, h_uv: torch.Tensor) -> torch.Tensor:
+        """(B, 8) corner flow, pixels, of homographies (B, 3, 3)."""
+        uv1 = torch.cat([self.corners, torch.ones_like(self.corners[:, :1])], dim=1)
+        m = uv1 @ h_uv.transpose(-1, -2)  # (B, 4, 3)
+        return (m[..., :2] / m[..., 2:3] - self.corners).reshape(-1, 8)
+
+    def cascade_flows(self, img1: torch.Tensor, img2: torch.Tensor,
+                      prior_offset: Optional[torch.Tensor] = None,
+                      use_prior: bool = False):
+        """Training forward of part 1: the cumulative corner flow (pixels,
+        original img2 frame) after each executed block, and the final H.
+
+        Returns (flows (B, n_executed, 8), h_uv (B, 3, 3)). Supervising each
+        stage's flow against the true flow trains the cascade as the
+        reference's progressive scheme does.
+        """
+        flows = []
+        if use_prior:
+            if prior_offset is None:
+                raise ValueError("use_prior needs prior_offset (B, 4, 2)")
+            corners = self.corners.expand(prior_offset.shape[0], 4, 2)
+            h_uv = dlt_solve(corners, corners + prior_offset)
+            if self.blocks_to_run == 1:
+                return self._flow_of(h_uv)[:, None], h_uv
+        else:
+            h_uv = self._refine(self.block1, self.fc_block1, img1, img2, None, 8)
+            flows.append(self._flow_of(h_uv))
+        if not use_prior or self.blocks_to_run == 3:
+            h_uv = self._refine(self.block2, self.fc_block2, img1, img2, h_uv, 4)
+            flows.append(self._flow_of(h_uv))
+        if not use_prior or self.blocks_to_run >= 2:
+            h_uv = self._refine(self.block3, self.fc_block3, img1, img2, h_uv, 2)
+            flows.append(self._flow_of(h_uv))
+        return torch.stack(flows, dim=1), h_uv
 
     @torch.no_grad()
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
@@ -221,14 +283,32 @@ class UAHN(nn.Module):
         return flow8, block_diag_cov8(cov_4pt)
 
 
+def init_like_flax_(model: UAHN, generator: torch.Generator) -> UAHN:
+    """Flax's default initialization, in place: every conv and dense kernel
+    LeCun-normal (a normal truncated at 2 sigma, scaled to variance
+    1/fan_in), every bias 0 (torch's default init differs). The JAX CLI's
+    ``train-uahn`` starts from this (``init_uahn``), with other draws."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                # the std of a unit normal truncated at +-2
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                m.bias.zero_()
+    return model
+
+
 def build_uahn(state_dict: Optional[dict] = None, device="cuda",
                dropout_rate: float = 0.05, blocks_to_run: int = 3,
-               compute_dtype: torch.dtype = torch.float32) -> UAHN:
-    """The 224x320 UAHN on ``device``, in eval mode, with ``state_dict``
-    loaded (random init when None). ``compute_dtype=torch.bfloat16`` runs
-    the conv towers in bfloat16 (``run-vio --bf16``); the weights stay
-    float32, and the warps, DLTs, fc heads and covariance path float32."""
-    model = UAHN(dropout_rate, blocks_to_run, compute_dtype)
+               compute_dtype: torch.dtype = torch.float32,
+               img_height: int = IMG_HEIGHT, img_width: int = IMG_WIDTH) -> UAHN:
+    """The UAHN (224x320 by default) on ``device``, in eval mode, with
+    ``state_dict`` loaded (random init when None). ``compute_dtype=
+    torch.bfloat16`` runs the conv towers in bfloat16 (``run-vio --bf16``);
+    the weights stay float32, and the warps, DLTs, fc heads and covariance
+    path float32."""
+    model = UAHN(dropout_rate, blocks_to_run, compute_dtype, img_height, img_width)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model.to(device).eval()

@@ -200,8 +200,14 @@ def homography_warp(imgs: torch.Tensor, h_uv: torch.Tensor) -> torch.Tensor:
 
     Output pixel (u, v) samples the image at H [u, v, 1], dehomogenized.
     CUDA tensors launch a hand-written kernel, chosen by ``BATCH_SAMPLER``
-    for a batch (or raise); CPU tensors take the plain version.
+    for a batch (or raise); CPU tensors take the plain version. Neither
+    has a backward: an image or homography that requires grad is refused
+    on every device (the model detaches H before each warp, as the JAX
+    model's ``stop_gradient`` does).
     """
+    if imgs.requires_grad or h_uv.requires_grad:
+        raise ValueError("homography_warp has no backward: detach the image and the "
+                         "homography (the JAX model stops their gradient)")
     if BATCH_SAMPLER not in ("full", "rowskip"):
         raise ValueError(f"BATCH_SAMPLER must be 'full' or 'rowskip', got {BATCH_SAMPLER!r}")
     if imgs.is_cuda:

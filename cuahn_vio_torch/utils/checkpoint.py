@@ -1,12 +1,17 @@
-"""UAHN weights: Flax msgpack checkpoints -> a torch state dict.
+"""UAHN weights: Flax msgpack checkpoints <-> a torch state dict.
 
 The JAX package serializes its flax parameter tree with msgpack
-(``cuahn_vio/utils/checkpoint.py``). This reads the same files with the
-port's own decoder and renames/transposes each leaf for ``nn.Module``s:
+(``cuahn_vio/utils/checkpoint.py``). ``load_params`` reads the same files
+with the port's own decoder and renames/transposes each leaf for
+``nn.Module``s:
 
 - conv kernels HWIO -> OIHW;
 - dense kernels (in, out) -> (out, in);
 - ``kernel`` -> ``weight``; nesting joined with dots.
+
+``save_params`` writes a state dict back in Flax's format (the inverse
+mapping, ``params_to_numpy``; keys sorted at every level, as Flax writes
+them), which the JAX package's ``load_params`` reads.
 
 No fc reordering is needed: the JAX model flattens features in NCHW order
 (``uahn.py:89-91``), the same order as ``torch.flatten`` on NCHW.
@@ -14,10 +19,13 @@ No fc reordering is needed: the JAX model flattens features in NCHW order
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from cuahn_vio_torch.utils.msgpack_reader import unpackb
+from cuahn_vio_torch.utils.msgpack_writer import packb
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -50,3 +58,41 @@ def load_params(path: str) -> dict[str, torch.Tensor]:
     """Flax msgpack checkpoint -> torch state dict for ``models.uahn.UAHN``."""
     with open(path, "rb") as f:
         return params_from_numpy(unpackb(f.read()))
+
+
+def params_to_numpy(state_dict: dict) -> dict:
+    """The inverse of ``params_from_numpy``: a UAHN state dict -> the JAX
+    package's parameter tree (nested dicts, keys sorted, of float32 numpy
+    arrays: conv kernels HWIO, dense kernels (in, out))."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if name.endswith(".weight"):
+            name = name[: -len(".weight")] + ".kernel"
+            if arr.ndim == 4:  # conv OIHW -> HWIO
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:  # dense (out, in) -> (in, out)
+                arr = arr.T
+            else:
+                raise ValueError(f"unexpected weight rank {arr.ndim} for {name}")
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+
+    def ordered(node):
+        return {k: ordered(node[k]) if isinstance(node[k], dict) else node[k]
+                for k in sorted(node)}
+
+    return ordered(tree)
+
+
+def save_params(path: str, state_dict: dict) -> None:
+    """Write a UAHN state dict as a Flax msgpack checkpoint (written to a
+    temporary file beside ``path``, then renamed over it)."""
+    data = packb(params_to_numpy(state_dict))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's ``run-vio`` slice goes, on one GPU.
 
-    python3 profile_slice.py [--batch]
+    python3 profile_slice.py [--batch | --train]
 
 Runs the slice of ``chip_smoke.py`` (same synthetic sequence, v10 weights,
 calibrated profile, 16-member MC dropout) on its first FRAMES frame
@@ -10,7 +10,12 @@ plain for the host-clock ms/frame, once under ``torch.profiler`` (CPU +
 CUDA activity). With ``--batch``, the same for the smoke's batched phase:
 its four sequences (the slice's and ``chip_smoke.TEX_SEQS``) in lockstep,
 ``BATCH_SAMPLER = "full"``; "frame" then means a lockstep frame of B = 4
-sequences. Prints one JSON line with:
+sequences. With ``--train``, TRAIN_STEPS training steps of ``train-uahn``
+(``chip_smoke.py`` phase 11's: v10 weights, batch 16, 224x320, photo
+textures and effects) after TRAIN_WARMUP unprofiled ones; "frame" then
+means a training step, and the labels ``train.batch`` (drawing and
+rendering the batch) and ``train.step`` (forward, backward, optimizer)
+split it. Prints one JSON line with:
 
 - ``ms_per_frame``: host clock of the frame loop, profiler off;
   ``ms_per_frame_profiled``: the same under the profiler;
@@ -22,7 +27,7 @@ sequences. Prints one JSON line with:
 - ``device_ops_per_frame``: device activities per frame;
 - ``stages``: host ms per frame (profiled) and device busy ms per frame of
   the ``vio.propagate``, ``vio.network`` and ``vio.update`` labels of
-  ``pipeline/vio.py``;
+  ``pipeline/vio.py`` (or of the two ``train.`` labels);
 - ``top_kernels``: the device activities with the most time per frame;
 - ``gpu``: the card's name and power limit.
 
@@ -38,29 +43,60 @@ import time
 
 
 FRAMES = 16  # past the 10-frame update gate; the trace stays ~1 min to read
+TRAIN_STEPS = 8
+TRAIN_WARMUP = 3  # cuDNN's first calls and the allocator's growth
+LABELS = ("vio.", "train.")
 
 
-def main() -> int:
-    import argparse
+def train_runner(torch, dev):
+    """(run, steps) of ``--train``: ``run()`` makes TRAIN_STEPS training
+    steps from a fixed generator state and returns (None, seconds), the
+    last step closed by a synchronize."""
+    import numpy as np
+    from torch.profiler import record_function
 
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        print("profile_slice: no CUDA device", file=sys.stderr)
-        return 2
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", action="store_true",
-                    help="profile the batched phase (B = 4, lockstep) instead")
-    args = ap.parse_args()
     import chip_smoke
-    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.data.textures import texture_bank_u8, train_indices
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.train import trainer
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    cfg = trainer.TrainConfig(batch_size=chip_smoke.TRAIN_BATCH)
+    model = build_uahn(load_params(chip_smoke.WEIGHTS), device=dev)
+    c_rot_i, i_t_i2c = chip_smoke.camera(torch, dev)
+    bank = texture_bank_u8(dev)
+    tex_idx = torch.as_tensor(train_indices(bank.shape[0]), device=dev)
+    step = trainer.make_train_step(model, cfg, trainer.make_optimizer(model, cfg, 1000))
+    gen = torch.Generator(device=dev)
+
+    def steps(n):
+        gen.manual_seed(0)
+        modes = np.random.default_rng(0)
+        for _ in range(n):
+            with record_function("train.batch"):
+                batch = trainer.make_batch(cfg, gen, c_rot_i, i_t_i2c, bank=bank,
+                                           tex_indices=tex_idx)
+            with record_function("train.step"):
+                step(batch, bool(modes.random() < cfg.prior_prob), gen)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        return None, time.perf_counter() - t0
+
+    steps(TRAIN_WARMUP)
+    return run, TRAIN_STEPS
+
+
+def vio_runner(args, torch, dev):
+    """(run, steps) of the slice (or, with ``--batch``, the batched
+    phase): ``run()`` runs FRAMES frame pairs and returns (None, seconds)."""
+    import chip_smoke
     from cuahn_vio_torch.pipeline.runner import prepare_batch, prepare_sequence
     from cuahn_vio_torch.pipeline.vio import run_sequence
 
-    dev = torch.device("cuda:0")
-    f32_parity_mode()
     seq, opts, model = chip_smoke.slice_setup(torch, dev)
     seqs = [seq] + (chip_smoke.textured_sequences(dev) if args.batch else [])
     n = FRAMES
@@ -92,6 +128,36 @@ def main() -> int:
         torch.cuda.synchronize()
         return None, time.perf_counter() - t0
 
+    return run, steps
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device", file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser()
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--batch", action="store_true",
+                      help="profile the batched phase (B = 4, lockstep) instead")
+    mode.add_argument("--train", action="store_true",
+                      help="profile training steps of train-uahn instead")
+    args = ap.parse_args()
+    import chip_smoke
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+
+    dev = torch.device("cuda:0")
+    f32_parity_mode()
+    if args.train:
+        run, steps = train_runner(torch, dev)
+    else:
+        run, steps = vio_runner(args, torch, dev)
+
     run()  # warm-up
     _, plain_s = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -102,8 +168,8 @@ def main() -> int:
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     # the stage labels also appear on the device timeline as annotation
     # spans; they are not device work
-    device = [e for e in on_device if not e.name.startswith("vio.")]
-    spans = [e for e in on_device if e.name.startswith("vio.")]
+    device = [e for e in on_device if not e.name.startswith(LABELS)]
+    spans = [e for e in on_device if e.name.startswith(LABELS)]
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     by_name: dict[str, list] = {}
     for e in device:
@@ -114,7 +180,7 @@ def main() -> int:
     starts = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in device)
     stages = {}
     for e in cpu_ops:
-        if e.name.startswith("vio."):
+        if e.name.startswith(LABELS):
             st = stages.setdefault(e.name, dict(host_ms=0.0, device_busy_ms=0.0, calls=0))
             st["host_ms"] += e.time_range.elapsed_us() / 1e3
             st["calls"] += 1
@@ -130,7 +196,8 @@ def main() -> int:
         for k, v in sorted(stages.items())
     }
     out = dict(
-        path="batched, B = %d" % len(seqs) if args.batch else "single stream",
+        path=("train-uahn step, batch %d" % chip_smoke.TRAIN_BATCH if args.train
+              else "batched, B = %d" % (1 + len(chip_smoke.TEX_SEQS)) if args.batch else "single stream"),
         frames=steps,
         ms_per_frame=plain_s * 1e3 / steps,
         ms_per_frame_profiled=prof_s * 1e3 / steps,

@@ -135,8 +135,22 @@ def test_cli_make_synthetic_matches_jax_cli(tmp_path):
     assert (tmp_path / "t_config.yaml").read_text() == (tmp_path / "j_config.yaml").read_text()
 
 
-@pytest.mark.parametrize("flag", [["--traj-file", "traj.txt"], ["--effects"]])
+@pytest.mark.parametrize("flag", [["--traj-file", "traj.txt"]])
 def test_cli_make_synthetic_refuses_flags_not_ported(flag, tmp_path):
     with pytest.raises(SystemExit, match=flag[0]):
         tcli.main(["make-synthetic", "--device", "cpu", "--out", str(tmp_path / "o.npz"),
                    *flag])
+
+
+def test_cli_make_synthetic_effects(tmp_path):
+    """``--effects`` degrades every frame with one draw of the chain per
+    sequence from ``--seed``: the same command twice writes the same
+    frames, which differ from the clean sequence's."""
+    def frames(name, *flags):
+        tcli.main(["make-synthetic", "--device", "cpu", "--out", str(tmp_path / name),
+                   "--duration", "0.3", "--seed", "3", "--texture", "train", *flags])
+        return np.load(tmp_path / name)["frames"]
+
+    a, b, clean = frames("a.npz", "--effects"), frames("b.npz", "--effects"), frames("c.npz")
+    assert np.array_equal(a, b)
+    assert a.shape == clean.shape and np.abs(a.astype(int) - clean.astype(int)).mean() > 2.0

@@ -387,3 +387,52 @@ def test_blurred_make_sequence_samples_once_per_frame(gpu):
                         exposure_s=0.008, device="cpu")
     diff = np.abs(seq.frames.astype(int) - cpu.frames.astype(int))
     assert (diff <= 1).mean() >= 0.999
+
+
+def test_train_step_on_gpu_follows_the_cpu(gpu):
+    """One 56x80 training step (batch 4, dropout off, TF32 off) on the card
+    against the same step on the CPU, in both modes: the loss within 1e-5
+    relative, every gradient leaf within 1e-3 of its max |g| (cuDNN's and
+    oneDNN's convolutions sum in other orders), the updated weights finite;
+    on the card the three warps of a step launch the warp kernel, the batch
+    render launches the flat sampler twice (the first and the second
+    frames, all textures in one launch each)."""
+    import copy
+
+    from cuahn_vio_torch.models.uahn import UAHN
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.data.textures import texture_bank_u8
+    from cuahn_vio_torch.train import trainer as T
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    f32_parity_mode()
+    hgt, wid = 56, 80
+    cfg = T.TrainConfig(batch_size=4, blur_taps=2, warmup_steps=0)
+    t = np.asarray(VioOptions().t_imu_to_cam, np.float64)
+    cam = (torch.tensor(t[:3, :3], dtype=torch.float32),
+           torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32))
+    bank = texture_bank_u8(gpu)
+    tcuda.reset_launch_counts()
+    batch = T.make_batch(cfg, torch.Generator(device=gpu).manual_seed(0),
+                         *(x.to(gpu) for x in cam), hgt, wid, bank,
+                         torch.arange(bank.shape[0], device=gpu))
+    assert tcuda.launch_counts["bilinear_sample"] == 2
+    torch.manual_seed(0)
+    cpu_model = UAHN(dropout_rate=0.0, img_height=hgt, img_width=wid)
+    gpu_model = copy.deepcopy(cpu_model).to(gpu)
+    for use_prior in (True, False):
+        out = []
+        for model, dev in ((cpu_model, torch.device("cpu")), (gpu_model, gpu)):
+            step = T.make_train_step(model, cfg, T.make_optimizer(model, cfg, 10))
+            tcuda.reset_launch_counts()
+            loss, _ = step(T.Batch(*(x.to(dev) for x in batch)), use_prior, None)
+            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                     for n, p in model.named_parameters()}
+            assert all(torch.isfinite(p).all() for p in model.parameters())
+            out.append((loss.item(), grads, dict(tcuda.launch_counts)))
+        (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out
+        assert n_cpu["homography_warp"] == 0 and n_gpu["homography_warp"] == 3
+        assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+        for name, g in g_cpu.items():
+            scale = g.abs().max().item()
+            assert (g_gpu[name] - g).abs().max().item() <= 1e-3 * scale, name

@@ -180,12 +180,6 @@ def test_textured_make_sequence_matches_jax():
     assert np.abs(plain.frames.astype(int) - out.frames.astype(int)).mean() > 10
 
 
-def test_make_sequence_refuses_what_is_not_ported():
-    t_ic = np.asarray(VioOptions().t_imu_to_cam)
-    with pytest.raises(NotImplementedError, match="sensor effects"):
-        make_sequence(AnalyticTrajectory(), t_ic, duration=0.3, effects=object(), device="cpu")
-
-
 def test_texture_bank_cache_is_the_ports_own(tmp_path, monkeypatch):
     """The port's bank cache has its own file name in the temporary
     directory, so neither package reads the other's cache."""
