@@ -5,10 +5,11 @@
 
 Phases, each printed on its own line with its seconds:
 
-1. build the sampling kernels (``cuahn_vio_torch/ops/cuda/warp.cu``: the
-   warp B1/B2, the row-band warp B3 and the flat sampler B4) with nvcc for
-   sm_90a, and print each kernel's registers, shared memory and spill bytes
-   (``-Xptxas -v``);
+1. build the kernels with nvcc for sm_90a, one nvcc per source, started
+   together (``cuahn_vio_torch/ops/cuda/warp.cu``: the warp B1/B2, the
+   row-band warp B3 and the flat sampler B4; ``remap.cu``: the
+   undistortion remap C1), and print each kernel's registers, shared
+   memory and spill bytes (``-Xptxas -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
    float32, bit for bit (max abs error 0.0, NaN exactly where the plain
    version has NaN): the warp at 224x320 with B in {1, 4, 8, 65} (and, in
@@ -25,7 +26,10 @@ Phases, each printed on its own line with its seconds:
    textures at a blurred frame's coordinates each, the JAX trainer's
    batch, and 32 of them, its probe's), at ragged N, at 4-byte-misaligned coordinates, on a texture
    whose rows are not whole 4-byte words, and at in-range, edge,
-   off-image, +-inf and NaN ones;
+   off-image, +-inf and NaN ones; the remap C1 at 640x480 -> 224x320 on
+   the default config's fisheye map and on a radtan map, at N = 1 and
+   N = 165 frames, and on a map of off-image, edge, exactly integer and
+   NaN coordinates;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
@@ -34,7 +38,9 @@ Phases, each printed on its own line with its seconds:
    and at B = 16 float32 (the trainer's warp), the
    row-band warp at B = 4, 8 and 64 (uint8), the flat sampler at its
    three shapes on uint8 textures, beside the launch floor (a one-element
-   ``add_`` in the same CUDA graph);
+   ``add_`` in the same CUDA graph); the remap C1 at N = 1 and N = 165
+   raw 640x480 frames on the fisheye map, beside ``grid_sample`` on the
+   same frames (as float) and coordinates and its byte bound;
 4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
    port's ``make_sequence``, run through ``run_offline`` with the shipped
    v10 weights and 16-member MC dropout (p = 0.05, seeded generator); the
@@ -96,7 +102,23 @@ Phases, each printed on its own line with its seconds:
    median host gap between step ends) and samples/s beside the card's
    name and power limit, how far apart the two runs' weights are, and the
    ATE of ``run_offline`` with the first run's weights on phase 4's
-   sequence beside v10's (reports, not gates).
+   sequence beside v10's (reports, not gates);
+12. the raw-camera chain, as subprocesses of ``python -m
+   cuahn_vio_torch.cli`` in phase 10's directory: ``make-synthetic
+   --traj-file`` phase 10's GT pose file (``--spline-dt 0.1``, held-out
+   photo texture, ``--exposure-ms 8 --effects``, RAW_DURATION_S),
+   ``distort-to-euroc`` (640x480 Kannala-Brandt PNGs), ``convert-euroc``,
+   ``run-vio`` with the v10 weights, ``error-singlerun se3``, and
+   ``format-converter`` of phase 10's GT file, txt -> csv -> txt. Every
+   exit code must be 0; the flat sampler must launch once a rendered
+   frame, the remap once for the converted batch, the warp 3 x poses x
+   IEKF times; the interior [40:180, 60:260] of the converted frames
+   within RAW_RMSE_BAR levels RMSE of the rendered ones; every pose finite,
+   the ATE under RAW_ATE_BAR_M; the second txt equal to the first. Prints
+   the PNG decode and encode ms per frame, the decode ms per frame of the
+   same frames written with PIL's row filters (``encode_png_like_pil``;
+   their pixels must come back equal), the remap's device ms, and the ATE
+   beside that of ``run_offline`` on the rendered (virtual) frames.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -201,6 +223,32 @@ TRAIN_STEPS = 12
 TRAIN_BATCH = 16
 TRAIN_SAVE_EVERY = 6
 TRAIN_RUNS = 2  # at one seed: the step time's spread in one call, and the weights compared
+# the remap C1: raw frames a batch in phases 2 and 3 (a converted sequence
+# of ~5 s at 30 Hz), and the float32 work a frame's output pixel and a map
+# entry need (4 fmas, the rounding and clamp; floor, weights)
+REMAP_FRAMES = 165
+REMAP_FLOPS_PER_PIXEL = 11
+REMAP_FLOPS_PER_MAP_ENTRY = 10
+# phase 12's make-synthetic --traj-file: seconds after the still phase (the
+# replayed GT file hovers for its own first 2.5 s, then flies), and the
+# interior RMSE bar of tests/test_euroc_e2e.py
+RAW_DURATION_S = 5.0
+RAW_RMSE_BAR = 6.0
+RAW_INTERIOR = (slice(40, 180), slice(60, 260))
+# ATE bar of phase 12. Reference: ``python3 smoke_reference.py OUT_DIR
+# --part raw`` makes phase 10's GT file and phase 12's sequence with the
+# port's make-synthetic on the CPU (the card machine's texture bank, the
+# 12 procedural textures), then runs the JAX package's distort-to-euroc,
+# convert-euroc, run-vio (v10, MC-dropout seeds 0-2) and error-singlerun
+# se3 on the CPU. The bar is the JAX mean + 0.005 m, or + 5x its
+# seed-to-seed spread where that spread is above 0.001 m; it covers the
+# effects' noise, which the card's generator draws otherwise than the CPU's.
+# Measured: JAX chain seeds 0/1/2 0.01357/0.01323/0.01332 m (mean 0.01337,
+# spread 0.00034: the 0.005 m margin holds); the port's chain on the CPU
+# 0.01357/0.01352/0.01362 m; the JAX run-vio on the rendered frames, no
+# round trip, 0.01496/0.01449/0.01480 m.
+REF_RAW_ATE_M = 0.01337
+RAW_ATE_BAR_M = REF_RAW_ATE_M + ATE_MARGIN_M
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -1219,6 +1267,286 @@ def run_train(torch, dev, seq, opts) -> dict:
                 probe_size=PROBE_SIZE)
 
 
+def build_kernels() -> dict:
+    """Phase 1: build every kernel source at once (one nvcc each, in
+    threads: each waits on its own subprocess). Returns {source: nvcc
+    seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cuahn_vio_torch.ops.cuda import remap as remap_cuda
+    from cuahn_vio_torch.ops.cuda import warp as warp_cuda
+
+    mods = (warp_cuda, remap_cuda)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        seconds = list(pool.map(lambda m: m.build_kernel(), mods))
+    return {os.path.relpath(m.SOURCE, REPO): s for m, s in zip(mods, seconds)}
+
+
+def remap_maps(torch, dev) -> dict:
+    """The remap's parity maps (224x320, raw 640x480): the default config's
+    Kannala-Brandt camera, a radtan (EuRoC MH cam0) camera, and a map of
+    off-image, edge, exactly integer and NaN coordinates."""
+    from cuahn_vio_torch.runtime.undistort import build_undist_map
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    opts = VioOptions.uzhfpv_indoor45()
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                          torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    mx, my = u * 2.0 - 1.0, v * 2.25 - 20.0  # integer columns, quarter rows, off the top
+    mx[0, :8] = torch.tensor([-1.0, -0.5, -1e-6, 639.0, 639.5, 640.0, 1e9, float("nan")])
+    my[1, :6] = torch.tensor([479.0, 479.25, 480.0, -1.0, -0.0, 1e30])
+    return {
+        "fisheye": build_undist_map(opts.cam_intrinsics, opts.cam_distortion, True, device=dev),
+        "radtan": build_undist_map([458.654, 457.296, 367.215, 248.375],
+                                   [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05],
+                                   False, device=dev),
+        "edges": (mx.contiguous(), my.contiguous()),
+    }
+
+
+def check_remap(torch, dev) -> float:
+    """Phase 2, C1: the remap kernel against ``remap_u8_plain`` on the card,
+    bit for bit, on ``remap_maps`` at N = 1 and REMAP_FRAMES raw 640x480
+    frames. Returns the max abs error (0)."""
+    import numpy as np
+
+    from cuahn_vio_torch.ops.cuda.remap import remap_u8_cuda
+    from cuahn_vio_torch.ops.remap import remap_u8_plain
+
+    rng = np.random.default_rng(8)
+    worst = 0
+    for name, (mx, my) in remap_maps(torch, dev).items():
+        for n in (1, REMAP_FRAMES):
+            frames = torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8),
+                                     device=dev)
+            out = remap_u8_cuda(frames, mx, my)
+            ref = remap_u8_plain(frames, mx, my)
+            torch.cuda.synchronize()
+            err = int((out.int() - ref.int()).abs().max())
+            print(f"  remap parity {name} N={n} 640x480 -> {H}x{W}: max abs err {err} levels",
+                  flush=True)
+            if err != 0:
+                raise AssertionError(f"remap kernel vs plain {err}: not bit-identical")
+            worst = max(worst, err)
+    return worst
+
+
+def remap_bound_ms(torch, n: int, mx, my, src_h: int, src_w: int) -> tuple[float, int]:
+    """(least ms, raw bytes read a frame) of one remap of n frames: the
+    output bytes written, each raw pixel that an in-image tap of the map
+    reads, once a frame, and the map, against the float32 work."""
+    x0, y0 = torch.floor(mx).long(), torch.floor(my).long()
+    taps = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi < src_w) & (yi >= 0) & (yi < src_h) & ~torch.isnan(mx)
+            taps.append((yi * src_w + xi)[inside])
+    footprint = int(torch.unique(torch.cat(taps)).numel())
+    bytes_moved = n * (mx.numel() + footprint) + 2 * mx.numel() * 4
+    flops = n * mx.numel() * REMAP_FLOPS_PER_PIXEL + mx.numel() * REMAP_FLOPS_PER_MAP_ENTRY
+    return max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3, footprint
+
+
+def time_remap(torch, dev) -> dict:
+    """Phase 3, C1: the remap kernel, its plain version and ``grid_sample``
+    (float32 frames, the same coordinates as a normalized grid; the
+    yardstick, which the port never calls) on the fisheye map at N = 1 and
+    REMAP_FRAMES, beside the byte bound and the launch floor. Returns {N:
+    {ms, plain_ms, library_ms, floor_ms, bound_ms, footprint}}."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from cuahn_vio_torch.ops.cuda.remap import remap_u8_cuda
+    from cuahn_vio_torch.ops.remap import remap_u8_plain
+
+    mx, my = remap_maps(torch, dev)["fisheye"]
+    grid = torch.stack([2 * mx / 639.0 - 1, 2 * my / 479.0 - 1], dim=-1)
+    rng = np.random.default_rng(9)
+    one = torch.zeros(1, device=dev)
+    rows = {}
+    for n in (1, REMAP_FRAMES):
+        frames = torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8),
+                                 device=dev)
+        frames_f = frames.float()[:, None]
+        grid_n = grid[None].expand(n, H, W, 2)
+        bound, footprint = remap_bound_ms(torch, n, mx, my, 480, 640)
+
+        def library():
+            return F.grid_sample(frames_f, grid_n, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        lib_err = (library()[:, 0] - remap_u8_plain(frames, mx, my).float()).abs().max().item()
+        row, eager = timed(torch, dict(
+            ms=lambda: remap_u8_cuda(frames, mx, my),
+            plain_ms=lambda: remap_u8_plain(frames, mx, my),
+            library_ms=library,
+            floor_ms=lambda: one.add_(1.0),
+        ), bound, 200 if n == 1 else 20)
+        row["footprint"] = footprint
+        rows[n] = row
+        print(f"  remap N={n} 640x480 -> {H}x{W} device time (CUDA graph): kernel "
+              f"{row['ms']:.5f} ms | plain {row['plain_ms']:.5f} ms | grid_sample "
+              f"{row['library_ms']:.5f} ms (float, |diff| {lib_err:.2f}) | kernel / "
+              f"grid_sample {row['ms'] / row['library_ms']:.3f} | byte bound "
+              f"{row['bound_ms']:.5f} ms ({footprint} raw bytes read a frame) | kernel / bound "
+              f"{row['ms'] / row['bound_ms']:.2f} | launch floor {row['floor_ms']:.5f} ms",
+              flush=True)
+        print(f"  remap N={n} eager call to call: kernel {eager['ms']:.5f} ms | plain "
+              f"{eager['plain_ms']:.5f} ms | grid_sample {eager['library_ms']:.5f} ms", flush=True)
+    return rows
+
+
+def encode_png_like_pil(img) -> bytes:
+    """An 8-bit greyscale PNG of (H, W) uint8 ``img`` with the row filters
+    that PIL's encoder picks (``libImaging/ZipEncode.c``): per row, of
+    None, Up, Sub and Paeth in that order, the first with the least sum of
+    absolute signed filtered bytes (Average only under ``optimize``). Real
+    camera files carry such rows; the port's writer uses None only."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from cuahn_vio_torch.utils.png import SIGNATURE, ZLIB_LEVEL, _chunk
+
+    x = np.asarray(img).astype(np.int16)
+    hgt, wid = x.shape
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    filtered = np.stack([x, x - b, x - a, x - paeth]).astype(np.uint8)
+    pick = np.abs(filtered.view(np.int8).astype(np.int32)).sum(axis=2).argmin(axis=0)
+    raw = np.empty((hgt, wid + 1), np.uint8)
+    raw[:, 0] = np.array([0, 2, 1, 4], np.uint8)[pick]
+    raw[:, 1:] = filtered[pick, np.arange(hgt)]
+    header = struct.pack(">IIBBBBB", wid, hgt, 8, 0, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), ZLIB_LEVEL)) + _chunk(b"IEND", b""))
+
+
+def png_ms_per_frame(euroc_dir: str) -> dict:
+    """Per frame of the port's PNG codec on the raw frames that
+    ``distort-to-euroc`` wrote (host clock): decode and encode ms, then the
+    decode ms of the same frames written with PIL's row filters (the
+    reader's Average/Paeth path), whose pixels must come back equal, and
+    how many rows of those files took each filter."""
+    import numpy as np
+
+    from cuahn_vio_torch.utils.png import _parse, encode_png, read_pngs
+
+    data = os.path.join(euroc_dir, "mav0", "cam0", "data")
+    paths = sorted(os.path.join(data, name) for name in os.listdir(data))
+    t0 = time.perf_counter()
+    frames = read_pngs(paths)
+    t1 = time.perf_counter()
+    for frame in frames:
+        encode_png(frame)
+    t2 = time.perf_counter()
+    filtered_dir = os.path.join(euroc_dir, "pil_filtered")
+    os.makedirs(filtered_dir)
+    filtered_paths = [os.path.join(filtered_dir, os.path.basename(p)) for p in paths]
+    rows = np.zeros(5, np.int64)
+    for path, frame in zip(filtered_paths, frames):
+        blob = encode_png_like_pil(frame)
+        rows += np.bincount(_parse(blob, path)[3][:, 0], minlength=5)
+        with open(path, "wb") as f:
+            f.write(blob)
+    t3 = time.perf_counter()
+    back = read_pngs(filtered_paths)
+    t4 = time.perf_counter()
+    if not all(np.array_equal(x, y) for x, y in zip(back, frames)):
+        raise AssertionError("the PNG reader gave other pixels back from PIL-filtered files")
+    n = len(paths)
+    return {"frames": n, "png_decode_ms_per_frame": (t1 - t0) * 1e3 / n,
+            "png_encode_ms_per_frame": (t2 - t1) * 1e3 / n,
+            "png_pil_filtered_decode_ms_per_frame": (t4 - t3) * 1e3 / n,
+            "png_pil_filtered_rows_by_filter": rows.tolist()}
+
+
+def run_raw_chain(torch, dev, tmp: str, model, iekf: int) -> dict:
+    """Phase 12: the raw-camera chain through the CLI in phase 10's
+    directory ``tmp``, and ``run_offline`` on the rendered frames (the
+    virtual camera, no round trip) with ``model`` for comparison. Returns
+    what the checks found; raises on a failed one."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.align import ate_rmse
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.ops.cuda.remap import KERNEL as REMAP_KERNEL
+    from cuahn_vio_torch.ops.cuda.warp import KERNEL, SAMPLE_KERNEL
+    from cuahn_vio_torch.pipeline.runner import run_offline
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    out = {"verb_s": {}}
+
+    def verb(args):  # ``cli`` in ``tmp``, each verb's seconds (its process start included)
+        t0 = time.perf_counter()
+        said = cli(args, tmp)
+        key = args[0] if args[0] not in out["verb_s"] else f"{args[0]} 2"
+        out["verb_s"][key] = round(time.perf_counter() - t0, 3)
+        return said
+
+    noise = ["--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003", "--bias-a", "0.02"]
+    _, counts = verb(["make-synthetic", "--traj-file", "seq_gt.txt", "--spline-dt", "0.1",
+                     "--out", "raw_seq.npz", "--duration", str(RAW_DURATION_S), "--texture",
+                     "heldout", "--exposure-ms", "8", "--effects", "--seed", "7", *noise])
+    seq = np.load(path("raw_seq.npz"))
+    frames = len(seq["frames"])
+    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
+    if counts[SAMPLE_KERNEL] != frames:
+        raise AssertionError(f"make-synthetic --traj-file: {counts[SAMPLE_KERNEL]} sampler "
+                             f"launches for {frames} frames")
+    verb(["distort-to-euroc", "raw_seq.npz", "--config", "raw_seq_config.yaml", "--out",
+         "euroc"])
+    codec = png_ms_per_frame(path("euroc"))
+    raw_frames = codec.pop("frames")
+    out.update(codec)
+    if raw_frames != frames:
+        raise AssertionError(f"distort-to-euroc wrote {raw_frames} PNGs for {frames} frames")
+    _, counts = verb(["convert-euroc", "euroc", "--config", "raw_seq_config.yaml", "--out",
+                     "conv.npz"])
+    conv = np.load(path("conv.npz"))
+    out["remap_launches"] = counts[REMAP_KERNEL]
+    if counts[REMAP_KERNEL] != 1 or conv["frames"].shape != seq["frames"].shape:
+        raise AssertionError(f"convert-euroc: {counts[REMAP_KERNEL]} remap launches, frames "
+                             f"{conv['frames'].shape}")
+    a = conv["frames"][(slice(None), *RAW_INTERIOR)].astype(np.float64)
+    b = seq["frames"][(slice(None), *RAW_INTERIOR)].astype(np.float64)
+    out["interior_rmse"] = float(np.sqrt(np.mean((a - b) ** 2)))
+    if not out["interior_rmse"] <= RAW_RMSE_BAR:
+        raise AssertionError(f"converted frames {out['interior_rmse']:.3f} levels RMSE from the "
+                             f"rendered ones (bar {RAW_RMSE_BAR})")
+    _, counts = verb(["run-vio", "conv.npz", "--config", "raw_seq_config.yaml", "--weights",
+                     WEIGHTS, "--out", "est_raw.txt", "--state-out", "state_raw.npz"])
+    poses = load_pose_file(path("est_raw.txt"))
+    out.update(poses=len(poses.times), warp_launches=counts[KERNEL])
+    if counts[KERNEL] != 3 * len(poses.times) * iekf or not np.isfinite(poses.poses).all():
+        raise AssertionError(f"run-vio on the converted frames: {counts[KERNEL]} warp launches "
+                             f"for {len(poses.times)} poses, or non-finite poses")
+    said, _ = verb(["error-singlerun", "se3", "raw_seq_gt.txt", "est_raw.txt"])
+    out["ate_pos_m"] = float(said.split("pos: rmse ")[1].split()[0])
+    verb(["format-converter", "seq_gt.txt", "gt.csv"])
+    verb(["format-converter", "gt.csv", "gt_back.txt"])
+    with open(path("seq_gt.txt")) as f1, open(path("gt_back.txt")) as f2:
+        out["gt_txt_round_trip_equal"] = f1.read() == f2.read()
+    if not out["gt_txt_round_trip_equal"]:
+        raise AssertionError("format-converter txt -> csv -> txt changed the GT file")
+    # the same sequence's rendered frames, without the round trip
+    opts = VioOptions.from_yaml(path("raw_seq_config.yaml"))
+    t0 = time.perf_counter()
+    res = run_offline(seq["imu_t"], seq["imu_w"], seq["imu_a"], seq["cam_t"], seq["frames"],
+                      model, opts.filter_params(dev), opts.vio_config(), opts.runner_options(),
+                      seed=0, device=dev)
+    gt = load_pose_file(path("raw_seq_gt.txt"))
+    out["virtual_ate_pos_m"] = ate_rmse(res.times, res.pose_w, gt.times, gt.poses)[1]
+    out["virtual_poses"] = len(res.times)
+    out["virtual_run_s"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
 def kernel_entry(name, source_line, launches, err, row, ptxas, bound_by="bytes"):
     """One entry of the kernels line; ``ptxas`` is the kernel's
     ``build.ptxas_report`` entry (registers and spill bytes)."""
@@ -1254,6 +1582,27 @@ def sample_entry(sharp_launches, blur_launches, err, rows, ptxas, points_per_thr
     return entry
 
 
+def remap_entry(launches, err, rows, ptxas) -> dict:
+    """C1's entry of the kernels line: not a TPU kernel (it replaces the JAX
+    package's host C++ remap); its launches in phase 12, the times of a
+    REMAP_FRAMES-frame batch in the common fields, and each batch's times
+    and bound under ``shapes``."""
+    row = rows[REMAP_FRAMES]
+    return dict(
+        name=f"remap (convert-euroc, 640x480 -> {H}x{W}, N={REMAP_FRAMES})", route="cuda",
+        source="cuahn_vio_torch/ops/cuda/remap.cu",
+        replaces="cuahn_vio/runtime/undistort.cpp:92", tpu_kernel=False,
+        launches=launches, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=row["library_ms"],
+        registers=ptxas["registers"], spill_stores=ptxas["spill_stores"],
+        spill_loads=ptxas["spill_loads"],
+        shapes={str(n): dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                             bound_ms=r["bound_ms"], launch_floor_ms=r["floor_ms"],
+                             raw_bytes_read_per_frame=r["footprint"])
+                for n, r in rows.items()},
+    )
+
+
 def main() -> int:
     t_all = time.perf_counter()
     faulthandler.dump_traceback_later(WALL_LIMIT_S, exit=True)
@@ -1264,6 +1613,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from cuahn_vio_torch.ops.cuda import remap as remap_cuda
         from cuahn_vio_torch.ops.cuda import warp as warp_cuda
         from cuahn_vio_torch.ops.homography import f32_parity_mode
     except ImportError as exc:
@@ -1273,8 +1623,9 @@ def main() -> int:
     if not os.path.exists(WEIGHTS):
         print(f"chip_smoke: weights missing: {WEIGHTS}", file=sys.stderr)
         return 2
-    if not all(BATCH_ATE_BARS_M):
-        print("chip_smoke: BATCH_ATE_BARS_M not set (smoke_reference.py)", file=sys.stderr)
+    if not all(BATCH_ATE_BARS_M) or RAW_ATE_BAR_M is None:
+        print("chip_smoke: BATCH_ATE_BARS_M or RAW_ATE_BAR_M not set (smoke_reference.py)",
+              file=sys.stderr)
         return 2
     import numpy as np
 
@@ -1287,29 +1638,32 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    build_s = warp_cuda.build_kernel()
+    build_s = build_kernels()
     ptxas = warp_cuda.ptxas_report()
-    for kern, info in sorted(ptxas.items()):
+    remap_ptxas = remap_cuda.ptxas_report()["remap_kernel"]
+    for kern, info in sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]:
         print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
-    phase("build", t0, library=os.path.relpath(warp_cuda.SOURCE, REPO),
-          nvcc_s=f"{build_s:.3f}", threads_per_block=warp_cuda.threads_per_block(),
-          band_bytes=warp_cuda.band_bytes())
+    phase("build", t0, nvcc_s="{" + ", ".join(f"{k}: {v:.3f}" for k, v in build_s.items()) + "}",
+          threads_per_block=warp_cuda.threads_per_block(), band_bytes=warp_cuda.band_bytes(),
+          remap_frames_per_thread=remap_cuda.frames_per_thread())
 
     t0 = time.perf_counter()
     warp_errs = check_kernel(torch, dev)
     rowskip_err = check_rowskip(torch, dev)
     sample_errs = check_sample(torch, dev)
+    remap_err = check_remap(torch, dev)
     phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
           sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
           sampler_batch_shapes_max_abs_err=f"{sample_errs['batch']:.3e}",
-          sampler_max_abs_err=f"{sample_errs['all']:.3e}")
+          sampler_max_abs_err=f"{sample_errs['all']:.3e}", remap_max_abs_err=remap_err)
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)
     sample_time = time_sample(torch, dev)
+    remap_time = time_remap(torch, dev)
     gpu = gpu_name_and_power()
     phase("timing", t0, gpu=f"'{gpu}'")
 
@@ -1424,9 +1778,9 @@ def main() -> int:
     if not bf_pos <= BF16_ATE_BAR_M:
         raise AssertionError(f"bf16 ATE {bf_pos:.5f} m above the bar {BF16_ATE_BAR_M:.5f} m")
 
+    cli_dir = tempfile.TemporaryDirectory()  # phase 10's files, read again in phase 12
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        found = run_cli(tmp)
+    found = run_cli(cli_dir.name)
     b1_launches["10"] = found["warp_launches"]
     phase("cli", t0, **found)
     if found["warp_launches"] != 3 * (found["poses"] + 1) * iekf or found["other_launches"]:
@@ -1452,6 +1806,17 @@ def main() -> int:
           v10_ate_pos_m=f"{ate_pos:.5f}")
     main_run = trained["runs"][0]  # the main path's launches: the first run's
     probe_size = trained["probe_size"]
+
+    t0 = time.perf_counter()
+    with cli_dir:
+        raw = run_raw_chain(torch, dev, cli_dir.name, model, iekf)
+    b1_launches["12"] = raw["warp_launches"]
+    phase("raw", t0, gpu=f"'{gpu}'", remap_device_ms=f"{remap_time[REMAP_FRAMES]['ms']:.5f}",
+          remap_device_ms_n1=f"{remap_time[1]['ms']:.5f}", ate_bar_m=f"{RAW_ATE_BAR_M:.5f}",
+          **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in raw.items()})
+    if not raw["ate_pos_m"] <= RAW_ATE_BAR_M:
+        raise AssertionError(f"raw-camera chain ATE {raw['ate_pos_m']:.5f} m above the bar "
+                             f"{RAW_ATE_BAR_M:.5f} m")
 
     nb = len(batch_seqs)
 
@@ -1484,7 +1849,9 @@ def main() -> int:
     kernels[5]["launches_by_batch"] = {str(TRAIN_BATCH): 2 * TRAIN_STEPS, str(probe_size): 2}
     kernels[0]["launches_by_phase"] = b1_launches
     kernels[3]["launches_by_phase"] = {"5": sample_launches + blur_launches,
-                                       "10": found["sampler_launches"]}
+                                       "10": found["sampler_launches"],
+                                       "12": raw["sampler_launches"]}
+    kernels.append(remap_entry(raw["remap_launches"], remap_err, remap_time, remap_ptxas))
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -2,7 +2,8 @@
 
 The JAX package ``cuahn_vio`` is the reference; this package imports
 nothing of it, nor JAX. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``. The homography warp runs through a hand-written
-CUDA kernel (``ops/cuda/warp.cu``) on the card and through its plain
-PyTorch version on the CPU.
+passes ``device="cpu"``. The homography warp and the texture sampler run
+through hand-written CUDA kernels (``ops/cuda/warp.cu``), the undistortion
+remap of raw camera frames through another (``ops/cuda/remap.cu``), on the
+card, and through their plain PyTorch versions on the CPU.
 """

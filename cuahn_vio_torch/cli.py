@@ -17,14 +17,22 @@ cuda``, the default; they fail when no GPU is found):
   ``_config.yaml``;
 - ``train-uahn``: trains UAHN weights (``train.trainer.train``) on
   rendered pairs, from a Flax checkpoint (``--resume``) or from scratch,
-  and writes Flax checkpoints the JAX package reads.
+  and writes Flax checkpoints the JAX package reads;
+- the raw-camera chain: ``distort-to-euroc`` re-projects a rendered
+  ``.npz`` out to the config's raw distorted camera as a EuRoC-ASL
+  directory of PNGs, and ``convert-euroc`` reads a EuRoC-ASL directory
+  back (the port's own PNG codec), undistorts every frame into the
+  224x320 virtual camera (one launch of the remap kernel C1 on the card)
+  and writes the ``.npz`` that ``run-vio`` reads. ``make-synthetic
+  --traj-file`` flies a recorded pose file (``data/bspline``).
 
 The eval verbs score those outputs on the host (numpy only):
 ``error-singlerun`` (ATE / RPE / NEES of a pose file against GT),
-``timing-percentages`` (the timing csv's stage split) and
+``timing-percentages`` (the timing csv's stage split),
 ``error-simulation`` (state errors and NEES of a ``--state-out`` npz
-against the simulator GT). No verb needs PyYAML: configs go through the
-port's own ``utils.yaml_io``.
+against the simulator GT) and ``format-converter`` (EuRoC csv <-> pose
+txt). No verb needs PyYAML or PIL: configs go through the port's own
+``utils.yaml_io``, PNGs through ``utils.png``.
 
 Flags of the JAX CLI that the port does not implement yet are refused,
 never ignored.
@@ -40,9 +48,6 @@ import numpy as np
 # flags of the JAX CLI that the port does not implement yet
 NOT_YET_BATCH = {
     "mesh": "--mesh (sharding the batch over a device mesh)",
-}
-NOT_YET_SYNTHETIC = {
-    "traj_file": "--traj-file (B-spline trajectories)",
 }
 NOT_YET_SIMULATION = {
     "plot": "--plot (error / 3-sigma plots; needs matplotlib)",
@@ -249,7 +254,6 @@ def cmd_make_synthetic(args):
     from cuahn_vio_torch.eval.traj_io import save_pose_file
     from cuahn_vio_torch.utils.config import VioOptions
 
-    _refuse(args, NOT_YET_SYNTHETIC, "make-synthetic")
     device = _device(args.device)
     # the written _config.yaml records the operating point: a bare
     # invocation bakes the calibrated profile in, a user --config passes
@@ -283,8 +287,15 @@ def cmd_make_synthetic(args):
         tex_params = default_tex_params(args.tex_scale)
         print(f"ground texture: bank[{idx}] of {len(bank)} ({args.texture} split), "
               f"{args.tex_scale} m/period")
+    if args.traj_file:
+        from cuahn_vio_torch.data.bspline import SplineTrajectory
+
+        traj = SplineTrajectory.from_trajectory_file(
+            args.traj_file, dt=args.spline_dt, z_offset=args.traj_z_offset)
+    else:
+        traj = AnalyticTrajectory()
     seq = make_sequence(
-        AnalyticTrajectory(), np.asarray(opts.t_imu_to_cam),
+        traj, np.asarray(opts.t_imu_to_cam),
         duration=args.duration, seed=args.seed,
         sigma_w=args.sigma_w, sigma_a=args.sigma_a,
         bias_g=args.bias_g, bias_a=args.bias_a, texture_seed=args.seed,
@@ -310,6 +321,64 @@ def cmd_make_synthetic(args):
     opts.to_yaml(stem + "_config.yaml")
     print(f"wrote {args.out}, {stem}_gt.txt, {stem}_state_gt.txt and "
           f"{stem}_config.yaml")
+
+
+def _camera_options(config):
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    return VioOptions.from_yaml(config) if config else VioOptions.uzhfpv_indoor45()
+
+
+def cmd_convert_euroc(args):
+    """EuRoC-ASL dir -> preprocessed .npz, undistorted on ``--device`` (the
+    camera parameters come from the config)."""
+    from cuahn_vio_torch.data.euroc import load_euroc_sequence, save_sequence_npz
+
+    device = _device(args.device)
+    opts = _camera_options(args.config)
+    seq = load_euroc_sequence(
+        args.root, np.asarray(opts.cam_intrinsics, np.float64),
+        np.asarray(opts.cam_distortion, np.float64), opts.cam_is_fisheye,
+        max_frames=args.max_frames, device=device,
+    )
+    save_sequence_npz(args.out, seq)
+    print(f"wrote {args.out}: {len(seq.cam_t)} frames, {len(seq.imu_t)} imu samples")
+
+
+def cmd_distort_to_euroc(args):
+    """Rendered .npz sequence -> RAW distorted EuRoC-ASL directory: the
+    virtual-camera (f = 159.5 pinhole) frames warped out to the config's
+    raw camera. Chained with ``convert-euroc`` + ``run-vio``, this drives
+    the whole raw-camera ingestion path on synthetic imagery."""
+    from cuahn_vio_torch.data.euroc import distort_frames_to_raw, write_euroc_dir
+
+    device = _device(args.device)
+    opts = _camera_options(args.config)
+    d = np.load(args.sequence)
+    raw = distort_frames_to_raw(
+        d["frames"], list(opts.cam_intrinsics), list(opts.cam_distortion),
+        opts.cam_is_fisheye, raw_w=opts.cam_width, raw_h=opts.cam_height, device=device,
+    )
+    write_euroc_dir(args.out, raw, d["imu_t"], d["imu_w"], d["imu_a"], d["cam_t"])
+    print(f"wrote EuRoC dir {args.out}: {len(d['cam_t'])} raw "
+          f"{opts.cam_width}x{opts.cam_height} frames")
+
+
+def cmd_format_converter(args):
+    """EuRoC ground-truth csv <-> pose txt, by the input's extension."""
+    from cuahn_vio_torch.eval.traj_io import (
+        load_euroc_csv,
+        load_pose_file,
+        save_euroc_csv,
+        save_pose_file,
+    )
+
+    if args.input.endswith(".csv"):
+        traj = load_euroc_csv(args.input)
+        save_pose_file(args.output, traj.times, traj.poses)
+    else:
+        save_euroc_csv(args.output, load_pose_file(args.input))
+    print(f"converted {args.input} -> {args.output}")
 
 
 def cmd_train_uahn(args):
@@ -546,15 +615,39 @@ def build_parser() -> argparse.ArgumentParser:
     # shape a --traj-file trajectory only; without one they change nothing,
     # as in the JAX verb
     s.add_argument("--spline-dt", type=float, default=0.5,
-                   help="B-spline knot spacing of --traj-file (unused without it)")
+                   help="B-spline knot spacing of --traj-file (s; unused without it)")
     s.add_argument("--traj-z-offset", type=float, default=0.0,
                    help="height offset of --traj-file (unused without it)")
     s.add_argument("--effects", action="store_true",
                    help="sensor-effect augmentation (vignette, exposure, noise, "
                         "defocus), one draw per sequence from --seed")
-    # accepted only to be refused with a clear message (see NOT_YET_SYNTHETIC)
-    s.add_argument("--traj-file", default=None, help="not implemented yet")
+    s.add_argument("--traj-file", default=None,
+                   help="'# t x y z qx qy qz qw' pose txt to fly (a B-spline "
+                        "through it) instead of the analytic trajectory")
     s.set_defaults(fn=cmd_make_synthetic)
+
+    s = sub.add_parser("format-converter", help="EuRoC csv <-> pose txt")
+    s.add_argument("input")
+    s.add_argument("output")
+    s.set_defaults(fn=cmd_format_converter)
+
+    s = sub.add_parser("convert-euroc", help="EuRoC-ASL dir -> sequence .npz")
+    s.add_argument("root", help="dataset root containing mav0/")
+    s.add_argument("--out", default="sequence.npz")
+    s.add_argument("--config", default=None)
+    s.add_argument("--max-frames", type=int, default=None)
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_convert_euroc)
+
+    s = sub.add_parser(
+        "distort-to-euroc",
+        help="rendered .npz -> RAW distorted EuRoC dir (full-chain tests)",
+    )
+    s.add_argument("sequence", help=".npz from make-synthetic")
+    s.add_argument("--out", required=True, help="EuRoC root dir to create")
+    s.add_argument("--config", default=None)
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_distort_to_euroc)
 
     s = sub.add_parser("train-uahn", help="train network weights from scratch")
     s.add_argument("--out", default="uahn_weights.msgpack")

@@ -1,13 +1,14 @@
 """Trajectory / timing file I/O, byte-format-compatible with ov_eval.
 
-A copy of ``cuahn_vio.eval.traj_io`` (numpy only), in part: the pose txt,
-the timing csv and the FRD odometry file. The EuRoC csv pair is not
-ported yet.
+A copy of ``cuahn_vio.eval.traj_io`` (numpy only): the pose txt, the
+EuRoC ground-truth csv pair (``format-converter``), the timing csv and
+the FRD odometry file.
 
 Formats (the evaluation contract, SURVEY.md §5.5):
 - pose txt (Loader::load_data, ov_eval/src/utils/Loader.cpp): lines
   ``t x y z qx qy qz qw [Pr11 Pr12 Pr13 Pr22 Pr23 Pr33 Pt11 ... Pt33]``,
   '#' comments. Quaternions are JPL xyzw.
+- EuRoC csv (Loader::load_data_csv): ``t[ns],x,y,z,qw,qx,qy,qz,...``.
 - timing csv (VioManager.cpp:98): ``# timestamp, loading image, state
   propagation, network inference, EKF update, total time``.
 - odometry txt (RosVisualizer::visualize_odometry): ``t x y z vx vy vz
@@ -86,6 +87,35 @@ def save_pose_file(
                     )
                 ]
             f.write(" ".join(row) + "\n")
+
+
+def load_euroc_csv(path: str) -> Trajectory:
+    """EuRoC groundtruth csv: t[ns], p(3), q wxyz, ... -> Trajectory
+    (Loader::load_data_csv semantics; quaternion reordered to xyzw)."""
+    times, poses = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#") or line[0].isalpha():
+                continue
+            v = [float(x) for x in line.split(",")]
+            times.append(v[0] * 1e-9)
+            x, y, z = v[1:4]
+            qw, qx, qy, qz = v[4:8]
+            poses.append([x, y, z, qx, qy, qz, qw])
+    return Trajectory(np.asarray(times), np.asarray(poses), None, None)
+
+
+def save_euroc_csv(path: str, traj: Trajectory) -> None:
+    """Inverse of load_euroc_csv (format_converter.cpp counterpart)."""
+    with open(path, "w") as f:
+        f.write("#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z\n")
+        for t, p in zip(traj.times, traj.poses):
+            f.write(
+                f"{int(round(t * 1e9))},"
+                + ",".join(f"{x:.9f}" for x in p[:3])
+                + f",{p[6]:.9f},{p[3]:.9f},{p[4]:.9f},{p[5]:.9f}\n"
+            )
 
 
 def load_timing_file(path: str):

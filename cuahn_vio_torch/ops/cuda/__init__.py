@@ -9,6 +9,7 @@ launch_counts = {
     "homography_warp": 0,  # B1 (B = 1) and B2 (B > 1): warp_kernel
     "homography_warp_rowskip": 0,  # B3: rowskip_kernel
     "bilinear_sample": 0,  # B4: flat_kernel
+    "remap": 0,  # C1: remap_kernel (remap.cu), the undistortion remap
 }
 
 

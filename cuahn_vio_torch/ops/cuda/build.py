@@ -93,6 +93,7 @@ def load(source: str) -> ctypes.CDLL:
 _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_PLAIN = re.compile(r"_Z(\d+)")  # a function at file scope: _Z<length><name><args>
 _KERNEL = re.compile(r"([a-z]+_kernel)I([a-z])(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
@@ -100,12 +101,17 @@ def kernel_name(mangled: str) -> str | None:
     """``warp_kernel<h,2>`` for the mangled ``warp_kernel<uint8_t, 2>`` (the
     Itanium type code: h uint8, f float), ``flat_kernel<h,8,1>`` for
     ``flat_kernel<uint8_t, 8, true>``, ``flat_kernel<f>`` for
-    ``flat_kernel<float>``; None for a function that is not a kernel
-    template of warp.cu."""
+    ``flat_kernel<float>``; ``remap_kernel`` for the plain (not templated)
+    ``remap_kernel(...)``; None for any other function."""
     k = _KERNEL.search(mangled)
-    if not k:
-        return None
-    return "{}<{}>".format(k.group(1), ",".join(g for g in k.groups()[1:] if g))
+    if k:
+        return "{}<{}>".format(k.group(1), ",".join(g for g in k.groups()[1:] if g))
+    plain = _PLAIN.match(mangled)
+    if plain:
+        name = mangled[plain.end():plain.end() + int(plain.group(1))]
+        if name.endswith("_kernel") and not mangled[plain.end() + len(name):].startswith("I"):
+            return name
+    return None
 
 
 def ptxas_report(library: str) -> dict:

@@ -6,7 +6,9 @@ batch dims where the JAX trainer uses ``vmap``:
 
 - Data: B random planar-scene frame pairs each step, drawn in one batch
   (``draw_pairs``: poses, textures, blur and effects parameters, the prior
-  noise) and then rendered by deterministic code (``render_pairs``): each
+  noise; a ``traj_pair_prob`` share of the pose pairs from the UZH-FPV
+  pose-pair bank, ``data/trajpairs``, when its GT files are there) and
+  then rendered by deterministic code (``render_pairs``): each
   frame of the pair is the mean of ``blur_taps`` renders across its
   exposure window, all B frames from B bank textures in ONE launch of the
   flat sampler (B4, shape 3), then the sensor-effect chain and rounding
@@ -59,7 +61,7 @@ from cuahn_vio_torch.data.textures import (
 )
 from cuahn_vio_torch.models.uahn import UAHN
 from cuahn_vio_torch.ops.homography import f32_parity_mode
-from cuahn_vio_torch.ops.quat import quat_exp, quat_mul
+from cuahn_vio_torch.ops.quat import quat_conj, quat_exp, quat_log, quat_mul
 
 # the optax chain's constants (the JAX trainer's make_optimizer)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -132,6 +134,7 @@ class PairDraws(NamedTuple):
     exposure_frac: Optional[torch.Tensor] = None  # (B,)
     effects: Optional[EffectsDraw] = None
     waves: Optional[tuple] = None  # procedural ground: (B, n, 2), (B, n, 2), (B, n)
+    from_bank: Optional[torch.Tensor] = None  # (B,) bool: the pose pair is the bank's
 
 
 def _uniform(b, lo, hi, generator):
@@ -139,15 +142,40 @@ def _uniform(b, lo, hi, generator):
     return lo + u * (hi - lo)
 
 
+def _bank_pairs(pair_bank, b: int, generator: torch.Generator):
+    """B pose pairs of ``pair_bank`` (p1, q1, p2, q2 on the device), each
+    turned by its own random world yaw (the planar measurement model is
+    yaw-invariant, and the texture transform randomizes planar position)."""
+    bp1, bq1, bp2, bq2 = pair_bank
+    dev = generator.device
+    idx = torch.randint(0, bp1.shape[0], (b,), generator=generator, device=dev)
+    yaw = _uniform(b, 0.0, 2 * math.pi, generator)
+    zero = torch.zeros_like(yaw)
+    q_yaw = quat_exp(torch.stack([zero, zero, yaw], dim=1))
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+
+    def turn(p):  # rz @ p, rz the yaw's rotation about z
+        return torch.stack([cy * p[:, 0] - sy * p[:, 1], sy * p[:, 0] + cy * p[:, 1],
+                            p[:, 2]], dim=1)
+
+    return (turn(bp1[idx]), quat_mul(q_yaw, bq1[idx]), turn(bp2[idx]),
+            quat_mul(q_yaw, bq2[idx]))
+
+
 def draw_pairs(cfg: TrainConfig, b: int, generator: torch.Generator,
-               tex_indices: Optional[torch.Tensor] = None) -> PairDraws:
+               tex_indices: Optional[torch.Tensor] = None,
+               pair_bank: Optional[tuple] = None) -> PairDraws:
     """Draw B training pairs from ``generator`` (on the training device):
     frame 1 at a random height, tilt and yaw over the plane, frame 2 moved
-    by a random translation and rotation (a ``big_baseline_prob`` share of
-    the translations stretched); with ``tex_indices`` (the bank indices of
-    the texture split) a texture, its transform, the exposure and the
-    effects parameters per pair, else a procedural ground per pair; and
-    the prior's noise."""
+    by a random translation and rotation; with ``pair_bank`` (the
+    flight-realistic pairs of ``data/trajpairs`` on the device), a
+    ``cfg.traj_pair_prob`` share of the pairs drawn from it instead, each
+    at a random world yaw, and every pair's blur motion taken from its two
+    poses (dp = p2 - p1, rv_d = log(q1^-1 q2)); a ``big_baseline_prob``
+    share of the translations stretched; with ``tex_indices`` (the bank
+    indices of the texture split) a texture, its transform, the exposure
+    and the effects parameters per pair, else a procedural ground per
+    pair; and the prior's noise."""
     dev = generator.device
     height = _uniform(b, cfg.height_range[0], cfg.height_range[1], generator)
     tilt = torch.randn((b, 2), generator=generator, device=dev) * cfg.tilt_sigma
@@ -156,11 +184,19 @@ def draw_pairs(cfg: TrainConfig, b: int, generator: torch.Generator,
     dp = torch.randn((b, 3), generator=generator, device=dev) * cfg.trans_sigma
     rv_d = torch.randn((b, 3), generator=generator, device=dev) * cfg.rot_sigma
     q2 = quat_mul(q1, quat_exp(rv_d))
+    p1 = torch.cat([torch.zeros((b, 2), device=dev), height[:, None]], dim=1)
+    from_bank = None
+    if pair_bank is not None and cfg.traj_pair_prob > 0.0:
+        bank = _bank_pairs(pair_bank, b, generator)
+        from_bank = torch.rand((b,), generator=generator, device=dev) < cfg.traj_pair_prob
+        pick = from_bank[:, None]
+        p1, q1, p2, q2 = (torch.where(pick, x, y) for x, y in zip(bank, (p1, q1, p1 + dp, q2)))
+        dp = p2 - p1  # the blur taps follow the actual inter-frame motion
+        rv_d = quat_log(quat_mul(quat_conj(q1), q2))
     if cfg.big_baseline_prob > 0.0:
         big = torch.rand((b,), generator=generator, device=dev) < cfg.big_baseline_prob
         stretch = _uniform(b, cfg.big_baseline_scale[0], cfg.big_baseline_scale[1], generator)
         dp = dp * torch.where(big, stretch, torch.ones_like(stretch))[:, None]
-    p1 = torch.cat([torch.zeros((b, 2), device=dev), height[:, None]], dim=1)
     extra = {}
     if tex_indices is not None:
         pick = torch.randint(0, tex_indices.shape[0], (b,), generator=generator, device=dev)
@@ -178,7 +214,7 @@ def draw_pairs(cfg: TrainConfig, b: int, generator: torch.Generator,
         p1=p1, q1=q1, p2=p1 + dp, q2=q2, dp=dp, rv_d=rv_d,
         prior_sigma=torch.exp(_uniform(b, log_lo, log_hi, generator)),
         prior_noise=torch.randn((b, 4, 2), generator=generator, device=dev),
-        **extra,
+        from_bank=from_bank, **extra,
     )
 
 
@@ -238,12 +274,14 @@ def render_pairs(draws: PairDraws, cfg: TrainConfig, c_rot_i, i_t_i2c,
 def make_batch(cfg: TrainConfig, generator: torch.Generator, c_rot_i, i_t_i2c,
                height: int = 224, width: int = 320,
                bank: Optional[torch.Tensor] = None,
-               tex_indices: Optional[torch.Tensor] = None) -> Batch:
+               tex_indices: Optional[torch.Tensor] = None,
+               pair_bank: Optional[tuple] = None) -> Batch:
     """``cfg.batch_size`` fresh training pairs, on the photo textures
-    ``tex_indices`` of ``bank`` (both None: the procedural ground):
-    ``draw_pairs``, the effects' noise, then ``render_pairs``."""
+    ``tex_indices`` of ``bank`` (both None: the procedural ground), a share
+    of their poses from ``pair_bank``: ``draw_pairs``, the effects' noise,
+    then ``render_pairs``."""
     b = cfg.batch_size
-    draws = draw_pairs(cfg, b, generator, tex_indices)
+    draws = draw_pairs(cfg, b, generator, tex_indices, pair_bank)
     noise = None
     if draws.effects is not None:
         noise = tuple(draw_noise((b, height, width), generator) for _ in range(2))
@@ -488,8 +526,14 @@ def make_probe_metric(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig, height: i
 def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
           steps: int = 1000, seed: int = 0, log_every: int = 50, height: int = 224,
           width: int = 320, log_fn=print, checkpoint_path: Optional[str] = None,
-          save_every: int = 500, probe_every: int = 1000) -> UAHN:
+          save_every: int = 500, probe_every: int = 1000,
+          gt_dir: Optional[str] = None) -> UAHN:
     """Train ``model`` in place on its device for ``steps`` steps; returns it.
+
+    With ``cfg.traj_pair_prob`` > 0 and UZH-FPV GT files under ``gt_dir``
+    (default ``data.trajpairs.GT_DIR``), that share of the pose pairs comes
+    from their pose-pair bank (``build_pose_pair_bank``); without such
+    files, every pair is random, as in the JAX trainer.
 
     Logs the loss every ``log_every`` steps and at the last; writes the
     weights to ``checkpoint_path`` every ``save_every`` steps (Flax
@@ -498,7 +542,11 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
     (``make_probe_metric``, with photo textures only) and writes the best
     weights by its prior-mode error to ``<checkpoint_path>.best``.
     """
-    from cuahn_vio_torch.data.trajpairs import GT_DIR, train_trajectory_files
+    from cuahn_vio_torch.data.trajpairs import (
+        GT_DIR,
+        build_pose_pair_bank,
+        train_trajectory_files,
+    )
     from cuahn_vio_torch.utils.checkpoint import save_params
 
     f32_parity_mode()  # homography algebra needs full float32, not TF32
@@ -514,17 +562,18 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
         log_fn(f"texture bank: {bank.shape[0]} textures, {tex_idx.shape[0]} in training "
                "split", flush=True)
 
+    pair_bank = None
     if cfg.traj_pair_prob > 0.0:
-        files = train_trajectory_files()
-        if files:
-            raise NotImplementedError(
-                f"{len(files)} UZH-FPV GT trajectories under {GT_DIR}: the JAX trainer would "
-                f"draw {cfg.traj_pair_prob:.0%} of its pairs from their pose-pair bank, which "
-                "needs data/bspline, not ported yet; pass traj_pair_prob=0 "
-                "(--traj-pair-prob 0) to train on random poses"
-            )
-        log_fn(f"trajectory pair bank unavailable (no *_with_gt.txt under {GT_DIR}); "
-               "random poses", flush=True)
+        gt_dir = GT_DIR if gt_dir is None else gt_dir
+        if train_trajectory_files(gt_dir):
+            pairs = build_pose_pair_bank(gt_dir)
+            pair_bank = tuple(torch.as_tensor(pairs[k], device=dev)
+                              for k in ("p1", "q1", "p2", "q2"))
+            log_fn(f"trajectory pose-pair bank: {pairs['p1'].shape[0]} pairs "
+                   f"({cfg.traj_pair_prob:.0%} of samples)", flush=True)
+        else:
+            log_fn(f"trajectory pair bank unavailable (no *_with_gt.txt under {gt_dir}); "
+                   "random poses", flush=True)
 
     probe_fn = None
     best_probe = float("inf")
@@ -536,7 +585,7 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
     # the prior-mode coin: the JAX trainer's host stream, flip for flip
     host_rng = np.random.default_rng(seed)
     for i in range(steps):
-        batch = make_batch(cfg, gen, c_rot_i, i_t_i2c, height, width, bank, tex_idx)
+        batch = make_batch(cfg, gen, c_rot_i, i_t_i2c, height, width, bank, tex_idx, pair_bank)
         use_prior = bool(host_rng.random() < cfg.prior_prob)
         loss, aux = step_fn(batch, use_prior, gen)
         if log_every and (i % log_every == 0 or i == steps - 1):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -29,6 +29,17 @@ and ``python -m cuahn_vio_torch.cli run-vio --bf16 --device cpu`` with the
 v10 weights, scores each the same way, and prints the JAX package's mean
 ATE and the bar that ``chip_smoke.BF16_ATE_BAR_M`` takes from it (+ 0.005
 m, the margin of ``chip_smoke.ATE_BAR_M``).
+
+``raw`` (the raw-camera phase's bar): makes phase 10's GT pose file and
+phase 12's sequence with the port's ``make-synthetic`` on the CPU, over
+the card machine's texture bank (its 12 procedural textures; this
+machine's bank may hold photos too), in OUT_DIR/raw. Then, for each seed,
+the JAX chain (``python -m cuahn_vio.cli distort-to-euroc``,
+``convert-euroc``, ``run-vio`` with the v10 weights) and the port's on the
+CPU, and the JAX package's ``run-vio`` on the rendered frames without the
+round trip, each scored with the JAX ``error-singlerun se3``; prints the
+JAX chain's mean ATE, its spread and the bar of ``chip_smoke.RAW_ATE_BAR_M``
+(the rule of the batch bars).
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -130,10 +141,61 @@ def batch(env, out_dir: str, weights: str, stems: list) -> None:
               f"bar {mean + margin:.5f} m", flush=True)
 
 
+def raw(env, out_dir: str, weights: str) -> None:
+    import chip_smoke
+    from cuahn_vio_torch import cli as tcli
+    from cuahn_vio_torch.data import textures
+
+    textures._BANK_CACHE = textures.quantize_u8(
+        np.stack(textures._procedural_extras(textures.TEXTURE_SIZE)))
+    work = os.path.join(out_dir, "raw")
+    os.makedirs(work, exist_ok=True)
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+    noise = ["--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003", "--bias-a", "0.02"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:  # phase 10's make-synthetic, then phase 12's
+        tcli.main(["make-synthetic", "--device", "cpu", "--out", "seq.npz", "--duration",
+                   str(chip_smoke.CLI_DURATION_S), "--texture", "heldout", "--seed", "7",
+                   *noise])
+        tcli.main(["make-synthetic", "--device", "cpu", "--traj-file", "seq_gt.txt",
+                   "--spline-dt", "0.1", "--out", "raw_seq.npz", "--duration",
+                   str(chip_smoke.RAW_DURATION_S), "--texture", "heldout", "--exposure-ms", "8",
+                   "--effects", "--seed", "7", *noise])
+    finally:
+        os.chdir(cwd)
+    cfg = ["--config", path("raw_seq_config.yaml")]
+    for package, extra in RUNS:
+        run(env, [f"{package}.cli", "distort-to-euroc", path("raw_seq.npz"), "--out",
+                  path(f"euroc_{package}"), *cfg, *extra])
+        run(env, [f"{package}.cli", "convert-euroc", path(f"euroc_{package}"), "--out",
+                  path(f"conv_{package}.npz"), *cfg, *extra])
+    jax_ates = []
+    for seed in SEEDS:
+        for package, extra in RUNS:
+            est = path(f"est_{package}_s{seed}.txt")
+            run(env, [f"{package}.cli", "run-vio", path(f"conv_{package}.npz"), *cfg,
+                      "--weights", weights, "--out", est, "--seed", str(seed), *extra])
+            value = ate(env, path("raw_seq_gt.txt"), est)
+            if package == "cuahn_vio":
+                jax_ates.append(value)
+            print(f"raw chain {package} seed {seed}: ATE pos rmse {value:.5f} m", flush=True)
+        est = path(f"est_virtual_s{seed}.txt")
+        run(env, ["cuahn_vio.cli", "run-vio", path("raw_seq.npz"), *cfg, "--weights", weights,
+                  "--out", est, "--seed", str(seed)])
+        print(f"virtual frames cuahn_vio seed {seed}: ATE pos rmse "
+              f"{ate(env, path('raw_seq_gt.txt'), est):.5f} m", flush=True)
+    mean, spread = float(np.mean(jax_ates)), float(np.ptp(jax_ates))
+    margin = max(MARGIN_M, SPREAD_FACTOR * spread) if spread > SPREAD_FLOOR_M else MARGIN_M
+    print(f"raw bar: JAX mean {mean:.5f} m, spread {spread:.5f} m, bar {mean + margin:.5f} m",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
-    ap.add_argument("--part", choices=["single", "batch", "bf16", "both"], default="both")
+    ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "both"],
+                    default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -141,6 +203,10 @@ def main() -> int:
     from cuahn_vio_torch.utils.config import VioOptions
 
     os.makedirs(args.out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    if args.part == "raw":
+        raw(env, args.out_dir, chip_smoke.WEIGHTS)
+        return 0
     opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
     seq = make_sequence(AnalyticTrajectory(), np.asarray(opts.t_imu_to_cam),
                         device="cpu", **chip_smoke.SEQ)
@@ -150,7 +216,6 @@ def main() -> int:
     opts.init_imu_thresh = 0.2
     opts.to_yaml(os.path.join(args.out_dir, "seq_config.yaml"))
 
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     if args.part in ("single", "both"):
         single(env, args.out_dir, chip_smoke.WEIGHTS)
     if args.part == "bf16":

@@ -11,7 +11,9 @@ per thread makes risky (ragged and tiny widths, B = 1 and 65, row bands
 just under and over the shared band) and at a rendered frame's texture
 coordinates, all three bit for bit (0.0); the flat sampler's batched form
 (B = 1, 3 and 16 textures, ragged N, misaligned coordinates) bit for bit
-too. The batched path, the stepwise runner, the bf16 towers, the blurred
+too; the undistortion remap C1 to its plain version bit for bit (0.0) at
+640x480 -> 224x320 on fisheye, radtan and edge maps. The batched path,
+the stepwise runner, the bf16 towers, the blurred
 render and the CLI run on the card too.
 """
 
@@ -436,3 +438,73 @@ def test_train_step_on_gpu_follows_the_cpu(gpu):
         for name, g in g_cpu.items():
             scale = g.abs().max().item()
             assert (g_gpu[name] - g).abs().max().item() <= 1e-3 * scale, name
+
+
+def _remap_maps(kind, dev):
+    from cuahn_vio_torch.runtime.undistort import build_undist_map
+
+    if kind in ("fisheye", "radtan"):
+        k, d = (([275.46015578667294, 274.9948095922592, 315.958384100568, 242.7123497822731],
+                 [-6.545154718304953e-06, -0.010379525898159981, 0.014935312423953146,
+                  -0.005639061406567785]) if kind == "fisheye" else
+                ([458.654, 457.296, 367.215, 248.375],
+                 [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]))
+        return build_undist_map(k, d, kind == "fisheye", device=dev)
+    v, u = torch.meshgrid(torch.arange(224, dtype=torch.float32, device=dev),
+                          torch.arange(320, dtype=torch.float32, device=dev), indexing="ij")
+    mx, my = u * 2.1 - 20.0, v * 2.3 - 15.0  # integer, fractional, off-image, edges
+    mx[0, :6] = torch.tensor([-1.0, -0.5, 639.0, 639.5, 640.0, float("nan")])
+    my[1, :5] = torch.tensor([479.0, 479.25, 480.0, -1.0, 1e9])
+    return mx.contiguous(), my.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["fisheye", "radtan", "edges"])
+@pytest.mark.parametrize("n", [1, 9])
+def test_remap_kernel_is_bit_identical_to_its_plain_version(gpu, kind, n):
+    """C1 against ``remap_u8_plain`` on the card, 640x480 -> 224x320, one
+    launch for the batch (9 frames: two frame chunks of a thread)."""
+    from cuahn_vio_torch.ops.remap import remap_u8, remap_u8_plain
+
+    rng = np.random.default_rng(n)
+    frames = torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8), device=gpu)
+    mx, my = _remap_maps(kind, gpu)
+    tcuda.reset_launch_counts()
+    out = remap_u8(frames, mx, my)
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["remap"] == 1
+    assert torch.equal(out, remap_u8_plain(frames, mx, my))
+
+
+def test_remap_wrapper_refuses_what_the_kernel_does_not_take(gpu):
+    from cuahn_vio_torch.ops.cuda.remap import remap_u8_cuda
+
+    frames = torch.zeros((2, 48, 64), dtype=torch.uint8, device=gpu)
+    m = torch.zeros((8, 8), device=gpu)
+    with pytest.raises(ValueError, match="CUDA device"):
+        remap_u8_cuda(frames, m.cpu(), m)
+    with pytest.raises(ValueError, match="contiguous"):
+        remap_u8_cuda(frames[:, :, ::2], m, m)
+    with pytest.raises(ValueError, match="uint8"):
+        remap_u8_cuda(frames.float(), m, m)
+
+
+def test_convert_euroc_on_gpu_remaps_in_one_launch(gpu, tmp_path):
+    """``load_euroc_sequence`` on the card: one C1 launch for all frames,
+    the frames equal to the CPU path's."""
+    from cuahn_vio_torch.data.euroc import load_euroc_sequence, write_euroc_dir
+
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (5, 480, 640)).astype(np.uint8)
+    imu_t = 1.0 + np.arange(40) * 0.002
+    write_euroc_dir(str(tmp_path), raw, imu_t, rng.normal(size=(40, 3)),
+                    rng.normal(size=(40, 3)), 1.0 + np.arange(5) / 30.0)
+    k = [275.46015578667294, 274.9948095922592, 315.958384100568, 242.7123497822731]
+    d = [-6.545154718304953e-06, -0.010379525898159981, 0.014935312423953146,
+         -0.005639061406567785]
+    tcuda.reset_launch_counts()
+    on_gpu = load_euroc_sequence(str(tmp_path), k, d, True, device=gpu)
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["remap"] == 1
+    np.testing.assert_array_equal(on_gpu.frames,
+                                  load_euroc_sequence(str(tmp_path), k, d, True,
+                                                      device="cpu").frames)

@@ -1,12 +1,14 @@
-"""The port imports neither JAX, flax, optax, msgpack, PyYAML nor the JAX
-package.
+"""The port imports neither JAX, flax, optax, msgpack, PyYAML, PIL nor the
+JAX package.
 
 In a fresh interpreter where a ``sys.meta_path`` finder makes ``jax``,
-``flax``, ``optax``, ``msgpack``, ``yaml`` and ``cuahn_vio`` (and their
-submodules) unimportable,
+``flax``, ``optax``, ``msgpack``, ``yaml``, ``PIL`` and ``cuahn_vio`` (and
+their submodules) unimportable,
 every module of ``cuahn_vio_torch`` and the port's scripts
 (``chip_smoke.py``, ``tune_warp.py``, ``profile_slice.py``,
-``smoke_reference.py``) must import.
+``smoke_reference.py``) must import, and the raw-camera verbs
+(``distort-to-euroc``, ``convert-euroc``, ``format-converter``) must run
+on the CPU.
 """
 
 import os
@@ -21,7 +23,7 @@ import importlib.abc
 import pkgutil
 import sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cuahn_vio")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "PIL", "cuahn_vio")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -54,10 +56,10 @@ def test_port_imports_without_jax_flax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", GUARDED], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    # every module was walked, the trainer's slice's too (data.oracle,
-    # data.sensor_effects, data.trajpairs, train, train.trainer,
-    # utils.msgpack_writer)
-    assert int(proc.stdout.split()[-1]) >= 43
+    # every module was walked, the raw-camera slice's too (vision.camera,
+    # runtime.undistort, ops.remap, ops.cuda.remap, utils.png, data.euroc,
+    # data.gt_loader, data.bspline and their packages)
+    assert int(proc.stdout.split()[-1]) >= 53
 
 
 def test_the_guard_blocks_what_it_names():
@@ -84,3 +86,36 @@ def test_the_guard_blocks_yaml():
     proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and "blocked import of yaml" in proc.stderr
+
+
+RAW_CHAIN = r"""
+import numpy as np
+from cuahn_vio_torch.cli import main
+from cuahn_vio_torch.eval.traj_io import save_pose_file
+
+rng = np.random.default_rng(0)
+frames = rng.integers(0, 256, (2, 224, 320)).astype(np.uint8)
+imu_t = 1.0 + np.arange(30) * 0.002
+np.savez("seq.npz", imu_t=imu_t, imu_w=rng.normal(size=(30, 3)),
+         imu_a=rng.normal(size=(30, 3)), cam_t=np.array([1.0, 1.0333]), frames=frames)
+main(["distort-to-euroc", "seq.npz", "--out", "raw", "--device", "cpu"])
+main(["convert-euroc", "raw", "--out", "back.npz", "--device", "cpu"])
+back = np.load("back.npz")["frames"]
+assert back.shape == frames.shape, back.shape
+save_pose_file("gt.txt", imu_t, np.tile([0, 0, 1.0, 0, 0, 0, 1.0], (30, 1)))
+main(["format-converter", "gt.txt", "gt.csv"])
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("raw chain ok")
+"""
+
+
+def test_raw_camera_verbs_run_without_pil_jax_or_yaml(tmp_path):
+    """PIL is blocked with the rest: the port's PNG codec writes and reads
+    the EuRoC directory."""
+    code = GUARDED.split("import cuahn_vio_torch\n")[0] + RAW_CHAIN
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "raw chain ok" in proc.stdout

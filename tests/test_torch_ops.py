@@ -298,11 +298,14 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
     ("_ZN12_GLOBAL__N_111flat_kernelIhLi8ELb1EEEvPKT_PKfS5_Pfiiixiif", "flat_kernel<h,8,1>"),
     ("_ZN12_GLOBAL__N_111flat_kernelIfLi1ELb0EEEvPKT_PKfS5_Pfiiixiif", "flat_kernel<f,1,0>"),
     ("_ZN12_GLOBAL__N_113resident_threadsEv", None),
+    ("_Z12remap_kernelPKhPKfS2_Phiiii", "remap_kernel"),
+    ("_Z13remap_frames_Pi", None),
 ])
 def test_kernel_name_keeps_every_template_argument(mangled, name):
     """Each instantiation of a kernel template gets its own name (type,
     points a thread and, for the flat sampler, whether it reads whole
-    words), so no two share an entry of the ptxas report."""
+    words), so no two share an entry of the ptxas report; a kernel that is
+    no template (remap.cu's) keeps its plain name."""
     assert tbuild.kernel_name(mangled) == name
 
 
