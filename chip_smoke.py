@@ -17,15 +17,18 @@ Phases, each printed on its own line with its seconds:
    ragged 224x317, 7x5 and 6x3 (B = 8) and on 50,000 6x3 images (widths
    that are not a multiple of a thread's pixels, narrower than one
    thread's 8 pixels) with near-identity, off-image, z <= 0, NaN, z = 0
-   (+-inf and NaN coordinates) and rolled homographies; the row-band warp on the same cases and on rolls whose
+   (+-inf and NaN coordinates) and rolled homographies, and in uint8 at
+   close-loops' B = 64; the row-band warp on the same cases and on rolls whose
    tiles' bands lie just under and just over its shared band (8.8 deg for
    uint8, 1.8 deg for float32), against the warp kernel and the plain
-   version; the flat sampler (``sample_parity_inputs``) at its three
+   version; the flat sampler (``sample_parity_inputs``) at its five
    shapes (a rendered frame's 71,680 coordinates on a 512x512 texture, a
-   blurred frame's 3 x 71,680 at ``--exposure-ms 8``, and 16 bank
-   textures at a blurred frame's coordinates each, the JAX trainer's
-   batch, and 32 of them, its probe's), at ragged N, at 4-byte-misaligned coordinates, on a texture
-   whose rows are not whole 4-byte words, and at in-range, edge,
+   blurred frame's 3 x 71,680 at ``--exposure-ms 8``, 16 bank textures at
+   a blurred frame's coordinates each, the JAX trainer's batch, and 32 of
+   them, its probe's, the FIL window batch, 4 textures at 7 blurred
+   frames' coordinates each, and the FIL pair step's 8 textures at the
+   trainer batch's coordinates), at ragged N, at 4-byte-misaligned
+   coordinates, on a texture whose rows are not whole 4-byte words, and at in-range, edge,
    off-image, +-inf and NaN ones; the remap C1 at 640x480 -> 224x320 on
    the default config's fisheye map and on a radtan map, at N = 1 and
    N = 165 frames, and on a map of off-image, edge, exactly integer and
@@ -35,9 +38,10 @@ Phases, each printed on its own line with its seconds:
    calls it) beside its byte bound: device time from CUDA-graph replays
    (the median of three, taken in turns; the numbers kept), the kernel's
    ratio to grid_sample, and eager call-to-call time. The warp at B = 1, 4 and 64 (uint8 and float32)
-   and at B = 16 float32 (the trainer's warp), the
+   and at B = 8 and 16 float32 (the FIL pair step's and the trainer's
+   warp), the
    row-band warp at B = 4, 8 and 64 (uint8), the flat sampler at its
-   three shapes on uint8 textures, beside the launch floor (a one-element
+   five shapes on uint8 textures, beside the launch floor (a one-element
    ``add_`` in the same CUDA graph); the remap C1 at N = 1 and N = 165
    raw 640x480 frames on the fisheye map, beside ``grid_sample`` on the
    same frames (as float) and coordinates and its byte bound;
@@ -118,7 +122,44 @@ Phases, each printed on its own line with its seconds:
    the PNG decode and encode ms per frame, the decode ms per frame of the
    same frames written with PIL's row filters (``encode_png_like_pil``;
    their pixels must come back equal), the remap's device ms, and the ATE
-   beside that of ``run_offline`` on the rendered (virtual) frames.
+   beside that of ``run_offline`` on the rendered (virtual) frames;
+13. the loop-closure workflow of ``benchmarks/loop_closure_demo.sh``, as
+   subprocesses of ``python -m cuahn_vio_torch.cli`` in a temporary
+   directory: the demo's double-loop pose file (``write_loop_trajectory``)
+   flown by ``make-synthetic --traj-file`` with the demo's flags
+   (LOOP_SYNTH_ARGS: 20 s, a held-out procedural texture named by its
+   pick, ``--exposure-ms 8 --effects``), ``run-vio`` v10 ``--state-out``,
+   ``close-loops`` (LOOP_CLOSE_ARGS; a subprocess that also records the
+   batch of every warp launch), ``smooth-trajectory --loops-file`` twice
+   and once with ``--huber``, and ``error-singlerun se3`` of the online and
+   the smoothed runs. Every exit code must be 0; the flat sampler must
+   launch once a rendered frame, the warp 3 x poses x IEKF times in
+   ``run-vio`` and, in ``close-loops``, 3 times per network batch of at
+   most ``LOOP_BATCH`` pairs, uint8, the batches covering each pair inside
+   the geometric gate once per warp site; at least one factor written;
+   every smoothed pose finite, the two plain smoothings byte-identical and
+   no kernel launched by them; the smoothed ATE under LOOP_ATE_BAR_M and
+   below the online ATE. The warp is then held to its plain version and
+   timed at each batch size close-loops launched it at. Prints the
+   candidates, the pairs inside the geometric gate, the factors kept, the
+   ATEs beside the JAX package's, each verb's seconds, and the
+   Gauss-Newton iteration's ms at the run's size with the normal equations
+   repeated GN_REPEATS times (``gn_iteration_ms``: the module's repeats
+   must be bit-identical);
+14. filter-in-the-loop training in this process: ``train.fil.fil_finetune``
+   from v10 for FIL_STEPS steps (FIL steps and pair steps in turn) on a
+   bank of FIL_BANK windows of FIL_WINDOW frames cut from the GT files of
+   phases 10 and 13, FIL_BATCH windows a FIL step, 224x320, 3 blur taps.
+   Every loss and every step's gradients must be finite; a FIL step must
+   launch the flat sampler once (FIL_BATCH textures x (W + 1) x 3 x 224 x
+   320 points) and the warp 3 x W x IEKF times at B = FIL_BATCH in uint8,
+   a pair step the sampler twice at FIL_PAIR_BATCH textures and the warp
+   3 times at B = FIL_PAIR_BATCH in float32, and nothing else; the weights
+   must move from v10, and the checkpoint be written and read back finite.
+   Prints the set-up's ms and each step's (host clock, a synchronize at
+   the set-up's end and at each step's), the peak device memory and, as a
+   report, the ATE of ``run_offline`` with
+   the tuned weights on phase 4's sequence beside v10's.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -249,6 +290,63 @@ RAW_INTERIOR = (slice(40, 180), slice(60, 260))
 # round trip, 0.01496/0.01449/0.01480 m.
 REF_RAW_ATE_M = 0.01337
 RAW_ATE_BAR_M = REF_RAW_ATE_M + ATE_MARGIN_M
+# phase 13: the workflow of benchmarks/loop_closure_demo.sh, with its
+# flags: a double-loop pose file (``write_loop_trajectory``) flown by
+# make-synthetic over a held-out texture named explicitly (pick 2 of the
+# held-out split; on the card machine's bank of 12 procedural textures the
+# split is bank[3] alone, a fractal noise), then run-vio, close-loops and
+# smooth-trajectory
+LOOP_SYNTH_ARGS = ("--duration", "20", "--spline-dt", "0.1", "--traj-z-offset", "1.7",
+                   "--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003",
+                   "--bias-a", "0.02", "--texture", "heldout", "--texture-pick", "2",
+                   "--tex-scale", "4.0", "--exposure-ms", "8", "--effects")
+LOOP_CLOSE_ARGS = ("--min-dt", "5.0", "--max-dist", "1.0", "--stride", "3", "--max-pairs",
+                   "200", "--max-sigma-px", "25")
+LOOP_HUBER = 3.0  # the robust smoothing's --huber
+# ATE bar of phase 13. Reference: ``python3 smoke_reference.py OUT_DIR
+# --part loop`` makes phase 13's sequence with the port's make-synthetic on
+# the CPU (the card machine's texture bank), then runs the JAX chain
+# run-vio (v10, MC-dropout seeds 0-2) --state-out, close-loops
+# (LOOP_CLOSE_ARGS) and smooth-trajectory --loops-file, scored with its
+# error-singlerun se3, on the CPU. The bar is the JAX mean smoothed ATE +
+# ATE_MARGIN_M. Measured: JAX seeds 0/1/2 online 0.16780/0.16695/0.16746 m,
+# 88/89/89 factors, smoothed 0.11041/0.11095/0.11104 m (mean 0.11080, spread
+# 0.00063); the port's chain on the CPU online 0.16776/0.16720/0.16781 m,
+# 89/89/88 factors, smoothed 0.11080/0.11000/0.11063 m.
+REF_LOOP_ATE_M = 0.11080
+LOOP_ATE_BAR_M = REF_LOOP_ATE_M + ATE_MARGIN_M
+# phase 14, filter-in-the-loop: FIL_STEPS steps of train/fil.fil_finetune
+# from v10 (every second one a pair step), windows of FIL_WINDOW frames,
+# FIL_BATCH windows a FIL step, 224x320, 3 blur taps, from a bank of
+# FIL_BANK windows cut from the GT files of phases 10 and 13
+FIL_STEPS = 4
+FIL_WINDOW = 6
+FIL_BATCH = 4
+FIL_BANK = 32
+FIL_PAIR_BATCH = 8  # train/fil's pair steps: TrainConfig(batch_size=8)
+GN_REPEATS = 20  # phase 13: repeats of the smoother's normal equations
+FIL_IEKF = 1  # train/fil's VioConfig(update_gate_frames=-1): one IEKF iteration
+
+
+def write_loop_trajectory(path: str) -> None:
+    """The pose file of ``benchmarks/loop_closure_demo.sh``: two 10 s laps
+    of a gentle double loop at fixed heading, after a rest-to-motion ramp
+    (22 s at 50 Hz, '# t x y z qx qy qz qw')."""
+    import numpy as np
+
+    t = np.arange(0, 22.0, 1.0 / 50.0)
+    w = 2 * np.pi / 10.0  # a 10 s lap: revisits at dt = 10 s
+    env = np.clip(t / 1.5, 0, 1) ** 2  # rest -> motion ramp (trips the init jerk gate)
+    x = 1.0 * (1 - np.cos(w * t)) * env
+    y = 0.8 * np.sin(w * t) * env
+    z = 0.15 * np.sin(2 * w * t) * env
+    roll = 0.03 * np.sin(1.3 * t)
+    pitch = 0.03 * np.cos(1.1 * t)
+    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
+    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
+    q = np.stack([sr * cp, cr * sp, -sr * sp, cr * cp], -1)  # xyzw, yaw fixed
+    np.savetxt(path, np.column_stack([t, x, y, z, q]),
+               header="timestamp tx ty tz qx qy qz qw", comments="# ")
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -352,11 +450,37 @@ def warp_parity_inputs(torch, rng, dtype, dev):
     RAGGED_SHAPES (parity_cases; B is None for these)."""
     from cuahn_vio_torch.train.trainer import PROBE_SIZE
 
-    full = (1, 4, 8, 65) + ((TRAIN_BATCH, PROBE_SIZE) if dtype == torch.float32 else ())
+    from cuahn_vio_torch.pipeline.loop_closure import LOOP_BATCH
+
+    full = (1, 4, 8, 65) + ((TRAIN_BATCH, PROBE_SIZE) if dtype == torch.float32
+                            else (LOOP_BATCH,))
     for b, hgt, wid in [(b, H, W) for b in full] + list(RAGGED_SHAPES):
         imgs, hs = parity_cases(torch, rng, b, dtype, hgt, wid)
         yield ((b if (hgt, wid) == (H, W) else None), f"{str(dtype):13s} B={b} {hgt}x{wid}",
                torch.as_tensor(imgs, device=dev), torch.as_tensor(hs, device=dev))
+
+
+def check_warp(torch, label, imgs, hs) -> float:
+    """The warp kernel against its plain version on ``imgs``, ``hs`` (from
+    ``parity_cases``), bit for bit. Returns the max abs error (0.0)."""
+    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, pixels_per_thread
+    from cuahn_vio_torch.ops.warp import homography_warp_plain
+
+    out = homography_warp_cuda(imgs, hs)
+    ref = homography_warp_plain(imgs, hs)
+    torch.cuda.synchronize()
+    err = nan_checked_err(torch, out, ref, f"warp {label}")
+    nan_ref = torch.isnan(ref)
+    if imgs.shape[0] >= 7 and not (
+        nan_ref[3].all() and (ref[1] == 0).all() and (out[1] == 0).all()
+        and nan_ref[6].any() and not nan_ref[6].all()
+    ):
+        raise AssertionError("special homographies lost their meaning")
+    print(f"  warp parity {label} ({pixels_per_thread(*imgs.shape)} pixels a "
+          f"thread): max abs err {err:.3e}, NaN pixels {int(nan_ref.sum())}", flush=True)
+    if err != 0.0:
+        raise AssertionError(f"warp kernel vs plain {err:.3e}: not bit-identical")
+    return err
 
 
 def check_kernel(torch, dev):
@@ -365,28 +489,11 @@ def check_kernel(torch, dev):
     0.0."""
     import numpy as np
 
-    from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, pixels_per_thread
-    from cuahn_vio_torch.ops.warp import homography_warp_plain
-
     rng = np.random.default_rng(0)
     errs = {}
     for dtype in (torch.uint8, torch.float32):
         for b, label, imgs, hs in warp_parity_inputs(torch, rng, dtype, dev):
-            out = homography_warp_cuda(imgs, hs)
-            ref = homography_warp_plain(imgs, hs)
-            torch.cuda.synchronize()
-            err = nan_checked_err(torch, out, ref, f"warp {label}")
-            nan_ref = torch.isnan(ref)
-            if imgs.shape[0] >= 7 and not (
-                nan_ref[3].all() and (ref[1] == 0).all() and (out[1] == 0).all()
-                and nan_ref[6].any() and not nan_ref[6].all()
-            ):
-                raise AssertionError("special homographies lost their meaning")
-            print(f"  warp parity {label} ({pixels_per_thread(*imgs.shape)} pixels a "
-                  f"thread): max abs err {err:.3e}, NaN pixels {int(nan_ref.sum())}",
-                  flush=True)
-            if err != 0.0:
-                raise AssertionError(f"warp kernel vs plain {err:.3e}: not bit-identical")
+            err = check_warp(torch, label, imgs, hs)
             if b is not None:
                 errs[(str(dtype).split(".")[-1], b)] = err
     return errs
@@ -525,6 +632,41 @@ def batch_sample_inputs(torch, dev, dtype):
             sv.reshape(b, -1).contiguous())
 
 
+def fil_sample_inputs(torch, dev, dtype):
+    """Shape 4, the FIL window batch (``train.fil.render_windows``): FIL_BATCH
+    bank textures (``_procedural_extras(512)`` in turn, at uint8 levels;
+    float32 k/255 for ``dtype`` float32), each at the coordinates of
+    FIL_WINDOW + 1 consecutive blurred frames (EXPOSURE_S, 3 taps, 30 Hz)
+    from a random time of the analytic flight, under random tex params
+    across the trainer's range, from a numpy seed. Returns (textures (B,
+    512, 512), su, sv (B, (W + 1) x 3 x 224 x 320))."""
+    import numpy as np
+
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, exposure_taps, ground_points
+    from cuahn_vio_torch.data.textures import (
+        _procedural_extras,
+        plane_coords,
+        quantize_u8,
+        texture_u8,
+    )
+
+    b, f = FIL_BATCH, FIL_WINDOW + 1
+    rng = np.random.default_rng(8)
+    extras = _procedural_extras(TEX_SIZE)
+    bank = [quantize_u8(extras[(3 * i) % len(extras)]) for i in range(b)]
+    tex = np.stack([texture_u8(t) for t in bank] if dtype == torch.uint8 else bank)
+    times = (rng.uniform(0.5, 5.5, b)[:, None] + np.arange(f)[None, :] / 30.0).reshape(-1)
+    p, q = exposure_taps(AnalyticTrajectory(), times, EXPOSURE_S, dev)
+    th = rng.uniform(0.0, 2 * np.pi, b)
+    params = np.stack([np.exp(rng.uniform(np.log(1.5), np.log(10.0), b)), np.cos(th),
+                       np.sin(th), *rng.uniform(0.0, 2.0, (2, b))], axis=1)
+    ground, _ = ground_points(p, q, *camera(torch, dev), H, W)  # (B F, 3, H, W, 2)
+    su, sv = plane_coords(TEX_SIZE, ground.reshape(b, f, *ground.shape[1:]),
+                          torch.tensor(params, dtype=torch.float32, device=dev))
+    return (torch.as_tensor(tex, device=dev), su.reshape(b, -1).contiguous(),
+            sv.reshape(b, -1).contiguous())
+
+
 def misaligned(torch, x):
     """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
     boundary (as ``su[1:]`` of a fresh tensor does)."""
@@ -537,7 +679,9 @@ def misaligned(torch, x):
 def sample_parity_inputs(torch, rng, dtype, dev):
     """(label, images, su, sv) of the flat sampler's parity phase: shapes 1,
     2 and 3 (a frame's, a blurred frame's and the trainer batch's
-    coordinates), shape 3 at the probe's 32 textures (the batch twice, its
+    coordinates), shape 4 (the FIL windows), shape 5 (shape 3's first
+    FIL_PAIR_BATCH textures: a FIL pair step's batch), shape 3 at the
+    probe's 32 textures (the batch twice, its
     second half's coordinates rolled by one texture), the batch's first 2
     and 4 textures, ragged N (N mod 8 !=
     0), 4-byte-misaligned coordinates, all of shape 3's points on one
@@ -553,6 +697,9 @@ def sample_parity_inputs(torch, rng, dtype, dev):
     yield "shape 1 (frame)", tex, *frame
     yield "shape 2 (blurred frame)", tex, *blurred
     yield "shape 3 (trainer batch)", texs, bsu, bsv
+    yield "shape 4 (FIL windows)", *fil_sample_inputs(torch, dev, dtype)
+    yield ("shape 5 (FIL pair step)", texs[:FIL_PAIR_BATCH], bsu[:FIL_PAIR_BATCH],
+           bsv[:FIL_PAIR_BATCH])
     yield ("shape 3 (probe, 2 x the batch's textures)", torch.cat([texs, texs]),
            torch.cat([bsu, bsu.roll(1, 0)]), torch.cat([bsv, bsv.roll(1, 0)]))
     for b in (2, 4):
@@ -571,14 +718,15 @@ def check_sample(torch, dev):
     """Phase 2, B4: the flat sampler against its plain version, bit for bit,
     on ``sample_parity_inputs``, uint8 and float32. Returns the max abs
     error at shapes 1-2 ("frame"), at shape 3 and the probe's 32 textures
-    ("batch") and over all ("all")."""
+    ("batch"), at shape 4 ("fil"), at shape 5 ("pair") and over all
+    ("all")."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.warp import bilinear_sample_cuda, pixels_per_thread
     from cuahn_vio_torch.ops.warp import bilinear_sample_flat
 
     rng = np.random.default_rng(3)
-    worst = {"frame": 0.0, "batch": 0.0, "other": 0.0}
+    worst = {"frame": 0.0, "batch": 0.0, "fil": 0.0, "pair": 0.0, "other": 0.0}
     for dtype in (torch.uint8, torch.float32):
         for label, tex, csu, csv in sample_parity_inputs(torch, rng, dtype, dev):
             out = bilinear_sample_cuda(tex, csu, csv)
@@ -592,8 +740,8 @@ def check_sample(torch, dev):
                   f"{int(torch.isnan(ref).sum())}", flush=True)
             if err != 0.0:
                 raise AssertionError(f"sampler vs plain {err:.3e}: not bit-identical")
-            key = {"shape 1": "frame", "shape 2": "frame",
-                   "shape 3": "batch"}.get(label.split(" (")[0], "other")
+            key = {"shape 1": "frame", "shape 2": "frame", "shape 3": "batch",
+                   "shape 4": "fil", "shape 5": "pair"}.get(label.split(" (")[0], "other")
             worst[key] = max(worst[key], err)
     return dict(worst, all=max(worst.values()))
 
@@ -678,56 +826,65 @@ def library_grid(torch, hs):
     return torch.stack([2 * su / (W - 1) - 1, 2 * sv / (H - 1) - 1], dim=-1)
 
 
-def time_kernel(torch, dev):
-    """Phase 3, warps: warp kernel / row-band kernel / plain / grid_sample
-    times for uint8 frames (the main path's input) and float32 images.
-    Returns {(kernel, dtype name, B): {ms, plain_ms, library_ms, bound_ms}}."""
-    import numpy as np
+def time_warp(torch, dev, rng, kernel: str, dtype, b: int, iters: int) -> dict:
+    """Warp kernel (``kernel`` "warp") or row-band kernel ("rowskip") /
+    plain / grid_sample times of B 224x320 images of ``dtype``, each under
+    the same finite near-identity homography. Returns {ms, plain_ms,
+    library_ms, bound_ms}."""
     import torch.nn.functional as F
 
     from cuahn_vio_torch.ops.cuda.warp import homography_warp_cuda, homography_warp_rowskip_cuda
     from cuahn_vio_torch.ops.warp import homography_warp_plain
 
+    name = "uint8" if dtype == torch.uint8 else "float32"
+    imgs, hs = parity_cases(torch, rng, b, dtype)
+    hs[:] = hs[0]  # finite, near identity for every image
+    imgs = torch.as_tensor(imgs, device=dev)
+    hs = torch.as_tensor(hs, device=dev)
+    # grid_sample's input: the same images as float, and the same sample
+    # points as a normalized grid
+    img_f = (imgs.float() / 255.0 if name == "uint8" else imgs)[:, None]
+    grid = library_grid(torch, hs)
+
+    def library():
+        return F.grid_sample(img_f, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    lib_err = (library()[:, 0] - homography_warp_plain(imgs, hs)).abs().max().item()
+    launch = homography_warp_cuda if kernel == "warp" else homography_warp_rowskip_cuda
+    row, eager = timed(torch, dict(
+        ms=lambda: launch(imgs, hs),
+        plain_ms=lambda: homography_warp_plain(imgs, hs),
+        library_ms=library,
+    ), warp_bound_ms(b, imgs.element_size()), iters)
+    print(f"  {kernel} {name} B={b} device time (CUDA graph): kernel {row['ms']:.5f} ms"
+          f" | plain {row['plain_ms']:.5f} ms | grid_sample "
+          f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | kernel / grid_sample "
+          f"{row['ms'] / row['library_ms']:.3f} | byte bound {row['bound_ms']:.5f} ms",
+          flush=True)
+    print(f"  {kernel} {name} B={b} eager call to call: kernel {eager['ms']:.5f} ms | "
+          f"plain {eager['plain_ms']:.5f} ms | grid_sample "
+          f"{eager['library_ms']:.5f} ms", flush=True)
+    return row
+
+
+def time_kernel(torch, dev):
+    """Phase 3, warps: ``time_warp`` for uint8 frames (the main path's
+    input) and float32 images. Returns {(kernel, dtype name, B): {ms,
+    plain_ms, library_ms, bound_ms}}."""
+    import numpy as np
+
     rng = np.random.default_rng(1)
-    rows = {}
     cases = (("warp", torch.uint8, 1, 500), ("warp", torch.uint8, 4, 200),
              ("warp", torch.uint8, 64, 50), ("warp", torch.float32, 1, 500),
-             ("warp", torch.float32, 4, 200), ("warp", torch.float32, 16, 200),
+             ("warp", torch.float32, 4, 200), ("warp", torch.float32, FIL_PAIR_BATCH, 200),
+             ("warp", torch.float32, 16, 200),
              ("warp", torch.float32, 64, 50),
              ("rowskip", torch.uint8, 4, 200), ("rowskip", torch.uint8, 8, 200),
              ("rowskip", torch.uint8, 64, 50))
-    for kernel, dtype, b, iters in cases:
-        name = "uint8" if dtype == torch.uint8 else "float32"
-        imgs, hs = parity_cases(torch, rng, b, dtype)
-        hs[:] = hs[0]  # finite, near identity for every image
-        imgs = torch.as_tensor(imgs, device=dev)
-        hs = torch.as_tensor(hs, device=dev)
-        # grid_sample's input: the same images as float, and the same
-        # sample points as a normalized grid
-        img_f = (imgs.float() / 255.0 if name == "uint8" else imgs)[:, None]
-        grid = library_grid(torch, hs)
-
-        def library():
-            return F.grid_sample(img_f, grid, mode="bilinear",
-                                 padding_mode="zeros", align_corners=True)
-
-        lib_err = (library()[:, 0] - homography_warp_plain(imgs, hs)).abs().max().item()
-        launch = homography_warp_cuda if kernel == "warp" else homography_warp_rowskip_cuda
-        row, eager = timed(torch, dict(
-            ms=lambda: launch(imgs, hs),
-            plain_ms=lambda: homography_warp_plain(imgs, hs),
-            library_ms=library,
-        ), warp_bound_ms(b, imgs.element_size()), iters)
-        rows[(kernel, name, b)] = row
-        print(f"  {kernel} {name} B={b} device time (CUDA graph): kernel {row['ms']:.5f} ms"
-              f" | plain {row['plain_ms']:.5f} ms | grid_sample "
-              f"{row['library_ms']:.5f} ms (|diff| {lib_err:.2e}) | kernel / grid_sample "
-              f"{row['ms'] / row['library_ms']:.3f} | byte bound {row['bound_ms']:.5f} ms",
-              flush=True)
-        print(f"  {kernel} {name} B={b} eager call to call: kernel {eager['ms']:.5f} ms | "
-              f"plain {eager['plain_ms']:.5f} ms | grid_sample "
-              f"{eager['library_ms']:.5f} ms", flush=True)
-    return rows
+    return {(kernel, "uint8" if dtype == torch.uint8 else "float32", b):
+            time_warp(torch, dev, rng, kernel, dtype, b, iters)
+            for kernel, dtype, b, iters in cases}
 
 
 def sample_bound_ms(torch, tex, su, sv) -> tuple[float, int]:
@@ -750,10 +907,12 @@ def sample_bound_ms(torch, tex, su, sv) -> tuple[float, int]:
 
 
 def time_sample(torch, dev):
-    """Phase 3, B4: the flat sampler on uint8 textures at its three shapes:
+    """Phase 3, B4: the flat sampler on uint8 textures at its four shapes:
     1, one rendered frame's 71,680 coordinates on a 512x512 texture; 2, a
     blurred frame's 3 x 71,680 (EXPOSURE_S); 3, the trainer batch's
-    BATCH_TEXTURES textures at 3 x 71,680 each. Beside it, in the same
+    BATCH_TEXTURES textures at 3 x 71,680 each; 4, the FIL window batch's
+    FIL_BATCH textures at (FIL_WINDOW + 1) x 3 x 71,680 each; 5, shape 3's
+    first FIL_PAIR_BATCH textures (a FIL pair step). Beside it, in the same
     turns: its plain version, batched grid_sample on the same points, and
     the launch floor (a one-element ``add_`` in the same CUDA graph).
     Returns {shape: {ms, plain_ms, library_ms, floor_ms, bound_ms, points,
@@ -770,7 +929,9 @@ def time_sample(torch, dev):
     texs, bsu, bsv = batch_sample_inputs(torch, dev, torch.uint8)
     shapes = {1: (tex, *frame_sample_coords(torch, dev)),
               2: (tex, *frame_sample_coords(torch, dev, EXPOSURE_S)),
-              3: (texs, bsu, bsv)}
+              3: (texs, bsu, bsv),
+              4: fil_sample_inputs(torch, dev, torch.uint8),
+              5: (texs[:FIL_PAIR_BATCH], bsu[:FIL_PAIR_BATCH], bsv[:FIL_PAIR_BATCH])}
     one = torch.zeros(1, device=dev)
     rows = {}
     for shape, (img, su, sv) in shapes.items():
@@ -1049,11 +1210,14 @@ def run_bf16(torch, dev, seq, opts):
 
 
 # runs ``python -m cuahn_vio_torch.cli ARGS`` (runpy, as -m does), then
-# prints the kernels' launch counts of that process as its last line
+# prints the kernels' launch counts of that process as its last line: {}
+# when the verb did not load the kernels' module (the numpy-only verbs
+# import no torch, and the runner imports nothing of the port before them)
 CLI_RUNNER = (
-    "import json, runpy; from cuahn_vio_torch.ops.cuda import launch_counts; "
-    "runpy.run_module('cuahn_vio_torch.cli', run_name='__main__', alter_sys=True); "
-    "print('launch_counts ' + json.dumps(launch_counts))"
+    "import json, runpy, sys\n"
+    "runpy.run_module('cuahn_vio_torch.cli', run_name='__main__', alter_sys=True)\n"
+    "cuda = sys.modules.get('cuahn_vio_torch.ops.cuda')\n"
+    "print('launch_counts ' + json.dumps(cuda.launch_counts if cuda else {}))\n"
 )
 
 
@@ -1547,6 +1711,367 @@ def run_raw_chain(torch, dev, tmp: str, model, iekf: int) -> dict:
     return out
 
 
+def loop_child(argv) -> None:
+    """Phase 13's close-loops subprocess: ``python -m cuahn_vio_torch.cli``
+    ARGV with the warp wrapper spied on (the batch and dtype of each
+    launch; the launch itself and its count are the wrapper's); prints them
+    and the launch counts as the last line."""
+    from cuahn_vio_torch import cli
+    from cuahn_vio_torch.ops.cuda import launch_counts
+    from cuahn_vio_torch.ops.cuda import warp as cuda_warp
+
+    seen = []
+    warp = cuda_warp.homography_warp_cuda
+
+    def spy_warp(imgs, h_uv):
+        seen.append([imgs.shape[0], str(imgs.dtype).split(".")[-1]])
+        return warp(imgs, h_uv)
+
+    cuda_warp.homography_warp_cuda = spy_warp
+    cli.main(argv)
+    print("loop_child " + json.dumps(dict(warps=seen, launch_counts=launch_counts)), flush=True)
+
+
+def gn_iteration_ms(torch, dev, est: str, loops: str) -> dict:
+    """The smoother's Gauss-Newton iteration on the card at the run's size,
+    on the graph that ``smooth-trajectory --loops-file`` builds
+    (``cli.smoothing_graph`` of the verb's own arguments): ``optimize``
+    with 1 and with 11 iterations, each bracketed by CUDA events and closed
+    by a synchronize; the difference over 10 is one iteration (the factors'
+    Jacobians, assembly, the dense solve). Then the normal equations at the
+    graph's first iterate, GN_REPEATS times each, by the module's
+    ``index_put_(accumulate=True)``, by ``index_add_`` (float32 atomics)
+    and by one dense matmul JᵀJ, each repeat compared bit for bit with the
+    first, each one's mean device ms (``time_ms``) and its H's largest
+    difference from the module's, over H's largest entry. Raises unless the
+    module's repeats are bit-identical; the others are reported. Last, the
+    device ms of the step's dense solve, ``optimize``'s LU against a
+    Cholesky, and how far apart their solutions are."""
+    from cuahn_vio_torch import cli
+    from cuahn_vio_torch.parallel import pose_graph as pg
+
+    args = cli.build_parser().parse_args(
+        ["smooth-trajectory", est, "--loops-file", loops, "--out", os.devnull])
+    _, graph = cli.smoothing_graph(args, dev)
+    pg.optimize(graph, iters=1, huber_delta=args.huber)  # warm: cuSOLVER's workspace
+    ms = {}
+    for iters in (1, 11):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        pg.optimize(graph, iters=iters, huber_delta=args.huber)
+        end.record()
+        torch.cuda.synchronize()
+        ms[iters] = start.elapsed_time(end)
+    out = dict(unknowns=6 * len(graph.p), graph_factors=int(graph.idx_i.numel()),
+               gn_ms_per_iteration=(ms[11] - ms[1]) / 10, gn_1_iteration_call_ms=ms[1])
+
+    g = graph
+    r, j_i, j_j = pg._factor_jacobians(g.p[g.idx_i], g.q[g.idx_i], g.p[g.idx_j], g.q[g.idx_j],
+                                       g.dp_meas, g.dq_meas)
+    rw = (g.sqrt_info @ r[..., None])[..., 0]
+    jiw, jjw = g.sqrt_info @ j_i, g.sqrt_info @ j_j
+    m, dim = rw.shape[0], 6 * len(g.p)
+    off = torch.arange(6, device=dev)
+    at_i, at_j = g.idx_i[:, None] * 6 + off, g.idx_j[:, None] * 6 + off
+
+    def by_index_add():
+        place = (torch.cat([at_i, at_i, at_j, at_j])[:, :, None] * dim
+                 + torch.cat([at_i, at_j, at_i, at_j])[:, None, :])
+        blocks = torch.cat([jiw.mT @ jiw, jiw.mT @ jjw, jjw.mT @ jiw, jjw.mT @ jjw])
+        h = rw.new_zeros(dim * dim).index_add_(0, place.reshape(-1), blocks.reshape(-1))
+        rows = torch.cat([jiw.mT @ rw[..., None], jjw.mT @ rw[..., None]])
+        rhs = rw.new_zeros(dim).index_add_(0, torch.cat([at_i, at_j]).reshape(-1),
+                                           rows.reshape(-1))
+        return h.view(dim, dim), rhs
+
+    def by_matmul():
+        jac = rw.new_zeros((m, 6, len(g.p), 6))
+        k = torch.arange(m, device=dev)
+        jac[k, :, g.idx_i, :] = jiw
+        jac[k, :, g.idx_j, :] = jjw
+        jac = jac.reshape(6 * m, dim)
+        return jac.T @ jac, jac.T @ rw.reshape(-1)
+
+    ways = {"index_put_accumulate": lambda: pg._normal_equations(g.idx_i, g.idx_j, jiw, jjw,
+                                                                 rw, dim),
+            "index_add": by_index_add, "dense_matmul": by_matmul}
+    ref = ways["index_put_accumulate"]()
+    for name, fn in ways.items():
+        first = fn()
+        same = all(torch.equal(x, y) for _ in range(GN_REPEATS - 1) for x, y in zip(fn(), first))
+        out[f"normal_equations_{name}_bit_identical_x{GN_REPEATS}"] = same
+        out[f"normal_equations_{name}_ms"] = time_ms(torch, fn, GN_REPEATS)
+        out[f"normal_equations_{name}_h_rel_diff"] = float(
+            (first[0] - ref[0]).abs().max() / ref[0].abs().max())
+    if not out[f"normal_equations_index_put_accumulate_bit_identical_x{GN_REPEATS}"]:
+        raise AssertionError("the smoother's normal equations differ from repeat to repeat")
+    # the step's solve: optimize's LU against a Cholesky of the same
+    # symmetric positive definite system
+    h, rhs = ref
+    h[:6, :6] += torch.eye(6, device=dev) * pg.GAUGE_WEIGHT
+    h.diagonal().add_(1e-6)  # optimize's default damping
+    solves = {"lu": lambda: torch.linalg.solve(h, -rhs),
+              "cholesky": lambda: torch.cholesky_solve(-rhs[:, None], torch.linalg.cholesky(h))}
+    for name, fn in solves.items():
+        out[f"solve_{name}_ms"] = time_ms(torch, fn, GN_REPEATS)
+    out["solve_cholesky_vs_lu_max_abs_diff"] = float(
+        (solves["cholesky"]()[:, 0] - solves["lu"]()).abs().max())
+    return out
+
+
+def run_loop(torch, dev, tmp: str, iekf: int) -> dict:
+    """Phase 13: ``benchmarks/loop_closure_demo.sh`` through the CLI in
+    ``tmp``. Returns what the checks found; raises on a failed one."""
+    import re
+
+    import numpy as np
+
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.ops.cuda.warp import KERNEL, SAMPLE_KERNEL
+    from cuahn_vio_torch.pipeline.loop_closure import LOOP_BATCH
+
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    out = {"verb_s": {}}
+
+    def verb(args):  # ``cli`` in ``tmp``, each verb's seconds (its process start included)
+        t0 = time.perf_counter()
+        said = cli(args, tmp)
+        key = args[0] + (f" {args[-1]}" if args[0] == "smooth-trajectory" else "")
+        key = key if key not in out["verb_s"] else f"{key} 2"
+        out["verb_s"][key] = round(time.perf_counter() - t0, 3)
+        return said
+
+    write_loop_trajectory(path("loopy_traj.txt"))
+    said, counts = verb(["make-synthetic", "--out", "replay.npz", "--traj-file",
+                         "loopy_traj.txt", *LOOP_SYNTH_ARGS])
+    out["texture"] = said.split("ground texture: ")[1].split(",")[0]
+    frames = len(np.load(path("replay.npz"))["frames"])
+    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
+    if counts[SAMPLE_KERNEL] != frames:
+        raise AssertionError(f"make-synthetic: {counts[SAMPLE_KERNEL]} sampler launches for "
+                             f"{frames} frames")
+    cfg = ["--config", "replay_config.yaml"]
+    _, counts = verb(["run-vio", "replay.npz", *cfg, "--weights", WEIGHTS, "--out", "est.txt",
+                      "--state-out", "state.npz"])
+    poses = len(load_pose_file(path("est.txt")).times)
+    out.update(poses=poses, run_vio_warp_launches=counts[KERNEL])
+    if counts[KERNEL] != 3 * poses * iekf:
+        raise AssertionError(f"run-vio: {counts[KERNEL]} warp launches for {poses} poses")
+
+    args = ["close-loops", "replay.npz", "state.npz", "--weights", WEIGHTS, *cfg, "--out",
+            "loops.txt", *LOOP_CLOSE_ARGS]
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "chip_smoke.loop_child(sys.argv[1:])")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=tmp,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=600)
+    out["verb_s"]["close-loops"] = round(time.perf_counter() - t0, 3)
+    if proc.returncode != 0:
+        raise AssertionError(f"close-loops exited {proc.returncode}: {proc.stderr[-3000:]}")
+    said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+    seen = json.loads(last.split(" ", 1)[1])
+    for line in said.splitlines():
+        print(f"  close-loops: {line}", flush=True)
+    candidates = int(said.split(" loop candidates")[0].split()[-1])
+    inferred = int(re.search(r"(\d+) of \d+ candidates inside", said).group(1))
+    factors = len(np.loadtxt(path("loops.txt"), comments="#", ndmin=2))
+    batches = -(-inferred // LOOP_BATCH)
+    warps = seen["warps"]
+    out.update(candidates=candidates, geometric_gate_passed=inferred, factors=factors,
+               network_batches=batches, close_loops_warp_launches=len(warps),
+               close_loops_warp_batches=sorted({b for b, _ in warps}))
+    counts = seen["launch_counts"]
+    if (len(warps) != 3 * batches or counts[KERNEL] != len(warps)
+            or sum(b for b, _ in warps) != 3 * inferred
+            or any(b > LOOP_BATCH or t != "uint8" for b, t in warps)
+            or counts[SAMPLE_KERNEL] or counts["homography_warp_rowskip"]):
+        raise AssertionError(f"close-loops: warp launches {warps} ({counts}) for {inferred} "
+                             f"pairs inside the geometric gate")
+    if factors < 1:
+        raise AssertionError("close-loops wrote no factor")
+    # the warp at each batch size that close-loops launched it at: held to
+    # its plain version bit for bit, then timed (these launches are this
+    # process's, not the verb's)
+    rng = np.random.default_rng(9)
+    out["close_loops_by_batch"] = {}
+    for b in sorted({b for b, _ in warps}):
+        imgs, hs = parity_cases(torch, rng, b, torch.uint8)
+        err = check_warp(torch, f"close-loops torch.uint8 B={b} {H}x{W}",
+                         torch.as_tensor(imgs, device=dev), torch.as_tensor(hs, device=dev))
+        row = time_warp(torch, dev, rng, "warp", torch.uint8, b, 200 if b < 16 else 50)
+        out["close_loops_by_batch"][b] = dict(row, launches=[w for w, _ in warps].count(b),
+                                              max_abs_err=err)
+
+    runs = (("smoothed.txt", []), ("smoothed_again.txt", []),
+            ("smoothed_huber.txt", ["--huber", str(LOOP_HUBER)]))
+    for name, extra in runs:
+        said, counts = verb(["smooth-trajectory", "est.txt", "--loops-file", "loops.txt",
+                             *extra, "--out", name])
+        poses_s = load_pose_file(path(name))
+        if any(counts.values()) or len(poses_s.times) != poses:
+            raise AssertionError(f"smooth-trajectory {extra}: {counts} launches, "
+                                 f"{len(poses_s.times)} poses")
+        if not np.isfinite(poses_s.poses).all():
+            raise AssertionError(f"smooth-trajectory {extra}: non-finite poses")
+        out[f"cost {name}"] = said.splitlines()[-2]
+    with open(path("smoothed.txt"), "rb") as f1, open(path("smoothed_again.txt"), "rb") as f2:
+        out["repeat_smoothing_identical"] = f1.read() == f2.read()
+    if not out["repeat_smoothing_identical"]:
+        raise AssertionError("two smoothings of one run differ")
+    for key, name in (("online", "est.txt"), ("smoothed", "smoothed.txt"),
+                      ("smoothed_huber", "smoothed_huber.txt")):
+        said, _ = verb(["error-singlerun", "se3", "replay_gt.txt", name])
+        out[f"ate_pos_m_{key}"] = float(said.split("pos: rmse ")[1].split()[0])
+    out.update(gn_iteration_ms(torch, dev, path("est.txt"), path("loops.txt")))
+    return out
+
+
+def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
+    """Phase 14: ``train.fil.fil_finetune`` in this process from v10 on the
+    GT files ``gt_files`` {name: path} (copied as ``name_with_gt.txt``
+    into a temporary GT directory), with the warp and flat-sampler wrappers
+    spied on (the shape of each launch), every step's gradients checked
+    before the optimizer takes them, and the host time (a synchronize
+    there) when the set-up is done (the texture bank on the card, the loss
+    and optimizer made: the first draw of ``step_kinds``) and at each
+    step's log line; then ``run_offline`` with the tuned weights
+    on phase 4's sequence. Returns what the checks found; raises on a
+    failed one."""
+    import shutil
+
+    import numpy as np
+
+    from cuahn_vio_torch.eval.align import ate_rmse
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.ops.cuda import warp as cuda_warp
+    from cuahn_vio_torch.pipeline.runner import run_offline
+    from cuahn_vio_torch.train import fil
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    seen = {"warps": [], "samples": [], "grads_finite": [], "ends": []}
+    warp, sample, adamw, step_kinds = (cuda_warp.homography_warp_cuda,
+                                       cuda_warp.bilinear_sample_cuda, fil.OptaxAdamW,
+                                       fil.step_kinds)
+
+    def spy_warp(imgs, h_uv):
+        seen["warps"].append((imgs.shape[0], str(imgs.dtype).split(".")[-1]))
+        return warp(imgs, h_uv)
+
+    def spy_sample(img, su, sv):
+        seen["samples"].append((img.shape[0] if img.dim() == 3 else 1, su.shape[-1]))
+        return sample(img, su, sv)
+
+    class CheckedAdamW(adamw):
+        def step(self):
+            seen["grads_finite"].append(all(bool(torch.isfinite(p.grad).all())
+                                            for p in self.params if p.grad is not None))
+            super().step()
+
+    def mark():
+        torch.cuda.synchronize()
+        return time.perf_counter(), len(seen["warps"]), len(seen["samples"])
+
+    def spy_step_kinds(*args):  # its body runs at the loop's first step
+        seen["set_up"] = mark()
+        yield from step_kinds(*args)
+
+    logged = []
+
+    def log(msg, **_):
+        seen["ends"].append(mark())
+        logged.append(msg)
+
+    cfg = fil.FilConfig(window=FIL_WINDOW, batch_size=FIL_BATCH)
+    c_rot_i, i_t_i2c = camera(torch, dev)
+    v10 = load_params(WEIGHTS)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gt_dir = os.path.join(tmp, "gt")
+        os.makedirs(gt_dir)
+        for name, src in gt_files.items():
+            shutil.copy(src, os.path.join(gt_dir, f"{name}_with_gt.txt"))
+        t0 = time.perf_counter()
+        bank = fil.build_window_bank(FIL_BANK, cfg, seed=0, gt_dir=gt_dir)
+        out["bank_build_s"] = round(time.perf_counter() - t0, 3)
+        model = build_uahn(v10, device=dev)  # train-fil's UAHN: dropout 0.05
+        weights = os.path.join(tmp, "w.msgpack")
+        cuda_warp.homography_warp_cuda, cuda_warp.bilinear_sample_cuda = spy_warp, spy_sample
+        fil.OptaxAdamW, fil.step_kinds = CheckedAdamW, spy_step_kinds
+        try:
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fil.fil_finetune(model, opts.filter_params(dev), c_rot_i, i_t_i2c, cfg,
+                             steps=FIL_STEPS, seed=0, bank=bank, log_every=1, log_fn=log,
+                             checkpoint_path=weights, save_every=FIL_STEPS - 1,
+                             pair_step_every=2)
+            counts = dict(launch_counts)
+        finally:
+            cuda_warp.homography_warp_cuda, cuda_warp.bilinear_sample_cuda = warp, sample
+            fil.OptaxAdamW, fil.step_kinds = adamw, step_kinds
+        out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        written = load_params(weights)
+    for line in logged:
+        print(f"  train-fil: {line}", flush=True)
+    steps = [line for line in logged if line.startswith("step")]
+    losses = [float(line.split(" loss ")[1]) for line in steps]
+    kinds = [line.split("[")[1].split("]")[0] for line in steps]
+    out.update(kinds=kinds, losses=losses, grads_finite=seen["grads_finite"],
+               bank_windows=int(bank.tap_p.shape[0]))
+    if (kinds != ["fil", "pair"] * (FIL_STEPS // 2) or not np.isfinite(losses).all()
+            or len(seen["grads_finite"]) != FIL_STEPS or not all(seen["grads_finite"])):
+        raise AssertionError(f"fil_finetune: steps {kinds}, losses {losses}, finite "
+                             f"gradients {seen['grads_finite']}")
+    # the launches of each step, by shape; the set-up launches nothing
+    n_points = (FIL_WINDOW + 1) * cfg.blur_taps * H * W
+    marks = [seen["set_up"]] + seen["ends"][-FIL_STEPS:]
+    out["set_up_ms"] = round((seen["set_up"][0] - start) * 1e3, 3)
+    out["step_ms"] = []
+    launched = {f"{what}_launches_{kind}": 0 for what in ("warp", "sampler")
+                for kind in ("fil", "pair")}
+    for k, kind in enumerate(kinds):
+        (t_a, w_a, s_a), (t_b, w_b, s_b) = marks[k], marks[k + 1]
+        warps, samples = seen["warps"][w_a:w_b], seen["samples"][s_a:s_b]
+        if kind == "fil":
+            want_w = [(FIL_BATCH, "uint8")] * (3 * FIL_WINDOW * FIL_IEKF)
+            want_s = [(FIL_BATCH, n_points)]
+        else:
+            want_w = [(FIL_PAIR_BATCH, "float32")] * 3
+            want_s = [(FIL_PAIR_BATCH, cfg.blur_taps * H * W)] * 2
+        if warps != want_w or samples != want_s:
+            raise AssertionError(f"step {k} ({kind}): warps {warps}, samples {samples}")
+        launched[f"warp_launches_{kind}"] += len(warps)
+        launched[f"sampler_launches_{kind}"] += len(samples)
+        out["step_ms"].append(round((t_b - t_a) * 1e3, 3))
+    out.update(launched)
+    if seen["set_up"][1:] != (0, 0) or sum(launched.values()) != (len(seen["warps"])
+                                                                  + len(seen["samples"])):
+        raise AssertionError(f"fil_finetune launches outside its steps: {seen['set_up']}, "
+                             f"{launched}")
+    if (counts[cuda_warp.KERNEL] != len(seen["warps"])
+            or counts[cuda_warp.SAMPLE_KERNEL] != len(seen["samples"])
+            or counts[cuda_warp.ROWSKIP_KERNEL] or counts.get("remap")):
+        raise AssertionError(f"fil_finetune launch counts {counts}")
+    if written.keys() != v10.keys() or not all(torch.isfinite(written[k]).all() for k in v10):
+        raise AssertionError("the FIL checkpoint is not v10's tree of finite weights")
+    tuned = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    moved = sorted({k.split(".")[0] for k in v10 if not torch.equal(tuned[k], v10[k])})
+    out["blocks_moved"] = moved
+    if not moved:
+        raise AssertionError("fil_finetune left v10's weights unchanged")
+    tuned_model = build_uahn(tuned, device=dev, dropout_rate=opts.mc_dropout,
+                             blocks_to_run=opts.blocks_to_run)
+    res = run_offline(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t, seq.frames, tuned_model,
+                      opts.filter_params(dev), opts.vio_config(), opts.runner_options(),
+                      seed=0, device=dev)
+    out["tuned_ate_pos_m"] = ate_rmse(res.times, res.pose_w, seq.gt_times, seq.gt_pose_w)[1]
+    return out
+
+
 def kernel_entry(name, source_line, launches, err, row, ptxas, bound_by="bytes"):
     """One entry of the kernels line; ``ptxas`` is the kernel's
     ``build.ptxas_report`` entry (registers and spill bytes)."""
@@ -1565,7 +2090,7 @@ def sample_entry(sharp_launches, blur_launches, err, rows, ptxas, points_per_thr
     frames) and 2 (blurred frames) in phase 5, the times of shape 1 in the
     common fields, and each shape's times and bound under ``shapes``."""
     def compiled(shape):  # the instantiation a launch at ``shape`` runs (whole-word rows)
-        b = BATCH_TEXTURES if shape == 3 else 1
+        b = {3: BATCH_TEXTURES, 4: FIL_BATCH, 5: FIL_PAIR_BATCH}.get(shape, 1)
         p = points_per_thread(b, 1, rows[shape]["points"] // b)
         return ptxas[f"flat_kernel<h,{p},1>"]
 
@@ -1623,9 +2148,9 @@ def main() -> int:
     if not os.path.exists(WEIGHTS):
         print(f"chip_smoke: weights missing: {WEIGHTS}", file=sys.stderr)
         return 2
-    if not all(BATCH_ATE_BARS_M) or RAW_ATE_BAR_M is None:
-        print("chip_smoke: BATCH_ATE_BARS_M or RAW_ATE_BAR_M not set (smoke_reference.py)",
-              file=sys.stderr)
+    if not all(BATCH_ATE_BARS_M) or RAW_ATE_BAR_M is None or LOOP_ATE_BAR_M is None:
+        print("chip_smoke: BATCH_ATE_BARS_M, RAW_ATE_BAR_M or LOOP_ATE_BAR_M not set "
+              "(smoke_reference.py)", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -1808,8 +2333,7 @@ def main() -> int:
     probe_size = trained["probe_size"]
 
     t0 = time.perf_counter()
-    with cli_dir:
-        raw = run_raw_chain(torch, dev, cli_dir.name, model, iekf)
+    raw = run_raw_chain(torch, dev, cli_dir.name, model, iekf)
     b1_launches["12"] = raw["warp_launches"]
     phase("raw", t0, gpu=f"'{gpu}'", remap_device_ms=f"{remap_time[REMAP_FRAMES]['ms']:.5f}",
           remap_device_ms_n1=f"{remap_time[1]['ms']:.5f}", ate_bar_m=f"{RAW_ATE_BAR_M:.5f}",
@@ -1818,12 +2342,36 @@ def main() -> int:
         raise AssertionError(f"raw-camera chain ATE {raw['ate_pos_m']:.5f} m above the bar "
                              f"{RAW_ATE_BAR_M:.5f} m")
 
+    loop_dir = tempfile.TemporaryDirectory()  # phase 13's files, read again in phase 14
+    t0 = time.perf_counter()
+    loop = run_loop(torch, dev, loop_dir.name, iekf)
+    phase("loop", t0, gpu=f"'{gpu}'", ate_bar_m=f"{LOOP_ATE_BAR_M:.5f}",
+          jax_ate_pos_m_smoothed=f"{REF_LOOP_ATE_M:.5f}",
+          **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in loop.items()})
+    if not (loop["ate_pos_m_smoothed"] <= LOOP_ATE_BAR_M
+            and loop["ate_pos_m_smoothed"] < loop["ate_pos_m_online"]):
+        raise AssertionError(f"loop closure: smoothed ATE {loop['ate_pos_m_smoothed']:.5f} m, "
+                             f"online {loop['ate_pos_m_online']:.5f} m, bar {LOOP_ATE_BAR_M:.5f}")
+
+    t0 = time.perf_counter()
+    fil_run = run_fil(torch, dev, {"cli": os.path.join(cli_dir.name, "seq_gt.txt"),
+                                   "loop": os.path.join(loop_dir.name, "replay_gt.txt")},
+                      seq, opts)
+    cli_dir.cleanup()
+    loop_dir.cleanup()
+    phase("fil", t0, gpu=f"'{gpu}'", steps=FIL_STEPS, window=FIL_WINDOW, batch=FIL_BATCH,
+          v10_ate_pos_m=f"{ate_pos:.5f}",
+          **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in fil_run.items()})
+
     nb = len(batch_seqs)
 
     def compiled(kernel: str, b: int, t: str = "h") -> dict:  # a B-image launch's instantiation
         return ptxas[f"{kernel}<{t},{warp_cuda.pixels_per_thread(b, H, W)}>"]
 
     b4_points_per_thread = warp_cuda.pixels_per_thread(BATCH_TEXTURES, 1, 3 * H * W)
+    fil_points_per_thread = warp_cuda.pixels_per_thread(FIL_BATCH, 1,
+                                                        3 * (FIL_WINDOW + 1) * H * W)
+    fil_pair_points_per_thread = warp_cuda.pixels_per_thread(FIL_PAIR_BATCH, 1, 3 * H * W)
     kernels = [
         kernel_entry("homography_warp (B=1, single-stream run-vio)", 154, warp_launches,
                      warp_errs[("uint8", 1)], times[("warp", "uint8", 1)],
@@ -1852,6 +2400,28 @@ def main() -> int:
                                        "10": found["sampler_launches"],
                                        "12": raw["sampler_launches"]}
     kernels.append(remap_entry(raw["remap_launches"], remap_err, remap_time, remap_ptxas))
+    kernels += [
+        kernel_entry(f"homography_warp (B={b} uint8, close-loops)", 468 if b > 1 else 154,
+                     row["launches"], row["max_abs_err"], row, compiled("warp_kernel", b))
+        for b, row in loop["close_loops_by_batch"].items()
+    ]
+    kernels += [
+        kernel_entry(f"homography_warp (B={FIL_BATCH} uint8, train-fil windows)", 468,
+                     fil_run["warp_launches_fil"], warp_errs[("uint8", FIL_BATCH)],
+                     times[("warp", "uint8", FIL_BATCH)], compiled("warp_kernel", FIL_BATCH)),
+        kernel_entry(f"homography_warp (B={FIL_PAIR_BATCH} float32, train-fil pair steps)", 475,
+                     fil_run["warp_launches_pair"], warp_errs[("float32", FIL_PAIR_BATCH)],
+                     times[("warp", "float32", FIL_PAIR_BATCH)],
+                     compiled("warp_kernel", FIL_PAIR_BATCH, "f")),
+        kernel_entry(f"bilinear_sample (train-fil windows, {FIL_BATCH} textures, shape 4)", 174,
+                     fil_run["sampler_launches_fil"], sample_errs["fil"], sample_time[4],
+                     ptxas[f"flat_kernel<h,{fil_points_per_thread},1>"]),
+        kernel_entry(f"bilinear_sample (train-fil pair steps, {FIL_PAIR_BATCH} textures, shape 5)",
+                     174, fil_run["sampler_launches_pair"], sample_errs["pair"], sample_time[5],
+                     ptxas[f"flat_kernel<h,{fil_pair_points_per_thread},1>"]),
+    ]
+    kernels[0]["launches_by_phase"]["13"] = loop["run_vio_warp_launches"]
+    kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

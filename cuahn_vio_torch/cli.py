@@ -52,6 +52,10 @@ NOT_YET_BATCH = {
 NOT_YET_SIMULATION = {
     "plot": "--plot (error / 3-sigma plots; needs matplotlib)",
 }
+NOT_YET_SMOOTH = {
+    "mesh": "--mesh (the block-partitioned Schur solve over a device mesh, "
+            "parallel/pose_graph_sharded)",
+}
 
 
 def _refuse(args, not_yet: dict, verb: str) -> None:
@@ -423,6 +427,167 @@ def cmd_train_uahn(args):
     print(f"wrote weights -> {args.out}")
 
 
+def cmd_close_loops(args):
+    """Detect overlap candidates in a run, re-run the UAHN across each
+    long-baseline pair on ``--device``, and write relative-position loop
+    factors for smooth-trajectory (``pipeline/loop_closure``)."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.pipeline.loop_closure import (
+        LOOP_BATCH,
+        find_loop_candidates,
+        generate_loop_factors,
+    )
+    from cuahn_vio_torch.utils.checkpoint import load_params
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    device = _device(args.device)
+    f32_parity_mode()
+    opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
+    seq = np.load(args.sequence)
+    st = np.load(args.state)
+    pose = st["pose"]
+    p_w = pose[:, :3]
+    q = pose[:, [6, 3, 4, 5]]  # file xyzw -> wxyz
+
+    # map state rows onto camera frames (the state starts at the 2nd frame)
+    times = st["times"]
+    cam_t = seq["cam_t"]
+    frame_of = np.clip(np.searchsorted(cam_t + opts.calib_camimu_dt, times), 0, len(cam_t) - 1)
+
+    pairs = find_loop_candidates(times, p_w, min_dt=args.min_dt, max_dist=args.max_dist,
+                                 stride=args.stride, max_pairs=args.max_pairs)
+    if len(pairs) == 0:
+        raise SystemExit("no loop candidates found")
+    print(f"{len(pairs)} loop candidates")
+
+    # the JAX verb's UAHN: init_uahn's defaults (dropout 0.05, blocks 3)
+    model = build_uahn(load_params(args.weights), device=device)
+    t = np.asarray(opts.t_imu_to_cam)
+    c_rot_i = t[:3, :3]
+    i_t_i2c = -t[:3, :3].T @ t[:3, 3]
+    lf = generate_loop_factors(
+        seq["frames"][frame_of], times, p_w, q, c_rot_i, i_t_i2c, model, pairs=pairs,
+        max_sigma_px=args.max_sigma_px, max_prior_px=args.max_prior_px,
+    )
+    print(f"{lf.inferred} of {len(pairs)} candidates inside the geometric gate (predicted "
+          f"flow <= {args.max_prior_px} px): the network ran on them in "
+          f"{-(-lf.inferred // LOOP_BATCH)} batches of <= {LOOP_BATCH}")
+    with open(args.out, "w") as f:
+        f.write("# i j dpx dpy dpz dqw dqx dqy dqz sigma_p\n")
+        for k in range(len(lf.pairs)):
+            row = [*lf.pairs[k], *lf.dp_meas[k], *lf.dq_meas[k], lf.sigma_p[k]]
+            f.write(" ".join(str(v) for v in row) + "\n")
+    print(
+        f"wrote {len(lf.pairs)} loop factors -> {args.out} "
+        f"({len(pairs) - len(lf.pairs)} of {len(pairs)} candidates gated "
+        "out by network confidence)"
+    )
+
+
+def smoothing_graph(args, device):
+    """(trajectory, pose graph) of a ``smooth-trajectory`` ARGS on
+    ``device``: chain factors from the odometry in ``args.est``, loop
+    factors from ``--loops-file`` (column 10, scaled by
+    ``--loop-sigma-scale``, as per-factor sigmas unless ``--loop-sigma-dp``
+    is given) or between the keyframe pairs of ``--loops``."""
+    import torch
+
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.parallel.pose_graph import chain_graph_from_trajectory, relative_pose
+
+    traj = load_pose_file(args.est)
+    # file poses are [x y z qx qy qz qw]; the module wants wxyz
+    p = torch.tensor(traj.poses[:, :3], dtype=torch.float32, device=device)
+    q = torch.tensor(traj.poses[:, [6, 3, 4, 5]], dtype=torch.float32, device=device)
+
+    pairs, edp, edq = None, None, None
+    loop_sigma_dp = args.loop_sigma_dp
+    if args.loops_file:
+        rows = np.loadtxt(args.loops_file, comments="#")
+        rows = rows.reshape(-1, rows.shape[-1] if rows.ndim > 1 else 10)
+        if rows.shape[0] == 0:
+            print("loops file has no factors; chain-only smoothing")
+        else:
+            pairs = [(int(a), int(b)) for a, b in rows[:, :2]]
+            edp = rows[:, 2:5].astype(np.float32)
+            edq = rows[:, 5:9].astype(np.float32)
+            if rows.shape[1] >= 10 and loop_sigma_dp is None:
+                # per-factor sigmas from the network covariance (col 10),
+                # scaled by --loop-sigma-scale (the network covariance is
+                # optimistic, so the calibrated scale is > 1)
+                loop_sigma_dp = (rows[:, 9] * args.loop_sigma_scale).astype(np.float32)
+    elif args.loops:
+        pairs = [tuple(int(x) for x in pair.split(":")) for pair in args.loops.split(",")]
+        a, b = (torch.tensor(k, device=device) for k in zip(*pairs))
+        edp, edq = relative_pose(p[a], q[a], p[b], q[b])
+    graph = chain_graph_from_trajectory(
+        p, q, sigma_dp=args.sigma_dp, sigma_dth=args.sigma_dth,
+        extra_pairs=pairs, extra_dp=edp, extra_dq=edq,
+        extra_sigma_dp=loop_sigma_dp, extra_sigma_dth=args.loop_sigma_dth,
+    )
+    return traj, graph
+
+
+def cmd_smooth_trajectory(args):
+    """Pose-graph smoothing of a VIO estimate on ``--device``: chain
+    factors from the odometry, optional loop factors from a close-loops
+    file or between keyframe pairs given as 'a:b,a:b,...'
+    (``smoothing_graph``, ``parallel/pose_graph``)."""
+    _refuse(args, NOT_YET_SMOOTH, "smooth-trajectory")
+    from cuahn_vio_torch.eval.traj_io import save_pose_file
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.parallel.pose_graph import optimize
+
+    device = _device(args.device)
+    f32_parity_mode()
+    traj, graph = smoothing_graph(args, device)
+    p_opt, q_opt, costs = optimize(graph, iters=args.iters, huber_delta=args.huber)
+    print(f"cost {float(costs[0]):.4g} -> {float(costs[-1]):.4g}")
+    poses = np.concatenate([p_opt.cpu().numpy(), q_opt.cpu().numpy()[:, [1, 2, 3, 0]]], axis=1)
+    save_pose_file(args.out, traj.times, poses)
+    print(f"wrote {args.out}")
+
+
+def cmd_train_fil(args):
+    """Filter-in-the-loop fine-tune from ``--resume`` on ``--device``
+    (``train.fil.fil_finetune``): windows of the UZH-FPV training
+    trajectories in ``data.trajpairs.GT_DIR``; refuses when it holds none."""
+    import torch
+
+    from cuahn_vio_torch.data.trajpairs import GT_DIR, train_trajectory_files
+    from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
+    from cuahn_vio_torch.train.fil import FilConfig, fil_finetune
+    from cuahn_vio_torch.utils.checkpoint import load_params, save_params
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    device = _device(args.device)
+    if not train_trajectory_files(GT_DIR):
+        raise SystemExit(
+            f"train-fil: no training trajectory in {GT_DIR}: its windows are cut from "
+            "*_with_gt.txt ground-truth files (the UZH-FPV GT, less the benchmark "
+            "replays); put them there")
+    opts = (
+        VioOptions.from_yaml(args.config) if args.config
+        else VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
+    )
+    model = init_like_flax_(UAHN(), torch.Generator().manual_seed(args.seed))
+    model.load_state_dict(load_params(args.resume))
+    print(f"resumed from {args.resume}")
+    model.to(device)
+    t = np.asarray(opts.t_imu_to_cam, np.float64)
+    c_rot_i = torch.tensor(t[:3, :3], dtype=torch.float32, device=device)
+    i_t_i2c = torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32, device=device)
+    fil_finetune(
+        model, opts.filter_params(device), c_rot_i, i_t_i2c,
+        FilConfig(window=args.window, batch_size=args.batch_size, w_cons=args.w_cons),
+        steps=args.steps, lr=args.lr, seed=args.seed, checkpoint_path=args.out,
+        save_every=args.save_every, pair_step_every=args.pair_step_every, gt_dir=GT_DIR,
+    )
+    save_params(args.out, model.state_dict())
+    print(f"wrote weights -> {args.out}")
+
+
 def cmd_error_singlerun(args):
     from cuahn_vio_torch.eval.metrics import ResultTrajectory
 
@@ -695,6 +860,76 @@ def build_parser() -> argparse.ArgumentParser:
                         "its GT files are absent)")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     s.set_defaults(fn=cmd_train_uahn)
+
+    s = sub.add_parser("close-loops", help="UAHN loop factors for a run")
+    s.add_argument("sequence", help=".npz sequence (frames)")
+    s.add_argument("state", help="state .npz from run-vio --state-out")
+    s.add_argument("--weights", required=True)
+    s.add_argument("--config", default=None)
+    s.add_argument("--out", default="loops.txt")
+    s.add_argument("--min-dt", type=float, default=3.0)
+    s.add_argument("--max-dist", type=float, default=1.0)
+    s.add_argument("--stride", type=int, default=5)
+    s.add_argument("--max-pairs", type=int, default=32)
+    s.add_argument("--max-sigma-px", type=float, default=4.0,
+                   help="confidence gate: drop factors whose mean network "
+                        "corner sigma exceeds this (survivors carry their "
+                        "own per-factor sigma, so a looser gate only adds "
+                        "weakly-weighted factors)")
+    s.add_argument("--max-prior-px", type=float, default=50.0,
+                   help="geometric gate: skip pairs whose predicted corner "
+                        "flow exceeds the network's training regime")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_close_loops)
+
+    s = sub.add_parser("smooth-trajectory", help="pose-graph smoothing of a run")
+    s.add_argument("est", help="pose txt to smooth")
+    s.add_argument("--out", default="smoothed.txt")
+    s.add_argument("--loops", default=None, help="loop pairs 'a:b,c:d'")
+    s.add_argument("--loops-file", default=None,
+                   help="factor file from close-loops")
+    s.add_argument("--iters", type=int, default=10)
+    s.add_argument("--sigma-dp", type=float, default=0.02)
+    s.add_argument("--sigma-dth", type=float, default=0.01)
+    s.add_argument("--loop-sigma-dp", type=float, default=None)
+    s.add_argument("--loop-sigma-dth", type=float, default=None)
+    s.add_argument("--huber", type=float, default=0.0,
+                   help="IRLS robust threshold (redescending Cauchy kernel) "
+                        "on the whitened per-factor residual norm, in sigmas "
+                        "(0 = plain least squares); drives confident-outlier "
+                        "loop factors to ~zero weight")
+    s.add_argument("--loop-sigma-scale", type=float, default=1.0,
+                   help="multiply per-factor loop sigmas (col 10) by this "
+                        "calibration factor")
+    # accepted only to be refused with a clear message (see NOT_YET_SMOOTH)
+    s.add_argument("--mesh", action="store_true", help="not implemented yet")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_smooth_trajectory)
+
+    s = sub.add_parser(
+        "train-fil",
+        help="filter-in-the-loop fine-tune: optimize weights through the "
+             "deployed EKF recurrence on real-trajectory windows (train/fil.py)",
+    )
+    s.add_argument("--resume", required=True,
+                   help="weights checkpoint to fine-tune")
+    s.add_argument("--out", default="uahn_fil.msgpack")
+    s.add_argument("--steps", type=int, default=2000)
+    s.add_argument("--window", type=int, default=6)
+    s.add_argument("--batch-size", type=int, default=4)
+    s.add_argument("--lr", type=float, default=2e-5)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--save-every", type=int, default=200)
+    s.add_argument("--pair-step-every", type=int, default=2,
+                   help="interleave a standard single-pair training step "
+                        "every N steps (NLL anchor for the cov head); "
+                        "0 disables")
+    s.add_argument("--w-cons", type=float, default=0.0,
+                   help="filter-consistency (NEES) penalty weight "
+                        "(FilConfig.w_cons)")
+    s.add_argument("--config", default=None)
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_train_fil)
     return p
 
 

@@ -265,7 +265,7 @@ class UAHN(nn.Module):
                 prior_offset: Optional[torch.Tensor] = None,
                 use_prior: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """Full model (combined_stu_model.forward).
+        """Full model (combined_stu_model.forward), without autograd.
 
         Args:
             img1, img2: (B, H, W) uint8 frames or float32 in [0, 1].
@@ -276,7 +276,20 @@ class UAHN(nn.Module):
             flow8 (B, 8): total 4-point flow, pixels, original frame.
             cov88 (B, 8, 8): block-diagonal measurement covariance, px².
         """
-        h_part1 = self.part1(img1, img2, prior_offset, use_prior)
+        return self.flow_and_cov(img1, img2, prior_offset, use_prior, generator)
+
+    def flow_and_cov(self, img1: torch.Tensor, img2: torch.Tensor,
+                     prior_offset: Optional[torch.Tensor] = None,
+                     use_prior: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        """``forward`` with autograd on, the filter-in-the-loop trainer's
+        call: gradients reach block 4's tower and heads through the
+        ensemble statistics, ``transfer_mean_var`` and ``block_diag_cov8``.
+        The part-1 homography is a constant to backprop (computed without
+        autograd, the JAX model's ``stop_gradient``), so blocks 1-3 and the
+        prior get none."""
+        with torch.no_grad():
+            h_part1 = self.part1(img1, img2, prior_offset, use_prior)
         warped_4pt, ens_var = self.last_block(img1, img2, h_part1, generator)
         pts_orig, cov_4pt = transfer_mean_var(ens_var, h_part1, warped_4pt)
         flow8 = (pts_orig - self.corners).reshape(-1, 8)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's ``run-vio`` slice goes, on one GPU.
 
-    python3 profile_slice.py [--batch | --train]
+    python3 profile_slice.py [--batch | --train | --fil]
 
 Runs the slice of ``chip_smoke.py`` (same synthetic sequence, v10 weights,
 calibrated profile, 16-member MC dropout) on its first FRAMES frame
@@ -15,7 +15,13 @@ sequences. With ``--train``, TRAIN_STEPS training steps of ``train-uahn``
 textures and effects) after TRAIN_WARMUP unprofiled ones; "frame" then
 means a training step, and the labels ``train.batch`` (drawing and
 rendering the batch) and ``train.step`` (forward, backward, optimizer)
-split it. Prints one JSON line with:
+split it. With ``--fil``, FIL_STEPS filter-in-the-loop steps of
+``train-fil`` (``chip_smoke.py`` phase 14's: v10 weights, FIL_BATCH
+windows of FIL_WINDOW frames, 224x320, 3 blur taps, on windows cut from
+the loop-closure demo's pose file) after FIL_WARMUP unprofiled ones; a
+"frame" is then a FIL step, split by the labels ``fil.forward`` (draws,
+render, the filter recurrence with the network, the loss),
+``fil.backward`` and ``fil.optimizer``. Prints one JSON line with:
 
 - ``ms_per_frame``: host clock of the frame loop, profiler off;
   ``ms_per_frame_profiled``: the same under the profiler;
@@ -45,7 +51,9 @@ import time
 FRAMES = 16  # past the 10-frame update gate; the trace stays ~1 min to read
 TRAIN_STEPS = 8
 TRAIN_WARMUP = 3  # cuDNN's first calls and the allocator's growth
-LABELS = ("vio.", "train.")
+FIL_STEPS = 2
+FIL_WARMUP = 1  # cuDNN's first calls and the allocator's growth
+LABELS = ("vio.", "train.", "fil.")
 
 
 def train_runner(torch, dev):
@@ -88,6 +96,63 @@ def train_runner(torch, dev):
 
     steps(TRAIN_WARMUP)
     return run, TRAIN_STEPS
+
+
+def fil_runner(torch, dev):
+    """(run, steps) of ``--fil``: ``run()`` makes FIL_STEPS FIL steps on one
+    batch of windows from a fixed generator state and returns (None,
+    seconds), the last step closed by a synchronize."""
+    import os
+    import tempfile
+
+    from torch.profiler import record_function
+
+    import chip_smoke
+    from cuahn_vio_torch.data.textures import texture_bank_u8, train_indices
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.pipeline.vio import VioConfig
+    from cuahn_vio_torch.train import fil, trainer
+    from cuahn_vio_torch.utils.checkpoint import load_params
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    cfg = fil.FilConfig(window=chip_smoke.FIL_WINDOW, batch_size=chip_smoke.FIL_BATCH)
+    with tempfile.TemporaryDirectory() as gt_dir:
+        chip_smoke.write_loop_trajectory(os.path.join(gt_dir, "loop_with_gt.txt"))
+        bank = fil.build_window_bank(chip_smoke.FIL_BANK, cfg, seed=0, gt_dir=gt_dir)
+    win = {k: torch.as_tensor(v[:cfg.batch_size], device=dev) for k, v in bank._asdict().items()}
+    opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
+    model = build_uahn(load_params(chip_smoke.WEIGHTS), device=dev)
+    c_rot_i, i_t_i2c = chip_smoke.camera(torch, dev)
+    tex = texture_bank_u8(dev)
+    tex_idx = torch.as_tensor(train_indices(tex.shape[0]), device=dev)
+    loss_fn = fil.make_fil_loss(model, opts.filter_params(dev), cfg,
+                                VioConfig(update_gate_frames=-1), c_rot_i, i_t_i2c, tex, tex_idx)
+    opt = trainer.OptaxAdamW(
+        model.parameters(),
+        lambda count: trainer.warmup_cosine_decay(count, 0.0, 2e-5, 100, 2000, 2e-6),
+        trainer.TrainConfig().weight_decay, trainer.TrainConfig().grad_clip)
+    gen = torch.Generator(device=dev)
+
+    def steps(n):
+        gen.manual_seed(0)
+        for _ in range(n):
+            opt.zero_grad()
+            with record_function("fil.forward"):
+                loss = loss_fn(win, gen)
+            with record_function("fil.backward"):
+                loss.backward()
+            with record_function("fil.optimizer"):
+                opt.step()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(FIL_STEPS)
+        torch.cuda.synchronize()
+        return None, time.perf_counter() - t0
+
+    steps(FIL_WARMUP)
+    return run, FIL_STEPS
 
 
 def vio_runner(args, torch, dev):
@@ -147,6 +212,8 @@ def main() -> int:
                       help="profile the batched phase (B = 4, lockstep) instead")
     mode.add_argument("--train", action="store_true",
                       help="profile training steps of train-uahn instead")
+    mode.add_argument("--fil", action="store_true",
+                      help="profile filter-in-the-loop steps of train-fil instead")
     args = ap.parse_args()
     import chip_smoke
     from cuahn_vio_torch.ops.homography import f32_parity_mode
@@ -155,6 +222,8 @@ def main() -> int:
     f32_parity_mode()
     if args.train:
         run, steps = train_runner(torch, dev)
+    elif args.fil:
+        run, steps = fil_runner(torch, dev)
     else:
         run, steps = vio_runner(args, torch, dev)
 
@@ -196,7 +265,9 @@ def main() -> int:
         for k, v in sorted(stages.items())
     }
     out = dict(
-        path=("train-uahn step, batch %d" % chip_smoke.TRAIN_BATCH if args.train
+        path=("train-fil FIL step, %d windows of %d frames" % (chip_smoke.FIL_BATCH,
+                                                               chip_smoke.FIL_WINDOW)
+              if args.fil else "train-uahn step, batch %d" % chip_smoke.TRAIN_BATCH if args.train
               else "batched, B = %d" % (1 + len(chip_smoke.TEX_SEQS)) if args.batch else "single stream"),
         frames=steps,
         ms_per_frame=plain_s * 1e3 / steps,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -40,6 +40,16 @@ CPU, and the JAX package's ``run-vio`` on the rendered frames without the
 round trip, each scored with the JAX ``error-singlerun se3``; prints the
 JAX chain's mean ATE, its spread and the bar of ``chip_smoke.RAW_ATE_BAR_M``
 (the rule of the batch bars).
+
+``loop`` (the loop-closure phase's bar): makes phase 13's sequence with the
+port's ``make-synthetic --traj-file`` on the CPU over the card machine's
+texture bank, in OUT_DIR/loop (``chip_smoke.write_loop_trajectory``,
+``chip_smoke.LOOP_SYNTH_ARGS``). Then, for each seed, the JAX chain
+(``python -m cuahn_vio.cli run-vio --state-out``, ``close-loops`` with
+``chip_smoke.LOOP_CLOSE_ARGS``, ``smooth-trajectory --loops-file``) and the
+port's on the CPU, each scored before and after smoothing with the JAX
+``error-singlerun se3``; prints the JAX mean smoothed ATE, its spread and
+the bar of ``chip_smoke.LOOP_ATE_BAR_M`` (that mean + 0.005 m).
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -141,13 +151,20 @@ def batch(env, out_dir: str, weights: str, stems: list) -> None:
               f"bar {mean + margin:.5f} m", flush=True)
 
 
-def raw(env, out_dir: str, weights: str) -> None:
-    import chip_smoke
-    from cuahn_vio_torch import cli as tcli
+def card_texture_bank() -> None:
+    """Give this process the card machine's texture bank: the 12
+    procedural textures (no image package is installed there)."""
     from cuahn_vio_torch.data import textures
 
     textures._BANK_CACHE = textures.quantize_u8(
         np.stack(textures._procedural_extras(textures.TEXTURE_SIZE)))
+
+
+def raw(env, out_dir: str, weights: str) -> None:
+    import chip_smoke
+    from cuahn_vio_torch import cli as tcli
+
+    card_texture_bank()
     work = os.path.join(out_dir, "raw")
     os.makedirs(work, exist_ok=True)
     path = lambda name: os.path.join(work, name)  # noqa: E731
@@ -191,10 +208,52 @@ def raw(env, out_dir: str, weights: str) -> None:
           flush=True)
 
 
+def loop(env, out_dir: str, weights: str) -> None:
+    import chip_smoke
+    from cuahn_vio_torch import cli as tcli
+
+    card_texture_bank()
+    work = os.path.join(out_dir, "loop")
+    os.makedirs(work, exist_ok=True)
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+    chip_smoke.write_loop_trajectory(path("loopy_traj.txt"))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        tcli.main(["make-synthetic", "--device", "cpu", "--out", "replay.npz", "--traj-file",
+                   "loopy_traj.txt", *chip_smoke.LOOP_SYNTH_ARGS])
+    finally:
+        os.chdir(cwd)
+    cfg = ["--config", path("replay_config.yaml")]
+    jax_ates = []
+    for seed in SEEDS:
+        for package, extra in RUNS:
+            tag = f"{package}_s{seed}"
+            run(env, [f"{package}.cli", "run-vio", path("replay.npz"), *cfg, "--weights",
+                      weights, "--out", path(f"est_{tag}.txt"), "--state-out",
+                      path(f"state_{tag}.npz"), "--seed", str(seed), *extra])
+            run(env, [f"{package}.cli", "close-loops", path("replay.npz"),
+                      path(f"state_{tag}.npz"), "--weights", weights, *cfg, "--out",
+                      path(f"loops_{tag}.txt"), *chip_smoke.LOOP_CLOSE_ARGS, *extra])
+            run(env, [f"{package}.cli", "smooth-trajectory", path(f"est_{tag}.txt"),
+                      "--loops-file", path(f"loops_{tag}.txt"), "--out",
+                      path(f"smoothed_{tag}.txt"), *extra])
+            factors = len(np.loadtxt(path(f"loops_{tag}.txt"), ndmin=2))
+            before = ate(env, path("replay_gt.txt"), path(f"est_{tag}.txt"))
+            after = ate(env, path("replay_gt.txt"), path(f"smoothed_{tag}.txt"))
+            if package == "cuahn_vio":
+                jax_ates.append(after)
+            print(f"loop {package} seed {seed}: {factors} factors, ATE pos rmse online "
+                  f"{before:.5f} m, smoothed {after:.5f} m", flush=True)
+    mean, spread = float(np.mean(jax_ates)), float(np.ptp(jax_ates))
+    print(f"loop bar: JAX mean smoothed {mean:.5f} m, spread {spread:.5f} m, bar "
+          f"{mean + MARGIN_M:.5f} m", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
-    ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "both"],
+    ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "loop", "both"],
                     default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
@@ -206,6 +265,9 @@ def main() -> int:
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     if args.part == "raw":
         raw(env, args.out_dir, chip_smoke.WEIGHTS)
+        return 0
+    if args.part == "loop":
+        loop(env, args.out_dir, chip_smoke.WEIGHTS)
         return 0
     opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
     seq = make_sequence(AnalyticTrajectory(), np.asarray(opts.t_imu_to_cam),

@@ -508,3 +508,89 @@ def test_convert_euroc_on_gpu_remaps_in_one_launch(gpu, tmp_path):
     np.testing.assert_array_equal(on_gpu.frames,
                                   load_euroc_sequence(str(tmp_path), k, d, True,
                                                       device="cpu").frames)
+
+
+def test_pose_graph_on_gpu_is_deterministic_and_follows_the_cpu(gpu):
+    """``optimize`` of a 300-keyframe chain with 40 loop factors (repeated
+    pairs among them) twice on the card: bit for bit the same poses and
+    costs (the assembly uses no atomics); within 1e-4 m of the CPU's."""
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.ops.quat import quat_exp
+    from cuahn_vio_torch.parallel import pose_graph as pg
+
+    f32_parity_mode()
+    rng = np.random.default_rng(0)
+    n = 300
+    th = np.linspace(0, 4 * np.pi, n)
+    p = np.stack([np.cos(th), np.sin(th), 1.5 + 0.05 * np.sin(3 * th)], 1).astype(np.float32)
+    q = quat_exp(torch.tensor(np.stack([0.02 * np.sin(th), 0 * th, th], 1),
+                              dtype=torch.float32))
+    pairs = [(int(a), int(a + n // 2)) for a in rng.integers(0, n // 2, 40)]
+    dp = rng.normal(0, 0.05, (40, 3)).astype(np.float32)
+    dq = quat_exp(torch.tensor(rng.normal(0, 0.01, (40, 3)), dtype=torch.float32))
+    sigmas = rng.uniform(0.01, 0.1, 40)
+    out = {}
+    for dev in ("cpu", gpu):
+        graph = pg.chain_graph_from_trajectory(
+            torch.tensor(p, device=dev), q.to(dev), 0.02, 0.01, extra_pairs=pairs,
+            extra_dp=dp, extra_dq=dq.to(dev), extra_sigma_dp=sigmas)
+        out[str(dev)] = [pg.optimize(graph, iters=5, huber_delta=3.0) for _ in range(2)]
+    (a, b), (c, _) = out[str(gpu)], out["cpu"]
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert (a[0].cpu() - c[0]).abs().max().item() <= 1e-4
+
+
+def test_fil_step_on_gpu_follows_the_cpu(gpu, tmp_path):
+    """FIL windows (64x64, window 2, batch 2, dropout off) on the card
+    against the CPU: the window render launches the flat sampler once for
+    the batch and agrees within one level; on the CPU's frames, the window
+    loss within 1e-4 relative and each gradient leaf's cosine >= 0.9999,
+    the network's warps launching the warp kernel 3 times a frame at
+    B = 2."""
+    import copy
+
+    from cuahn_vio_torch.data.textures import _procedural_extras, quantize_u8
+    from cuahn_vio_torch.filter.state import make_params
+    from cuahn_vio_torch.models.uahn import UAHN
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.pipeline.vio import VioConfig
+    from cuahn_vio_torch.train import fil
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    import chip_smoke
+
+    f32_parity_mode()
+    chip_smoke.write_loop_trajectory(str(tmp_path / "loop_with_gt.txt"))
+    cfg = fil.FilConfig(window=2, batch_size=2, imu_substeps=4, img_hw=(64, 64))
+    bank = fil.build_window_bank(2, cfg, seed=0, gt_dir=str(tmp_path))
+    t = np.asarray(VioOptions().t_imu_to_cam, np.float64)
+    cam = (torch.tensor(t[:3, :3], dtype=torch.float32),
+           torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32))
+    tex = torch.as_tensor(quantize_u8(np.stack(_procedural_extras(128)[:4])))
+    torch.manual_seed(0)
+    cpu_model = UAHN(dropout_rate=0.0, img_height=64, img_width=64)
+    draws = fil.draw_windows(cfg, 2, torch.Generator().manual_seed(0), torch.arange(4))
+    frames, out = None, []
+    for model, dev in ((cpu_model, torch.device("cpu")), (copy.deepcopy(cpu_model).to(gpu), gpu)):
+        win = {k: torch.as_tensor(v, device=dev) for k, v in bank._asdict().items()}
+        d = fil.WindowDraws(*(x.to(dev) for x in draws))
+        tcuda.reset_launch_counts()
+        imgs = fil.render_windows(win, d, cfg, *(x.to(dev) for x in cam), tex.to(dev))
+        rendered = dict(tcuda.launch_counts)
+        frames = imgs.cpu() if frames is None else frames
+        tcuda.reset_launch_counts()
+        loss = fil.mean_finite(fil.window_losses(
+            model.flow_and_cov, make_params(VioOptions().t_imu_to_cam, device=dev), cfg,
+            VioConfig(update_gate_frames=-1), win, frames.to(dev), d))
+        loss.backward()
+        out.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                  if p.grad is not None}, rendered, dict(tcuda.launch_counts),
+                    imgs.cpu()))
+    (l_cpu, g_cpu, _, _, i_cpu), (l_gpu, g_gpu, r_gpu, n_gpu, i_gpu) = out
+    assert r_gpu["bilinear_sample"] == 1 and n_gpu["homography_warp"] == 3 * cfg.window
+    assert (i_cpu.int() - i_gpu.int()).abs().max().item() <= 1
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert g_cpu.keys() == g_gpu.keys() and g_cpu
+    for name, g in g_cpu.items():
+        cos = (g * g_gpu[name]).sum() / (g.norm() * g_gpu[name].norm())
+        assert cos.item() >= 0.9999, name

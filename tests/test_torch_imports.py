@@ -6,9 +6,10 @@ In a fresh interpreter where a ``sys.meta_path`` finder makes ``jax``,
 their submodules) unimportable,
 every module of ``cuahn_vio_torch`` and the port's scripts
 (``chip_smoke.py``, ``tune_warp.py``, ``profile_slice.py``,
-``smoke_reference.py``) must import, and the raw-camera verbs
+``smoke_reference.py``) must import, the raw-camera verbs
 (``distort-to-euroc``, ``convert-euroc``, ``format-converter``) must run
-on the CPU.
+on the CPU, and so must ``smooth-trajectory`` and ``train-fil``'s refusal
+without GT files.
 """
 
 import os
@@ -58,8 +59,9 @@ def test_port_imports_without_jax_flax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     # every module was walked, the raw-camera slice's too (vision.camera,
     # runtime.undistort, ops.remap, ops.cuda.remap, utils.png, data.euroc,
-    # data.gt_loader, data.bspline and their packages)
-    assert int(proc.stdout.split()[-1]) >= 53
+    # data.gt_loader, data.bspline and their packages) and the loop-closure
+    # and FIL slice's (parallel.pose_graph, pipeline.loop_closure, train.fil)
+    assert int(proc.stdout.split()[-1]) >= 56
 
 
 def test_the_guard_blocks_what_it_names():
@@ -119,3 +121,37 @@ def test_raw_camera_verbs_run_without_pil_jax_or_yaml(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "raw chain ok" in proc.stdout
+
+
+LOOP_VERBS = r"""
+import numpy as np
+import pytest
+from cuahn_vio_torch.cli import main
+from cuahn_vio_torch.data import trajpairs
+from cuahn_vio_torch.eval.traj_io import load_pose_file, save_pose_file
+
+t = np.arange(12) * 0.5
+poses = np.column_stack([np.sin(t), 0.2 * t, 1.5 + 0 * t, 0 * t, 0 * t, 0 * t, 1 + 0 * t])
+save_pose_file("est.txt", t, poses)
+main(["smooth-trajectory", "est.txt", "--loops", "0:11,2:9", "--huber", "3", "--out",
+      "smoothed.txt", "--device", "cpu"])
+assert load_pose_file("smoothed.txt").poses.shape == (12, 7)
+trajpairs.GT_DIR = "no_gt_here"
+with pytest.raises(SystemExit, match="no training trajectory in no_gt_here"):
+    main(["train-fil", "--resume", "w.msgpack", "--device", "cpu"])
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("loop verbs ok")
+"""
+
+
+def test_loop_verbs_run_without_jax_or_yaml(tmp_path):
+    """``smooth-trajectory`` smooths on the CPU, and ``train-fil`` refuses a
+    GT directory without ``*_with_gt.txt`` files, with JAX and PyYAML
+    blocked."""
+    code = GUARDED.split("import cuahn_vio_torch\n")[0] + LOOP_VERBS
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "loop verbs ok" in proc.stdout
