@@ -160,6 +160,33 @@ Phases, each printed on its own line with its seconds:
    the set-up's end and at each step's), the peak device memory and, as a
    report, the ATE of ``run_offline`` with
    the tuned weights on phase 4's sequence beside v10's.
+15. the diagnostics, on phase 10's files. 15a, in this process: each
+   function of the sparse-vision front end and the error map on the card
+   against the port's own on the CPU, on identical inputs:
+   ``grid_detect`` on DIAG_FRAMES of the sequence's frames (scores within
+   SCORE_TOL of the largest, a differing pick only at a near-tie),
+   ``track_pyramidal`` on their consecutive pairs from the CPU's grid
+   points (``valid`` equal except within THRESH_TOL of a threshold,
+   tracks within TRACK_TOL_PX), ``triangulate_nview`` on TRI_FEATURES
+   ground points seen from TRI_VIEWS of the sequence's GT camera poses
+   (``ok`` equal, positions within TRI_TOL_M), ``preintegrate`` over
+   PREINT_INTERVALS of its frame intervals (within PREINT_TOL, Jacobians
+   within PREINT_JAC_RTOL relative), and the UAHN's error map of one pair
+   at dropout 0 (within ERR_MAP_LEVELS on ERR_MAP_SHARE of the pixels;
+   its maximum printed); and the pairs/s of ``eval_flow`` in process
+   (``eval_flow_rate``). 15b, the verbs as subprocesses of ``python -m
+   cuahn_vio_torch.cli`` with their warp launches recorded: ``eval-flow
+   --prior gt`` over every pair (3 float32 warps a batch of at most 16,
+   nothing else; the corner-error RMSE under FLOW_RMSE_BARS_PX) and
+   ``--prior none --limit DIAG_NONE_LIMIT`` (block 1 runs, 3 warps a
+   batch); ``inspect-frame`` (exactly 4 float32 warps at B = 1; the PNG
+   224 x 960, the mean error finite); ``track-features`` (no kernel
+   launch, 80 slots a frame, ids non-decreasing; ms/frame and survivors
+   beside the JAX package's); ``calibrate-covariance`` and
+   ``calibrate-state-covariance`` on phase 10's plain log (finite fits),
+   and the latter refusing phase 10's ``--cov-calib`` log (exit non-zero,
+   naming its factors). The warp is then held to its plain version and
+   timed at each batch size eval-flow launched it at.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -257,6 +284,7 @@ REF_BF16_ATE_M = 0.03199
 BF16_ATE_BAR_M = REF_BF16_ATE_M + ATE_MARGIN_M
 # phase 10's make-synthetic: seconds of motion after the still phase
 CLI_DURATION_S = 3.0
+CLI_NOISE = ("--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003", "--bias-a", "0.02")
 CLI_COV_CALIB = "pos:2,ori:2"
 # phase 11's train-uahn runs: steps, batch (the JAX trainer's) and
 # checkpoint interval (the probe's batch is train.trainer.PROBE_SIZE)
@@ -325,6 +353,32 @@ FIL_BATCH = 4
 FIL_BANK = 32
 FIL_PAIR_BATCH = 8  # train/fil's pair steps: TrainConfig(batch_size=8)
 GN_REPEATS = 20  # phase 13: repeats of the smoother's normal equations
+# phase 15, the diagnostics, in phase 10's directory: eval-flow --prior
+# none runs on the first DIAG_NONE_LIMIT pairs; the bars of the corner-error
+# RMSE (px) by prior. Reference: ``python3 smoke_reference.py OUT_DIR --part
+# diag`` makes phase 10's sequence with the port's make-synthetic on the CPU
+# over the card machine's texture bank and runs the JAX package's eval-flow
+# on it for MC-dropout seeds 0-2: mean RMSE 0.4110 px (gt, 83 pairs; spread
+# 0.0020) and 0.4573 px (none, 32 pairs; spread 0.0050); the port's on the
+# CPU 0.408-0.410 and 0.454-0.458. The margin is ten times the larger spread.
+# The JAX track-features on it keeps 26 of 80 tracks from frame 0 (the
+# port's on the CPU 26).
+DIAG_NONE_LIMIT = 32
+INSPECT_FRAME = 10  # inspect-frame --frame
+DIAG_FRAMES = 5  # phase 15a: grid_detect frames (and their consecutive pairs' tracks)
+TRI_FEATURES, TRI_VIEWS = 64, 5
+PREINT_INTERVALS = 16
+SCORE_TOL = 1e-5  # of the CPU's largest Shi-Tomasi score
+THRESH_TOL = 1e-5  # KLT: a valid flag may differ this close to its threshold
+TRACK_TOL_PX = 1e-3
+TRI_TOL_M = 1e-4
+PREINT_TOL = 1e-5
+PREINT_JAC_RTOL = 1e-4
+ERR_MAP_LEVELS, ERR_MAP_SHARE = 0.05, 0.999
+REF_FLOW_RMSE_PX = {"gt": 0.4110, "none": 0.4573}
+FLOW_RMSE_MARGIN_PX = 0.05
+REF_TRACK_SURVIVORS = 26  # the JAX track-features on that sequence: survivors from frame 0
+FLOW_RMSE_BARS_PX = {k: round(v + FLOW_RMSE_MARGIN_PX, 4) for k, v in REF_FLOW_RMSE_PX.items()}
 FIL_IEKF = 1  # train/fil's VioConfig(update_gate_frames=-1): one IEKF iteration
 
 
@@ -1245,10 +1299,8 @@ def run_cli(tmp: str) -> dict:
     from cuahn_vio_torch.ops.cuda.warp import KERNEL, SAMPLE_KERNEL
 
     out = {"pyyaml_installed": importlib.util.find_spec("yaml") is not None}
-    noise = ["--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003",
-             "--bias-a", "0.02"]
     _, counts = cli(["make-synthetic", "--out", "seq.npz", "--duration", str(CLI_DURATION_S),
-                     "--texture", "heldout", "--seed", "7", *noise], tmp)
+                     "--texture", "heldout", "--seed", "7", *CLI_NOISE], tmp)
     written = sorted(os.listdir(tmp))
     if written != ["seq.npz", "seq_config.yaml", "seq_gt.txt", "seq_state_gt.txt"]:
         raise AssertionError(f"make-synthetic wrote {written}")
@@ -1711,8 +1763,8 @@ def run_raw_chain(torch, dev, tmp: str, model, iekf: int) -> dict:
     return out
 
 
-def loop_child(argv) -> None:
-    """Phase 13's close-loops subprocess: ``python -m cuahn_vio_torch.cli``
+def warp_child(argv) -> None:
+    """Phases 13 and 15's subprocess: ``python -m cuahn_vio_torch.cli``
     ARGV with the warp wrapper spied on (the batch and dtype of each
     launch; the launch itself and its count are the wrapper's); prints them
     and the launch counts as the last line."""
@@ -1729,7 +1781,22 @@ def loop_child(argv) -> None:
 
     cuda_warp.homography_warp_cuda = spy_warp
     cli.main(argv)
-    print("loop_child " + json.dumps(dict(warps=seen, launch_counts=launch_counts)), flush=True)
+    print("warp_child " + json.dumps(dict(warps=seen, launch_counts=launch_counts)), flush=True)
+
+
+def spied_cli(args, cwd: str) -> tuple[str, dict]:
+    """``warp_child`` of ``args`` in ``cwd``: (the verb's output, {warps:
+    [[B, dtype] of each warp launch], launch_counts}); raises when it exits
+    non-zero."""
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "chip_smoke.warp_child(sys.argv[1:])")
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+    return said, json.loads(last.split(" ", 1)[1])
 
 
 def gn_iteration_ms(torch, dev, est: str, loops: str) -> dict:
@@ -1861,17 +1928,9 @@ def run_loop(torch, dev, tmp: str, iekf: int) -> dict:
 
     args = ["close-loops", "replay.npz", "state.npz", "--weights", WEIGHTS, *cfg, "--out",
             "loops.txt", *LOOP_CLOSE_ARGS]
-    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-            "chip_smoke.loop_child(sys.argv[1:])")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=tmp,
-                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-                          text=True, timeout=600)
+    said, seen = spied_cli(args, tmp)
     out["verb_s"]["close-loops"] = round(time.perf_counter() - t0, 3)
-    if proc.returncode != 0:
-        raise AssertionError(f"close-loops exited {proc.returncode}: {proc.stderr[-3000:]}")
-    said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
-    seen = json.loads(last.split(" ", 1)[1])
     for line in said.splitlines():
         print(f"  close-loops: {line}", flush=True)
     candidates = int(said.split(" loop candidates")[0].split()[-1])
@@ -2069,6 +2128,345 @@ def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
                       opts.filter_params(dev), opts.vio_config(), opts.runner_options(),
                       seed=0, device=dev)
     out["tuned_ate_pos_m"] = ate_rmse(res.times, res.pose_w, seq.gt_times, seq.gt_pose_w)[1]
+    return out
+
+
+def check_grid_detect(torch, dev, imgs) -> dict:
+    """Phase 15a: ``grid_detect`` on the card against the CPU on (K, H, W)
+    uint8 ``imgs``: the dense scores within SCORE_TOL of the CPU's largest
+    score, each cell's best score too, and a cell whose pick differs only
+    at a near-tie (the card's pick scores, on the CPU, within that
+    tolerance of the CPU's maximum); ``valid`` equal where the picks agree.
+    Returns the differences; raises on a failed check."""
+    from cuahn_vio_torch.vision.detect import grid_detect, shi_tomasi_score
+
+    x_cpu = torch.as_tensor(imgs).to(torch.float32) / 255.0
+    x_dev = torch.as_tensor(imgs, device=dev).to(torch.float32) / 255.0
+    s_cpu = shi_tomasi_score(x_cpu)
+    tol = SCORE_TOL * float(s_cpu.max())
+    score_diff = float((shi_tomasi_score(x_dev).cpu() - s_cpu).abs().max())
+    pts, valid, best = grid_detect(x_cpu)
+    pts_d, valid_d, best_d = (t.cpu() for t in grid_detect(x_dev))
+    best_diff = float((best_d - best).abs().max())
+    differ = (pts_d != pts).any(dim=-1)
+    k, g = torch.nonzero(differ, as_tuple=True)
+    u, v = pts_d[k, g, 0].long(), pts_d[k, g, 1].long()
+    near_tie = bool((s_cpu[k, v, u] >= best[k, g] - tol).all())
+    out = dict(frames=len(imgs), score_max_diff=score_diff, best_max_diff=best_diff,
+               tol=tol, picks_differing=int(differ.sum()))
+    if not (score_diff <= tol and best_diff <= tol and near_tie
+            and torch.equal(valid_d[~differ], valid[~differ])):
+        raise AssertionError(f"grid_detect on the card vs the CPU: {out}")
+    return out
+
+
+def check_tracks(torch, dev, imgs) -> dict:
+    """Phase 15a: ``track_pyramidal`` on the card against the CPU on the K - 1
+    consecutive pairs of (K, H, W) uint8 ``imgs``, from the CPU's grid
+    points of each pair's first frame: ``valid`` equal except where the
+    CPU's residual or a determinant lies within THRESH_TOL of its threshold,
+    the tracks within TRACK_TOL_PX where both are valid. Returns the
+    differences; raises on a failed check."""
+    from cuahn_vio_torch.vision.detect import grid_detect
+    from cuahn_vio_torch.vision.klt import DET_MIN, MAX_RESIDUAL, track_pyramidal
+
+    x_cpu = torch.as_tensor(imgs).to(torch.float32) / 255.0
+    x_dev = torch.as_tensor(imgs, device=dev).to(torch.float32) / 255.0
+    pts_diff, flips, near_flips, valid_n = 0.0, 0, 0, 0
+    for k in range(len(imgs) - 1):
+        pts = grid_detect(x_cpu[k])[0]
+        p_c, v_c, st = track_pyramidal(x_cpu[k], x_cpu[k + 1], pts, with_stats=True)
+        p_d, v_d = (t.cpu() for t in track_pyramidal(x_dev[k], x_dev[k + 1], pts.to(dev)))
+        near = (((st["residual"] - MAX_RESIDUAL).abs() < THRESH_TOL)
+                | ((st["det"] - DET_MIN).abs() < THRESH_TOL).any(dim=0))
+        flip = v_c != v_d
+        flips += int((flip & ~near).sum())
+        near_flips += int((flip & near).sum())
+        both = v_c & v_d
+        valid_n += int(v_c.sum())
+        if both.any():
+            pts_diff = max(pts_diff, float((p_d - p_c).abs()[both].max()))
+    out = dict(pairs=len(imgs) - 1, cpu_valid_tracks=valid_n, pts_max_diff_px=pts_diff,
+               valid_flips_near_threshold=near_flips, valid_flips_elsewhere=flips)
+    if flips or not pts_diff <= TRACK_TOL_PX:
+        raise AssertionError(f"track_pyramidal on the card vs the CPU: {out}")
+    return out
+
+
+def triangulation_inputs(torch, gt_pose, rng):
+    """(bearings, rot_c2a, p_cia, valid) of TRI_FEATURES ground points (0 to
+    0.3 m above the plane) in view of the first of TRI_VIEWS camera poses of
+    ``gt_pose`` (N, 7) [xyz qx qy qz qw] IMU poses spread over its second
+    half, under the default extrinsics; the anchor is the first view, and a
+    view observes a point in front of it (bearing z > 0.2); numpy
+    float32."""
+    import numpy as np
+
+    from cuahn_vio_torch.data.oracle import camera_pose
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    t = torch.as_tensor(np.asarray(VioOptions.uzhfpv_indoor45().t_imu_to_cam, np.float64))
+    rows = np.linspace(len(gt_pose) // 2, len(gt_pose) - 1, TRI_VIEWS).astype(int)
+    pose = torch.as_tensor(gt_pose[rows], dtype=torch.float64)
+    rots, centres = (x.numpy() for x in camera_pose(  # camera -> world, centres
+        pose[:, :3], pose[:, [6, 3, 4, 5]], t[:3, :3], -t[:3, :3].T @ t[:3, 3]))
+    # points: rays of the anchor's image, met with planes 0-0.3 m above the ground
+    ray = rots[0] @ np.stack([rng.uniform(-0.6, 0.6, TRI_FEATURES),
+                              rng.uniform(-0.4, 0.4, TRI_FEATURES), np.ones(TRI_FEATURES)])
+    lam = (rng.uniform(0.0, 0.3, TRI_FEATURES) - centres[0, 2]) / ray[2]
+    pts = (centres[0][:, None] + lam * ray).T  # (F, 3)
+    pf_c = np.einsum("mji,fmj->fmi", rots, pts[:, None, :] - centres[None])
+    bear = pf_c / np.linalg.norm(pf_c, axis=-1, keepdims=True)
+    rot_c2a = np.einsum("ji,mjk->mik", rots[0], rots)  # R_a^T R_i
+    p_cia = (centres - centres[0]) @ rots[0]  # R_a^T (c_i - c_a)
+    f = TRI_FEATURES
+    return (bear.astype(np.float32), np.tile(rot_c2a, (f, 1, 1, 1)).astype(np.float32),
+            np.tile(p_cia, (f, 1, 1)).astype(np.float32), bear[..., 2] > 0.2)  # seen in front
+
+
+def check_triangulation(torch, dev, gt_pose) -> dict:
+    """Phase 15a: ``triangulate_nview`` on the card against the CPU on
+    ``triangulation_inputs``: ``ok`` equal, positions within TRI_TOL_M where
+    ok. Returns the differences; raises on a failed check."""
+    import numpy as np
+
+    from cuahn_vio_torch.vision.triangulate import triangulate_nview
+
+    args = triangulation_inputs(torch, gt_pose, np.random.default_rng(15))
+    p_c, ok_c = triangulate_nview(*(torch.as_tensor(a) for a in args))
+    p_d, ok_d = (t.cpu() for t in triangulate_nview(*(torch.as_tensor(a, device=dev)
+                                                      for a in args)))
+    diff = float((p_d - p_c).abs()[ok_c].max()) if ok_c.any() else 0.0
+    out = dict(features=TRI_FEATURES, views=TRI_VIEWS, ok=int(ok_c.sum()),
+               pos_max_diff_m=diff)
+    if not (torch.equal(ok_c, ok_d) and ok_c.any() and diff <= TRI_TOL_M):
+        raise AssertionError(f"triangulate_nview on the card vs the CPU: {out}")
+    return out
+
+
+def preint_inputs(imu_t, imu_w, imu_a, cam_t, bg, ba):
+    """(w_mid, a_mid, dt, bg, ba) of PREINT_INTERVALS consecutive camera
+    intervals of a sequence: each interval's IMU samples, midpoint-averaged,
+    padded with dt = 0 rows to the longest; numpy float32."""
+    import numpy as np
+
+    k0 = len(cam_t) // 2
+    wins = []
+    for a, b in zip(cam_t[k0:k0 + PREINT_INTERVALS], cam_t[k0 + 1:k0 + PREINT_INTERVALS + 1]):
+        j = np.flatnonzero((imu_t >= a) & (imu_t < b))
+        j = np.append(j, j[-1] + 1)
+        wins.append((0.5 * (imu_w[j[:-1]] + imu_w[j[1:]]), 0.5 * (imu_a[j[:-1]] + imu_a[j[1:]]),
+                     np.diff(imu_t[j])))
+    t_max = max(len(d) for _, _, d in wins)
+    pad = lambda x: np.concatenate([x, np.zeros((t_max - len(x),) + x.shape[1:])])  # noqa: E731
+    n = len(wins)
+    return tuple(np.asarray(x, np.float32) for x in (
+        [pad(w) for w, _, _ in wins], [pad(a) for _, a, _ in wins],
+        [pad(d) for _, _, d in wins], np.tile(bg, (n, 1)), np.tile(ba, (n, 1))))
+
+
+def check_preintegration(torch, dev, inputs) -> dict:
+    """Phase 15a: ``preintegrate`` on the card against the CPU on
+    ``preint_inputs``: dq, dv and dp within PREINT_TOL, each Jacobian within
+    PREINT_JAC_RTOL of its largest entry. Returns the differences; raises
+    on a failed check."""
+    from cuahn_vio_torch.vision.preint import preintegrate
+
+    f_c = preintegrate(*(torch.as_tensor(a) for a in inputs))
+    f_d = preintegrate(*(torch.as_tensor(a, device=dev) for a in inputs))
+    out = dict(intervals=inputs[2].shape[0], samples_per_interval=inputs[2].shape[1])
+    state = max(float((getattr(f_d, k).cpu() - getattr(f_c, k)).abs().max())
+                for k in ("dq", "dv", "dp", "dt"))
+    jac = max(float((getattr(f_d, k).cpu() - getattr(f_c, k)).abs().max()
+                    / getattr(f_c, k).abs().max())
+              for k in ("j_q_bg", "j_v_bg", "j_v_ba", "j_p_bg", "j_p_ba"))
+    out.update(state_max_diff=state, jacobian_max_rel_diff=jac)
+    if not (state <= PREINT_TOL and jac <= PREINT_JAC_RTOL):
+        raise AssertionError(f"preintegrate on the card vs the CPU: {out}")
+    return out
+
+
+def check_error_map(torch, dev, frames) -> dict:
+    """Phase 15a: the UAHN's error map of one pair (v10, dropout 0, blocks
+    1-4, float frames) on the card against the CPU: within ERR_MAP_LEVELS
+    on at least ERR_MAP_SHARE of the pixels. Returns the share and the
+    largest difference; raises on a failed check."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    weights = load_params(WEIGHTS)
+    maps = []
+    for d in ("cpu", dev):
+        model = build_uahn(weights, device=d, dropout_rate=0.0)
+        pair = torch.as_tensor(frames, device=d).to(torch.float32) / 255.0
+        maps.append(model(pair[:1], pair[1:], None, use_prior=False,
+                          return_error_map=True)[2].cpu())
+    diff = (maps[1] - maps[0]).abs()
+    out = dict(share_within=float((diff <= ERR_MAP_LEVELS).float().mean()),
+               max_diff_levels=float(diff.max()), mean_cpu=float(maps[0].mean()),
+               mean_card=float(maps[1].mean()))
+    if not out["share_within"] >= ERR_MAP_SHARE:
+        raise AssertionError(f"error map on the card vs the CPU: {out}")
+    return out
+
+
+def eval_flow_rate(torch, dev, tmp: str) -> dict:
+    """Phase 15a: ``eval.flow.eval_flow`` in this process on phase 10's
+    sequence, prior gt, batch 16 (the verb's defaults, v10, MC dropout on),
+    after one warm-up call; host clock with a synchronize at each end.
+    Returns the pairs, seconds and pairs/s."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.flow import eval_flow
+    from cuahn_vio_torch.eval.simulation import load_state_gt
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.utils.checkpoint import load_params
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    d = np.load(os.path.join(tmp, "seq.npz"))
+    gt = load_state_gt(os.path.join(tmp, "seq_state_gt.txt"))
+    fp = VioOptions.uzhfpv_indoor45().filter_params(dev)
+    model = build_uahn(load_params(WEIGHTS), device=dev)
+    run = lambda: eval_flow(d["frames"], d["cam_t"], gt.times, gt.pose, fp.c_rot_i,  # noqa: E731
+                            fp.i_t_i2c, model)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = len(run().pred)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(pairs=pairs, seconds=seconds, pairs_per_s=pairs / seconds)
+
+
+def run_vision_checks(torch, dev, tmp: str) -> dict:
+    """Phase 15a in this process on phase 10's files in ``tmp``: each new
+    function on the card against the port's own on the CPU, on identical
+    inputs, and ``eval_flow_rate``."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.simulation import load_state_gt
+
+    d = np.load(os.path.join(tmp, "seq.npz"))
+    gt = load_state_gt(os.path.join(tmp, "seq_state_gt.txt"))
+    frames = d["frames"]
+    k = len(frames) // 2
+    imgs = frames[k:k + DIAG_FRAMES + 1]
+    return dict(
+        grid_detect=check_grid_detect(torch, dev, imgs[:DIAG_FRAMES]),
+        track_pyramidal=check_tracks(torch, dev, imgs),
+        triangulate_nview=check_triangulation(torch, dev, gt.pose),
+        preintegrate=check_preintegration(torch, dev, preint_inputs(
+            d["imu_t"], d["imu_w"], d["imu_a"], d["cam_t"], gt.bg[0], gt.ba[0])),
+        error_map=check_error_map(torch, dev, frames[INSPECT_FRAME:INSPECT_FRAME + 2]),
+        eval_flow_in_process=eval_flow_rate(torch, dev, tmp),
+    )
+
+
+def run_diagnostics(torch, dev, tmp: str) -> dict:
+    """Phase 15b: the diagnostics verbs through ``python -m
+    cuahn_vio_torch.cli`` in phase 10's directory ``tmp``, each with its
+    warp launches recorded (``spied_cli``). Returns what the checks found;
+    raises on a failed one."""
+    import re
+
+    import numpy as np
+
+    from cuahn_vio_torch.ops.cuda.warp import KERNEL
+    from cuahn_vio_torch.utils.png import read_pngs
+
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    out = {"verb_s": {}}
+    n_pairs = len(np.load(path("seq.npz"))["frames"]) - 1
+    flow_batch = 16  # eval-flow's default --batch
+
+    def verb(key, args, spied=True):
+        t0 = time.perf_counter()
+        said, seen = spied_cli(args, tmp) if spied else cli(args, tmp)
+        out["verb_s"][key] = round(time.perf_counter() - t0, 3)
+        for line in said.splitlines():
+            print(f"  {key}: {line}", flush=True)
+        return said, seen
+
+    def only_warps(seen, want, key):  # the run's launches: exactly ``want`` warps
+        counts = seen["launch_counts"]
+        if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
+                or sum(counts.values()) != len(want)):
+            raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
+                                 f"expected {want}")
+
+    eval_flow = ["eval-flow", "seq.npz", "seq_state_gt.txt", "--weights", WEIGHTS]
+    out["eval_flow_warps"] = []
+    for prior, pairs, extra in (("gt", n_pairs, ["--out", "flow.npz"]),
+                                ("none", min(n_pairs, DIAG_NONE_LIMIT),
+                                 ["--limit", str(DIAG_NONE_LIMIT)])):
+        key = f"eval-flow --prior {prior}"
+        said, seen = verb(key, [*eval_flow, "--prior", prior, *extra])
+        sizes = [flow_batch] * (pairs // flow_batch)
+        if pairs % flow_batch:
+            sizes.append(pairs % flow_batch)
+        only_warps(seen, [[b, "float32"] for b in sizes for _ in range(3)], key)
+        rmse = float(re.search(r"corner error  px: rmse ([0-9.]+)", said).group(1))
+        out[f"flow_rmse_px_{prior}"] = rmse
+        out[f"flow_pairs_{prior}"] = pairs
+        out["eval_flow_warps"] += seen["warps"]
+        if not rmse <= FLOW_RMSE_BARS_PX[prior]:
+            raise AssertionError(f"{key}: corner-error RMSE {rmse} px above the bar "
+                                 f"{FLOW_RMSE_BARS_PX[prior]} px")
+    dump = np.load(path("flow.npz"))
+    if dump["pred"].shape != (n_pairs, 8) or not np.isfinite(dump["pred"]).all():
+        raise AssertionError(f"eval-flow --out: pred {dump['pred'].shape}")
+
+    said, seen = verb("inspect-frame", ["inspect-frame", "seq.npz", "--frame", str(INSPECT_FRAME),
+                                        "--weights", WEIGHTS, "--out", "inspect.png"])
+    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame")
+    out["inspect_warp_launches"] = len(seen["warps"])
+    out["inspect_png_shape"] = list(read_pngs([path("inspect.png")])[0].shape)
+    out["inspect_mean_err"] = float(said.rsplit("mean photometric err ", 1)[1].rstrip(")"))
+    if out["inspect_png_shape"] != [H, 3 * W] or not np.isfinite(out["inspect_mean_err"]):
+        raise AssertionError(f"inspect-frame: {out}")
+
+    said, counts = verb("track-features", ["track-features", "seq.npz", "--out", "tracks.npz"],
+                        spied=False)
+    tracks = np.load(path("tracks.npz"))
+    out["track_ms_per_frame"] = float(re.search(r"([0-9.]+) ms/frame", said).group(1))
+    out["track_survivors"] = int(re.search(r"(\d+) survivors", said).group(1))
+    out["track_survivors_jax"] = REF_TRACK_SURVIVORS
+    ids = tracks["ids"]
+    if (any(counts.values()) or ids.shape != (n_pairs + 1, 80)
+            or tracks["pts"].shape != (n_pairs + 1, 80, 2) or (np.diff(ids, axis=0) < 0).any()):
+        raise AssertionError(f"track-features: {counts} launches, ids {ids.shape}")
+
+    said, _ = verb("calibrate-covariance", ["calibrate-covariance", "plain.npz"], spied=False)
+    out["k_net_cov_fit"] = float(re.search(r"fitted k_net_cov: +([0-9.e+-]+)", said).group(1))
+    said, _ = verb("calibrate-state-covariance",
+                   ["calibrate-state-covariance", "plain.npz", "seq_state_gt.txt"], spied=False)
+    fit = re.search(r"--cov-calib (.*)", said).group(1)
+    out["cov_calib_fit"] = fit
+    values = [out["k_net_cov_fit"]] + [float(kv.split(":")[1]) for kv in fit.split(",")]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"calibration fits not finite: {values}")
+    proc = subprocess.run([sys.executable, "-m", "cuahn_vio_torch.cli",
+                           "calibrate-state-covariance", "state.npz", "seq_state_gt.txt"],
+                          cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=600)
+    out["inflated_log_refused"] = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+    if proc.returncode == 0 or "already inflated" not in proc.stderr or "'pos': 2.0" not in (
+            proc.stderr):
+        raise AssertionError(f"calibrate-state-covariance on the inflated log: exit "
+                             f"{proc.returncode}, {proc.stderr[-500:]}")
+    # the warp at each batch size eval-flow launched it at: held to its
+    # plain version bit for bit, then timed (these launches are this
+    # process's, not the verbs')
+    rng = np.random.default_rng(12)
+    out["eval_flow_by_batch"] = {}
+    for b in sorted({b for b, _ in out["eval_flow_warps"]}):
+        imgs, hs = parity_cases(torch, rng, b, torch.float32)
+        err = check_warp(torch, f"eval-flow torch.float32 B={b} {H}x{W}",
+                         torch.as_tensor(imgs, device=dev), torch.as_tensor(hs, device=dev))
+        row = time_warp(torch, dev, rng, "warp", torch.float32, b, 200)
+        out["eval_flow_by_batch"][b] = dict(
+            row, launches=[w for w, _ in out["eval_flow_warps"]].count(b), max_abs_err=err)
+    del out["eval_flow_warps"]
     return out
 
 
@@ -2357,11 +2755,20 @@ def main() -> int:
     fil_run = run_fil(torch, dev, {"cli": os.path.join(cli_dir.name, "seq_gt.txt"),
                                    "loop": os.path.join(loop_dir.name, "replay_gt.txt")},
                       seq, opts)
-    cli_dir.cleanup()
     loop_dir.cleanup()
     phase("fil", t0, gpu=f"'{gpu}'", steps=FIL_STEPS, window=FIL_WINDOW, batch=FIL_BATCH,
           v10_ate_pos_m=f"{ate_pos:.5f}",
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in fil_run.items()})
+
+    t0 = time.perf_counter()
+    vision = run_vision_checks(torch, dev, cli_dir.name)
+    phase("diagnostics", t0, part="15a card vs CPU", **vision)
+    t0 = time.perf_counter()
+    diag = run_diagnostics(torch, dev, cli_dir.name)
+    cli_dir.cleanup()
+    phase("diagnostics", t0, part="15b verbs", gpu=f"'{gpu}'",
+          flow_rmse_bars_px=FLOW_RMSE_BARS_PX,
+          **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in diag.items()})
 
     nb = len(batch_seqs)
 
@@ -2419,6 +2826,15 @@ def main() -> int:
         kernel_entry(f"bilinear_sample (train-fil pair steps, {FIL_PAIR_BATCH} textures, shape 5)",
                      174, fil_run["sampler_launches_pair"], sample_errs["pair"], sample_time[5],
                      ptxas[f"flat_kernel<h,{fil_pair_points_per_thread},1>"]),
+    ]
+    kernels.append(kernel_entry("homography_warp (B=1 float32, inspect-frame)", 165,
+                                diag["inspect_warp_launches"], warp_errs[("float32", 1)],
+                                times[("warp", "float32", 1)],
+                                compiled("warp_kernel", 1, "f")))
+    kernels += [
+        kernel_entry(f"homography_warp (B={b} float32, eval-flow)", 475 if b > 1 else 165,
+                     row["launches"], row["max_abs_err"], row, compiled("warp_kernel", b, "f"))
+        for b, row in diag["eval_flow_by_batch"].items()
     ]
     kernels[0]["launches_by_phase"]["13"] = loop["run_vio_warp_launches"]
     kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]

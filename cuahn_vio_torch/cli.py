@@ -24,15 +24,27 @@ cuda``, the default; they fail when no GPU is found):
   back (the port's own PNG codec), undistorts every frame into the
   224x320 virtual camera (one launch of the remap kernel C1 on the card)
   and writes the ``.npz`` that ``run-vio`` reads. ``make-synthetic
-  --traj-file`` flies a recorded pose file (``data/bspline``).
+  --traj-file`` flies a recorded pose file (``data/bspline``);
+- the measurement diagnostics: ``eval-flow`` (the network on every frame
+  pair of a rendered sequence against the oracle flow of its GT poses,
+  errors and z-scores, with no filter in the loop), ``inspect-frame``
+  (one pair through blocks 1-4 with the photometric error map, written
+  beside the two frames as one greyscale PNG) and ``track-features``
+  (grid-detected Shi-Tomasi corners tracked by pyramidal KLT, dead slots
+  re-detected).
 
 The eval verbs score those outputs on the host (numpy only):
 ``error-singlerun`` (ATE / RPE / NEES of a pose file against GT),
 ``timing-percentages`` (the timing csv's stage split),
 ``error-simulation`` (state errors and NEES of a ``--state-out`` npz
-against the simulator GT) and ``format-converter`` (EuRoC csv <-> pose
-txt). No verb needs PyYAML or PIL: configs go through the port's own
-``utils.yaml_io``, PNGs through ``utils.png``.
+against the simulator GT), ``format-converter`` (EuRoC csv <-> pose
+txt), and the covariance fits ``calibrate-covariance`` (the network
+covariance's temperature k_net_cov from a ``--state-out`` log's
+innovations) and ``calibrate-state-covariance`` (the ``--cov-calib``
+factors from a log against its state GT; a log already inflated by
+``--cov-calib`` is refused). No verb needs PyYAML, PIL or matplotlib:
+configs go through the port's own ``utils.yaml_io``, PNGs through
+``utils.png``.
 
 Flags of the JAX CLI that the port does not implement yet are refused,
 never ignored.
@@ -679,6 +691,138 @@ def cmd_error_simulation(args):
         print(f"    pos  mean {nep.mean:.3f} median {nep.median:.3f}")
 
 
+def cmd_calibrate_covariance(args):
+    """Fit the measurement-covariance temperature k_net_cov (the
+    reference's hand-tuned K_net_Cov=10, UpdaterHNet.cpp:31-33) from a
+    logged run so the innovation chi2 median hits the 8-DoF ideal."""
+    from cuahn_vio_torch.eval.calibration import fit_from_state_npz
+
+    res = fit_from_state_npz(args.state, target_median=args.target_median)
+    print(f"frames used:        {res['n_frames']}")
+    print(
+        f"fitted k_net_cov:   {res['k_net_cov']:.4g} "
+        f"(reference hand-tuned value: 10.0)"
+    )
+    print(
+        f"chi2 under fit:     median {res['chi2_median']:.2f} "
+        f"(target {res['target_median']:.2f}), p95 {res['chi2_p95']:.1f}, "
+        f"mean {res['chi2_mean']:.2f}"
+    )
+    print(
+        "apply: set up_linear_k_hnet_cov: "
+        f"{res['k_net_cov']:.4g} in the YAML config (or --k-net-cov), "
+        "re-run, and re-check the printed chi2 median"
+    )
+
+
+def cmd_calibrate_state_covariance(args):
+    """Fit reported-covariance inflation factors from a logged run vs its
+    state GT (``eval.calibration.fit_cov_inflation``). Fit on a calibration
+    sequence; pass the printed flag to run-vio on evaluation sequences. A
+    log whose covariance ``run-vio --cov-calib`` already inflated is
+    refused: fitting on it would compound the factors."""
+    from cuahn_vio_torch.eval.calibration import fit_cov_inflation, recorded_inflation
+
+    recorded = recorded_inflation(np.load(args.state_log))
+    if recorded is not None:
+        raise SystemExit(
+            f"{args.state_log}: its covariance was already inflated by run-vio --cov-calib "
+            f"(recorded factors {recorded}); fitting on it would compound the factors. "
+            "Fit on a log written without --cov-calib.")
+    f = fit_cov_inflation(args.state_log, args.state_gt)
+    print(f"fitted observable-NEES inflation factors: {f}")
+    print(
+        "run-vio flag:  --cov-calib "
+        f"pos:{f['pos']:.3g},ori:{f['ori']:.3g},vel:{f['vel']:.3g}"
+    )
+
+
+def cmd_eval_flow(args):
+    """Network measurement quality in isolation on ``--device``: the UAHN
+    on every consecutive frame pair of a rendered sequence against the
+    oracle flow of the simulator GT poses (``eval.flow``)."""
+    from cuahn_vio_torch.eval.flow import eval_flow, flow_report
+    from cuahn_vio_torch.eval.simulation import load_state_gt
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.utils.checkpoint import load_params
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    device = _device(args.device)
+    f32_parity_mode()
+    opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
+    fp = opts.filter_params(device)
+    d = np.load(args.sequence)
+    gt = load_state_gt(args.state_gt)
+    # the JAX verb's UAHN: init_uahn's defaults (dropout 0.05, blocks 3)
+    model = build_uahn(load_params(args.weights), device=device)
+    ev = eval_flow(d["frames"], d["cam_t"], gt.times, gt.pose, fp.c_rot_i, fp.i_t_i2c, model,
+                   prior=args.prior, batch=args.batch, limit=args.limit, seed=args.seed)
+    for line in flow_report(ev, args.prior, args.flow_cap):
+        print(line)
+    if args.out:
+        np.savez_compressed(args.out, pred=ev.pred, true=ev.true, cov=ev.cov, times=ev.times)
+        print(f"wrote {args.out}")
+
+
+def cmd_inspect_frame(args):
+    """Run the network (blocks 1-4, no prior) on one frame pair of a
+    sequence on ``--device`` and dump diagnostics: the predicted
+    flow/covariance and the photometric error map |warp(img2, H) - img1|
+    * 255 (the show_photometric_error display of HomographyNet.cpp:199-207),
+    written with img1 and img2 as one greyscale PNG (``utils.png``)."""
+    import torch
+
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.utils.checkpoint import load_params
+    from cuahn_vio_torch.utils.png import write_png
+
+    device = _device(args.device)
+    f32_parity_mode()
+    frames = np.load(args.sequence)["frames"]
+    f = args.frame
+    pair = torch.as_tensor(frames[f: f + 2], device=device).to(torch.float32) / 255.0
+    torch.manual_seed(0)  # random init only matters without weights
+    model = build_uahn(load_params(args.weights) if args.weights else None, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    flow, cov, err_map = model(pair[:1], pair[1:], None, use_prior=False, generator=gen,
+                               return_error_map=True)
+    print("4pt flow (px):", flow[0].cpu().numpy().round(3))
+    print("cov diag (px^2):", torch.diagonal(cov[0]).cpu().numpy().round(3))
+    # the figure: img1 x 255, img2 x 255 and the error map side by side,
+    # each rounded and clipped to 0-255
+    panels = torch.cat([pair[0] * 255.0, pair[1] * 255.0, err_map[0]], dim=1)
+    write_png(args.out, torch.clamp(torch.round(panels), 0, 255).to(torch.uint8).cpu().numpy())
+    print(f"wrote {args.out} (mean photometric err {float(err_map.mean()):.2f})")
+
+
+def cmd_track_features(args):
+    """Sparse KLT feature tracking over a sequence on ``--device`` (the
+    reference's test_tracking demo, ov_core/src/test_tracking.cpp):
+    grid-detect corners, track them frame to frame, re-detect in cells
+    whose track died, and write per-frame track arrays
+    (``vision.klt.track_sequence``)."""
+    import torch
+
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.vision.klt import track_sequence
+
+    device = _device(args.device)
+    f32_parity_mode()
+    d = np.load(args.sequence)
+    frames = d["frames"]
+    n = min(len(frames), args.max_frames or len(frames))
+    frames_dev = torch.as_tensor(frames[:n], device=device)  # uint8, to the device once
+    pts, valid, ids, ms = track_sequence(frames_dev, n, args.grid_y, args.grid_x)
+    survivors = int((ids[-1] == ids[0]).sum())
+    print(f"tracked {pts.shape[1]} slots over {n} frames, {ms:.2f} ms/frame; "
+          f"{survivors} survivors from frame 0")
+    np.savez_compressed(args.out, pts=pts, valid=valid, ids=ids, times=d["cam_t"][:n])
+    print(f"wrote tracks -> {args.out}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cuahn_vio_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -930,6 +1074,64 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--config", default=None)
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     s.set_defaults(fn=cmd_train_fil)
+
+    s = sub.add_parser(
+        "calibrate-covariance",
+        help="fit k_net_cov from a run-vio --state-out log",
+    )
+    s.add_argument("state", help=".npz from run-vio --state-out")
+    s.add_argument("--target-median", type=float, default=7.3441,
+                   help="target innovation chi2 median (8-DoF ideal)")
+    s.set_defaults(fn=cmd_calibrate_covariance)
+
+    s = sub.add_parser(
+        "calibrate-state-covariance",
+        help="fit reported-covariance NEES calibration factors from a "
+             "logged run (apply via run-vio --cov-calib)",
+    )
+    s.add_argument("state_log", help="run-vio --state-out npz (without --cov-calib)")
+    s.add_argument("state_gt", help="17-col sim state GT txt")
+    s.set_defaults(fn=cmd_calibrate_state_covariance)
+
+    s = sub.add_parser(
+        "eval-flow", help="network flow error vs oracle (filter-independent)"
+    )
+    s.add_argument("sequence", help=".npz sequence (frames + cam_t)")
+    s.add_argument("state_gt", help="simulator state GT txt (17-col)")
+    s.add_argument("--weights", required=True)
+    s.add_argument("--config", default=None)
+    s.add_argument("--prior", choices=["none", "gt", "noisy"], default="gt",
+                   help="prior fed to the cascade: none = all 4 blocks, "
+                        "gt = oracle flow, noisy = oracle + 2 px noise")
+    s.add_argument("--batch", type=int, default=16)
+    s.add_argument("--limit", type=int, default=0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--flow-cap", type=float, default=80.0,
+                   help="px bound of the non-degenerate measurement regime")
+    s.add_argument("--out", default=None, help="optional .npz dump")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_eval_flow)
+
+    s = sub.add_parser("inspect-frame", help="network diagnostics on one frame pair")
+    s.add_argument("sequence", help=".npz sequence")
+    s.add_argument("--frame", type=int, default=0)
+    s.add_argument("--weights", default=None)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--out", default="inspect_frame.png",
+                   help="greyscale PNG: img1, img2 and the error map side by side")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_inspect_frame)
+
+    s = sub.add_parser(
+        "track-features", help="sparse KLT tracking demo (test_tracking parity)"
+    )
+    s.add_argument("sequence", help=".npz sequence")
+    s.add_argument("--out", default="tracks.npz")
+    s.add_argument("--grid-y", type=int, default=8)
+    s.add_argument("--grid-x", type=int, default=10)
+    s.add_argument("--max-frames", type=int, default=None)
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.set_defaults(fn=cmd_track_features)
     return p
 
 

@@ -14,6 +14,8 @@ and in torch's NCHW layout:
   ensemble_var = empirical var of the means + mean(exp(logvar)), logvar
   scaled by 1e-3 and clamped to ±11.5.
 - Covariance transfer into the original img2 frame, 8x8 block diagonal.
+- On request (``forward(return_error_map=True)``, ``inspect-frame``), the
+  photometric error map |warp(img2, H_total) - img1| * 255.
 
 Training uses ``cascade_flows`` (the cumulative corner flow after each
 part-1 block) and ``last_block_members``; every homography is detached
@@ -264,7 +266,8 @@ class UAHN(nn.Module):
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
                 prior_offset: Optional[torch.Tensor] = None,
                 use_prior: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_error_map: bool = False):
         """Full model (combined_stu_model.forward), without autograd.
 
         Args:
@@ -272,11 +275,22 @@ class UAHN(nn.Module):
             prior_offset: (B, 4, 2) propagated 4-point offset, pixels.
             use_prior: select the prior cascade.
             generator: MC-dropout random source (on the frames' device).
+            return_error_map: also return the photometric error map
+                |warp(img2, H_total) - img1| * 255, H_total = H_part1 @
+                DLT(corners -> block 4's corner prediction).
         Returns:
             flow8 (B, 8): total 4-point flow, pixels, original frame.
             cov88 (B, 8, 8): block-diagonal measurement covariance, px².
+            [err_map (B, H, W) float32, if requested.]
         """
-        return self.flow_and_cov(img1, img2, prior_offset, use_prior, generator)
+        flow8, cov88, h_part1, warped_4pt = self._flow_cov_h(
+            img1, img2, prior_offset, use_prior, generator)
+        if not return_error_map:
+            return flow8, cov88
+        corners = self.corners.expand(warped_4pt.shape[0], 4, 2)
+        h_total = h_part1 @ dlt_solve(corners, warped_4pt)
+        err_map = torch.abs(homography_warp(img2, h_total) - _as_float(img1)) * 255.0
+        return flow8, cov88, err_map
 
     def flow_and_cov(self, img1: torch.Tensor, img2: torch.Tensor,
                      prior_offset: Optional[torch.Tensor] = None,
@@ -288,12 +302,17 @@ class UAHN(nn.Module):
         The part-1 homography is a constant to backprop (computed without
         autograd, the JAX model's ``stop_gradient``), so blocks 1-3 and the
         prior get none."""
+        return self._flow_cov_h(img1, img2, prior_offset, use_prior, generator)[:2]
+
+    def _flow_cov_h(self, img1, img2, prior_offset, use_prior, generator):
+        """(flow8, cov88, the part-1 homography, block 4's corner
+        prediction in the warped frame)."""
         with torch.no_grad():
             h_part1 = self.part1(img1, img2, prior_offset, use_prior)
         warped_4pt, ens_var = self.last_block(img1, img2, h_part1, generator)
         pts_orig, cov_4pt = transfer_mean_var(ens_var, h_part1, warped_4pt)
         flow8 = (pts_orig - self.corners).reshape(-1, 8)
-        return flow8, block_diag_cov8(cov_4pt)
+        return flow8, block_diag_cov8(cov_4pt), h_part1, warped_4pt
 
 
 def init_like_flax_(model: UAHN, generator: torch.Generator) -> UAHN:

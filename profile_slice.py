@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's ``run-vio`` slice goes, on one GPU.
 
-    python3 profile_slice.py [--batch | --train | --fil]
+    python3 profile_slice.py [--batch | --train | --fil | --track]
 
 Runs the slice of ``chip_smoke.py`` (same synthetic sequence, v10 weights,
 calibrated profile, 16-member MC dropout) on its first FRAMES frame
@@ -21,7 +21,11 @@ windows of FIL_WINDOW frames, 224x320, 3 blur taps, on windows cut from
 the loop-closure demo's pose file) after FIL_WARMUP unprofiled ones; a
 "frame" is then a FIL step, split by the labels ``fil.forward`` (draws,
 render, the filter recurrence with the network, the loss),
-``fil.backward`` and ``fil.optimizer``. Prints one JSON line with:
+``fil.backward`` and ``fil.optimizer``. With ``--track``, the loop of
+``track-features`` (``vision.klt.track_sequence``: grid detection, KLT,
+the refill and the frame's one host read) over the slice sequence's first
+FRAMES frame pairs, split by the labels ``track.klt`` and
+``track.detect``. Prints one JSON line with:
 
 - ``ms_per_frame``: host clock of the frame loop, profiler off;
   ``ms_per_frame_profiled``: the same under the profiler;
@@ -53,7 +57,7 @@ TRAIN_STEPS = 8
 TRAIN_WARMUP = 3  # cuDNN's first calls and the allocator's growth
 FIL_STEPS = 2
 FIL_WARMUP = 1  # cuDNN's first calls and the allocator's growth
-LABELS = ("vio.", "train.", "fil.")
+LABELS = ("vio.", "train.", "fil.", "track.")
 
 
 def train_runner(torch, dev):
@@ -155,6 +159,26 @@ def fil_runner(torch, dev):
     return run, FIL_STEPS
 
 
+def track_runner(torch, dev):
+    """(run, steps) of ``--track``: ``run()`` tracks features over the slice
+    sequence's first FRAMES + 1 frames (FRAMES pairs) on the card and
+    returns (None, seconds), closed by the loop's host reads."""
+    import chip_smoke
+    from cuahn_vio_torch.vision.klt import track_sequence
+
+    seq, _, _ = chip_smoke.slice_setup(torch, dev)
+    frames = torch.as_tensor(seq.frames[: FRAMES + 1], device=dev)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        track_sequence(frames, FRAMES + 1)
+        torch.cuda.synchronize()
+        return None, time.perf_counter() - t0
+
+    return run, FRAMES
+
+
 def vio_runner(args, torch, dev):
     """(run, steps) of the slice (or, with ``--batch``, the batched
     phase): ``run()`` runs FRAMES frame pairs and returns (None, seconds)."""
@@ -214,6 +238,8 @@ def main() -> int:
                       help="profile training steps of train-uahn instead")
     mode.add_argument("--fil", action="store_true",
                       help="profile filter-in-the-loop steps of train-fil instead")
+    mode.add_argument("--track", action="store_true",
+                      help="profile the track-features loop (detect + KLT) instead")
     args = ap.parse_args()
     import chip_smoke
     from cuahn_vio_torch.ops.homography import f32_parity_mode
@@ -224,6 +250,8 @@ def main() -> int:
         run, steps = train_runner(torch, dev)
     elif args.fil:
         run, steps = fil_runner(torch, dev)
+    elif args.track:
+        run, steps = track_runner(torch, dev)
     else:
         run, steps = vio_runner(args, torch, dev)
 
@@ -265,8 +293,9 @@ def main() -> int:
         for k, v in sorted(stages.items())
     }
     out = dict(
-        path=("train-fil FIL step, %d windows of %d frames" % (chip_smoke.FIL_BATCH,
-                                                               chip_smoke.FIL_WINDOW)
+        path=("track-features frame, 80 slots" if args.track
+              else "train-fil FIL step, %d windows of %d frames" % (chip_smoke.FIL_BATCH,
+                                                                    chip_smoke.FIL_WINDOW)
               if args.fil else "train-uahn step, batch %d" % chip_smoke.TRAIN_BATCH if args.train
               else "batched, B = %d" % (1 + len(chip_smoke.TEX_SEQS)) if args.batch else "single stream"),
         frames=steps,

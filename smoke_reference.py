@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -50,6 +50,16 @@ texture bank, in OUT_DIR/loop (``chip_smoke.write_loop_trajectory``,
 port's on the CPU, each scored before and after smoothing with the JAX
 ``error-singlerun se3``; prints the JAX mean smoothed ATE, its spread and
 the bar of ``chip_smoke.LOOP_ATE_BAR_M`` (that mean + 0.005 m).
+
+``diag`` (the diagnostics phase's bars): makes phase 10's sequence with the
+port's ``make-synthetic`` on the CPU over the card machine's texture bank,
+in OUT_DIR/diag. Then, for each seed, the JAX package's ``eval-flow`` with
+the v10 weights (``--prior gt`` over every pair, and ``--prior none
+--limit`` ``chip_smoke.DIAG_NONE_LIMIT``) and the port's on the CPU,
+printing each run's lines; the JAX ``track-features`` and the port's
+(their survivors from frame 0); and the JAX mean corner-error RMSE of each
+prior, its spread and the bar of ``chip_smoke.FLOW_RMSE_BARS_PX`` (that
+mean + ``chip_smoke.FLOW_RMSE_MARGIN_PX``).
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -168,7 +178,7 @@ def raw(env, out_dir: str, weights: str) -> None:
     work = os.path.join(out_dir, "raw")
     os.makedirs(work, exist_ok=True)
     path = lambda name: os.path.join(work, name)  # noqa: E731
-    noise = ["--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003", "--bias-a", "0.02"]
+    noise = chip_smoke.CLI_NOISE
     cwd = os.getcwd()
     os.chdir(work)
     try:  # phase 10's make-synthetic, then phase 12's
@@ -250,10 +260,54 @@ def loop(env, out_dir: str, weights: str) -> None:
           f"{mean + MARGIN_M:.5f} m", flush=True)
 
 
+def diag(env, out_dir: str, weights: str) -> None:
+    import chip_smoke
+    from cuahn_vio_torch import cli as tcli
+
+    card_texture_bank()
+    work = os.path.join(out_dir, "diag")
+    os.makedirs(work, exist_ok=True)
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:  # phase 10's make-synthetic
+        tcli.main(["make-synthetic", "--device", "cpu", "--out", "seq.npz", "--duration",
+                   str(chip_smoke.CLI_DURATION_S), "--texture", "heldout", "--seed", "7",
+                   *chip_smoke.CLI_NOISE])
+    finally:
+        os.chdir(cwd)
+    priors = {"gt": [], "none": ["--limit", str(chip_smoke.DIAG_NONE_LIMIT)]}
+    jax_rmse = {prior: [] for prior in priors}
+    for seed in SEEDS:
+        for prior, extra in priors.items():
+            for package, dev in RUNS:
+                said = subprocess.run(
+                    [sys.executable, "-m", f"{package}.cli", "eval-flow", path("seq.npz"),
+                     path("seq_state_gt.txt"), "--weights", weights, "--prior", prior,
+                     "--seed", str(seed), *extra, *dev],
+                    env=env, check=True, capture_output=True, text=True, timeout=3600).stdout
+                for line in said.splitlines():
+                    print(f"eval-flow {package} prior {prior} seed {seed}: {line}", flush=True)
+                rmse = float(re.search(r"corner error  px: rmse ([0-9.]+)", said).group(1))
+                if package == "cuahn_vio":
+                    jax_rmse[prior].append(rmse)
+    for package, dev in RUNS:
+        said = subprocess.run(
+            [sys.executable, "-m", f"{package}.cli", "track-features", path("seq.npz"),
+             "--out", path(f"tracks_{package}.npz"), *dev],
+            env=env, check=True, capture_output=True, text=True, timeout=3600).stdout
+        print(f"track-features {package}: {said.splitlines()[0]}", flush=True)
+    for prior, values in jax_rmse.items():
+        mean, spread = float(np.mean(values)), float(np.ptp(values))
+        print(f"eval-flow bar prior {prior}: JAX mean rmse {mean:.4f} px, spread "
+              f"{spread:.4f} px, bar {mean + chip_smoke.FLOW_RMSE_MARGIN_PX:.4f} px", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
-    ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "loop", "both"],
+    ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "loop", "diag",
+                                       "both"],
                     default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
@@ -268,6 +322,9 @@ def main() -> int:
         return 0
     if args.part == "loop":
         loop(env, args.out_dir, chip_smoke.WEIGHTS)
+        return 0
+    if args.part == "diag":
+        diag(env, args.out_dir, chip_smoke.WEIGHTS)
         return 0
     opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
     seq = make_sequence(AnalyticTrajectory(), np.asarray(opts.t_imu_to_cam),

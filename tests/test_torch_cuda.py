@@ -14,7 +14,9 @@ coordinates, all three bit for bit (0.0); the flat sampler's batched form
 too; the undistortion remap C1 to its plain version bit for bit (0.0) at
 640x480 -> 224x320 on fisheye, radtan and edge maps. The batched path,
 the stepwise runner, the bf16 towers, the blurred
-render and the CLI run on the card too.
+render and the CLI run on the card too, and the sparse-vision front end
+and the UAHN's error map follow their CPU results (``chip_smoke.py``
+phase 15a's checks at test size).
 """
 
 import numpy as np
@@ -594,3 +596,104 @@ def test_fil_step_on_gpu_follows_the_cpu(gpu, tmp_path):
     for name, g in g_cpu.items():
         cos = (g * g_gpu[name]).sum() / (g.norm() * g_gpu[name].norm())
         assert cos.item() >= 0.9999, name
+
+
+def _ground_frames(n: int) -> np.ndarray:
+    """(n, 224, 320) uint8 views of the procedural ground from a gentle
+    drift (2 cm, 1 cm a frame and a slow yaw), rendered on the CPU."""
+    from cuahn_vio_torch.data import textures as ttex
+    from cuahn_vio_torch.data.synthetic import render_frame
+    from cuahn_vio_torch.ops.quat import quat_exp
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    t = np.asarray(VioOptions().t_imu_to_cam, np.float64)
+    c_rot_i = torch.as_tensor(t[:3, :3], dtype=torch.float32)
+    i_t_i2c = torch.as_tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32)
+    k = torch.arange(n, dtype=torch.float32)[:, None]
+    p = torch.tensor([0.1, -0.2, 1.6]) + k * torch.tensor([0.02, 0.01, 0.0])
+    q = quat_exp(k * torch.tensor([0.01, -0.005, 0.02]))
+    tex = torch.as_tensor(ttex.texture_u8(ttex.quantize_u8(
+        np.stack(ttex._procedural_extras(ttex.TEXTURE_SIZE)))[5]))
+    imgs = render_frame(p, q, c_rot_i, i_t_i2c, None, 224, 320, tex, ttex.default_tex_params(4.0))
+    return np.round(np.clip(imgs.numpy(), 0, 1) * 255).astype(np.uint8)
+
+
+def test_vision_front_end_on_gpu_follows_the_cpu(gpu):
+    """chip_smoke phase 15a's checks at test size: ``grid_detect`` on 3
+    frames and ``track_pyramidal`` on their 3 pairs (scores within 1e-5 of
+    the largest, a differing pick only at a near-tie; ``valid`` equal away
+    from its thresholds, tracks within 1e-3 px), ``triangulate_nview`` on
+    64 points from 5 poses of a drifting flight (``ok`` equal, 1e-4 m) and
+    ``preintegrate`` over 16 camera intervals of random IMU samples (1e-5,
+    Jacobians 1e-4 relative). No kernel of the port launches."""
+    import chip_smoke
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+
+    f32_parity_mode()
+    frames = _ground_frames(4)
+    rng = np.random.default_rng(0)
+    s = np.linspace(0.0, 1.0, 200)[:, None]
+    pose = np.concatenate([s * [1.0, 0.6, 0.2] + [0, 0, 1.5],
+                           np.tile([0.02, -0.03, 0.1, 0.994], (200, 1))], axis=1)
+    pose[:, 3:] /= np.linalg.norm(pose[:, 3:], axis=1, keepdims=True)
+    imu_t = np.arange(600) / 500.0
+    inputs = chip_smoke.preint_inputs(imu_t, rng.normal(0, 0.4, (600, 3)),
+                                      rng.normal(0, 1, (600, 3)) + [0, 0, 9.81],
+                                      np.arange(36) / 30.0, [0.01, 0, 0], [0, 0.05, 0])
+    tcuda.reset_launch_counts()
+    found = [chip_smoke.check_grid_detect(torch, gpu, frames[:3]),
+             chip_smoke.check_tracks(torch, gpu, frames),
+             chip_smoke.check_triangulation(torch, gpu, pose),
+             chip_smoke.check_preintegration(torch, gpu, inputs)]
+    assert found[1]["cpu_valid_tracks"] > 100 and found[2]["ok"] > 32
+    assert inputs[2].shape == (16, 17)
+    assert not any(tcuda.launch_counts.values())
+
+
+def test_error_map_on_gpu_follows_the_cpu(gpu):
+    """The UAHN's error map of one pair (v10, dropout 0, float frames) on
+    the card within 0.05 levels of the CPU's on 99.9 % of the pixels
+    (chip_smoke phase 15a), through 4 launches of the float32 warp."""
+    import chip_smoke
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+
+    f32_parity_mode()
+    tcuda.reset_launch_counts()
+    found = chip_smoke.check_error_map(torch, gpu, _ground_frames(2))
+    assert tcuda.launch_counts["homography_warp"] == 4
+    assert found["share_within"] >= 0.999
+
+
+def test_diagnostics_verbs_on_gpu(gpu, tmp_path):
+    """``inspect-frame``, ``eval-flow`` and ``track-features`` on the card
+    by default: the PNG, the npz files, and the warp launches (4 at B = 1
+    for inspect-frame, 3 a batch for eval-flow, none for track-features)."""
+    from cuahn_vio_torch import cli
+    from cuahn_vio_torch.eval.simulation import StateGT, save_state_gt
+    from cuahn_vio_torch.utils.png import read_png
+
+    import chip_smoke
+
+    frames = _ground_frames(6)
+    cam_t = np.arange(6) / 30.0
+    np.savez(tmp_path / "seq.npz", frames=frames, cam_t=cam_t)
+    k = np.arange(6)[:, None]
+    save_state_gt(str(tmp_path / "gt.txt"), StateGT(
+        times=cam_t, pose=np.concatenate([[0.1, -0.2, 1.6] + k * [0.02, 0.01, 0.0],
+                                          np.tile([0, 0, 0, 1.0], (6, 1))], 1),
+        vel=np.zeros((6, 3)), bg=np.zeros((6, 3)), ba=np.zeros((6, 3))))
+    path = lambda name: str(tmp_path / name)  # noqa: E731
+    tcuda.reset_launch_counts()
+    cli.main(["inspect-frame", path("seq.npz"), "--frame", "1", "--weights",
+              chip_smoke.WEIGHTS, "--out", path("i.png")])
+    assert tcuda.launch_counts["homography_warp"] == 4 and read_png(path("i.png")).shape == (
+        224, 960)
+    tcuda.reset_launch_counts()
+    cli.main(["eval-flow", path("seq.npz"), path("gt.txt"), "--weights", chip_smoke.WEIGHTS,
+              "--batch", "3", "--out", path("f.npz")])
+    assert tcuda.launch_counts["homography_warp"] == 6
+    assert np.isfinite(np.load(path("f.npz"))["pred"]).all()
+    tcuda.reset_launch_counts()
+    cli.main(["track-features", path("seq.npz"), "--out", path("t.npz")])
+    assert not any(tcuda.launch_counts.values())
+    assert np.load(path("t.npz"))["ids"].shape == (6, 80)

@@ -1,20 +1,25 @@
-"""The port imports neither JAX, flax, optax, msgpack, PyYAML, PIL nor the
-JAX package.
+"""The port imports neither JAX, flax, optax, msgpack, PyYAML, PIL,
+matplotlib nor the JAX package.
 
 In a fresh interpreter where a ``sys.meta_path`` finder makes ``jax``,
-``flax``, ``optax``, ``msgpack``, ``yaml``, ``PIL`` and ``cuahn_vio`` (and
-their submodules) unimportable,
+``flax``, ``optax``, ``msgpack``, ``yaml``, ``PIL``, ``matplotlib`` and
+``cuahn_vio`` (and their submodules) unimportable,
 every module of ``cuahn_vio_torch`` and the port's scripts
 (``chip_smoke.py``, ``tune_warp.py``, ``profile_slice.py``,
 ``smoke_reference.py``) must import, the raw-camera verbs
 (``distort-to-euroc``, ``convert-euroc``, ``format-converter``) must run
-on the CPU, and so must ``smooth-trajectory`` and ``train-fil``'s refusal
-without GT files.
+on the CPU, and so must ``smooth-trajectory``, ``train-fil``'s refusal
+without GT files, and the diagnostics (``inspect-frame``,
+``track-features``, ``calibrate-covariance``,
+``calibrate-state-covariance``). Each verb of the diagnostics slice takes
+every flag of its JAX verb.
 """
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,7 +29,8 @@ import importlib.abc
 import pkgutil
 import sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "PIL", "cuahn_vio")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "PIL", "matplotlib",
+           "cuahn_vio")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -61,7 +67,9 @@ def test_port_imports_without_jax_flax_or_the_jax_package():
     # runtime.undistort, ops.remap, ops.cuda.remap, utils.png, data.euroc,
     # data.gt_loader, data.bspline and their packages) and the loop-closure
     # and FIL slice's (parallel.pose_graph, pipeline.loop_closure, train.fil)
-    assert int(proc.stdout.split()[-1]) >= 56
+    # and the diagnostics slice's (vision.detect, vision.klt,
+    # vision.triangulate, vision.preint, eval.flow)
+    assert int(proc.stdout.split()[-1]) >= 61
 
 
 def test_the_guard_blocks_what_it_names():
@@ -155,3 +163,108 @@ def test_loop_verbs_run_without_jax_or_yaml(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "loop verbs ok" in proc.stdout
+
+
+DIAGNOSTICS = r"""
+import numpy as np
+import pytest
+from cuahn_vio_torch.cli import main
+from cuahn_vio_torch.eval.simulation import StateGT, save_state_gt
+from cuahn_vio_torch.utils.png import read_png
+
+rng = np.random.default_rng(0)
+frames = rng.integers(0, 256, (4, 224, 320)).astype(np.uint8)
+np.savez("seq.npz", frames=frames, cam_t=np.arange(4) / 30.0)
+main(["inspect-frame", "seq.npz", "--frame", "1", "--weights", WEIGHTS, "--out", "i.png",
+      "--device", "cpu"])
+assert read_png("i.png").shape == (224, 960)
+main(["track-features", "seq.npz", "--out", "t.npz", "--device", "cpu"])
+assert np.load("t.npz")["ids"].shape == (4, 80)
+f = 40
+a = rng.normal(size=(f, 8, 8))
+net = a @ a.transpose(0, 2, 1) + 8 * np.eye(8)
+np.savez("log.npz", net_inno=rng.normal(size=(f, 8)), cov_meas=net * 1e-5, net_cov88=net)
+main(["calibrate-covariance", "log.npz"])
+t = np.arange(200) * 0.01
+pose = np.column_stack([np.sin(t), t, 1.5 + 0 * t, 0 * t, 0 * t, 0 * t, 1 + 0 * t])
+z = np.zeros((200, 3))
+save_state_gt("gt.txt", StateGT(times=t, pose=pose, vel=z, bg=z, ba=z))
+k = np.arange(10, 200, 5)
+cov = np.tile(np.eye(15) * 1e-4, (len(k), 1, 1))
+noise = np.column_stack([rng.normal(0, 0.01, (len(k), 3)), np.zeros((len(k), 4))])
+est = dict(times=t[k], pose=pose[k] + noise,
+           v_body=rng.normal(0, 0.01, (len(k), 3)), ba=z[k], bg=z[k], cov_core=cov,
+           cov_diag=np.einsum("fii->fi", cov))
+np.savez("state.npz", **est)
+main(["calibrate-state-covariance", "state.npz", "gt.txt"])
+np.savez("inflated.npz", **est, cov_calib_blocks=np.array(["pos", "ori", "vel", "ba", "bg"]),
+         cov_calib_factors=np.array([2.0, 2.0, 1.0, 1.0, 1.0]))
+with pytest.raises(SystemExit, match="already inflated"):
+    main(["calibrate-state-covariance", "inflated.npz", "gt.txt"])
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("diagnostics ok")
+"""
+
+
+def test_diagnostics_verbs_run_without_jax_or_matplotlib(tmp_path):
+    """``inspect-frame`` writes its figure with the port's PNG writer, and
+    the vision and covariance verbs run, with JAX, PIL and matplotlib
+    blocked."""
+    weights = os.path.join(REPO, "weights", "uahn_fil_v10.msgpack")
+    code = (GUARDED.split("import cuahn_vio_torch\n")[0] + f"WEIGHTS = {weights!r}\n"
+            + DIAGNOSTICS)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "diagnostics ok" in proc.stdout
+    assert "wrote i.png (mean photometric err " in proc.stdout
+    assert "run-vio flag:  --cov-calib pos:" in proc.stdout
+
+
+def _subparser(top, verb: str):
+    import argparse
+
+    sub = next(a for a in top._actions if isinstance(a, argparse._SubParsersAction))
+    return sub.choices[verb]
+
+
+def _jax_subparser(verb: str):
+    """The JAX CLI's parser of ``verb`` (built inside its ``main``)."""
+    import argparse
+    from unittest import mock
+
+    import pytest
+
+    from cuahn_vio import cli as jcli
+
+    class Built(Exception):
+        pass
+
+    def grab(parser, *args, **kwargs):
+        raise Built(parser)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", grab):
+        with pytest.raises(Built) as built:
+            jcli.main([verb])
+    return _subparser(built.value.args[0], verb)
+
+
+def _options(parser):
+    return {a.dest: (tuple(a.option_strings), a.default, a.required)
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("verb", ["eval-flow", "inspect-frame", "track-features",
+                                  "calibrate-covariance", "calibrate-state-covariance"])
+def test_diagnostics_verb_takes_every_flag_of_the_jax_verb(verb):
+    """Every option of the JAX verb, with its default; the verbs that run
+    on the card also take --device (default cuda), the numpy-only fits
+    nothing more."""
+    from cuahn_vio_torch import cli as tcli
+
+    want, got = _options(_jax_subparser(verb)), _options(_subparser(tcli.build_parser(), verb))
+    if not verb.startswith("calibrate"):
+        assert got.pop("device") == (("--device",), "cuda", False)
+    assert got == want
