@@ -66,7 +66,8 @@ Phases, each printed on its own line with its seconds:
    ``BATCH_SAMPLER = "rowskip"`` and the same generator seed: the row-band
    kernel must launch 3 x frames x IEKF times, the warp kernel never, and
    the poses must agree with the "full" run's within ``ROWSKIP_POS_TOL_M``;
-8. the stepwise runner: phase 4's sequence, model and seed through
+8. the stepwise runner: phase 4's sequence cut to its first
+   STEPWISE_FRAMES frame pairs, model and seed through
    ``run_stepwise``, staged (each stage closed by a device synchronize)
    and fused; each run must make 3 x (steps + 1) x IEKF warp launches (the
    warm-up step on frame 0 launches too) and no other sampler launch,
@@ -82,11 +83,12 @@ Phases, each printed on its own line with its seconds:
    directory: ``make-synthetic`` over photo-texture ground (all four
    files, ``_config.yaml`` included; one flat-sampler launch a frame),
    ``run-vio --config --weights --timing-out --odom-out --state-out
-   --cov-calib`` (3 x (poses + 1) x IEKF warp launches) and the same
-   ``run-vio`` without the stepwise flags, whose covariance inflated by
-   the factors must be the first run's npz covariance; then
+   --cov-calib`` (3 x (poses + 1) x IEKF warp launches), then
    ``error-singlerun se3``, ``timing-percentages`` and
-   ``error-simulation`` on what ``run-vio`` wrote. Every exit code must be
+   ``error-simulation`` on what ``run-vio`` wrote, side by side; the same
+   ``run-vio`` without the stepwise flags runs beside phase 12 (its
+   covariance inflated by the factors must be the first run's npz
+   covariance). Every exit code must be
    0 and the timing csv must have one row of 5 stages a pose. Prints
    whether PyYAML is installed: the port needs none;
 11. the trainer: ``train-uahn --resume`` v10 for TRAIN_STEPS steps at
@@ -122,7 +124,10 @@ Phases, each printed on its own line with its seconds:
    the PNG decode and encode ms per frame, the decode ms per frame of the
    same frames written with PIL's row filters (``encode_png_like_pil``;
    their pixels must come back equal), the remap's device ms, and the ATE
-   beside that of ``run_offline`` on the rendered (virtual) frames;
+   beside that of ``run_offline`` on the rendered (virtual) frames.
+   Phase 10's plain ``run-vio`` and phase 13's ``make-synthetic`` and
+   ``run-vio`` run beside this phase (started with it, each chain in a
+   thread of its own);
 13. the loop-closure workflow of ``benchmarks/loop_closure_demo.sh``, as
    subprocesses of ``python -m cuahn_vio_torch.cli`` in a temporary
    directory: the demo's double-loop pose file (``write_loop_trajectory``)
@@ -130,9 +135,12 @@ Phases, each printed on its own line with its seconds:
    (LOOP_SYNTH_ARGS: 20 s, a held-out procedural texture named by its
    pick, ``--exposure-ms 8 --effects``), ``run-vio`` v10 ``--state-out``,
    ``close-loops`` (LOOP_CLOSE_ARGS; a subprocess that also records the
-   batch of every warp launch), ``smooth-trajectory --loops-file`` twice
-   and once with ``--huber``, and ``error-singlerun se3`` of the online and
-   the smoothed runs. Every exit code must be 0; the flat sampler must
+   batch of every warp launch), ``smooth-trajectory --loops-file`` twice,
+   once with ``--huber`` and once with ``--mesh`` (read by 16b), side by
+   side and beside phase 16c's ``distributed-selftest``, and
+   ``error-singlerun se3`` of the online and the smoothed runs, side by
+   side. Subprocesses run side by side only where their own times are no
+   metric; every in-process timing runs with no child alive. Every exit code must be 0; the flat sampler must
    launch once a rendered frame, the warp 3 x poses x IEKF times in
    ``run-vio`` and, in ``close-loops``, 3 times per network batch of at
    most ``LOOP_BATCH`` pairs, uint8, the batches covering each pair inside
@@ -175,7 +183,8 @@ Phases, each printed on its own line with its seconds:
    at dropout 0 (within ERR_MAP_LEVELS on ERR_MAP_SHARE of the pixels;
    its maximum printed); and the pairs/s of ``eval_flow`` in process
    (``eval_flow_rate``). 15b, the verbs as subprocesses of ``python -m
-   cuahn_vio_torch.cli`` with their warp launches recorded: ``eval-flow
+   cuahn_vio_torch.cli`` with their warp launches recorded, side by side
+   but for ``track-features``, which runs alone: ``eval-flow
    --prior gt`` over every pair (3 float32 warps a batch of at most 16,
    nothing else; the corner-error RMSE under FLOW_RMSE_BARS_PX) and
    ``--prior none --limit DIAG_NONE_LIMIT`` (block 1 runs, 3 warps a
@@ -187,6 +196,32 @@ Phases, each printed on its own line with its seconds:
    and the latter refusing phase 10's ``--cov-calib`` log (exit non-zero,
    naming its factors). The warp is then held to its plain version and
    timed at each batch size eval-flow launched it at.
+16. the sweep and the parallel layer. 16a, in this process: ``tune-filter``
+   (``cli.main``) over the smoke's sequence (the card's ``make_sequence``
+   where it equals the CPU's, else the CPU's arrays in TUNE_SEQ) and the
+   JAX package's ``run-vio --state-out`` log of it (TUNE_LOG) at TUNE_GRID,
+   256 points, under the port's ``ResourceMonitor`` of this process: no
+   kernel launch, 256 rows, each row's ``ate_pos`` within TUNE_ATE_TOL_M
+   of the JAX verb's row of its grid_index (TUNE_ROWS), the same inf
+   pattern and ``n_gated``, the top TUNE_TOP rows in the JAX order up to
+   near-ties; prints the sweep's seconds, frames, filter replays per
+   second, peak device memory and the monitor's summary. 16b:
+   ``optimize_sharded`` with SCHUR_BLOCKS blocks on the card at phase 13's
+   loop-closure graph against the dense ``optimize`` (positions within
+   SCHUR_POS_TOL_M, the final cost at most SCHUR_COST_DROP of the first,
+   GN_REPEATS repeats bit-identical), ms per GN iteration of both (CUDA
+   events), and phase 13's ``smooth-trajectory --mesh`` within
+   SCHUR_POS_TOL_M of its dense smoothing. 16c: ``distributed-selftest``
+   as one process on the card (run in phase 13), its checksums within
+   SELFTEST_RTOL of JAX_SELFTEST, then the ``--bench`` workload in this
+   process at SELFTEST_BENCH's size (the JAX recipe's 400 frames cut to
+   10) and its rate. 16d: ``run-vio-batch --mesh`` (``cli.main``) on
+   phase 6's sequences cut to MESH_BATCH_FRAMES frame pairs, its pose
+   files byte for byte those frames of phase 6's, 3 x MESH_BATCH_FRAMES x
+   IEKF warp launches; ``error-dataset``, ``error-comparison`` (the
+   ATE of ``error-singlerun`` on the same file), ``align-trajectory``,
+   ``timing-comparison`` and ``pid-monitor`` of a child process as
+   subprocesses side by side.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -196,12 +231,15 @@ the port: no JAX and nothing of ``cuahn_vio``.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import faulthandler
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -274,6 +312,7 @@ ROWSKIP_POS_TOL_M = 1e-5  # rowskip vs full run, world positions
 # positions: the same operations on the same generator stream, so 0.0 is
 # expected; the bound allows only float32 rounding of another cuDNN choice
 STEPWISE_POS_TOL_M = 1e-5
+STEPWISE_FRAMES = 60  # phase 8: the frame pairs of phase 4's sequence that each mode runs
 # ATE bar of the bf16 phase. Reference: ``python3 smoke_reference.py
 # OUT_DIR --part bf16`` runs SEQ through the JAX package's ``run-vio
 # --bf16`` with the v10 weights on the CPU, scored with its
@@ -286,6 +325,7 @@ BF16_ATE_BAR_M = REF_BF16_ATE_M + ATE_MARGIN_M
 CLI_DURATION_S = 3.0
 CLI_NOISE = ("--sigma-w", "0.002", "--sigma-a", "0.02", "--bias-g", "0.003", "--bias-a", "0.02")
 CLI_COV_CALIB = "pos:2,ori:2"
+CLI_RUN = ("run-vio", "seq.npz", "--config", "seq_config.yaml", "--weights", WEIGHTS)
 # phase 11's train-uahn runs: steps, batch (the JAX trainer's) and
 # checkpoint interval (the probe's batch is train.trainer.PROBE_SIZE)
 TRAIN_STEPS = 12
@@ -380,6 +420,40 @@ FLOW_RMSE_MARGIN_PX = 0.05
 REF_TRACK_SURVIVORS = 26  # the JAX track-features on that sequence: survivors from frame 0
 FLOW_RMSE_BARS_PX = {k: round(v + FLOW_RMSE_MARGIN_PX, 4) for k, v in REF_FLOW_RMSE_PX.items()}
 FIL_IEKF = 1  # train/fil's VioConfig(update_gate_frames=-1): one IEKF iteration
+
+
+# phase 16a, the filter-parameter sweep: ``tune-filter`` of the smoke's
+# sequence (SEQ) and the JAX package's ``run-vio --state-out`` log of it
+# (v10, seed 0; its three keys in TUNE_LOG) over TUNE_GRID, 4 x 4 x 2 x 2 x
+# 2 x 2 = 256 points at the default gate and tau, each row held to the JAX
+# verb's row of its grid_index in TUNE_ROWS. TUNE_SEQ holds the sequence's
+# IMU arrays, cam_t and GT poses as the CPU's make_sequence made them.
+# Reference: ``python3 smoke_reference.py OUT_DIR --part tune`` writes the
+# three files (on the CPU) and prints the port's largest ate_pos
+# difference from the JAX rows on the CPU, which sets TUNE_ATE_TOL_M.
+TUNE_LOG = "tests/data/smoke_tune_log.npz"
+TUNE_SEQ = "tests/data/smoke_tune_seq.npz"
+TUNE_ROWS = "tests/data/smoke_tune_rows_jax.jsonl"
+TUNE_GRID = ("--k-net-cov", "4,7.9,12,20", "--q-scale", "0.5,1,2,4", "--q-pos-extra",
+             "1e-5,1e-4", "--bias-sigma-px", "0,0.5", "--chi2-soft", "0,20", "--echo-beta",
+             "0,0.3")
+TUNE_POINTS = 256
+TUNE_ATE_TOL_M = 1e-4  # the port on the CPU: 3.172e-06 m at most, no inf row
+TUNE_TOP = 10  # rows whose order is held to the JAX verb's (up to near-ties)
+# phase 16b, the Schur smoother: blocks on one card at phase 13's graph,
+# and its bars against the dense solve (tests/test_pose_graph_sharded.py:71)
+SCHUR_BLOCKS = 4
+SCHUR_POS_TOL_M = 2e-3
+SCHUR_COST_DROP = 1e-3
+# phase 16c: the JAX package's single-process ``run_selftest(8)`` on 8 fake
+# CPU devices (``smoke_reference.py --part tune``); the port's checksums
+# within SELFTEST_RTOL of them (float32 sums in another order)
+JAX_SELFTEST = {"filter_pos_checksum": 72.00117492675781,
+                "filter_cov_checksum": 0.01577342301607132,
+                "pose_checksum": 53.35031318664551}
+SELFTEST_RTOL = 1e-5
+MESH_BATCH_FRAMES = 40  # phase 16d: the lockstep frames of run-vio-batch with and without --mesh
+SELFTEST_BENCH = dict(frames=10, steps=16, reps=3)  # the JAX recipe's 400 frames, cut
 
 
 def write_loop_trajectory(path: str) -> None:
@@ -1221,9 +1295,19 @@ def run_rowskip(torch, dev, seqs, opts, model, frames: int):
     return batch_results(outs, cut), launches
 
 
+def cut_sequence(seq, res, pairs: int):
+    """``seq`` (a SyntheticSequence) with its last frames dropped so that a
+    run of it, whose frames used end at the last one (``res``, a run of
+    the whole), keeps its first ``pairs`` frame pairs; the IMU stays
+    whole."""
+    keep = len(seq.cam_t) - (len(res.times) - pairs)
+    return seq._replace(cam_t=seq.cam_t[:keep], frames=seq.frames[:keep])
+
+
 def run_stepwise_phase(torch, dev, seq, opts, model, staged: bool):
-    """Phase 8: phase 4's sequence, model and seed through run_stepwise.
-    Returns (result, launches, seconds)."""
+    """Phase 8: phase 4's sequence (cut to STEPWISE_FRAMES frame pairs),
+    model and seed through run_stepwise. Returns (result, launches,
+    seconds)."""
     from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
     from cuahn_vio_torch.pipeline.runner import run_stepwise
 
@@ -1275,12 +1359,55 @@ CLI_RUNNER = (
 )
 
 
+CHILDREN = set()  # the subprocesses running now; ``main`` kills what is left
+
+
+def run_child(argv, cwd: str) -> subprocess.CompletedProcess:
+    """``argv`` in ``cwd`` with the port on its path, its output captured,
+    killed after 600 s; as ``subprocess.run``, but killed too when the
+    smoke stops before it ends."""
+    proc = subprocess.Popen(argv, cwd=cwd, env=dict(os.environ, PYTHONPATH=REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.add(proc)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        CHILDREN.discard(proc)
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def started(fn, *args) -> concurrent.futures.Future:
+    """``fn(*args)`` in a thread of its own from now on (a chain of
+    subprocesses: each waits on its child, so the threads run side by
+    side); ``.result()`` waits for it and raises what it raised."""
+    fut = concurrent.futures.Future()
+
+    def target():
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as exc:  # noqa: BLE001 - handed to .result()
+            fut.set_exception(exc)
+
+    threading.Thread(target=target, daemon=True).start()
+    return fut
+
+
+def side_by_side(*calls) -> list:
+    """Each ``(fn, *args)`` of ``calls`` at once (``started``); their
+    results in order, once all have ended. For verbs whose own times are no
+    metric: those run alone."""
+    futs = [started(*call) for call in calls]
+    concurrent.futures.wait(futs)
+    return [f.result() for f in futs]
+
+
 def cli(args, cwd: str) -> tuple[str, dict]:
     """One verb of the port's CLI in a subprocess on the card. Returns (its
     output, its launch counts); raises when it exits non-zero."""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = run_child([sys.executable, "-c", CLI_RUNNER, *args], cwd)
     if proc.returncode != 0:
         raise AssertionError(f"cli {args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
     out, _, last = proc.stdout.rstrip("\n").rpartition("\n")
@@ -1294,7 +1421,6 @@ def run_cli(tmp: str) -> dict:
 
     import numpy as np
 
-    from cuahn_vio_torch.eval.calibration import apply_cov_inflation
     from cuahn_vio_torch.eval.traj_io import load_pose_file, load_timing_file
     from cuahn_vio_torch.ops.cuda.warp import KERNEL, SAMPLE_KERNEL
 
@@ -1309,8 +1435,7 @@ def run_cli(tmp: str) -> dict:
     if counts[SAMPLE_KERNEL] != frames:
         raise AssertionError(f"make-synthetic: {counts[SAMPLE_KERNEL]} sampler launches for "
                              f"{frames} frames")
-    run = ["run-vio", "seq.npz", "--config", "seq_config.yaml", "--weights", WEIGHTS]
-    said, counts = cli([*run, "--out", "est.txt", "--timing-out", "t.csv", "--odom-out",
+    said, counts = cli([*CLI_RUN, "--out", "est.txt", "--timing-out", "t.csv", "--odom-out",
                         "odom.txt", "--state-out", "state.npz", "--cov-calib",
                         CLI_COV_CALIB], tmp)
     poses = load_pose_file(os.path.join(tmp, "est.txt"))
@@ -1325,20 +1450,36 @@ def run_cli(tmp: str) -> dict:
     odom = np.loadtxt(os.path.join(tmp, "odom.txt"))
     if odom.shape != (len(poses.times), 10):
         raise AssertionError(f"odometry file {odom.shape}")
-    cli([*run, "--out", "plain.txt", "--state-out", "plain.npz"], tmp)
+    (sr, _), (tp, _), (sim, _) = side_by_side(
+        (cli, ["error-singlerun", "se3", "seq_gt.txt", "est.txt"], tmp),
+        (cli, ["timing-percentages", "t.csv"], tmp),
+        (cli, ["error-simulation", "state.npz", "seq_state_gt.txt"], tmp))
+    out["ate_pos_m"] = float(sr.split("pos: rmse ")[1].split()[0])
+    out["fps"] = float(tp.split("=> ")[1].split()[0])
+    out["sim_pos_rmse_m"] = float(sim.split("pos_rmse")[1].split()[0])
+    return out
+
+
+def plain_run(tmp: str) -> dict:
+    """Phase 10's second ``run-vio``, without the stepwise flags, in
+    ``tmp`` (started with phase 12: its time is no metric): its
+    covariance inflated by CLI_COV_CALIB's factors must be the first
+    run's npz covariance. Returns what the check found; raises on a failed
+    one."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.calibration import apply_cov_inflation
+
+    cli([*CLI_RUN, "--out", "plain.txt", "--state-out", "plain.npz"], tmp)
     state, plain = (np.load(os.path.join(tmp, f)) for f in ("state.npz", "plain.npz"))
     factors = {k: float(v) for k, v in (kv.split(":") for kv in CLI_COV_CALIB.split(","))}
     want = apply_cov_inflation(plain["cov_core"], factors)
-    out.update(cov_rel_diff=float(np.abs(state["cov_core"] - want).max()
-                                  / np.abs(want).max()),
+    out = dict(cov_rel_diff=float(np.abs(state["cov_core"] - want).max() / np.abs(want).max()),
                pos_diff_m=float(np.abs(state["pose"][:, :3] - plain["pose"][:, :3]).max()),
                cov_calib_factors=state["cov_calib_factors"].tolist())
-    said, _ = cli(["error-singlerun", "se3", "seq_gt.txt", "est.txt"], tmp)
-    out["ate_pos_m"] = float(said.split("pos: rmse ")[1].split()[0])
-    said, _ = cli(["timing-percentages", "t.csv"], tmp)
-    out["fps"] = float(said.split("=> ")[1].split()[0])
-    said, _ = cli(["error-simulation", "state.npz", "seq_state_gt.txt"], tmp)
-    out["sim_pos_rmse_m"] = float(said.split("pos_rmse")[1].split()[0])
+    if not out["cov_rel_diff"] <= 1e-6:
+        raise AssertionError(f"--cov-calib: npz covariance {out['cov_rel_diff']:.3e} from the "
+                             "inflated plain run's")
     return out
 
 
@@ -1401,9 +1542,7 @@ def train_once(torch, tmp: str, probe_size: int) -> dict:
             str(TRAIN_BATCH), "--save-every", str(TRAIN_SAVE_EVERY), "--out", out_path]
     code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
             "chip_smoke.train_child(sys.argv[1:])")
-    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=tmp,
-                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-                          text=True, timeout=600)
+    proc = run_child([sys.executable, "-c", code, *args], tmp)
     if proc.returncode != 0:
         raise AssertionError(f"train-uahn exited {proc.returncode}: {proc.stderr[-3000:]}")
     said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
@@ -1790,13 +1929,27 @@ def spied_cli(args, cwd: str) -> tuple[str, dict]:
     non-zero."""
     code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
             "chip_smoke.warp_child(sys.argv[1:])")
-    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=cwd,
-                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-                          text=True, timeout=600)
+    proc = run_child([sys.executable, "-c", code, *args], cwd)
     if proc.returncode != 0:
         raise AssertionError(f"{args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
     said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
     return said, json.loads(last.split(" ", 1)[1])
+
+
+def gn_call_ms(torch, fn) -> dict:
+    """{1: ms, 11: ms}: fn(1) and fn(11) (a smoother with that many
+    Gauss-Newton iterations), each bracketed by CUDA events and closed by
+    a synchronize; (ms[11] - ms[1]) / 10 is one iteration."""
+    ms = {}
+    for iters in (1, 11):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(iters)
+        end.record()
+        torch.cuda.synchronize()
+        ms[iters] = start.elapsed_time(end)
+    return ms
 
 
 def gn_iteration_ms(torch, dev, est: str, loops: str) -> dict:
@@ -1821,15 +1974,7 @@ def gn_iteration_ms(torch, dev, est: str, loops: str) -> dict:
         ["smooth-trajectory", est, "--loops-file", loops, "--out", os.devnull])
     _, graph = cli.smoothing_graph(args, dev)
     pg.optimize(graph, iters=1, huber_delta=args.huber)  # warm: cuSOLVER's workspace
-    ms = {}
-    for iters in (1, 11):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        pg.optimize(graph, iters=iters, huber_delta=args.huber)
-        end.record()
-        torch.cuda.synchronize()
-        ms[iters] = start.elapsed_time(end)
+    ms = gn_call_ms(torch, lambda n: pg.optimize(graph, iters=n, huber_delta=args.huber))
     out = dict(unknowns=6 * len(graph.p), graph_factors=int(graph.idx_i.numel()),
                gn_ms_per_iteration=(ms[11] - ms[1]) / 10, gn_1_iteration_call_ms=ms[1])
 
@@ -1887,9 +2032,56 @@ def gn_iteration_ms(torch, dev, est: str, loops: str) -> dict:
     return out
 
 
-def run_loop(torch, dev, tmp: str, iekf: int) -> dict:
+def timed_verb(out: dict, key: str, fn, args, cwd: str):
+    """``fn(args, cwd)`` (``cli`` or ``spied_cli``), its seconds (its
+    process start included) in ``out["verb_s"][key]``."""
+    t0 = time.perf_counter()
+    said = fn(args, cwd)
+    out["verb_s"][key] = round(time.perf_counter() - t0, 3)
+    return said
+
+
+def loop_run(tmp: str, iekf: int) -> dict:
+    """Phase 13's first verbs in ``tmp``: the demo's pose file flown by
+    ``make-synthetic``, then ``run-vio``, with their checks. Started
+    before phase 12 (``started``) and read by ``run_loop``; the verbs'
+    own times are no metric. Returns what the checks found; raises on a
+    failed one."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.ops.cuda.warp import KERNEL, SAMPLE_KERNEL
+
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    out = {"verb_s": {}}
+    write_loop_trajectory(path("loopy_traj.txt"))
+    said, counts = timed_verb(out, "make-synthetic", cli,
+                              ["make-synthetic", "--out", "replay.npz", "--traj-file",
+                               "loopy_traj.txt", *LOOP_SYNTH_ARGS], tmp)
+    out["texture"] = said.split("ground texture: ")[1].split(",")[0]
+    frames = len(np.load(path("replay.npz"))["frames"])
+    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
+    if counts[SAMPLE_KERNEL] != frames:
+        raise AssertionError(f"make-synthetic: {counts[SAMPLE_KERNEL]} sampler launches for "
+                             f"{frames} frames")
+    _, counts = timed_verb(out, "run-vio", cli,
+                           ["run-vio", "replay.npz", "--config", "replay_config.yaml",
+                            "--weights", WEIGHTS, "--out", "est.txt", "--state-out",
+                            "state.npz"], tmp)
+    poses = len(load_pose_file(path("est.txt")).times)
+    out.update(poses=poses, run_vio_warp_launches=counts[KERNEL])
+    if counts[KERNEL] != 3 * poses * iekf:
+        raise AssertionError(f"run-vio: {counts[KERNEL]} warp launches for {poses} poses")
+    return out
+
+
+def run_loop(torch, dev, tmp: str, first: dict, beside: dict) -> dict:
     """Phase 13: ``benchmarks/loop_closure_demo.sh`` through the CLI in
-    ``tmp``. Returns what the checks found; raises on a failed one."""
+    ``tmp``, after ``loop_run`` (``first``, what it found): close-loops,
+    then the smoothings, ``smooth-trajectory --mesh`` (read by phase 16b)
+    and the zero-argument calls of ``beside`` side by side, then the
+    ATEs. Returns what the checks found, with ``beside``'s results under
+    its keys; raises on a failed check."""
     import re
 
     import numpy as np
@@ -1899,38 +2091,12 @@ def run_loop(torch, dev, tmp: str, iekf: int) -> dict:
     from cuahn_vio_torch.pipeline.loop_closure import LOOP_BATCH
 
     path = lambda name: os.path.join(tmp, name)  # noqa: E731
-    out = {"verb_s": {}}
-
-    def verb(args):  # ``cli`` in ``tmp``, each verb's seconds (its process start included)
-        t0 = time.perf_counter()
-        said = cli(args, tmp)
-        key = args[0] + (f" {args[-1]}" if args[0] == "smooth-trajectory" else "")
-        key = key if key not in out["verb_s"] else f"{key} 2"
-        out["verb_s"][key] = round(time.perf_counter() - t0, 3)
-        return said
-
-    write_loop_trajectory(path("loopy_traj.txt"))
-    said, counts = verb(["make-synthetic", "--out", "replay.npz", "--traj-file",
-                         "loopy_traj.txt", *LOOP_SYNTH_ARGS])
-    out["texture"] = said.split("ground texture: ")[1].split(",")[0]
-    frames = len(np.load(path("replay.npz"))["frames"])
-    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
-    if counts[SAMPLE_KERNEL] != frames:
-        raise AssertionError(f"make-synthetic: {counts[SAMPLE_KERNEL]} sampler launches for "
-                             f"{frames} frames")
+    out = dict(first, verb_s=dict(first["verb_s"]))
+    poses = first["poses"]
     cfg = ["--config", "replay_config.yaml"]
-    _, counts = verb(["run-vio", "replay.npz", *cfg, "--weights", WEIGHTS, "--out", "est.txt",
-                      "--state-out", "state.npz"])
-    poses = len(load_pose_file(path("est.txt")).times)
-    out.update(poses=poses, run_vio_warp_launches=counts[KERNEL])
-    if counts[KERNEL] != 3 * poses * iekf:
-        raise AssertionError(f"run-vio: {counts[KERNEL]} warp launches for {poses} poses")
-
     args = ["close-loops", "replay.npz", "state.npz", "--weights", WEIGHTS, *cfg, "--out",
             "loops.txt", *LOOP_CLOSE_ARGS]
-    t0 = time.perf_counter()
-    said, seen = spied_cli(args, tmp)
-    out["verb_s"]["close-loops"] = round(time.perf_counter() - t0, 3)
+    said, seen = timed_verb(out, "close-loops", spied_cli, args, tmp)
     for line in said.splitlines():
         print(f"  close-loops: {line}", flush=True)
     candidates = int(said.split(" loop candidates")[0].split()[-1])
@@ -1964,10 +2130,13 @@ def run_loop(torch, dev, tmp: str, iekf: int) -> dict:
                                               max_abs_err=err)
 
     runs = (("smoothed.txt", []), ("smoothed_again.txt", []),
-            ("smoothed_huber.txt", ["--huber", str(LOOP_HUBER)]))
-    for name, extra in runs:
-        said, counts = verb(["smooth-trajectory", "est.txt", "--loops-file", "loops.txt",
-                             *extra, "--out", name])
+            ("smoothed_huber.txt", ["--huber", str(LOOP_HUBER)]),
+            ("smoothed_mesh.txt", ["--mesh"]))
+    smooth = ["smooth-trajectory", "est.txt", "--loops-file", "loops.txt"]
+    done = side_by_side(*[(timed_verb, out, f"smooth-trajectory {name}", cli,
+                           [*smooth, *extra, "--out", name], tmp) for name, extra in runs],
+                        *[(fn,) for fn in beside.values()])
+    for (name, extra), (said, counts) in zip(runs, done):
         poses_s = load_pose_file(path(name))
         if any(counts.values()) or len(poses_s.times) != poses:
             raise AssertionError(f"smooth-trajectory {extra}: {counts} launches, "
@@ -1975,13 +2144,17 @@ def run_loop(torch, dev, tmp: str, iekf: int) -> dict:
         if not np.isfinite(poses_s.poses).all():
             raise AssertionError(f"smooth-trajectory {extra}: non-finite poses")
         out[f"cost {name}"] = said.splitlines()[-2]
+    out["smooth_mesh_said"] = done[len(runs) - 1][0]
+    out.update(zip(beside, done[len(runs):]))
     with open(path("smoothed.txt"), "rb") as f1, open(path("smoothed_again.txt"), "rb") as f2:
         out["repeat_smoothing_identical"] = f1.read() == f2.read()
     if not out["repeat_smoothing_identical"]:
         raise AssertionError("two smoothings of one run differ")
-    for key, name in (("online", "est.txt"), ("smoothed", "smoothed.txt"),
-                      ("smoothed_huber", "smoothed_huber.txt")):
-        said, _ = verb(["error-singlerun", "se3", "replay_gt.txt", name])
+    keys = (("online", "est.txt"), ("smoothed", "smoothed.txt"),
+            ("smoothed_huber", "smoothed_huber.txt"))
+    ates = side_by_side(*[(cli, ["error-singlerun", "se3", "replay_gt.txt", name], tmp)
+                          for _, name in keys])
+    for (key, _), (said, _) in zip(keys, ates):
         out[f"ate_pos_m_{key}"] = float(said.split("pos: rmse ")[1].split()[0])
     out.update(gn_iteration_ms(torch, dev, path("est.txt"), path("loops.txt")))
     return out
@@ -2379,14 +2552,6 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     n_pairs = len(np.load(path("seq.npz"))["frames"]) - 1
     flow_batch = 16  # eval-flow's default --batch
 
-    def verb(key, args, spied=True):
-        t0 = time.perf_counter()
-        said, seen = spied_cli(args, tmp) if spied else cli(args, tmp)
-        out["verb_s"][key] = round(time.perf_counter() - t0, 3)
-        for line in said.splitlines():
-            print(f"  {key}: {line}", flush=True)
-        return said, seen
-
     def only_warps(seen, want, key):  # the run's launches: exactly ``want`` warps
         counts = seen["launch_counts"]
         if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
@@ -2394,13 +2559,34 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
             raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
                                  f"expected {want}")
 
+    def refused():  # calibrate-state-covariance on the --cov-calib log: its stderr
+        return run_child([sys.executable, "-m", "cuahn_vio_torch.cli",
+                          "calibrate-state-covariance", "state.npz", "seq_state_gt.txt"], tmp)
+
     eval_flow = ["eval-flow", "seq.npz", "seq_state_gt.txt", "--weights", WEIGHTS]
+    flows = (("gt", n_pairs, ["--out", "flow.npz"]),
+             ("none", min(n_pairs, DIAG_NONE_LIMIT), ["--limit", str(DIAG_NONE_LIMIT)]))
+    # every verb but track-features (whose ms/frame is a metric) side by side
+    verbs = {**{f"eval-flow --prior {prior}": (spied_cli, [*eval_flow, "--prior", prior, *extra])
+                for prior, _, extra in flows},
+             "inspect-frame": (spied_cli, ["inspect-frame", "seq.npz", "--frame",
+                                           str(INSPECT_FRAME), "--weights", WEIGHTS, "--out",
+                                           "inspect.png"]),
+             "calibrate-covariance": (cli, ["calibrate-covariance", "plain.npz"]),
+             "calibrate-state-covariance": (cli, ["calibrate-state-covariance", "plain.npz",
+                                                  "seq_state_gt.txt"])}
+    done = side_by_side(*[(timed_verb, out, key, fn, args, tmp)
+                          for key, (fn, args) in verbs.items()], (refused,))
+    said_by = {}
+    for key, (said, seen) in zip(verbs, done):
+        for line in said.splitlines():
+            print(f"  {key}: {line}", flush=True)
+        said_by[key] = (said, seen)
+
     out["eval_flow_warps"] = []
-    for prior, pairs, extra in (("gt", n_pairs, ["--out", "flow.npz"]),
-                                ("none", min(n_pairs, DIAG_NONE_LIMIT),
-                                 ["--limit", str(DIAG_NONE_LIMIT)])):
+    for prior, pairs, _ in flows:
         key = f"eval-flow --prior {prior}"
-        said, seen = verb(key, [*eval_flow, "--prior", prior, *extra])
+        said, seen = said_by[key]
         sizes = [flow_batch] * (pairs // flow_batch)
         if pairs % flow_batch:
             sizes.append(pairs % flow_batch)
@@ -2416,8 +2602,7 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     if dump["pred"].shape != (n_pairs, 8) or not np.isfinite(dump["pred"]).all():
         raise AssertionError(f"eval-flow --out: pred {dump['pred'].shape}")
 
-    said, seen = verb("inspect-frame", ["inspect-frame", "seq.npz", "--frame", str(INSPECT_FRAME),
-                                        "--weights", WEIGHTS, "--out", "inspect.png"])
+    said, seen = said_by["inspect-frame"]
     only_warps(seen, [[1, "float32"]] * 4, "inspect-frame")
     out["inspect_warp_launches"] = len(seen["warps"])
     out["inspect_png_shape"] = list(read_pngs([path("inspect.png")])[0].shape)
@@ -2425,8 +2610,10 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     if out["inspect_png_shape"] != [H, 3 * W] or not np.isfinite(out["inspect_mean_err"]):
         raise AssertionError(f"inspect-frame: {out}")
 
-    said, counts = verb("track-features", ["track-features", "seq.npz", "--out", "tracks.npz"],
-                        spied=False)
+    said, counts = timed_verb(out, "track-features", cli,
+                              ["track-features", "seq.npz", "--out", "tracks.npz"], tmp)
+    for line in said.splitlines():
+        print(f"  track-features: {line}", flush=True)
     tracks = np.load(path("tracks.npz"))
     out["track_ms_per_frame"] = float(re.search(r"([0-9.]+) ms/frame", said).group(1))
     out["track_survivors"] = int(re.search(r"(\d+) survivors", said).group(1))
@@ -2436,19 +2623,15 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
             or tracks["pts"].shape != (n_pairs + 1, 80, 2) or (np.diff(ids, axis=0) < 0).any()):
         raise AssertionError(f"track-features: {counts} launches, ids {ids.shape}")
 
-    said, _ = verb("calibrate-covariance", ["calibrate-covariance", "plain.npz"], spied=False)
+    said, _ = said_by["calibrate-covariance"]
     out["k_net_cov_fit"] = float(re.search(r"fitted k_net_cov: +([0-9.e+-]+)", said).group(1))
-    said, _ = verb("calibrate-state-covariance",
-                   ["calibrate-state-covariance", "plain.npz", "seq_state_gt.txt"], spied=False)
+    said, _ = said_by["calibrate-state-covariance"]
     fit = re.search(r"--cov-calib (.*)", said).group(1)
     out["cov_calib_fit"] = fit
     values = [out["k_net_cov_fit"]] + [float(kv.split(":")[1]) for kv in fit.split(",")]
     if not np.isfinite(values).all():
         raise AssertionError(f"calibration fits not finite: {values}")
-    proc = subprocess.run([sys.executable, "-m", "cuahn_vio_torch.cli",
-                           "calibrate-state-covariance", "state.npz", "seq_state_gt.txt"],
-                          cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-                          text=True, timeout=600)
+    proc = done[-1]
     out["inflated_log_refused"] = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
     if proc.returncode == 0 or "already inflated" not in proc.stderr or "'pos': 2.0" not in (
             proc.stderr):
@@ -2467,6 +2650,291 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         out["eval_flow_by_batch"][b] = dict(
             row, launches=[w for w, _ in out["eval_flow_warps"]].count(b), max_abs_err=err)
     del out["eval_flow_warps"]
+    return out
+
+
+def tune_sequence(seq, opts, tmp: str) -> dict:
+    """Phase 16a's inputs in ``tmp``: ``seq.npz`` (IMU arrays and cam_t),
+    ``seq_gt.txt`` and ``seq_config.yaml`` of the smoke's sequence, from
+    the card's ``make_sequence`` (``seq``) where it equals the CPU's
+    (TUNE_SEQ), else from TUNE_SEQ; returns how far apart they are."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval.traj_io import load_pose_file, save_pose_file
+
+    ref = np.load(os.path.join(REPO, TUNE_SEQ))
+    save_pose_file(os.path.join(tmp, "card_gt.txt"), seq.gt_times, seq.gt_pose_w)
+    card_gt = load_pose_file(os.path.join(tmp, "card_gt.txt"))
+    card = dict(imu_t=seq.imu_t, imu_w=seq.imu_w, imu_a=seq.imu_a, cam_t=seq.cam_t,
+                gt_times=card_gt.times, gt_poses=card_gt.poses,
+                init_height=float(seq.gt_pose_w[0, 2]))
+    diff = {k: float(np.abs(np.asarray(card[k], np.float64) - ref[k]).max()) for k in card}
+    src = card if not any(diff.values()) else {k: ref[k] for k in card}
+    np.savez(os.path.join(tmp, "seq.npz"), **{k: src[k] for k in ("imu_t", "imu_w", "imu_a",
+                                                                  "cam_t")})
+    save_pose_file(os.path.join(tmp, "seq_gt.txt"), src["gt_times"], src["gt_poses"])
+    dataclasses.replace(opts, init_height=float(src["init_height"])).to_yaml(
+        os.path.join(tmp, "seq_config.yaml"))
+    return {"sequence": "card" if src is card else "TUNE_SEQ (the card's differs)",
+            "card_vs_cpu_max_abs_diff": {k: v for k, v in diff.items() if v}}
+
+
+def rows_against_jax(rows: list, jax_rows: list, tol_m: float) -> dict:
+    """Phase 16a's check: each port row against the JAX row of its
+    grid_index (ate_pos within ``tol_m``, the same inf, the same n_gated)
+    and the first TUNE_TOP rows in the JAX order up to near-ties (two rows
+    whose ate_pos are within ``tol_m`` may trade places). Raises on a
+    failed check."""
+    import math
+
+    by_index = {r["grid_index"]: r for r in rows}
+    if len(rows) != len(jax_rows) or set(by_index) != {r["grid_index"] for r in jax_rows}:
+        raise AssertionError(f"{len(rows)} rows against the JAX verb's {len(jax_rows)}")
+    worst, n_inf = 0.0, 0
+    for jr in jax_rows:
+        tr = by_index[jr["grid_index"]]
+        a, b = tr["ate_pos"], jr["ate_pos"]
+        if math.isinf(a) != math.isinf(b):
+            raise AssertionError(f"grid point {jr['grid_index']}: ate_pos {a} against {b}")
+        n_inf += math.isinf(b)
+        if not math.isinf(b):
+            worst = max(worst, abs(a - b))
+        if tr.get("n_gated") != jr.get("n_gated"):
+            raise AssertionError(f"grid point {jr['grid_index']}: n_gated {tr.get('n_gated')} "
+                                 f"against {jr.get('n_gated')}")
+    if not worst <= tol_m:
+        raise AssertionError(f"ate_pos {worst:.3e} m from the JAX rows (tolerance {tol_m:.0e})")
+    ate = {r["grid_index"]: r["ate_pos"] for r in jax_rows}
+    for k, (tr, jr) in enumerate(zip(rows[:TUNE_TOP], jax_rows[:TUNE_TOP])):
+        if tr["grid_index"] != jr["grid_index"] and \
+                not abs(ate[tr["grid_index"]] - ate[jr["grid_index"]]) <= tol_m:
+            raise AssertionError(f"top row {k}: grid point {tr['grid_index']}, JAX "
+                                 f"{jr['grid_index']}")
+    return dict(rows=len(rows), inf_rows=n_inf, max_ate_pos_diff_m=worst,
+                top=[r["grid_index"] for r in rows[:TUNE_TOP]],
+                jax_top=[r["grid_index"] for r in jax_rows[:TUNE_TOP]])
+
+
+def run_sweep(torch, dev, seq, opts, tmp: str) -> dict:
+    """Phase 16a: ``tune-filter`` in this process on the card over the
+    smoke's sequence and TUNE_LOG at TUNE_GRID, under the port's
+    ``ResourceMonitor`` of this process; every row held to the JAX verb's
+    (``rows_against_jax``). Returns what the checks found; raises on a
+    failed one."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cuahn_vio_torch import cli as tcli
+    from cuahn_vio_torch.eval.recorder import ResourceMonitor
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    out = tune_sequence(seq, opts, tmp)
+    frames = len(np.load(os.path.join(REPO, TUNE_LOG))["times"])
+    argv = ["tune-filter", os.path.join(tmp, "seq.npz"), os.path.join(REPO, TUNE_LOG),
+            os.path.join(tmp, "seq_gt.txt"), "--config", os.path.join(tmp, "seq_config.yaml"),
+            *TUNE_GRID, "--out", os.path.join(tmp, "rows.jsonl")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    said = io.StringIO()
+    with ResourceMonitor(interval=0.5) as mon, contextlib.redirect_stdout(said):
+        t0 = time.perf_counter()
+        tcli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if any(launch_counts.values()):
+        raise AssertionError(f"the sweep launched kernels: {dict(launch_counts)}")
+    with open(os.path.join(tmp, "rows.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(REPO, TUNE_ROWS)) as f:
+        jax_rows = [json.loads(line) for line in f]
+    if len(rows) != TUNE_POINTS or f"sweeping {TUNE_POINTS} grid points" not in said.getvalue():
+        raise AssertionError(f"the sweep wrote {len(rows)} rows, not {TUNE_POINTS}")
+    out.update(rows_against_jax(rows, jax_rows, TUNE_ATE_TOL_M))
+    out.update(grid_points=TUNE_POINTS, frames=frames, sweep_s=seconds,
+               filter_replays_per_s=TUNE_POINTS * frames / seconds,
+               peak_device_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               process_monitor=mon.summary, best_ate_pos_m=rows[0]["ate_pos"])
+    return out
+
+
+def run_schur(torch, dev, loop_dir: str, mesh_said: str) -> dict:
+    """Phase 16b: ``optimize_sharded`` with SCHUR_BLOCKS blocks on the card
+    at phase 13's loop-closure graph (``cli.smoothing_graph`` of its
+    ``smooth-trajectory`` arguments), against the dense ``optimize`` there:
+    positions within SCHUR_POS_TOL_M, the final cost at most
+    SCHUR_COST_DROP of the first, GN_REPEATS repeats bit-identical; ms per
+    GN iteration of both; then phase 13's ``smooth-trajectory --mesh``
+    (its output ``mesh_said``; no kernel launched, as phase 13 checked),
+    its poses within SCHUR_POS_TOL_M of phase 13's dense smoothing.
+    Returns what the checks found; raises on a failed one."""
+    import numpy as np
+
+    from cuahn_vio_torch import cli as tcli
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.parallel import pose_graph as pg
+    from cuahn_vio_torch.parallel import pose_graph_sharded as pgs
+    from cuahn_vio_torch.parallel.mesh import make_mesh
+
+    est, loops = os.path.join(loop_dir, "est.txt"), os.path.join(loop_dir, "loops.txt")
+    args = tcli.build_parser().parse_args(
+        ["smooth-trajectory", est, "--loops-file", loops, "--out", os.devnull])
+    _, graph = tcli.smoothing_graph(args, dev)
+    mesh = make_mesh(dev)
+    sg = pgs.partition_graph(graph, SCHUR_BLOCKS)
+    reset_launch_counts()
+    p_dense, _, _ = pg.optimize(graph, iters=args.iters)
+    first = pgs.optimize_sharded(sg, mesh, iters=args.iters)
+    same = all(all(torch.equal(x, y) for x, y in zip(pgs.optimize_sharded(sg, mesh,
+                                                                          iters=args.iters),
+                                                     first))
+               for _ in range(GN_REPEATS - 1))
+    p, _ = pgs.reassemble(sg, *first[:4], mesh)
+    costs = first[4].cpu().numpy()
+    diff = float(np.abs(p - p_dense.cpu().numpy()).max())
+    out = dict(unknowns=6 * len(graph.p), blocks=SCHUR_BLOCKS, separators=len(sg.sep_idx),
+               interiors_per_block=int(sg.int_idx.shape[1]),
+               factors_per_block=int(sg.pos_i.shape[1]), max_pos_diff_from_dense_m=diff,
+               cost_first=float(costs[0]), cost_last=float(costs[-1]),
+               **{f"bit_identical_x{GN_REPEATS}": same})
+    if any(launch_counts.values()):
+        raise AssertionError(f"the smoothers launched kernels: {dict(launch_counts)}")
+    if not same:
+        raise AssertionError("the Schur smoother's repeats differ")
+    if not (diff <= SCHUR_POS_TOL_M and costs[-1] <= SCHUR_COST_DROP * costs[0]):
+        raise AssertionError(f"Schur smoother: {diff:.3e} m from the dense solve, cost "
+                             f"{costs[0]:.4g} -> {costs[-1]:.4g}")
+    for name, fn in (("schur", lambda n: pgs.optimize_sharded(sg, mesh, iters=n)),
+                     ("dense", lambda n: pg.optimize(graph, iters=n))):
+        ms = gn_call_ms(torch, fn)
+        out[f"{name}_ms_per_iteration"] = (ms[11] - ms[1]) / 10
+    meshed = load_pose_file(os.path.join(loop_dir, "smoothed_mesh.txt")).poses
+    dense = load_pose_file(os.path.join(loop_dir, "smoothed.txt")).poses
+    out["cli_mesh_max_pos_diff_from_dense_m"] = float(np.abs(meshed[:, :3] - dense[:, :3]).max())
+    if "sharded GN over 1 devices" not in mesh_said or not (
+            out["cli_mesh_max_pos_diff_from_dense_m"] <= SCHUR_POS_TOL_M):
+        raise AssertionError(f"smooth-trajectory --mesh: {mesh_said!r}, "
+                             f"{out['cli_mesh_max_pos_diff_from_dense_m']:.3e} m from dense")
+    return out
+
+
+def selftest_verb(tmp: str) -> tuple[str, dict]:
+    """Phase 16c's verb: ``distributed-selftest`` through the CLI as one
+    process on the card, writing ``tmp``/selftest.json (run beside phase
+    13's smoothings)."""
+    return cli(["distributed-selftest", "--out", "selftest.json"], tmp)
+
+
+def run_selftest_phase(torch, dev, tmp: str, counts: dict) -> dict:
+    """Phase 16c: the checksums of ``selftest_verb`` (its launch counts
+    ``counts``) within SELFTEST_RTOL of JAX_SELFTEST; then the ``--bench``
+    workload in this process at SELFTEST_BENCH's size (its rate). Returns
+    what the checks found; raises on a failed one."""
+    import numpy as np
+
+    from cuahn_vio_torch.parallel.selftest import run_selftest_bench
+
+    with open(os.path.join(tmp, "selftest.json")) as f:
+        res = json.load(f)
+    out = {k: res[k] for k in ("n_processes", "n_devices", "device", "filter_pos_checksum",
+                               "filter_cov_checksum", "pose_checksum", "pose_final_cost")}
+    for key, want in JAX_SELFTEST.items():
+        if not np.isclose(res[key], want, rtol=SELFTEST_RTOL, atol=0):
+            raise AssertionError(f"selftest {key} {res[key]!r} against JAX {want!r}")
+    if res["n_processes"] != 1 or not res["device"].startswith("cuda") or any(counts.values()):
+        raise AssertionError(f"selftest ran as {res}, launches {counts}")
+    bench = run_selftest_bench(device=dev, **SELFTEST_BENCH)
+    out.update(bench_frames=bench["bench_frames"], bench_seconds=bench["bench_seconds"],
+               bench_frames_per_s=bench["bench_frames_per_s"], **SELFTEST_BENCH)
+    return out
+
+
+def run_batch_mesh_and_verbs(torch, dev, seqs, results, opts, tmp: str, cli_dir: str) -> dict:
+    """Phase 16d in ``tmp``: ``run-vio-batch --mesh`` (in this process, the
+    CLI's ``main``) on phase 6's sequences cut to their first
+    MESH_BATCH_FRAMES frame pairs, each pose file equal byte for byte to
+    those frames of phase 6's result (``results``, the run without
+    ``--mesh``) written as the verb writes them; then ``error-dataset``,
+    ``error-comparison`` (their ATE that of ``error-singlerun`` on the same
+    file, to the 4 decimals they print), ``align-trajectory``,
+    ``timing-comparison`` (on phase 10's timing csv) and ``pid-monitor`` of
+    a child process (one JSON line, the JAX verb's keys), as subprocesses
+    side by side. Returns what the checks found."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cuahn_vio_torch import cli as tcli
+    from cuahn_vio_torch.eval.traj_io import save_pose_file
+    from cuahn_vio_torch.ops import warp
+    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.ops.cuda.warp import KERNEL
+
+    path = lambda *parts: os.path.join(tmp, *parts)  # noqa: E731
+    for sub in ("nomesh", "gt", os.path.join("algos", "port")):
+        os.makedirs(path(sub), exist_ok=True)
+    names = [f"seq{i}" for i in range(len(seqs))]
+    k = MESH_BATCH_FRAMES
+    for name, s, res in zip(names, seqs, results):
+        cut = cut_sequence(s, res, k)
+        np.savez(path(f"{name}.npz"), imu_t=cut.imu_t, imu_w=cut.imu_w, imu_a=cut.imu_a,
+                 cam_t=cut.cam_t, frames=cut.frames)
+        save_pose_file(path("gt", f"{name}.txt"), s.gt_times, s.gt_pose_w)
+        save_pose_file(path("nomesh", f"{name}.txt"), res.times[:k], res.pose_w[:k],
+                       res.cov_ori[:k], res.cov_pos[:k])
+    opts.to_yaml(path("batch_config.yaml"))
+    warp.BATCH_SAMPLER = "full"
+    reset_launch_counts()
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        tcli.main(["run-vio-batch", *[path(f"{n}.npz") for n in names], "--config",
+                   path("batch_config.yaml"), "--weights", WEIGHTS, "--out-dir",
+                   path("algos", "port"), "--mesh"])
+    out = dict(batch_frames=k, batch_mesh_s=round(time.perf_counter() - t0, 3),
+               batch_mesh_warp_launches=launch_counts[KERNEL])
+    if f"sharding {len(names)} sequences over 1 devices" not in said.getvalue():
+        raise AssertionError(f"run-vio-batch --mesh said {said.getvalue()!r}")
+    unequal = [n for n in names if open(path("algos", "port", f"{n}.txt"), "rb").read()
+               != open(path("nomesh", f"{n}.txt"), "rb").read()]
+    out["batch_mesh_files_equal"] = not unequal
+    if unequal:
+        raise AssertionError(f"run-vio-batch --mesh: {unequal} differ from phase 6's run")
+
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    try:
+        (sr, _), (ds, _), (cmp, _), (al, _), (tc, _), (pm, _) = side_by_side(
+            (cli, ["error-singlerun", "se3", path("gt", "seq0.txt"),
+                   path("algos", "port", "seq0.txt")], tmp),
+            (cli, ["error-dataset", "se3", path("gt", "seq0.txt"), path("nomesh")], tmp),
+            (cli, ["error-comparison", "se3", path("gt"), path("algos")], tmp),
+            (cli, ["align-trajectory", path("gt", "seq0.txt"),
+                   path("algos", "port", "seq0.txt"), "--method", "se3", "--out",
+                   path("aligned_gt.txt")], tmp),
+            (cli, ["timing-comparison", os.path.join(cli_dir, "t.csv")], tmp),
+            (cli, ["pid-monitor", str(child.pid), "--duration", "1.0"], tmp))
+    finally:
+        child.kill()
+        child.wait()
+    singlerun = float(sr.split("pos: rmse ")[1].split()[0])
+    dataset = float(ds.splitlines()[1].split()[1])  # the seq0 row
+    row = cmp.splitlines()[-1].split()  # port, then one column a sequence
+    comparison = float(row[1])
+    out.update(ate_error_singlerun_m=singlerun, ate_error_dataset_m=dataset,
+               ate_error_comparison_m=comparison, error_comparison_row=" ".join(row))
+    if not (abs(dataset - singlerun) <= 5e-5 and abs(comparison - singlerun) <= 5e-5):
+        raise AssertionError(f"ATE: error-dataset {dataset}, error-comparison {comparison}, "
+                             f"error-singlerun {singlerun}")
+    out["align_trajectory"] = al.strip()
+    out["timing_comparison_rows"] = len(tc.splitlines())
+    summary = json.loads(pm.splitlines()[-1])
+    out["pid_monitor"] = summary
+    if set(summary) != {"samples", "cpu_mean_pct", "cpu_max_pct", "rss_mean_mb", "rss_max_mb"}:
+        raise AssertionError(f"pid-monitor printed {summary}")
     return out
 
 
@@ -2546,9 +3014,10 @@ def main() -> int:
     if not os.path.exists(WEIGHTS):
         print(f"chip_smoke: weights missing: {WEIGHTS}", file=sys.stderr)
         return 2
-    if not all(BATCH_ATE_BARS_M) or RAW_ATE_BAR_M is None or LOOP_ATE_BAR_M is None:
-        print("chip_smoke: BATCH_ATE_BARS_M, RAW_ATE_BAR_M or LOOP_ATE_BAR_M not set "
-              "(smoke_reference.py)", file=sys.stderr)
+    if (not all(BATCH_ATE_BARS_M) or RAW_ATE_BAR_M is None or LOOP_ATE_BAR_M is None
+            or TUNE_ATE_TOL_M is None or JAX_SELFTEST is None):
+        print("chip_smoke: BATCH_ATE_BARS_M, RAW_ATE_BAR_M, LOOP_ATE_BAR_M, TUNE_ATE_TOL_M or "
+              "JAX_SELFTEST not set (smoke_reference.py)", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -2662,10 +3131,11 @@ def main() -> int:
     b1_launches = {"4": warp_launches}
     for staged in (True, False):
         t0 = time.perf_counter()
-        sw, sw_launches, sw_seconds = run_stepwise_phase(torch, dev, seq, opts, model, staged)
+        sw, sw_launches, sw_seconds = run_stepwise_phase(
+            torch, dev, cut_sequence(seq, slice_res, STEPWISE_FRAMES), opts, model, staged)
         mode = "staged" if staged else "fused"
         b1_launches[f"8 {mode}"] = sw_launches[warp_cuda.KERNEL]
-        diff = float(np.abs(sw.pose_w[:, :3] - slice_res.pose_w[:, :3]).max())
+        diff = float(np.abs(sw.pose_w[:, :3] - slice_res.pose_w[:len(sw.times), :3]).max())
         median = np.median(sw.stage_ms, axis=0)  # fused: the whole step under "net"
         phase("stepwise", t0, mode=mode, frames=len(sw.times),
               ms_per_frame=f"{sw_seconds * 1e3 / len(sw.times):.3f}",
@@ -2682,7 +3152,7 @@ def main() -> int:
         if sw.n_recoveries or not np.isfinite(sw.pose_w).all():
             raise AssertionError(f"stepwise {mode}: {sw.n_recoveries} rollbacks or "
                                  "non-finite poses")
-        if sw.stage_ms.shape != (len(sw.times), 5) or len(sw.times) != steps:
+        if sw.stage_ms.shape != (len(sw.times), 5) or len(sw.times) != STEPWISE_FRAMES:
             raise AssertionError(f"stepwise {mode}: stage_ms {sw.stage_ms.shape}")
         if not diff <= STEPWISE_POS_TOL_M:
             raise AssertionError(f"stepwise {mode}: poses {diff:.3e} m from phase 4's")
@@ -2709,9 +3179,6 @@ def main() -> int:
     if found["warp_launches"] != 3 * (found["poses"] + 1) * iekf or found["other_launches"]:
         raise AssertionError(f"run-vio --timing-out: {found['warp_launches']} warp launches "
                              f"for {found['poses']} poses")
-    if not found["cov_rel_diff"] <= 1e-6:
-        raise AssertionError(f"--cov-calib: npz covariance {found['cov_rel_diff']:.3e} from the "
-                             "inflated plain run's")
 
     t0 = time.perf_counter()
     trained = run_train(torch, dev, seq, opts)
@@ -2730,6 +3197,12 @@ def main() -> int:
     main_run = trained["runs"][0]  # the main path's launches: the first run's
     probe_size = trained["probe_size"]
 
+    loop_dir = tempfile.TemporaryDirectory()  # phase 13's files, read again in phase 16b
+    parallel_dir = tempfile.TemporaryDirectory()  # phase 16's files
+    # phase 10's plain run-vio and phase 13's first two verbs from here on, beside phase 12
+    t_loop_run = time.perf_counter()
+    plain = started(plain_run, cli_dir.name)
+    loop_first = started(loop_run, loop_dir.name, iekf)
     t0 = time.perf_counter()
     raw = run_raw_chain(torch, dev, cli_dir.name, model, iekf)
     b1_launches["12"] = raw["warp_launches"]
@@ -2740,9 +3213,18 @@ def main() -> int:
         raise AssertionError(f"raw-camera chain ATE {raw['ate_pos_m']:.5f} m above the bar "
                              f"{RAW_ATE_BAR_M:.5f} m")
 
-    loop_dir = tempfile.TemporaryDirectory()  # phase 13's files, read again in phase 14
     t0 = time.perf_counter()
-    loop = run_loop(torch, dev, loop_dir.name, iekf)
+    phase("cli", t0, part="the plain run-vio, started with phase 12", **plain.result())
+    t0 = time.perf_counter()
+    first = loop_first.result()
+    phase("loop", t0, part="make-synthetic and run-vio, started with phase 12",
+          waited_s=f"{time.perf_counter() - t0:.3f}",
+          since_start_s=f"{time.perf_counter() - t_loop_run:.3f}")
+    t0 = time.perf_counter()
+    loop = run_loop(torch, dev, loop_dir.name, first,
+                    {"selftest": lambda: selftest_verb(parallel_dir.name)})
+    mesh_said = loop.pop("smooth_mesh_said")
+    _, selftest_counts = loop.pop("selftest")
     phase("loop", t0, gpu=f"'{gpu}'", ate_bar_m=f"{LOOP_ATE_BAR_M:.5f}",
           jax_ate_pos_m_smoothed=f"{REF_LOOP_ATE_M:.5f}",
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in loop.items()})
@@ -2755,7 +3237,6 @@ def main() -> int:
     fil_run = run_fil(torch, dev, {"cli": os.path.join(cli_dir.name, "seq_gt.txt"),
                                    "loop": os.path.join(loop_dir.name, "replay_gt.txt")},
                       seq, opts)
-    loop_dir.cleanup()
     phase("fil", t0, gpu=f"'{gpu}'", steps=FIL_STEPS, window=FIL_WINDOW, batch=FIL_BATCH,
           v10_ate_pos_m=f"{ate_pos:.5f}",
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in fil_run.items()})
@@ -2765,10 +3246,30 @@ def main() -> int:
     phase("diagnostics", t0, part="15a card vs CPU", **vision)
     t0 = time.perf_counter()
     diag = run_diagnostics(torch, dev, cli_dir.name)
-    cli_dir.cleanup()
     phase("diagnostics", t0, part="15b verbs", gpu=f"'{gpu}'",
           flow_rmse_bars_px=FLOW_RMSE_BARS_PX,
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in diag.items()})
+
+    t0 = time.perf_counter()
+    sweep = run_sweep(torch, dev, seq, opts, parallel_dir.name)
+    phase("sweep", t0, part="16a tune-filter", gpu=f"'{gpu}'", tol_m=TUNE_ATE_TOL_M, **sweep)
+    t0 = time.perf_counter()
+    schur = run_schur(torch, dev, loop_dir.name, mesh_said)
+    loop_dir.cleanup()
+    phase("parallel", t0, part="16b Schur smoother", gpu=f"'{gpu}'", **schur)
+    t0 = time.perf_counter()
+    selftest = run_selftest_phase(torch, dev, parallel_dir.name, selftest_counts)
+    phase("parallel", t0, part="16c distributed-selftest", gpu=f"'{gpu}'",
+          jax=JAX_SELFTEST, **selftest)
+    t0 = time.perf_counter()
+    verbs = run_batch_mesh_and_verbs(torch, dev, batch_seqs, results, opts, parallel_dir.name,
+                                     cli_dir.name)
+    cli_dir.cleanup()
+    parallel_dir.cleanup()
+    phase("parallel", t0, part="16d run-vio-batch --mesh and the eval verbs", **verbs)
+    if verbs["batch_mesh_warp_launches"] != 3 * MESH_BATCH_FRAMES * iekf:
+        raise AssertionError(f"run-vio-batch --mesh: {verbs['batch_mesh_warp_launches']} warp "
+                             f"launches, expected 3 x {MESH_BATCH_FRAMES} x {iekf}")
 
     nb = len(batch_seqs)
 
@@ -2837,6 +3338,8 @@ def main() -> int:
         for b, row in diag["eval_flow_by_batch"].items()
     ]
     kernels[0]["launches_by_phase"]["13"] = loop["run_vio_warp_launches"]
+    kernels[1]["launches_by_phase"] = {"6": batch_warp_launches,
+                                       "16": verbs["batch_mesh_warp_launches"]}
     kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2849,5 +3352,17 @@ def main() -> int:
     return 0
 
 
+def stop_children() -> None:
+    for proc in list(CHILDREN):
+        proc.kill()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    watchdog = threading.Timer(WALL_LIMIT_S - 2, stop_children)  # before the wall limit's exit
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

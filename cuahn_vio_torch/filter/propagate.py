@@ -176,12 +176,12 @@ def propagate_step(state: FilterState, params: FilterParams, w_m, a_m, dt) -> Fi
         # OU bias block: joint transition diag(F, rho I8), so
         # C <- rho F C, B <- rho^2 B + (1 - rho^2) s^2 I; dt = 0 -> rho = 1
         rho = torch.exp(-dt / params.bias_tau)
-        sig2 = params.bias_sigma ** 2
         eye8 = torch.eye(8, dtype=state.p.dtype, device=state.p.device)
         new_mean = new_mean._replace(
             bias=rho * state.bias,
             cov_xb=rho * (f @ state.cov_xb),
-            cov_bb=rho**2 * state.cov_bb + (1.0 - rho**2) * sig2 * eye8,
+            cov_bb=(rho**2 * state.cov_bb
+                    + (1.0 - rho**2) * params.bias_sigma * params.bias_sigma * eye8),
         )
     return new_mean
 

@@ -53,7 +53,10 @@ class FilterState(NamedTuple):
 
 class FilterParams(NamedTuple):
     """Static filter parameters. Matrices are tensors on the filter's
-    device; scalars are Python floats."""
+    device. The six scalar knobs are Python floats (``make_params``) or
+    0-d tensors on that device; the grid sweep (``eval.tuning``) stacks
+    whole FilterParams, every field with a leading grid dim, and maps the
+    filter over them with ``torch.func.vmap``."""
 
     c_rot_i: torch.Tensor  # (3, 3) rotation IMU -> camera
     i_t_i2c: torch.Tensor  # (3,)   IMU -> camera offset, in IMU frame
@@ -97,17 +100,23 @@ def make_params(
     q[6:9, 6:9] = eye3 * (q_scale * sigma_ab**2)
     q[9:12, 9:12] = eye3 * (q_scale * sigma_wb**2)
     q[12:15, 12:15] = eye3 * extra_pos_noise
+
+    def knob(v: float) -> float:
+        # the nearest value of ``dtype``, as the JAX package's arrays hold
+        # it: then a 0-d tensor of the knob gives the filter the same bits
+        return torch.tensor(float(v), dtype=dtype).item()
+
     return FilterParams(
         c_rot_i=c_rot_i.contiguous(),
         i_t_i2c=i_t_i2c,
         gravity=torch.tensor([0.0, 0.0, -gravity_mag], dtype=dtype, device=device),
         q_noise=q,
-        k_net_cov=float(k_net_cov),
-        chi2_gate=float(chi2_gate),
-        bias_sigma=float(bias_sigma_px) / FOCAL,
-        bias_tau=float(bias_tau),
-        chi2_soft=float(chi2_soft),
-        echo_beta=float(echo_beta),
+        k_net_cov=knob(k_net_cov),
+        chi2_gate=knob(chi2_gate),
+        bias_sigma=knob(float(bias_sigma_px) / FOCAL),
+        bias_tau=knob(bias_tau),
+        chi2_soft=knob(chi2_soft),
+        echo_beta=knob(echo_beta),
     )
 
 
@@ -115,11 +124,11 @@ def with_bias_block(state: FilterState, params: FilterParams) -> FilterState:
     """Attach an inert-at-zero measurement-bias block: b = 0, cross-cov 0,
     bias cov at its stationary value sigma_b^2 I."""
     p = state.p
-    sig2 = params.bias_sigma ** 2
     return state._replace(
         bias=p.new_zeros(8),
         cov_xb=p.new_zeros((27, 8)),
-        cov_bb=torch.eye(8, dtype=p.dtype, device=p.device) * sig2,
+        cov_bb=torch.eye(8, dtype=p.dtype, device=p.device) * params.bias_sigma
+        * params.bias_sigma,
     )
 
 

@@ -62,8 +62,10 @@ def innovation_stats(state: FilterState, params: FilterParams,
     eye8 = torch.eye(8, dtype=net_cov88.dtype, device=net_cov88.device)
     net_cov88 = torch.where(meas_finite, net_cov88, eye8)
 
-    e = 1.0 - params.echo_beta  # effective Jacobian e H (prior-echo model)
-    p_meas = e * e * state.cov[idx][:, idx]
+    # effective Jacobian e H (prior-echo model); each knob meets a tensor
+    # before another knob, so a float and a 0-d tensor give the same bits
+    e = 1.0 - params.echo_beta
+    p_meas = e * (e * state.cov[idx][:, idx])
     pred = propagated_offset8(state)
     if state.bias is not None:
         hc = e * state.cov_xb[idx]
@@ -96,6 +98,7 @@ def hnet_update(state: FilterState, params: FilterParams,
 
     # adaptive covariance matching: inflate the network part of S by
     # chi2/chi2_soft when the innovation is far outside its covariance
+    # (chi2_soft = inf, float or 0-d tensor: chi2 / inf = 0, so lam = 1)
     r_net = params.k_net_cov * net_cov88.to(dtype) / FOCAL2
     lam = torch.clamp(chi2 / params.chi2_soft, min=1.0)
     s_mat = s_mat + (lam - 1.0) * r_net

@@ -1,13 +1,14 @@
-"""Batched evaluation: many sequences in lockstep on one device.
+"""Batched evaluation: many sequences in lockstep, sharded over the mesh.
 
-Counterpart of ``cuahn_vio.parallel.sharded_eval``, in part:
-``batched_run_sequences`` with ``mesh=None``, the ``run-vio-batch`` path
-on one card. B sequences, padded to a common frame count
-(``pipeline.runner.prepare_batch``), run through the batched
-``run_sequence``: the filter recurrence stays serial per sequence, and one
-frame's host dispatch is shared by the B sequences. Sharding the batch
-over a device mesh (``mesh``) and ``aggregate_rmse`` wait for the port's
-parallel slice.
+Counterpart of ``cuahn_vio.parallel.sharded_eval``: ``batched_run_sequences``
+(the ``run-vio-batch`` path) and ``aggregate_rmse``. B sequences, padded to
+a common frame count (``pipeline.runner.prepare_batch``), run through the
+batched ``run_sequence``: the filter recurrence stays serial per sequence,
+and one frame's host dispatch is shared by the sequences of a device. With
+a mesh, each rank runs its contiguous shard of the B sequences
+(``mesh.shard_batch``); a one-device mesh runs them all, as ``mesh=None``
+does. ``aggregate_rmse`` sums squared errors over the rank's sequences,
+then over the ranks (``all_reduce``), in place of the JAX ``psum``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from cuahn_vio_torch.filter.state import FilterParams, FilterState
+from cuahn_vio_torch.parallel.mesh import Mesh, all_reduce_sum, shard_batch, shard_bounds
 from cuahn_vio_torch.pipeline.vio import VioConfig, run_sequence
 
 
@@ -32,18 +34,32 @@ def batched_run_sequences(
     dt_win: torch.Tensor,  # (B, F, T)
     n_used,  # (B, F) host ints: real IMU intervals per sequence and frame
     generator: Optional[torch.Generator],
-    mesh=None,
+    mesh: Optional[Mesh] = None,
 ):
-    """Run B sequences in lockstep on their device.
+    """Run B sequences in lockstep on their device, or this rank's shard
+    of them over ``mesh`` (its axis ``seq``; the model and parameters on
+    the rank's device).
 
-    Each frame propagates to the largest ``n_used`` of the batch (the dt = 0
-    steps after a sequence's own count are exact identities). Returns
-    (final states, FrameOutput) with leading axis B.
+    Each frame propagates to the largest ``n_used`` of the (shard's) batch
+    (the dt = 0 steps after a sequence's own count are exact identities).
+    Returns (final states, FrameOutput) with a leading axis of the
+    sequences run here: all B without a mesh or on a one-device mesh.
     """
+    n_used = np.asarray(n_used)
     if mesh is not None:
-        raise NotImplementedError(
-            "sharding the batch over a device mesh is not ported yet; pass mesh=None"
-        )
-    n_max = np.asarray(n_used).max(axis=0)
+        lo, hi = shard_bounds(imgs_u8.shape[0], mesh)
+        states0, imgs_u8, w_win, a_win, dt_win = shard_batch(
+            (states0, imgs_u8, w_win, a_win, dt_win), mesh)
+        n_used = n_used[lo:hi]
     return run_sequence(states0, model, fparams, cfg, imgs_u8, w_win, a_win,
-                        dt_win, n_max, generator)
+                        dt_win, n_used.max(axis=0), generator)
+
+
+def aggregate_rmse(err_by_seq: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """RMSE of per-frame errors over every rank's sequences: this rank's
+    (B_local, F) errors squared and summed, then summed over the ranks
+    with their element counts."""
+    ss = all_reduce_sum(torch.sum(err_by_seq * err_by_seq).reshape(1), mesh)
+    n = all_reduce_sum(torch.tensor([err_by_seq.numel()], dtype=ss.dtype,
+                                    device=ss.device), mesh)
+    return torch.sqrt(ss / n)[0]

@@ -386,21 +386,28 @@ def prepare_batch(sequences, opts: RunnerOptions, fparams: FilterParams,
     )
 
 
-def batch_results(outs: FrameOutput, batch: BatchInputs) -> list:
-    """One RunResult per sequence, trimmed to its own frames."""
+def batch_results(outs: FrameOutput, batch: BatchInputs, first: int = 0) -> list:
+    """One RunResult per sequence of ``outs``, trimmed to its own frames;
+    ``outs`` holds the batch's sequences from index ``first`` on (a
+    rank's shard)."""
+    per_seq = list(zip(batch.n_frames, batch.times, batch.t0))[first:first + outs.p_world.shape[0]]
     return [
         _outputs_to_result(FrameOutput(*(x[i, :nf] for x in outs)), times, t0)
-        for i, (nf, times, t0) in enumerate(zip(batch.n_frames, batch.times, batch.t0))
+        for i, (nf, times, t0) in enumerate(per_seq)
     ]
 
 
 def run_offline_batch(sequences, model: Optional[Any], fparams: FilterParams,
                       cfg: VioConfig, opts: RunnerOptions, seed: int = 0,
-                      device="cuda") -> list:
+                      device="cuda", mesh=None) -> list:
     """``run_offline`` for many sequences in lockstep on one device: one
     RunResult per sequence. The model runs once per lockstep frame on all
     B frame pairs; MC-dropout masks come from one generator seeded with
-    ``seed``, drawn per frame for the whole batch."""
+    ``seed``, drawn per frame for the whole batch. With ``mesh``
+    (``parallel.mesh``) the sequences are sharded over its ranks, and the
+    results are this rank's sequences' (all of them on a one-device
+    mesh)."""
+    from cuahn_vio_torch.parallel.mesh import shard_bounds
     from cuahn_vio_torch.parallel.sharded_eval import batched_run_sequences
 
     device = _check_devices(model, fparams, device)
@@ -410,6 +417,7 @@ def run_offline_batch(sequences, model: Optional[Any], fparams: FilterParams,
     generator.manual_seed(seed)
     _, outs = batched_run_sequences(
         batch.states0, model, fparams, cfg, batch.imgs_u8, batch.w_win,
-        batch.a_win, batch.dt_win, batch.n_used, generator,
+        batch.a_win, batch.dt_win, batch.n_used, generator, mesh=mesh,
     )
-    return batch_results(outs, batch)
+    first = 0 if mesh is None else shard_bounds(len(batch.n_frames), mesh)[0]
+    return batch_results(outs, batch, first)

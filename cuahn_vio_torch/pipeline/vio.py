@@ -28,6 +28,13 @@ MC-dropout masks drawn per batch element from the one generator. The
 update gate ``frame_idx > update_gate_frames`` is a host bool shared by
 the batch, as in the JAX vmap. The single-sequence path calls the same
 functions without vmap.
+
+``run_sequence_with_measurements`` is the filter alone, driven by given
+measurements in place of the network (the oracle tests, the
+filter-parameter sweep of ``eval/tuning`` and the parallel self-test): a
+leading batch may sit on the state, on stacked filter parameters (a grid)
+or on the measurements, and the update of a frame whose measurement is
+not valid is dropped by a device-side ``torch.where``.
 """
 
 from __future__ import annotations
@@ -91,6 +98,12 @@ def _state_dims(state: FilterState) -> FilterState:
     return FilterState(*(None if x is None else 0 for x in state))
 
 
+def expand_state(state: FilterState, n: int) -> FilterState:
+    """The state repeated along a new leading batch dim of n."""
+    return FilterState(*(None if x is None else x.expand((n,) + x.shape).contiguous()
+                         for x in state))
+
+
 def _over_batch(fn: Callable, state: FilterState, *args, out_dims=0):
     """``fn(state, *args)`` for each element of a leading batch dim of the
     state's tensors and of ``args``; ``out_dims`` as for ``vmap`` (a
@@ -101,6 +114,27 @@ def _over_batch(fn: Callable, state: FilterState, *args, out_dims=0):
 
 def _single(fn: Callable, state: FilterState, *args, out_dims=0):
     return fn(state, *args)
+
+
+def _finish(state: FilterState, net_mean, net_cov88, net_chi2, net_inno, cov_meas):
+    """(the state after the 4-point offset reset, the frame's FrameOutput)
+    of one sequence."""
+    rot = quat_to_rot(state.q)
+    out = FrameOutput(
+        p_world=rot @ state.p,
+        q=state.q,
+        v_body=state.v,
+        cov_core=state.cov[:15, :15],
+        net_mean=net_mean,
+        net_cov_tr=torch.trace(net_cov88),
+        ba=state.ba,
+        bg=state.bg,
+        net_chi2=net_chi2,
+        net_inno=net_inno,
+        cov_meas=cov_meas,
+        net_cov88=net_cov88.to(state.p.dtype),
+    )
+    return reset_4pt_offset(state), out
 
 
 class VioStages(NamedTuple):
@@ -176,29 +210,11 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
                 )
             return state, (chi2, inno, cov_meas)
 
-    def finish(state: FilterState, net_mean, net_cov88, net_chi2, net_inno, cov_meas):
-        rot = quat_to_rot(state.q)
-        out = FrameOutput(
-            p_world=rot @ state.p,
-            q=state.q,
-            v_body=state.v,
-            cov_core=state.cov[:15, :15],
-            net_mean=net_mean,
-            net_cov_tr=torch.trace(net_cov88),
-            ba=state.ba,
-            bg=state.bg,
-            net_chi2=net_chi2,
-            net_inno=net_inno,
-            cov_meas=cov_meas,
-            net_cov88=net_cov88.to(state.p.dtype),
-        )
-        return reset_4pt_offset(state), out
-
     def finish_fn(state: FilterState, net_mean, net_cov88, calib):
         """The frame's outputs (world pose, RosVisualizer.cpp:171), then the
         4-point offset reset (VioManager.cpp:275)."""
         net_chi2, net_inno, cov_meas = calib
-        return run(finish, state, net_mean, net_cov88, net_chi2, net_inno, cov_meas,
+        return run(_finish, state, net_mean, net_cov88, net_chi2, net_inno, cov_meas,
                    out_dims=(_state_dims(state), 0))
 
     return VioStages(prop_fn, net_fn, upd_fn, finish_fn, refine_prior_fn, prior_fn)
@@ -288,5 +304,79 @@ def run_sequence(init_state: FilterState, model: Optional[Any],
         )
         outs.append(out)
     frame_dim = 1 if batched else 0
+    stacked = FrameOutput(*(torch.stack(field, frame_dim) for field in zip(*outs)))
+    return state, stacked
+
+
+def _params_dims(fparams: FilterParams):
+    """vmap dims of filter parameters: every field on dim 0 when stacked
+    (``eval.tuning._stack_params``: ``q_noise`` is then (G, 15, 15)),
+    None when shared."""
+    batched = fparams.q_noise.dim() == 3
+    return FilterParams(*((0 if batched else None) for _ in fparams)), batched
+
+
+def run_sequence_with_measurements(init_state: FilterState, fparams: FilterParams,
+                                   cfg: VioConfig, z_mean8: torch.Tensor,
+                                   z_cov88: torch.Tensor, z_valid: torch.Tensor,
+                                   w_win: torch.Tensor, a_win: torch.Tensor,
+                                   dt_win: torch.Tensor, n_used=None):
+    """The filter alone, driven by given measurements in place of the
+    network (JAX ``run_sequence_with_measurements``): each frame
+    propagates over its IMU window, takes the innovation statistics, the
+    EKF update (offsets not updated) where ``z_valid`` and past the
+    startup gate, the frame's outputs, then the 4-point offset reset.
+
+    Args:
+        z_mean8: (F, 8) measurement flows, pixels; z_cov88: (F, 8, 8)
+            their covariances, px²; z_valid: (F,) bool, apply the update.
+        w_win, a_win: (F, T, 3); dt_win: (F, T).
+        n_used: (F,) host ints, the real IMU intervals of each frame (the
+            rest is dt = 0 padding, skipped); None runs all T.
+
+    Batched: a leading batch dim on the state's tensors, on every field of
+    ``fparams`` (a stacked grid), on the measurements and windows, or on
+    any of them; the step runs under ``torch.func.vmap`` over whichever
+    are batched, and the outputs carry the batch. ``z_valid`` may differ
+    per batch element, so the update is kept or dropped by a device-side
+    ``torch.where``; only the startup gate ``frame_idx >
+    cfg.update_gate_frames`` is a host bool, as in ``make_vio_stages``.
+
+    Returns (final state, FrameOutput of ([B,] F, ...) stacked tensors).
+    """
+    p_dims, params_batched = _params_dims(fparams)
+    data_batched = z_mean8.dim() == 3
+    data_dims = 0 if data_batched else None
+
+    def step(gate_open: bool, steps: Optional[int]):
+        def one(state, fp, z, r, valid, w, a, dt):
+            state = propagate_window(state, fp, w, a, dt, steps)
+            inno, _, chi2, _, p_meas = innovation_stats(state, fp, z, r)
+            if gate_open:
+                upd = hnet_update(state, fp, z, r, update_offset=False)
+                state = FilterState(*(
+                    None if new is None else torch.where(valid, new, old)
+                    for new, old in zip(upd, state)
+                ))
+            return _finish(state, z, r, chi2, inno, p_meas)
+        return one
+
+    state = init_state
+    if state.p.dim() == 1 and (params_batched or data_batched):
+        # the step writes into matrices made from the state (``new_zeros``),
+        # which vmap batches only when the state is batched
+        n = fparams.q_noise.shape[0] if params_batched else z_mean8.shape[0]
+        state = expand_state(state, n)
+    outs = []
+    for f in range(z_mean8.shape[-2]):
+        fn = step(f > cfg.update_gate_frames, None if n_used is None else int(n_used[f]))
+        xs = (z_mean8[..., f, :], z_cov88[..., f, :, :], z_valid[..., f],
+              w_win[..., f, :, :], a_win[..., f, :, :], dt_win[..., f, :])
+        if state.p.dim() == 2:
+            fn = vmap(fn, in_dims=(_state_dims(state), p_dims) + (data_dims,) * len(xs),
+                      out_dims=(_state_dims(state), 0))
+        state, out = fn(state, fparams, *xs)
+        outs.append(out)
+    frame_dim = 1 if state.p.dim() == 2 else 0
     stacked = FrameOutput(*(torch.stack(field, frame_dim) for field in zip(*outs)))
     return state, stacked

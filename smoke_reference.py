@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|tune|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -60,6 +60,20 @@ printing each run's lines; the JAX ``track-features`` and the port's
 (their survivors from frame 0); and the JAX mean corner-error RMSE of each
 prior, its spread and the bar of ``chip_smoke.FLOW_RMSE_BARS_PX`` (that
 mean + ``chip_smoke.FLOW_RMSE_MARGIN_PX``).
+
+``tune`` (phase 16's references): makes the smoke's sequence as ``single``
+does, runs it through the JAX package's ``run-vio --state-out`` with the v10
+weights at seed 0, and writes the three keys of that log that
+``tune-filter`` reads (``times``, ``net_mean``, ``net_cov88``) to
+``chip_smoke.TUNE_LOG``, the sequence's IMU arrays, ``cam_t``, GT poses
+(as the GT file holds them) and ``init_height`` to ``chip_smoke.TUNE_SEQ`` (the card's ``make_sequence`` is held to them),
+and the JAX ``tune-filter`` rows of ``chip_smoke.TUNE_GRID`` (256 points)
+to ``chip_smoke.TUNE_ROWS``, all under ``tests/data/``. Then the port's
+``tune-filter --device cpu`` on the same files, printing its largest
+``ate_pos`` difference from the JAX rows (``chip_smoke.TUNE_ATE_TOL_M``
+is set from it), and the JAX package's single-process
+``distributed-selftest`` checksums on 8 fake CPU devices
+(``chip_smoke.JAX_SELFTEST``). ~10 min on the CPU.
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -303,11 +317,56 @@ def diag(env, out_dir: str, weights: str) -> None:
               f"{spread:.4f} px, bar {mean + chip_smoke.FLOW_RMSE_MARGIN_PX:.4f} px", flush=True)
 
 
+def tune(env, out_dir: str, weights: str) -> None:
+    import json
+
+    import chip_smoke
+
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    run(env, ["cuahn_vio.cli", "run-vio", path("seq.npz"), "--config", path("seq_config.yaml"),
+              "--weights", weights, "--out", path("est_tune.txt"), "--state-out",
+              path("state_tune.npz"), "--seed", "0"])
+    log = np.load(path("state_tune.npz"))
+    np.savez_compressed(os.path.join(REPO, chip_smoke.TUNE_LOG),
+                        **{k: log[k] for k in ("times", "net_mean", "net_cov88")})
+    seq = np.load(path("seq.npz"))
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    gt = load_pose_file(path("seq_gt.txt"))
+    np.savez_compressed(os.path.join(REPO, chip_smoke.TUNE_SEQ),
+                        **{k: seq[k] for k in ("imu_t", "imu_w", "imu_a", "cam_t")},
+                        gt_times=gt.times, gt_poses=gt.poses,
+                        init_height=VioOptions.from_yaml(path("seq_config.yaml")).init_height)
+    log_path = os.path.join(REPO, chip_smoke.TUNE_LOG)
+    args = [path("seq.npz"), log_path, path("seq_gt.txt"), "--config", path("seq_config.yaml"),
+            *chip_smoke.TUNE_GRID]
+    run(env, ["cuahn_vio.cli", "tune-filter", *args, "--out",
+              os.path.join(REPO, chip_smoke.TUNE_ROWS)])
+    run(env, ["cuahn_vio_torch.cli", "tune-filter", *args, "--out", path("rows_port.jsonl"),
+              "--device", "cpu"])
+    rows = [{r["grid_index"]: r for r in map(json.loads, open(f))}
+            for f in (os.path.join(REPO, chip_smoke.TUNE_ROWS), path("rows_port.jsonl"))]
+    finite = [g for g, r in rows[0].items() if np.isfinite(r["ate_pos"])]
+    diff = max(abs(rows[0][g]["ate_pos"] - rows[1][g]["ate_pos"]) for g in finite)
+    same_inf = all(np.isinf(rows[0][g]["ate_pos"]) == np.isinf(rows[1][g]["ate_pos"])
+                   for g in rows[0])
+    print(f"tune: {len(rows[0])} JAX rows, {len(finite)} finite; port on the CPU: largest "
+          f"ate_pos difference {diff:.3e} m, same inf pattern {same_inf}", flush=True)
+    sel = subprocess.run(
+        [sys.executable, "-c", "import json; from cuahn_vio.parallel.selftest import "
+         "run_selftest; print(json.dumps(run_selftest(8)))"],
+        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8"), check=True,
+        capture_output=True, text=True, timeout=1800)
+    print(f"JAX single-process selftest: {sel.stdout.strip()}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
     ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "loop", "diag",
-                                       "both"],
+                                       "tune", "both"],
                     default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
@@ -339,6 +398,8 @@ def main() -> int:
         single(env, args.out_dir, chip_smoke.WEIGHTS)
     if args.part == "bf16":
         bf16(env, args.out_dir, chip_smoke.WEIGHTS)
+    if args.part == "tune":
+        tune(env, args.out_dir, chip_smoke.WEIGHTS)
     if args.part in ("batch", "both"):
         stems = ["seq"]
         for i, tex_seq in enumerate(chip_smoke.textured_sequences("cpu")):

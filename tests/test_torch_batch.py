@@ -204,9 +204,15 @@ def test_prepare_batch_pads_with_repeats_and_zero_dt(sequences):
 
 
 def test_batched_run_sequences_refuses_a_mesh(sequences):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        batched_run_sequences(None, None, None, None, None, None, None, None,
-                              np.zeros((1, 1)), None, mesh=object())
+    """A mesh whose devices do not split the batch evenly is refused (the
+    sharding itself is tested in ``tests/test_torch_parallel.py``)."""
+    from cuahn_vio_torch.parallel.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        batched_run_sequences(None, None, None, None, torch.zeros((3, 2, 4, 4), dtype=torch.uint8),
+                              None, None, None, np.zeros((3, 1)), None,
+                              mesh=Mesh(devices=(cpu, cpu)))
 
 
 def test_resolve_device_names_the_current_cuda_device(monkeypatch):

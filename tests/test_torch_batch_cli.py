@@ -19,8 +19,8 @@ JAX CLI's on the CPU.
   differences lie between the JAX package's two samplers.
 - ``run-vio-batch`` without ``--weights`` loads the config's
   ``network_weights_path``, as ``run-vio`` does (the JAX verb does not).
-- Flags that are not ported are refused with a message naming them, and
-  ``--device cuda`` fails without a GPU.
+- ``--mesh`` on one process writes the files of the run without it, byte
+  for byte, and ``--device cuda`` fails without a GPU.
 """
 
 import os
@@ -99,9 +99,18 @@ def test_cli_run_vio_batch_reads_the_configs_weights(tmp_path):
     assert poses["random"] != poses["flag"]  # the weights do reach the poses
 
 
-def test_cli_run_vio_batch_refuses_mesh(npz_paths, tmp_path):
-    with pytest.raises(SystemExit, match="--mesh"):
-        tcli.main(["run-vio-batch", *npz_paths, "--device", "cpu", "--mesh"])
+def test_cli_run_vio_batch_refuses_mesh(npz_paths, tmp_path, capsys):
+    """``--mesh``, once refused, now shards the batch over the job's mesh:
+    one process is a one-device mesh (gcd(2, 1) = 1, as the JAX verb
+    takes), so the files are those of the run without it, byte for
+    byte."""
+    flags = ["--no-network", "--init-height", "1.5", "--device", "cpu"]
+    tcli.main(["run-vio-batch", *npz_paths, "--out-dir", str(tmp_path / "m"), "--mesh", *flags])
+    assert "sharding 2 sequences over 1 devices" in capsys.readouterr().out
+    tcli.main(["run-vio-batch", *npz_paths, "--out-dir", str(tmp_path / "p"), *flags])
+    for stem in ("s4", "s5"):
+        assert (tmp_path / "m" / f"{stem}.txt").read_bytes() == \
+            (tmp_path / "p" / f"{stem}.txt").read_bytes()
 
 
 @pytest.mark.parametrize("verb", [["run-vio-batch", "x.npz"], ["make-synthetic"]])

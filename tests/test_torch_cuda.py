@@ -16,8 +16,12 @@ too; the undistortion remap C1 to its plain version bit for bit (0.0) at
 the stepwise runner, the bf16 towers, the blurred
 render and the CLI run on the card too, and the sparse-vision front end
 and the UAHN's error map follow their CPU results (``chip_smoke.py``
-phase 15a's checks at test size).
+phase 15a's checks at test size), as do the measurement replay of the
+filter-parameter sweep, the Schur smoother (bit for bit across repeats)
+and the one-process self-test.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -697,3 +701,67 @@ def test_diagnostics_verbs_on_gpu(gpu, tmp_path):
     cli.main(["track-features", path("seq.npz"), "--out", path("t.npz")])
     assert not any(tcuda.launch_counts.values())
     assert np.load(path("t.npz"))["ids"].shape == (6, 80)
+
+
+def test_replay_on_gpu_follows_the_cpu(gpu):
+    """``replay_measurements`` of the smoke's committed log
+    (``chip_smoke.TUNE_LOG``) over an 8-point grid on the card and on the
+    CPU: positions within 1e-4 m, no kernel launched."""
+    from cuahn_vio_torch.eval import tuning
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    import chip_smoke
+
+    f32_parity_mode()
+    seq = np.load(os.path.join(chip_smoke.REPO, chip_smoke.TUNE_SEQ))
+    log = np.load(os.path.join(chip_smoke.REPO, chip_smoke.TUNE_LOG))
+    opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
+    opts.calib_camimu_dt, opts.init_imu_thresh = 0.0, 0.2
+    opts.init_height = float(seq["init_height"])
+    grid = [tuning.SweepConfig(k_net_cov=k, q_scale=qs, echo_beta=eb, bias_sigma_px=eb)
+            for k in (4.0, 12.0) for qs in (1.0, 4.0) for eb in (0.0, 0.3)]
+    outs = {}
+    tcuda.reset_launch_counts()
+    for dev in ("cpu", gpu):
+        outs[str(dev)], _ = tuning.replay_measurements(
+            seq["imu_t"], seq["imu_w"], seq["imu_a"], seq["cam_t"], log["net_mean"],
+            log["net_cov88"], opts.filter_params(dev), grid, opts.runner_options(),
+            opts.vio_config())
+    assert not any(tcuda.launch_counts.values())
+    np.testing.assert_allclose(outs[str(gpu)].p_world, outs["cpu"].p_world, atol=1e-4, rtol=0)
+
+
+def test_schur_smoother_on_gpu_is_deterministic_and_follows_the_cpu(gpu):
+    """``optimize_sharded`` of the self-test's ring in 4 blocks on one card,
+    twice: the same bits; within 1e-5 m of the CPU's and 2e-3 m of the
+    dense solve on the card."""
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.parallel import pose_graph as pg
+    from cuahn_vio_torch.parallel import pose_graph_sharded as pgs
+    from cuahn_vio_torch.parallel.mesh import make_mesh
+    from cuahn_vio_torch.parallel.selftest import ring_graph
+
+    f32_parity_mode()
+    out = {}
+    for dev in ("cpu", gpu):
+        sg = pgs.partition_graph(ring_graph(np.random.default_rng(1), dev), 4)
+        runs = [pgs.optimize_sharded(sg, make_mesh(dev), iters=10) for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        out[str(dev)] = pgs.reassemble(sg, *runs[0][:4])
+    np.testing.assert_allclose(out[str(gpu)][0], out["cpu"][0], atol=1e-5, rtol=0)
+    dense, _, _ = pg.optimize(ring_graph(np.random.default_rng(1), gpu), iters=10)
+    np.testing.assert_allclose(out[str(gpu)][0], dense.cpu().numpy(), atol=2e-3, rtol=0)
+
+
+def test_selftest_on_gpu_follows_the_cpu(gpu):
+    """``distributed-selftest`` as one process on the card: the checksums
+    of the CPU run within 1e-5 relative."""
+    from cuahn_vio_torch.ops.homography import f32_parity_mode
+    from cuahn_vio_torch.parallel.selftest import run_selftest
+
+    f32_parity_mode()
+    card, cpu = run_selftest(device=gpu), run_selftest(device="cpu")
+    assert card["device"].startswith("cuda") and card["n_processes"] == 1
+    for key in ("filter_pos_checksum", "filter_cov_checksum", "pose_checksum"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-5, err_msg=key)

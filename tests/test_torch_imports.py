@@ -11,7 +11,11 @@ every module of ``cuahn_vio_torch`` and the port's scripts
 on the CPU, and so must ``smooth-trajectory``, ``train-fil``'s refusal
 without GT files, and the diagnostics (``inspect-frame``,
 ``track-features``, ``calibrate-covariance``,
-``calibrate-state-covariance``). Each verb of the diagnostics slice takes
+``calibrate-state-covariance``), and ``distributed-selftest --device
+cpu`` with ``smooth-trajectory --mesh``. Each verb of the diagnostics
+slice, and each verb of the sweep and parallel slice (``tune-filter``,
+``distributed-selftest``, ``pid-monitor``, ``error-dataset``,
+``error-comparison``, ``align-trajectory``, ``timing-comparison``), takes
 every flag of its JAX verb.
 """
 
@@ -54,6 +58,7 @@ for name in names + ["chip_smoke", "profile_slice", "smoke_reference", "tune_war
     importlib.import_module(name)
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not loaded, loaded
+print(" ".join(names))
 print(len(names))
 '''
 
@@ -68,8 +73,13 @@ def test_port_imports_without_jax_flax_or_the_jax_package():
     # data.gt_loader, data.bspline and their packages) and the loop-closure
     # and FIL slice's (parallel.pose_graph, pipeline.loop_closure, train.fil)
     # and the diagnostics slice's (vision.detect, vision.klt,
-    # vision.triangulate, vision.preint, eval.flow)
-    assert int(proc.stdout.split()[-1]) >= 61
+    # vision.triangulate, vision.preint, eval.flow), and the sweep and
+    # parallel slice's
+    assert int(proc.stdout.split()[-1]) >= 66
+    walked = set(proc.stdout.split()[:-1])
+    assert {"cuahn_vio_torch.eval.tuning", "cuahn_vio_torch.eval.recorder",
+            "cuahn_vio_torch.parallel.mesh", "cuahn_vio_torch.parallel.pose_graph_sharded",
+            "cuahn_vio_torch.parallel.selftest"} <= walked
 
 
 def test_the_guard_blocks_what_it_names():
@@ -266,5 +276,51 @@ def test_diagnostics_verb_takes_every_flag_of_the_jax_verb(verb):
 
     want, got = _options(_jax_subparser(verb)), _options(_subparser(tcli.build_parser(), verb))
     if not verb.startswith("calibrate"):
+        assert got.pop("device") == (("--device",), "cuda", False)
+    assert got == want
+
+
+PARALLEL = r"""
+import json
+from cuahn_vio_torch.cli import main
+
+import numpy as np
+from cuahn_vio_torch.eval.traj_io import save_pose_file
+
+main(["distributed-selftest", "--device", "cpu", "--mesh-devices", "2", "--out", "st.json"])
+assert json.load(open("st.json"))["pose_final_cost"] < 1e-6
+th = np.linspace(0, 3, 12)
+save_pose_file("est.txt", th, np.stack([np.cos(th), np.sin(th), th * 0, th * 0, th * 0,
+                                        np.sin(th / 2), np.cos(th / 2)], 1))
+main(["smooth-trajectory", "est.txt", "--loops", "0:11", "--mesh", "--device", "cpu"])
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("parallel ok")
+"""
+
+
+def test_parallel_verbs_run_without_jax(tmp_path):
+    """The selftest (the measurement-driven filter, the mesh, the Schur
+    smoother) and ``smooth-trajectory --mesh`` run on the CPU with JAX and
+    the JAX package blocked."""
+    code = GUARDED.split("import cuahn_vio_torch\n")[0] + PARALLEL
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "parallel ok" in proc.stdout
+
+
+@pytest.mark.parametrize("verb", ["tune-filter", "distributed-selftest", "pid-monitor",
+                                  "error-dataset", "error-comparison", "align-trajectory",
+                                  "timing-comparison"])
+def test_sweep_and_parallel_verb_takes_every_flag_of_the_jax_verb(verb):
+    """Every option of the JAX verb, with its default; the two verbs that
+    run on the card also take --device (default cuda), the numpy-only
+    verbs nothing more."""
+    from cuahn_vio_torch import cli as tcli
+
+    want, got = _options(_jax_subparser(verb)), _options(_subparser(tcli.build_parser(), verb))
+    if verb in ("tune-filter", "distributed-selftest"):
         assert got.pop("device") == (("--device",), "cuda", False)
     assert got == want

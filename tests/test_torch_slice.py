@@ -193,9 +193,8 @@ def test_cli_run_vio_on_cpu_writes_the_pose_file(sequence, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run-vio-batch", "x.npz", "--device", "cpu", "--mesh"],
     ["error-simulation", "x.npz", "gt.txt", "--plot", "x.png"],
-], ids=["run-vio-batch --mesh", "error-simulation --plot"])
+], ids=["error-simulation --plot"])
 def test_cli_refuses_flags_not_ported(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match="not implemented"):
