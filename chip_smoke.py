@@ -93,7 +93,9 @@ Phases, each printed on its own line with its seconds:
    whether PyYAML is installed: the port needs none;
 11. the trainer: ``train-uahn --resume`` v10 for TRAIN_STEPS steps at
    224x320, batch TRAIN_BATCH, photo textures and effects on (the CLI's
-   default), twice at one seed, each run a subprocess that also records
+   default), twice at one seed, the first with cuDNN's deterministic
+   algorithms (phase 17a's reference; the second as ``train`` runs by
+   default), each run a subprocess that also records
    the shape of every warp and flat-sampler launch and the host time at
    the end of every step (a synchronize only after the first and the
    last step). Each run must log a finite loss and ``skipped=`` on every logged
@@ -222,6 +224,31 @@ Phases, each printed on its own line with its seconds:
    ATE of ``error-singlerun`` on the same file), ``align-trajectory``,
    ``timing-comparison`` and ``pid-monitor`` of a child process as
    subprocesses side by side.
+17. data parallelism and the plots. 17a: phase 11's ``train-uahn`` run
+   (its seed, steps, batch and flags; the same spied subprocess,
+   ``train_child``, with cuDNN's deterministic algorithms as phase 11's
+   first run: cuDNN's default backward sums in a varying order, and two
+   default runs on an H100 have written weights up to 7.6e-6 apart) as
+   a one-rank NCCL job of ``python3 -m
+   torch.distributed.run --standalone --nproc-per-node 1`` (``--no-python``:
+   the launcher takes no ``-c``), so the trainer's data-parallel path runs
+   on the card: the rank binding, the global loss denominators and the
+   flat gradient's ``all_reduce``. It must log "data-parallel over 1 ranks
+   (seq mesh)", pass phase 11's checks (the same B4 and B2 launches a
+   step, finite losses, both checkpoints) and write weights within
+   DP_WEIGHTS_TOL of phase 11's first run's; prints that distance beside
+   phase 11's two-run one and its ms per step beside phase 11's. 17b: the
+   five plot surfaces side by side as subprocesses on files the smoke
+   made: ``plot-trajectories`` on phase 13's online, smoothed and GT pose
+   files, ``plot-trackhist`` on phase 10's sequence and ``--state-out``
+   log, ``timing-flamegraph`` on phase 10's timing csv, ``error-simulation
+   --plot`` on phase 10's log and sim GT, and ``watch-run --gt`` on phase
+   10's finished estimate for WATCH_TICKS polls WATCH_INTERVAL_S apart.
+   Each must exit 0, launch no kernel and write an RGB PNG that the port's
+   reader decodes at its figure's figsize x dpi, in which the colour of
+   each series drawn opaque or on white appears (``plots.series_colours``
+   of the figure built in this process from the same files);
+   ``watch-run`` must print exactly the JAX verb's one line.
 
 Then one JSON line of kernels, the card's name and power limit, and the
 result line. Exits non-zero (and prints no result) without a CUDA device,
@@ -454,6 +481,13 @@ JAX_SELFTEST = {"filter_pos_checksum": 72.00117492675781,
 SELFTEST_RTOL = 1e-5
 MESH_BATCH_FRAMES = 40  # phase 16d: the lockstep frames of run-vio-batch with and without --mesh
 SELFTEST_BENCH = dict(frames=10, steps=16, reps=3)  # the JAX recipe's 400 frames, cut
+# phase 17a: the one-rank NCCL job's weights against phase 11's first run,
+# both with cuDNN's deterministic algorithms (one process's weights, so
+# equal to rounding)
+DP_WEIGHTS_TOL = 1e-5
+TORCHRUN = ("-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+            "--no-python")
+WATCH_TICKS, WATCH_INTERVAL_S = 3, 0.2  # phase 17b's watch-run
 
 
 def write_loop_trajectory(path: str) -> None:
@@ -1483,14 +1517,18 @@ def plain_run(tmp: str) -> dict:
     return out
 
 
-def train_child(argv) -> None:
+def train_child(argv, deterministic: bool = False) -> None:
     """Phase 11's subprocess: ``python -m cuahn_vio_torch.cli`` ARGV, with
     the warp and flat-sampler wrappers spied on (the shape of each launch;
     the launch itself and its count are the wrapper's) and the host time
     at the end of each training step recorded, with a synchronize after
     the first and the last step only (the loop runs as ``train`` runs it
-    in between); prints them as the last line."""
+    in between); prints them as the last line. ``deterministic``: cuDNN's
+    deterministic algorithms (``torch.backends.cudnn.deterministic``), so
+    two such runs at one seed write the same weights bit for bit."""
     import torch
+
+    torch.backends.cudnn.deterministic = deterministic
 
     from cuahn_vio_torch import cli
     from cuahn_vio_torch.ops.cuda import launch_counts
@@ -1528,11 +1566,14 @@ def train_child(argv) -> None:
     print("train_child " + json.dumps(dict(seen, launch_counts=launch_counts)), flush=True)
 
 
-def train_once(torch, tmp: str, probe_size: int) -> dict:
-    """One ``train-uahn`` run from v10 in a subprocess (``train_child``)
-    writing ``tmp``/w.msgpack, with its checks: finite logged losses, the
-    launches of B4 and B2 at the trainer's shapes, the checkpoint and
-    ``.best`` read back. Returns what it found; raises on a failed check."""
+def train_once(torch, tmp: str, probe_size: int, launcher: tuple = (),
+               deterministic: bool = False) -> dict:
+    """One ``train-uahn`` run from v10 in a subprocess (``train_child``,
+    ``deterministic`` as there) writing ``tmp``/w.msgpack, with its checks:
+    finite logged losses, the launches of B4 and B2 at the trainer's shapes,
+    the checkpoint and ``.best`` read back; ``launcher``: the arguments of a
+    ``python3`` that starts the subprocess (``TORCHRUN``: as a one-rank
+    job). Returns what it found; raises on a failed check."""
     import numpy as np
 
     from cuahn_vio_torch.utils.checkpoint import load_params
@@ -1541,8 +1582,9 @@ def train_once(torch, tmp: str, probe_size: int) -> dict:
     args = ["train-uahn", "--resume", WEIGHTS, "--steps", str(TRAIN_STEPS), "--batch-size",
             str(TRAIN_BATCH), "--save-every", str(TRAIN_SAVE_EVERY), "--out", out_path]
     code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-            "chip_smoke.train_child(sys.argv[1:])")
-    proc = run_child([sys.executable, "-c", code, *args], tmp)
+            f"chip_smoke.train_child(sys.argv[1:], {deterministic})")
+    prefix = [sys.executable, *launcher] if launcher else []
+    proc = run_child([*prefix, sys.executable, "-c", code, *args], tmp)
     if proc.returncode != 0:
         raise AssertionError(f"train-uahn exited {proc.returncode}: {proc.stderr[-3000:]}")
     said, _, last = proc.stdout.rstrip("\n").rpartition("\n")
@@ -1586,6 +1628,7 @@ def train_once(torch, tmp: str, probe_size: int) -> dict:
                 median_gap_ms=float(np.median(np.diff(ends)) * 1e3),
                 samples_per_s=TRAIN_BATCH / ms_step * 1e3, warp_launches=len(seen["warps"]),
                 sampler_launches=len(seen["samples"]), probe=probe[-1].split(": ", 1)[1],
+                data_parallel="data-parallel over 1 ranks (seq mesh)" in said.splitlines(),
                 weights=written[out_path])
 
 
@@ -1602,9 +1645,9 @@ def run_train(torch, dev, seq, opts) -> dict:
     from cuahn_vio_torch.train.trainer import PROBE_SIZE
 
     runs = []
-    for _ in range(TRAIN_RUNS):
+    for i in range(TRAIN_RUNS):  # the first with cuDNN's deterministic algorithms (17a's reference)
         with tempfile.TemporaryDirectory() as tmp:
-            runs.append(train_once(torch, tmp, PROBE_SIZE))
+            runs.append(train_once(torch, tmp, PROBE_SIZE, deterministic=i == 0))
     first = runs[0]["weights"]
     weights_diff = max(float((r["weights"][k] - first[k]).abs().max())
                        for r in runs[1:] for k in first)
@@ -1619,7 +1662,83 @@ def run_train(torch, dev, seq, opts) -> dict:
     for r in runs:
         del r["weights"]
     return dict(runs=runs, weights_max_abs_diff=weights_diff, trained_ate_pos_m=ate,
-                probe_size=PROBE_SIZE)
+                probe_size=PROBE_SIZE, first_weights=first)
+
+
+def run_dp_train(torch, probe_size: int, phase11: dict) -> dict:
+    """Phase 17a: phase 11's run as a one-rank NCCL job (``TORCHRUN``),
+    against phase 11's first run's weights (``phase11``). Returns what the
+    checks found; raises on a failed one."""
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train_once(torch, tmp, probe_size, TORCHRUN, deterministic=True)
+    weights = run.pop("weights")
+    run["weights_max_abs_diff_from_phase11"] = max(
+        float((weights[k] - phase11[k]).abs().max()) for k in phase11)
+    if not run["data_parallel"]:
+        raise AssertionError("train-uahn under torch.distributed.run: no data-parallel line")
+    if not run["weights_max_abs_diff_from_phase11"] <= DP_WEIGHTS_TOL:
+        raise AssertionError(f"data-parallel weights {run['weights_max_abs_diff_from_phase11']:.3e}"
+                             f" from phase 11's, above {DP_WEIGHTS_TOL:.0e}")
+    return run
+
+
+def run_plots(cli_dir: str, loop_dir: str, out_dir: str) -> dict:
+    """Phase 17b: the five plot surfaces side by side in ``out_dir`` on
+    phase 10's files (``cli_dir``) and phase 13's (``loop_dir``), each PNG
+    held to its figure (size, series colours). Returns what the checks
+    found; raises on a failed one."""
+    import numpy as np
+
+    from cuahn_vio_torch.eval import plots
+    from cuahn_vio_torch.eval.simulation import ResultSimulation, load_state_gt
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.utils.png import read_png
+
+    c = lambda name: os.path.join(cli_dir, name)  # noqa: E731
+    poses = [os.path.join(loop_dir, n) for n in ("est.txt", "smoothed.txt", "replay_gt.txt")]
+    d = np.load(c("state.npz"))
+    sim = ResultSimulation(d["times"], d["pose"], load_state_gt(c("seq_state_gt.txt")),
+                           est_v_body=d.get("v_body"), est_ba=d.get("ba"), est_bg=d.get("bg"),
+                           est_cov_diag=d.get("cov_diag"), est_cov_core=d.get("cov_core"))
+    surfaces = {  # name: (argv, the PNG, its figure)
+        "plot-trajectories": (["plot-trajectories", *poses, "--out", "traj.png"], "traj.png",
+                              plots.trajectories(poses)),
+        "plot-trackhist": (["plot-trackhist", c("seq.npz"), c("state.npz"), "--out",
+                            "trackhist.png"], "trackhist.png",
+                           plots.trackhist(np.load(c("seq.npz"))["frames"], d)),
+        "timing-flamegraph": (["timing-flamegraph", c("t.csv"), "--out", "flame.png"],
+                              "flame.png", plots.flamegraph(c("t.csv"))),
+        "error-simulation --plot": (["error-simulation", c("state.npz"), c("seq_state_gt.txt"),
+                                     "--plot", "sim.png"], "sim.png",
+                                    plots.simulation_errors(sim)),
+        "watch-run": (["watch-run", c("est.txt"), "--gt", c("seq_gt.txt"), "--max-ticks",
+                       str(WATCH_TICKS), "--interval", str(WATCH_INTERVAL_S), "--out",
+                       "watch.png"], "watch.png",
+                      plots.watch(load_pose_file(c("est.txt")), load_pose_file(c("seq_gt.txt")))),
+    }
+    out = {"verb_s": {}}
+    done = side_by_side(*[(timed_verb, out, name, cli, argv, out_dir)
+                          for name, (argv, _, _) in surfaces.items()])
+    n_est = len(load_pose_file(c("est.txt")).times)
+    for (name, (_, png, fig)), (said, counts) in zip(surfaces.items(), done):
+        want = ([f"[watch-run] {n_est} poses -> {png}"] if name == "watch-run"
+                else [f"wrote {png}"])
+        if said.splitlines()[-len(want):] != want or any(counts.values()):
+            raise AssertionError(f"{name}: printed {said[-300:]!r}, launches {counts}")
+        if name == "watch-run" and said.splitlines() != want:
+            raise AssertionError(f"watch-run printed {said!r}, not the JAX verb's {want}")
+        rgb = read_png(os.path.join(out_dir, png), rgb=True)
+        with open(os.path.join(out_dir, png), "rb") as f:
+            colour_type = f.read(26)[25]
+        if colour_type != 2 or rgb.shape != (fig.pixels[1], fig.pixels[0], 3):
+            raise AssertionError(f"{name}: colour type {colour_type}, {rgb.shape} for a "
+                                 f"{fig.pixels} figure")
+        have = {tuple(p) for p in np.unique(rgb.reshape(-1, 3), axis=0)}
+        missing = [what for what, colour in plots.series_colours(fig) if colour not in have]
+        if missing:
+            raise AssertionError(f"{name}: no pixel of the colour of {missing}")
+        out[name] = f"{rgb.shape[1]}x{rgb.shape[0]}, {len(plots.series_colours(fig))} series"
+    return out
 
 
 def build_kernels() -> dict:
@@ -3196,6 +3315,7 @@ def main() -> int:
           v10_ate_pos_m=f"{ate_pos:.5f}")
     main_run = trained["runs"][0]  # the main path's launches: the first run's
     probe_size = trained["probe_size"]
+    phase11_weights = trained.pop("first_weights")
 
     loop_dir = tempfile.TemporaryDirectory()  # phase 13's files, read again in phase 16b
     parallel_dir = tempfile.TemporaryDirectory()  # phase 16's files
@@ -3255,7 +3375,6 @@ def main() -> int:
     phase("sweep", t0, part="16a tune-filter", gpu=f"'{gpu}'", tol_m=TUNE_ATE_TOL_M, **sweep)
     t0 = time.perf_counter()
     schur = run_schur(torch, dev, loop_dir.name, mesh_said)
-    loop_dir.cleanup()
     phase("parallel", t0, part="16b Schur smoother", gpu=f"'{gpu}'", **schur)
     t0 = time.perf_counter()
     selftest = run_selftest_phase(torch, dev, parallel_dir.name, selftest_counts)
@@ -3264,12 +3383,27 @@ def main() -> int:
     t0 = time.perf_counter()
     verbs = run_batch_mesh_and_verbs(torch, dev, batch_seqs, results, opts, parallel_dir.name,
                                      cli_dir.name)
-    cli_dir.cleanup()
-    parallel_dir.cleanup()
     phase("parallel", t0, part="16d run-vio-batch --mesh and the eval verbs", **verbs)
     if verbs["batch_mesh_warp_launches"] != 3 * MESH_BATCH_FRAMES * iekf:
         raise AssertionError(f"run-vio-batch --mesh: {verbs['batch_mesh_warp_launches']} warp "
                              f"launches, expected 3 x {MESH_BATCH_FRAMES} x {iekf}")
+
+    t0 = time.perf_counter()
+    dp = run_dp_train(torch, probe_size, phase11_weights)
+    phase("dp", t0, part="17a train-uahn, a one-rank NCCL job", gpu=f"'{gpu}'",
+          ms_per_step=f"{dp['ms_per_step']:.3f}",
+          phase11_ms_per_step=f"{main_run['ms_per_step']:.3f}",
+          weights_max_abs_diff_from_phase11=f"{dp['weights_max_abs_diff_from_phase11']:.3e}",
+          phase11_weights_max_abs_diff_between_runs=f"{trained['weights_max_abs_diff']:.3e}",
+          tol=DP_WEIGHTS_TOL, sampler_launches=dp["sampler_launches"],
+          warp_launches=dp["warp_launches"], losses=dp["logged_losses"],
+          probe=f"'{dp['probe']}'")
+    t0 = time.perf_counter()
+    drawn = run_plots(cli_dir.name, loop_dir.name, parallel_dir.name)
+    loop_dir.cleanup()
+    cli_dir.cleanup()
+    parallel_dir.cleanup()
+    phase("plots", t0, part="17b the plot surfaces", **drawn)
 
     nb = len(batch_seqs)
 
@@ -3303,6 +3437,10 @@ def main() -> int:
     ]
     kernels[4]["launches_by_batch"] = {str(TRAIN_BATCH): 3 * TRAIN_STEPS, str(probe_size): 6}
     kernels[5]["launches_by_batch"] = {str(TRAIN_BATCH): 2 * TRAIN_STEPS, str(probe_size): 2}
+    kernels[4]["launches_by_phase"] = {"11": main_run["warp_launches"],
+                                       "17": dp["warp_launches"]}
+    kernels[5]["launches_by_phase"] = {"11": main_run["sampler_launches"],
+                                       "17": dp["sampler_launches"]}
     kernels[0]["launches_by_phase"] = b1_launches
     kernels[3]["launches_by_phase"] = {"5": sample_launches + blur_launches,
                                        "10": found["sampler_launches"],

@@ -54,13 +54,13 @@ factors from a log against its state GT; a log already inflated by
 ``--cov-calib`` is refused), ``error-dataset`` / ``error-comparison``
 (ATE of many runs), ``align-trajectory`` (GT aligned onto an estimate),
 ``timing-comparison`` (stage statistics of several timing csvs) and
-``pid-monitor`` (CPU % and RSS of a process, from ``/proc``). No verb
-needs PyYAML, PIL, psutil or matplotlib:
-configs go through the port's own ``utils.yaml_io``, PNGs through
-``utils.png``.
-
-Flags of the JAX CLI that the port does not implement yet are refused,
-never ignored.
+``pid-monitor`` (CPU % and RSS of a process, from ``/proc``). The plot
+verbs draw the JAX verbs' figures (``eval/plots``) with the port's own
+raster writer: ``plot-trajectories``, ``plot-trackhist``,
+``timing-flamegraph``, ``watch-run`` (a live xy plot of a growing
+estimate) and ``error-simulation --plot``. No verb needs PyYAML, PIL,
+psutil or matplotlib: configs go through the port's own
+``utils.yaml_io``, PNGs through ``utils.png``.
 """
 
 from __future__ import annotations
@@ -69,21 +69,6 @@ import argparse
 import sys
 
 import numpy as np
-
-# flags of the JAX CLI that the port does not implement yet
-NOT_YET_SIMULATION = {
-    "plot": "--plot (error / 3-sigma plots; needs matplotlib)",
-}
-
-
-def _refuse(args, not_yet: dict, verb: str) -> None:
-    refused = [flag for name, flag in not_yet.items() if getattr(args, name)]
-    if refused:
-        raise SystemExit(
-            "not implemented in cuahn_vio_torch yet: " + ", ".join(refused)
-            + f" (use python -m cuahn_vio.cli {verb})"
-        )
-
 
 def _device(name: str):
     import torch
@@ -242,6 +227,10 @@ def cmd_run_vio_batch(args):
     from cuahn_vio_torch.utils.config import VioOptions
 
     device = _device(args.device)
+    if args.mesh:  # a job's rank binds its own card before any tensor is made
+        from cuahn_vio_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=device)
     opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
     # the same profile resolution as run-vio
     if args.profile is not None:
@@ -415,6 +404,25 @@ def cmd_format_converter(args):
 
 
 def cmd_train_uahn(args):
+    """Train UAHN weights (``train.trainer.train``). Launched as a job
+    (``python -m torch.distributed.run --nproc-per-node N -m
+    cuahn_vio_torch.cli train-uahn ...``: torch's environment names the
+    ranks), each rank takes its own card and the job trains data-parallel;
+    rank 0 alone prints and writes. Without such a job, one process."""
+    import torch.distributed as dist
+
+    from cuahn_vio_torch.parallel.mesh import init_distributed, world
+
+    device = _device(args.device)
+    init_distributed(device=device)  # a no-op outside a job
+    try:
+        _train_uahn(args, device, world()[1] == 0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train_uahn(args, device, lead: bool):
     import torch
 
     from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
@@ -422,12 +430,12 @@ def cmd_train_uahn(args):
     from cuahn_vio_torch.utils.checkpoint import load_params, save_params
     from cuahn_vio_torch.utils.config import VioOptions
 
-    device = _device(args.device)
     opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
     model = init_like_flax_(UAHN(), torch.Generator().manual_seed(args.seed))
     if args.resume:
         model.load_state_dict(load_params(args.resume))
-        print(f"resumed from {args.resume}")
+        if lead:
+            print(f"resumed from {args.resume}")
     model.to(device)
     t = np.asarray(opts.t_imu_to_cam, np.float64)
     c_rot_i = torch.tensor(t[:3, :3], dtype=torch.float32, device=device)
@@ -452,8 +460,9 @@ def cmd_train_uahn(args):
         steps=args.steps, seed=args.seed,
         checkpoint_path=args.out, save_every=args.save_every,
     )
-    save_params(args.out, model.state_dict())
-    print(f"wrote weights -> {args.out}")
+    if lead:
+        save_params(args.out, model.state_dict())
+        print(f"wrote weights -> {args.out}")
 
 
 def cmd_close_loops(args):
@@ -576,6 +585,10 @@ def cmd_smooth_trajectory(args):
             f"kernel; --huber {args.huber:g} cannot apply (the JAX verb drops it "
             "silently): drop --mesh or --huber")
     device = _device(args.device)
+    if args.mesh:  # a job's rank binds its own card before any tensor is made
+        from cuahn_vio_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=device)
     f32_parity_mode()
     traj, graph = smoothing_graph(args, device)
     if args.mesh:
@@ -698,7 +711,6 @@ def cmd_error_simulation(args):
     (error_simulation.cpp / ResultSimulation analog)."""
     from cuahn_vio_torch.eval.simulation import ResultSimulation, load_state_gt
 
-    _refuse(args, NOT_YET_SIMULATION, "error-simulation")
     d = np.load(args.est)
     gt = load_state_gt(args.gt)
     sim = ResultSimulation(
@@ -728,6 +740,81 @@ def cmd_error_simulation(args):
               "robocentric component — see calculate_nees_observable):")
         print(f"    ori  mean {neo.mean:.3f} (roll/pitch 2-DoF)")
         print(f"    pos  mean {nep.mean:.3f} median {nep.median:.3f}")
+    if args.plot:
+        from cuahn_vio_torch.eval.plots import render, simulation_errors
+        from cuahn_vio_torch.utils.png import write_png
+
+        write_png(args.plot, render(simulation_errors(sim)))
+        print(f"wrote {args.plot}")
+
+
+def cmd_plot_trajectories(args):
+    """The xy of each pose file (plot_trajectories.cpp analog)."""
+    from cuahn_vio_torch.eval.plots import render, trajectories
+    from cuahn_vio_torch.utils.png import write_png
+
+    write_png(args.out, render(trajectories(args.files)))
+    print(f"wrote {args.out}")
+
+
+def cmd_plot_trackhist(args):
+    """Corner-flow track history drawn over a video frame: the offline
+    analog of the reference's /cuahn/trackhist image topic
+    (RosVisualizer.cpp:33-48 publish_trackhist), with the innovation chi2
+    under it (``eval/plots.trackhist``)."""
+    from cuahn_vio_torch.eval.plots import render, trackhist
+    from cuahn_vio_torch.utils.png import write_png
+
+    seq = np.load(args.sequence)
+    log = np.load(args.state)
+    if "net_mean" not in log:
+        raise SystemExit("state log has no net_mean — re-run run-vio --state-out with "
+                         "this version")
+    write_png(args.out, render(trackhist(seq["frames"], log, args.frame, args.history)))
+    print(f"wrote {args.out}")
+
+
+def cmd_timing_flamegraph(args):
+    """Stacked per-stage timing over the run (timing_flamegraph.cpp
+    analog)."""
+    from cuahn_vio_torch.eval.plots import flamegraph, render
+    from cuahn_vio_torch.utils.png import write_png
+
+    write_png(args.out, render(flamegraph(args.file)))
+    print(f"wrote {args.out}")
+
+
+def cmd_watch_run(args):
+    """Live progress view of a running estimate file: poll the pose txt as
+    run-vio writes it, align GT onto the estimate so far, and refresh an
+    xy-plot PNG (live_align_trajectory.cpp:38-137 analog); exits after
+    ``--stale-ticks`` polls without growth or ``--max-ticks`` polls."""
+    import time
+
+    from cuahn_vio_torch.eval.plots import render, watch
+    from cuahn_vio_torch.eval.traj_io import load_pose_file
+    from cuahn_vio_torch.utils.png import write_png
+
+    gt = load_pose_file(args.gt) if args.gt else None
+    last_n, stale, ticks = -1, 0, 0
+    while True:
+        try:
+            est = load_pose_file(args.est)
+            n = len(est.times)
+        except (FileNotFoundError, ValueError):
+            n = 0
+        stale = stale + 1 if n == last_n else 0
+        if n > 1 and n != last_n:
+            write_png(args.out, render(watch(est, gt, args.method)))
+            print(f"[watch-run] {n} poses -> {args.out}", flush=True)
+        last_n = n
+        ticks += 1
+        if args.max_ticks and ticks >= args.max_ticks:
+            return
+        if stale >= args.stale_ticks:
+            print("[watch-run] estimate stopped growing; exiting", flush=True)
+            return
+        time.sleep(args.interval)
 
 
 def cmd_calibrate_covariance(args):
@@ -1104,9 +1191,39 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("error-simulation", help="state/bias errors + NEES vs sim GT")
     s.add_argument("est", help="state .npz from run-vio --state-out")
     s.add_argument("gt", help="17-column sim state GT txt")
-    # accepted only to be refused with a clear message (see NOT_YET_SIMULATION)
-    s.add_argument("--plot", default=None, help="not implemented yet")
+    s.add_argument("--plot", default=None, help="write error/3-sigma plot PNG")
     s.set_defaults(fn=cmd_error_simulation)
+
+    s = sub.add_parser("plot-trajectories", help="xy plot of trajectories")
+    s.add_argument("files", nargs="+")
+    s.add_argument("--out", default="trajectories.png")
+    s.set_defaults(fn=cmd_plot_trajectories)
+
+    s = sub.add_parser("plot-trackhist", help="corner-flow track history over a frame")
+    s.add_argument("sequence", help=".npz sequence (frames)")
+    s.add_argument("state", help=".npz from run-vio --state-out")
+    s.add_argument("--frame", type=int, default=None,
+                   help="state-log row to highlight (default: last)")
+    s.add_argument("--history", type=int, default=45,
+                   help="how many past frames of flow to draw")
+    s.add_argument("--out", default="trackhist.png")
+    s.set_defaults(fn=cmd_plot_trackhist)
+
+    s = sub.add_parser("timing-flamegraph", help="stacked stage-time plot")
+    s.add_argument("file")
+    s.add_argument("--out", default="timing_flamegraph.png")
+    s.set_defaults(fn=cmd_timing_flamegraph)
+
+    s = sub.add_parser("watch-run", help="live xy plot of a growing estimate")
+    s.add_argument("est", help="pose txt being written by run-vio")
+    s.add_argument("--gt", default=None, help="GT pose txt to align+overlay")
+    s.add_argument("--out", default="watch.png")
+    s.add_argument("--method", default="posyaw", choices=["posyaw", "se3", "sim3", "none"])
+    s.add_argument("--interval", type=float, default=1.0, help="poll seconds")
+    s.add_argument("--stale-ticks", type=int, default=10,
+                   help="exit after this many polls without growth")
+    s.add_argument("--max-ticks", type=int, default=0, help="hard tick limit (0 = none)")
+    s.set_defaults(fn=cmd_watch_run)
 
     s = sub.add_parser("run-vio", help="run the VIO on a sequence")
     s.add_argument("sequence", help=".npz with imu_t/imu_w/imu_a/cam_t/frames")

@@ -80,12 +80,20 @@ class ConvTower(nn.Module):
         return x.to(torch.float32)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """Always-on (MC) dropout with masks drawn from ``generator``."""
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             rows: Optional[tuple] = None):
+    """Always-on (MC) dropout with masks drawn from ``generator``; with
+    ``rows`` = (first row, global batch), ``x`` is those rows of a larger
+    batch: the masks are drawn at the global batch's shape and these rows
+    kept, so each rank of a data-parallel job draws what one process does."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    if rows is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    else:
+        u = torch.rand((rows[1], *x.shape[1:]), generator=generator, device=x.device,
+                       dtype=x.dtype)[rows[0]:rows[0] + x.shape[0]]
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -98,11 +106,12 @@ class McHead(nn.Module):
         self.fc0 = nn.Linear(fc_input, 256)
         self.fc1 = nn.Linear(256, out_dim)
 
-    def forward(self, feat, rate: float, generator: Optional[torch.Generator]):
+    def forward(self, feat, rate: float, generator: Optional[torch.Generator],
+                rows: Optional[tuple] = None):
         x = feat[:, None, :].expand(-1, MC_DROPOUT_NUM, -1)
-        x = _dropout(x, rate, generator)
+        x = _dropout(x, rate, generator, rows)
         x = F.leaky_relu(self.fc0(x), LEAK)
-        x = _dropout(x, rate, generator)
+        x = _dropout(x, rate, generator, rows)
         return self.fc1(x)
 
 
@@ -202,17 +211,20 @@ class UAHN(nn.Module):
         return h_uv
 
     def last_block_members(self, img1, img2, h_uv,
-                           generator: Optional[torch.Generator] = None):
+                           generator: Optional[torch.Generator] = None,
+                           rows: Optional[tuple] = None):
         """Block 4 tower (once) + the 16 MC-dropout members on img2 warped
         by ``h_uv``, a constant to backprop (detached, as every caller of
-        the JAX method stops its gradient).
+        the JAX method stops its gradient); ``rows`` = (first row, global
+        batch) when the frames are a rank's rows of a larger batch (the
+        masks are that batch's rows).
         Returns (means (B, 16, 4, 2), logvars (B, 16, 4, 2)) in the
         warped-img2 frame."""
         pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv.detach())], dim=1)
         feat = torch.flatten(self.block4(pair), 1)  # (B, fc_input)
         b = feat.shape[0]
-        means = self.head_mean(feat, self.dropout_rate, generator)
-        logvars = self.head_logvar(feat, self.dropout_rate, generator) * 1e-3
+        means = self.head_mean(feat, self.dropout_rate, generator, rows)
+        logvars = self.head_logvar(feat, self.dropout_rate, generator, rows) * 1e-3
         return (means.reshape(b, MC_DROPOUT_NUM, 4, 2),
                 logvars.reshape(b, MC_DROPOUT_NUM, 4, 2))
 

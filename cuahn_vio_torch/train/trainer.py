@@ -1,4 +1,5 @@
-"""UAHN training: supervised cascade + heteroscedastic NLL, on one device.
+"""UAHN training: supervised cascade + heteroscedastic NLL, on one device
+or data-parallel over the ranks of a ``torch.distributed`` job.
 
 Counterpart of ``cuahn_vio.train.trainer`` (the reference ships no
 training code; this trainer makes weights from scratch), with explicit
@@ -27,8 +28,20 @@ Random draws come from one ``torch.Generator`` on the training device
 (not JAX's threefry keys: the same seed gives other samples than the JAX
 trainer), except the prior-mode coin, drawn on the host from
 ``np.random.default_rng(seed)`` as the JAX trainer draws it, so the two
-trainers train the same sequence of modes. The JAX trainer's mesh data
-parallelism is not ported: one device trains the whole batch.
+trainers train the same sequence of modes.
+
+Data parallelism (the JAX trainer's ``seq`` mesh): inside a job
+(``parallel/mesh``) whose size W divides the batch, rank r trains rows
+[r B/W, (r + 1) B/W) of the global batch and the W ranks compute what one
+process computes on the whole batch. Every rank draws the pairs, the
+effects' noise and the MC-dropout masks at the global batch's shape from
+the one seeded stream and keeps its rows, so it renders and runs only
+those; the loss's denominators and the echo penalty's moments are sums
+over the job (``parallel.mesh.differentiable_sum``), and the flat gradient is
+summed by one ``all_reduce`` a step before the optimizer's finite check
+and clip, so every rank applies the same update. Rank 0 alone logs,
+probes and writes checkpoints. A batch that W does not divide trains
+unsharded on every rank, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -62,6 +75,14 @@ from cuahn_vio_torch.data.textures import (
 from cuahn_vio_torch.models.uahn import UAHN
 from cuahn_vio_torch.ops.homography import f32_parity_mode
 from cuahn_vio_torch.ops.quat import quat_conj, quat_exp, quat_log, quat_mul
+from cuahn_vio_torch.parallel.mesh import (
+    Mesh,
+    differentiable_sum,
+    make_mesh,
+    shard_batch,
+    shard_bounds,
+    world,
+)
 
 # the optax chain's constants (the JAX trainer's make_optimizer)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -275,16 +296,21 @@ def make_batch(cfg: TrainConfig, generator: torch.Generator, c_rot_i, i_t_i2c,
                height: int = 224, width: int = 320,
                bank: Optional[torch.Tensor] = None,
                tex_indices: Optional[torch.Tensor] = None,
-               pair_bank: Optional[tuple] = None) -> Batch:
+               pair_bank: Optional[tuple] = None, mesh: Optional[Mesh] = None) -> Batch:
     """``cfg.batch_size`` fresh training pairs, on the photo textures
     ``tex_indices`` of ``bank`` (both None: the procedural ground), a share
     of their poses from ``pair_bank``: ``draw_pairs``, the effects' noise,
-    then ``render_pairs``."""
+    then ``render_pairs``. With ``mesh``, all of it is drawn for the whole
+    batch and this rank's rows (``shard_bounds``) are rendered."""
     b = cfg.batch_size
     draws = draw_pairs(cfg, b, generator, tex_indices, pair_bank)
     noise = None
     if draws.effects is not None:
         noise = tuple(draw_noise((b, height, width), generator) for _ in range(2))
+    if mesh is not None:
+        lo, hi = shard_bounds(b, mesh)
+        draws = shard_batch(draws, mesh)
+        noise = None if noise is None else tuple(n[:, lo:hi] for n in noise)
     return render_pairs(draws, cfg, c_rot_i, i_t_i2c, height, width, bank, noise)
 
 
@@ -309,11 +335,30 @@ def _huber(err, delta):
     return torch.where(a <= delta, 0.5 * err * err, delta * (a - 0.5 * delta))
 
 
-def make_loss_fn(model: UAHN, cfg: TrainConfig) -> Callable:
+def make_loss_fn(model: UAHN, cfg: TrainConfig, mesh: Optional[Mesh] = None) -> Callable:
     """loss_fn(batch, use_prior, generator) -> (total loss, (3,) batch means
     of the cascade, member-mean and NLL losses), differentiable in the
-    model's parameters; ``generator`` draws the MC-dropout masks."""
+    model's parameters; ``generator`` draws the MC-dropout masks.
+
+    With ``mesh`` (data-parallel), ``batch`` is this rank's rows of the
+    global batch and the loss is this rank's share of the global one: the
+    weight sums and the echo moments are summed over the job
+    (``mesh.differentiable_sum``, whose backward sums the cotangents of
+    the W ranks' copies), each rank's echo term counts 1 / W of the penalty
+    every rank computes, and the (3,) means are this rank's rows' weighted
+    sums over the global weight. The ranks' losses, aux and gradients then
+    sum to one process's on the whole batch."""
     corners = model.corners
+    if mesh is None:
+        n_ranks, rows_of = 1, None
+
+        def gsum(x):
+            return x
+    else:
+        gsum, n_ranks = differentiable_sum, mesh.size
+
+        def rows_of(b):  # (first row, global batch) of this rank's b rows
+            return mesh.rank * b, mesh.size * b
 
     def loss_fn(batch: Batch, use_prior: bool, generator: Optional[torch.Generator]):
         img1, img2, gt = batch.img1, batch.img2, batch.gt_flow
@@ -322,7 +367,8 @@ def make_loss_fn(model: UAHN, cfg: TrainConfig) -> Callable:
         l_cascade = _huber(flows - gt[:, None], cfg.huber_delta).mean(dim=(1, 2))
 
         h1 = h1.detach()
-        means, logvars = model.last_block_members(img1, img2, h1, generator)
+        means, logvars = model.last_block_members(
+            img1, img2, h1, generator, None if rows_of is None else rows_of(img1.shape[0]))
         logvars = _clip(logvars, -cfg.logvar_clip, cfg.logvar_clip)
         err = means - _warped_frame_gt(h1, gt, corners)[:, None]  # (B, 16, 4, 2)
         l_mean = _huber(err, cfg.huber_delta).mean(dim=(1, 2, 3))
@@ -337,7 +383,7 @@ def make_loss_fn(model: UAHN, cfg: TrainConfig) -> Callable:
         # poison the batch: invalid-geometry and non-finite samples weigh 0
         w = batch.valid * torch.isfinite(losses).to(torch.float32)
         losses = torch.where(w > 0, losses, torch.zeros_like(losses)) * w
-        denom = torch.clamp(torch.sum(w), min=1.0)
+        denom = torch.clamp(gsum(torch.sum(w)), min=1.0)
         total = torch.sum(losses) / denom
 
         if use_prior and cfg.echo_weight > 0.0:
@@ -356,14 +402,15 @@ def make_loss_fn(model: UAHN, cfg: TrainConfig) -> Callable:
             def slope2(e):
                 e = torch.where(wf > 0, e, torch.zeros_like(e))
                 p = torch.where(wf > 0, err_prior, torch.zeros_like(err_prior))
-                n = torch.clamp(torch.sum(wf), min=1.0)
-                e = e - torch.sum(e, dim=0) / n
-                p = p - torch.sum(p, dim=0) / n
-                cov = torch.sum(e * p * wf, dim=0)
-                var = torch.sum(p * p * wf, dim=0) + 1e-3
+                n = torch.clamp(gsum(torch.sum(wf)), min=1.0)
+                e = e - gsum(torch.sum(e, dim=0)) / n
+                p = p - gsum(torch.sum(p, dim=0)) / n
+                cov = gsum(torch.sum(e * p * wf, dim=0))
+                var = gsum(torch.sum(p * p * wf, dim=0)) + 1e-3
                 return torch.mean((cov / var) ** 2)
 
-            total = total + cfg.echo_weight * (slope2(err_casc) + slope2(err_full))
+            echo = cfg.echo_weight * (slope2(err_casc) + slope2(err_full))
+            total = total + echo / n_ranks
 
         aux = torch.stack([
             torch.sum(torch.where(w > 0, x, torch.zeros_like(x)) * w) / denom
@@ -412,12 +459,17 @@ class OptaxAdamW:
 
     Every decision stays on the device (no host synchronize per step).
     The parameters become views of one flat buffer; a parameter without a
-    gradient has a zero gradient, as in JAX.
+    gradient has a zero gradient, as in JAX. ``grad_reduce``, where given,
+    reduces the flat gradient in place before anything reads it (the
+    data-parallel trainer's one ``all_reduce`` a step), so every rank sees
+    the same gradient and takes the same decisions.
     """
 
-    def __init__(self, params, schedule: Callable, weight_decay: float, grad_clip: float):
+    def __init__(self, params, schedule: Callable, weight_decay: float, grad_clip: float,
+                 grad_reduce: Optional[Callable] = None):
         self.params = list(params)
         self.schedule = schedule
+        self.grad_reduce = grad_reduce
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         flat = torch.cat([p.detach().reshape(-1) for p in self.params])
         offset = 0
@@ -443,6 +495,8 @@ class OptaxAdamW:
         """One update from the parameters' ``.grad``."""
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                        for p in self.params])
+        if self.grad_reduce is not None:
+            self.grad_reduce(g)
         finite_entries = torch.isfinite(g)
         finite = torch.all(finite_entries)
         self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
@@ -467,22 +521,28 @@ class OptaxAdamW:
         self.count = torch.where(apply, count_inc, self.count)
 
 
-def make_optimizer(model: UAHN, cfg: TrainConfig, steps: int) -> OptaxAdamW:
+def make_optimizer(model: UAHN, cfg: TrainConfig, steps: int,
+                   grad_reduce: Optional[Callable] = None) -> OptaxAdamW:
     """The JAX trainer's optimizer for a run of ``steps``: warmup from 0 to
-    ``cfg.lr`` over ``cfg.warmup_steps``, cosine to 5 % of it."""
+    ``cfg.lr`` over ``cfg.warmup_steps``, cosine to 5 % of it;
+    ``grad_reduce`` as ``OptaxAdamW``'s."""
     decay_steps = max(steps, cfg.warmup_steps + 1)
 
     def schedule(count):
         return warmup_cosine_decay(count, 0.0, cfg.lr, cfg.warmup_steps, decay_steps,
                                    end_value=cfg.lr * 0.05)
 
-    return OptaxAdamW(model.parameters(), schedule, cfg.weight_decay, cfg.grad_clip)
+    return OptaxAdamW(model.parameters(), schedule, cfg.weight_decay, cfg.grad_clip,
+                      grad_reduce)
 
 
-def make_train_step(model: UAHN, cfg: TrainConfig, opt: OptaxAdamW) -> Callable:
+def make_train_step(model: UAHN, cfg: TrainConfig, opt: OptaxAdamW,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """train_step(batch, use_prior, generator) -> (loss, aux): one gradient
-    step of ``opt`` on the model's parameters, in place."""
-    loss_fn = make_loss_fn(model, cfg)
+    step of ``opt`` on the model's parameters, in place; with ``mesh``,
+    this rank's share of the loss and aux (``make_loss_fn``), and ``opt``
+    must sum the gradient over the job."""
+    loss_fn = make_loss_fn(model, cfg, mesh)
 
     def train_step(batch: Batch, use_prior: bool, generator: Optional[torch.Generator]):
         opt.zero_grad()
@@ -541,7 +601,16 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
     steps and at the last, logs the held-out-texture probe
     (``make_probe_metric``, with photo textures only) and writes the best
     weights by its prior-mode error to ``<checkpoint_path>.best``.
+
+    Inside a ``torch.distributed`` job of W ranks (``parallel/mesh``), each
+    with its model on its own device and the same initial weights, trains
+    data-parallel when W divides ``cfg.batch_size`` (see the module
+    docstring; logged as "data-parallel over W ranks (seq mesh)"), else
+    unsharded on every rank; either way every rank ends with the same
+    weights, and rank 0 alone logs, probes and writes.
     """
+    import torch.distributed as dist
+
     from cuahn_vio_torch.data.trajpairs import (
         GT_DIR,
         build_pose_pair_bank,
@@ -552,8 +621,20 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
     f32_parity_mode()  # homography algebra needs full float32, not TF32
     dev = model.corners.device
     c_rot_i, i_t_i2c = c_rot_i.to(dev), i_t_i2c.to(dev)
-    opt = make_optimizer(model, cfg, steps)
-    step_fn = make_train_step(model, cfg, opt)
+    n_ranks, rank = world()
+    if rank:
+        def log_fn(*args, **kwargs):
+            return None
+    mesh = None
+    if dist.is_available() and dist.is_initialized():
+        if cfg.batch_size % n_ranks == 0:
+            mesh = make_mesh(dev)
+            log_fn(f"data-parallel over {n_ranks} ranks (seq mesh)", flush=True)
+        else:
+            log_fn(f"batch {cfg.batch_size} does not split over {n_ranks} ranks: training "
+                   "unsharded, the whole batch on every rank", flush=True)
+    opt = make_optimizer(model, cfg, steps, None if mesh is None else dist.all_reduce)
+    step_fn = make_train_step(model, cfg, opt, mesh)
 
     bank = tex_idx = None
     if cfg.use_textures:
@@ -577,7 +658,7 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
 
     probe_fn = None
     best_probe = float("inf")
-    if probe_every and cfg.use_textures:
+    if probe_every and cfg.use_textures and rank == 0:
         probe_fn = make_probe_metric(model, c_rot_i, i_t_i2c, cfg, height, width,
                                      probe_size=PROBE_SIZE)
 
@@ -585,10 +666,15 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
     # the prior-mode coin: the JAX trainer's host stream, flip for flip
     host_rng = np.random.default_rng(seed)
     for i in range(steps):
-        batch = make_batch(cfg, gen, c_rot_i, i_t_i2c, height, width, bank, tex_idx, pair_bank)
+        batch = make_batch(cfg, gen, c_rot_i, i_t_i2c, height, width, bank, tex_idx, pair_bank,
+                           mesh)
         use_prior = bool(host_rng.random() < cfg.prior_prob)
         loss, aux = step_fn(batch, use_prior, gen)
         if log_every and (i % log_every == 0 or i == steps - 1):
+            if mesh is not None:  # the ranks' shares sum to the batch's loss and means
+                shares = torch.cat([loss[None], aux])
+                dist.all_reduce(shares)
+                loss, aux = shares[0], shares[1:]
             l_c, l_m, l_n = aux.tolist()
             log_fn(f"step {i:5d} loss {loss.item():.4f} cascade {l_c:.4f} mean {l_m:.4f} "
                    f"nll {l_n:.4f} prior={use_prior} skipped={int(opt.notfinite_count)}",
@@ -601,7 +687,7 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
             if checkpoint_path and e_prior < best_probe:
                 best_probe = e_prior
                 save_params(checkpoint_path + ".best", model.state_dict())
-        if checkpoint_path and save_every and i and i % save_every == 0:
+        if checkpoint_path and save_every and i and i % save_every == 0 and rank == 0:
             save_params(checkpoint_path, model.state_dict())
     return model
 

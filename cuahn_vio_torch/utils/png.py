@@ -8,9 +8,12 @@ ingestion (``cuahn_vio/data/euroc.py``): the card's machine has no PIL.
   a (H, W) uint8 greyscale image. Greyscale is read as it is; grey+alpha,
   RGB and RGBA are converted as PIL's ``Image.convert("L")`` converts them:
   the alpha dropped, ``L = (R*19595 + G*38470 + B*7471 + 0x8000) >> 16``.
+  With ``rgb=True``, as (H, W, 3) uint8, as PIL's ``convert("RGB")``: the
+  alpha dropped, a grey level repeated.
   Palette, 16-bit (or fewer than 8 bits) and interlaced files are refused
   with an error that names the file and what it lacks.
-- ``write_png``: 8-bit greyscale, filter None on every row.
+- ``write_png``: 8-bit greyscale ((H, W) uint8) or RGB ((H, W, 3) uint8,
+  colour type 2), filter None on every row.
 
 Unfiltering is vectorised. Rows filtered None, Sub or Up depend on their
 own row and the row above only through a running sum, so each is one
@@ -44,15 +47,18 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """The bytes of an 8-bit greyscale PNG of (H, W) uint8 ``img``, every
-    row filtered None, deflated at ``ZLIB_LEVEL``."""
+    """The bytes of an 8-bit PNG of ``img``, greyscale for (H, W) uint8,
+    RGB (colour type 2) for (H, W, 3) uint8, every row filtered None,
+    deflated at ``ZLIB_LEVEL``."""
     img = np.asarray(img)
-    if img.ndim != 2 or img.dtype != np.uint8:
-        raise ValueError(f"write_png takes (H, W) uint8, got {img.shape} {img.dtype}")
-    hgt, wid = img.shape
-    raw = np.zeros((hgt, wid + 1), np.uint8)  # a leading 0 a row: filter None
-    raw[:, 1:] = img
-    header = struct.pack(">IIBBBBB", wid, hgt, 8, 0, 0, 0, 0)
+    rgb = img.ndim == 3 and img.shape[2] == 3
+    if not (img.ndim == 2 or rgb) or img.dtype != np.uint8:
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got {img.shape} "
+                         f"{img.dtype}")
+    hgt, wid = img.shape[:2]
+    raw = np.zeros((hgt, 1 + img[0].size), np.uint8)  # a leading 0 a row: filter None
+    raw[:, 1:] = img.reshape(hgt, -1)
+    header = struct.pack(">IIBBBBB", wid, hgt, 8, 2 if rgb else 0, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), ZLIB_LEVEL)) + _chunk(b"IEND", b""))
 
@@ -170,10 +176,20 @@ def _to_grey(img: np.ndarray, colour: int) -> np.ndarray:
             >> 16).astype(np.uint8)
 
 
-def decode_pngs(blobs: list, names: list | None = None) -> list:
-    """The (H, W) uint8 greyscale images of PNG file contents ``blobs``;
-    images of one shape and colour type with Average or Paeth rows are
-    unfiltered together."""
+def _to_rgb(img: np.ndarray, colour: int) -> np.ndarray:
+    """(..., H, W x channels) bytes -> (..., H, W, 3) uint8, as PIL's
+    ``convert("RGB")``."""
+    px = img.reshape(*img.shape[:-1], -1, _CHANNELS[colour])
+    if colour in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def decode_pngs(blobs: list, names: list | None = None, rgb: bool = False) -> list:
+    """The (H, W) uint8 greyscale images of PNG file contents ``blobs``
+    ((H, W, 3) RGB with ``rgb``); images of one shape and colour type with
+    Average or Paeth rows are unfiltered together."""
+    convert = _to_rgb if rgb else _to_grey
     names = names or [f"<png {k}>" for k in range(len(blobs))]
     parsed = [_parse(blob, name) for blob, name in zip(blobs, names)]
     out = [None] * len(parsed)
@@ -183,7 +199,7 @@ def decode_pngs(blobs: list, names: list | None = None) -> list:
         if types.max(initial=0) > 4:
             raise ValueError(f"{names[k]}: unknown row filter {int(types.max())}")
         if types.max(initial=0) <= 2:
-            out[k] = _to_grey(_unfilter_rows(types, raw[:, 1:], _CHANNELS[colour]), colour)
+            out[k] = convert(_unfilter_rows(types, raw[:, 1:], _CHANNELS[colour]), colour)
         else:
             groups.setdefault((hgt, wid, colour), []).append(k)
     for (_, _, colour), members in groups.items():
@@ -191,21 +207,23 @@ def decode_pngs(blobs: list, names: list | None = None) -> list:
             batch = members[start:start + DIAGONAL_BATCH]
             types = np.stack([parsed[k][3][:, 0] for k in batch])
             rows = np.stack([parsed[k][3][:, 1:] for k in batch])
-            grey = _to_grey(_unfilter_diagonals(types, rows, _CHANNELS[colour]), colour)
-            for k, img in zip(batch, grey):
+            images = convert(_unfilter_diagonals(types, rows, _CHANNELS[colour]), colour)
+            for k, img in zip(batch, images):
                 out[k] = img
     return out
 
 
-def read_pngs(paths: list) -> list:
-    """The (H, W) uint8 greyscale images of the PNG files ``paths``."""
+def read_pngs(paths: list, rgb: bool = False) -> list:
+    """The (H, W) uint8 greyscale images of the PNG files ``paths``
+    ((H, W, 3) RGB with ``rgb``)."""
     blobs = []
     for path in paths:
         with open(path, "rb") as f:
             blobs.append(f.read())
-    return decode_pngs(blobs, list(paths))
+    return decode_pngs(blobs, list(paths), rgb)
 
 
-def read_png(path: str) -> np.ndarray:
-    """The (H, W) uint8 greyscale image of one PNG file."""
-    return read_pngs([path])[0]
+def read_png(path: str, rgb: bool = False) -> np.ndarray:
+    """The (H, W) uint8 greyscale image of one PNG file ((H, W, 3) RGB with
+    ``rgb``)."""
+    return read_pngs([path], rgb)[0]

@@ -18,7 +18,8 @@ render and the CLI run on the card too, and the sparse-vision front end
 and the UAHN's error map follow their CPU results (``chip_smoke.py``
 phase 15a's checks at test size), as do the measurement replay of the
 filter-parameter sweep, the Schur smoother (bit for bit across repeats)
-and the one-process self-test.
+and the one-process self-test; the trainer's data-parallel path in a
+one-rank NCCL group follows its plain path.
 """
 
 import os
@@ -765,3 +766,42 @@ def test_selftest_on_gpu_follows_the_cpu(gpu):
     assert card["device"].startswith("cuda") and card["n_processes"] == 1
     for key in ("filter_pos_checksum", "filter_cov_checksum", "pose_checksum"):
         np.testing.assert_allclose(card[key], cpu[key], rtol=1e-5, err_msg=key)
+
+
+def test_train_data_parallel_in_a_one_rank_nccl_group_follows_the_plain_path(gpu, tmp_path):
+    """Two 56x80 steps (batch 4, photo textures and effects, the echo
+    penalty on) plain, then inside a one-rank NCCL group (``FileStore``, in
+    process): the data-parallel path (global denominators and echo moments
+    through NCCL, the flat gradient's ``all_reduce``) logs its line and the
+    plain path's losses, and its weights are within 1e-5 of the plain
+    path's (cuDNN's backward is not bit-deterministic)."""
+    import torch.distributed as dist
+
+    from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
+    from cuahn_vio_torch.train import trainer as T
+    from cuahn_vio_torch.utils.config import VioOptions
+
+    t = np.asarray(VioOptions().t_imu_to_cam, np.float64)
+    cam = (torch.tensor(t[:3, :3], dtype=torch.float32),
+           torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32))
+    cfg = T.TrainConfig(batch_size=4, blur_taps=2, echo_weight=0.5, prior_prob=1.0)
+
+    def run():
+        model = init_like_flax_(UAHN(img_height=56, img_width=80),
+                                torch.Generator().manual_seed(0)).to(gpu)
+        log = []
+        T.train(model, *cam, cfg, steps=2, seed=0, log_every=1, height=56, width=80,
+                log_fn=lambda m, **_: log.append(m), probe_every=0,
+                gt_dir=str(tmp_path / "no_gt"))
+        return model.state_dict(), log
+
+    plain, plain_log = run()
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        parallel, log = run()
+    finally:
+        dist.destroy_process_group()
+    assert log[0] == "data-parallel over 1 ranks (seq mesh)"
+    assert log[1:] == plain_log
+    assert max((parallel[k] - plain[k]).abs().max().item() for k in plain) <= 1e-5

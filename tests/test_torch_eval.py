@@ -115,10 +115,20 @@ def test_error_simulation_prints_the_jax_lines(files, capsys, state):
     assert "full-state NEES" in ours
 
 
-def test_error_simulation_refuses_plot(files):
-    with pytest.raises(SystemExit, match="--plot"):
-        tcli.main(["error-simulation", files["state.npz"], files["state_gt.txt"],
-                   "--plot", "x.png"])
+def test_error_simulation_refuses_plot(files, capsys, tmp_path):
+    """``--plot``, once refused, now draws the figure with the port's raster
+    writer (its series are held to the JAX figure's in
+    ``tests/test_torch_plots.py``): the JAX verb's lines, then "wrote", and
+    an RGB PNG of figsize x dpi (12 x 11 in at 130 dpi: five rows)."""
+    from cuahn_vio_torch.utils.png import read_png
+
+    out = str(tmp_path / "x.png")
+    argv = ["error-simulation", files["state.npz"], files["state_gt.txt"]]
+    ours = _said(tcli.main, [*argv, "--plot", out], capsys)
+    assert ours == _said(jax_main, argv, capsys) + f"wrote {out}\n"
+    with open(out, "rb") as f:
+        assert f.read(26)[25] == 2  # colour type 2, RGB
+    assert read_png(out).shape == (1430, 1560)
 
 
 def test_readers_return_the_jax_arrays(files):

@@ -16,7 +16,9 @@ cpu`` with ``smooth-trajectory --mesh``. Each verb of the diagnostics
 slice, and each verb of the sweep and parallel slice (``tune-filter``,
 ``distributed-selftest``, ``pid-monitor``, ``error-dataset``,
 ``error-comparison``, ``align-trajectory``, ``timing-comparison``), takes
-every flag of its JAX verb.
+every flag of its JAX verb. So do the plot verbs (``plot-trajectories``,
+``plot-trackhist``, ``timing-flamegraph``, ``watch-run``,
+``error-simulation``), which write their RGB PNGs with matplotlib blocked.
 """
 
 import os
@@ -79,7 +81,8 @@ def test_port_imports_without_jax_flax_or_the_jax_package():
     walked = set(proc.stdout.split()[:-1])
     assert {"cuahn_vio_torch.eval.tuning", "cuahn_vio_torch.eval.recorder",
             "cuahn_vio_torch.parallel.mesh", "cuahn_vio_torch.parallel.pose_graph_sharded",
-            "cuahn_vio_torch.parallel.selftest"} <= walked
+            "cuahn_vio_torch.parallel.selftest", "cuahn_vio_torch.eval.raster",
+            "cuahn_vio_torch.eval.plots", "cuahn_vio_torch.train.trainer"} <= walked
 
 
 def test_the_guard_blocks_what_it_names():
@@ -324,3 +327,65 @@ def test_sweep_and_parallel_verb_takes_every_flag_of_the_jax_verb(verb):
     if verb in ("tune-filter", "distributed-selftest"):
         assert got.pop("device") == (("--device",), "cuda", False)
     assert got == want
+
+
+PLOTS = r"""
+import numpy as np
+from cuahn_vio_torch.cli import main
+from cuahn_vio_torch.eval.simulation import StateGT, save_state_gt
+from cuahn_vio_torch.eval.traj_io import save_pose_file, save_timing_file
+from cuahn_vio_torch.utils.png import read_png
+
+rng = np.random.default_rng(0)
+t = np.arange(60) * 0.05
+poses = np.column_stack([np.cos(t), np.sin(t), 1.5 + 0 * t, 0 * t, 0 * t, 0 * t, 1 + 0 * t])
+save_pose_file("gt.txt", t, poses)
+save_pose_file("est.txt", t, poses + rng.normal(0, 0.01, poses.shape) * [1, 1, 1, 0, 0, 0, 0])
+main(["plot-trajectories", "gt.txt", "est.txt", "--out", "traj.png"])
+np.savez("seq.npz", frames=rng.integers(0, 256, (12, 56, 80)).astype(np.uint8))
+np.savez("state.npz", net_mean=rng.normal(0, 5, (11, 8)), net_chi2=rng.uniform(1, 20, 11))
+main(["plot-trackhist", "seq.npz", "state.npz", "--out", "th.png"])
+stages = rng.uniform(1, 5, (30, 5))
+save_timing_file("t.csv", np.arange(30) / 30.0, stages)
+main(["timing-flamegraph", "t.csv", "--out", "fg.png"])
+main(["watch-run", "est.txt", "--gt", "gt.txt", "--max-ticks", "1", "--out", "w.png"])
+z = np.zeros((60, 3))
+save_state_gt("sgt.txt", StateGT(times=t, pose=poses, vel=z, bg=z, ba=z))
+np.savez("st.npz", times=t, pose=poses, v_body=z, ba=z, bg=z)
+main(["error-simulation", "st.npz", "sgt.txt", "--plot", "sim.png"])
+shapes = [read_png(f).shape for f in ("traj.png", "th.png", "fg.png", "w.png", "sim.png")]
+assert shapes == [(1040, 1040), (832, 910), (520, 1300), (770, 770), (1430, 1560)], shapes
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("plots ok")
+"""
+
+
+def test_plot_verbs_run_without_matplotlib_or_jax(tmp_path):
+    """The five plot surfaces draw with the port's raster writer and write
+    RGB PNGs of figsize x dpi pixels, with matplotlib, PIL, JAX and the JAX
+    package blocked."""
+    code = GUARDED.split("import cuahn_vio_torch\n")[0] + PLOTS
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "plots ok" in proc.stdout
+    for name in ("traj.png", "th.png", "fg.png", "w.png", "sim.png"):
+        with open(tmp_path / name, "rb") as f:
+            assert f.read(26)[25] == 2, name  # colour type 2: RGB
+
+
+@pytest.mark.parametrize("verb", ["plot-trajectories", "plot-trackhist", "timing-flamegraph",
+                                  "watch-run", "error-simulation"])
+def test_plot_verb_takes_every_flag_of_the_jax_verb(verb):
+    """Every option and positional of the JAX verb, with its default and
+    choices; numpy-only, so no --device."""
+    from cuahn_vio_torch import cli as tcli
+
+    def tree(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.required, a.nargs,
+                         a.type, tuple(a.choices or ())) for a in parser._actions
+                if a.dest != "help"}
+
+    assert tree(_subparser(tcli.build_parser(), verb)) == tree(_jax_subparser(verb))

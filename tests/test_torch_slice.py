@@ -196,10 +196,12 @@ def test_cli_run_vio_on_cpu_writes_the_pose_file(sequence, tmp_path):
     ["error-simulation", "x.npz", "gt.txt", "--plot", "x.png"],
 ], ids=["error-simulation --plot"])
 def test_cli_refuses_flags_not_ported(argv, tmp_path, monkeypatch):
+    """``--plot``, once refused, is ported: without its input files the
+    verb fails reading them and writes nothing."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="not implemented"):
+    with pytest.raises(FileNotFoundError, match="x.npz"):
         tcli.main(argv)
-    assert not list(tmp_path.iterdir())  # refused before anything was read or written
+    assert not list(tmp_path.iterdir())  # nothing written
 
 
 def test_cli_refuses_cuda_without_a_gpu(tmp_path):
