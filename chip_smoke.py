@@ -8,8 +8,9 @@ Phases, each printed on its own line with its seconds:
 1. build the kernels with nvcc for sm_90a, one nvcc per source, started
    together (``cuahn_vio_torch/ops/cuda/warp.cu``: the warp B1/B2, the
    row-band warp B3 and the flat sampler B4; ``remap.cu``: the
-   undistortion remap C1), and print each kernel's registers, shared
-   memory and spill bytes (``-Xptxas -v``);
+   undistortion remap C1; ``prng.cu``: the threefry kernel T1), and print
+   each kernel's registers, shared memory and spill bytes (``-Xptxas
+   -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
    float32, bit for bit (max abs error 0.0, NaN exactly where the plain
    version has NaN): the warp at 224x320 with B in {1, 4, 8, 65} (and, in
@@ -45,11 +46,26 @@ Phases, each printed on its own line with its seconds:
    ``add_`` in the same CUDA graph); the remap C1 at N = 1 and N = 165
    raw 640x480 frames on the fisheye map, beside ``grid_sample`` on the
    same frames (as float) and coordinates and its byte bound;
+3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
+   ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
+   the card against JAX's bits, uniform and bernoulli bit for bit and its
+   normals within PRNG_NORMAL_JAX_TOL, and the four MC-dropout masks of
+   phase 4's first network call bit for bit; T1 against its plain version
+   (``utils/prng.draw_plain``) on the card at the masks' shapes (K = 4 and
+   4 x 64) and the effects' (2 x 224 x 320): bits, uniform and bernoulli
+   bit for bit, normal within PRNG_NORMAL_ULPS ulp; then T1's time (CUDA
+   graph replays), its plain version's and its bound at those shapes.
+   From here on every phase that runs the network at p = 0.05 must launch
+   T1 once a network call (phases 4, 6-11 and 13-17: its four masks in one
+   launch) and ``make-synthetic --effects`` once a frame (phases 12 and
+   13: its two noise images); the kernels line carries T1's launches by
+   phase;
 4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
    port's ``make_sequence``, run through ``run_offline`` with the shipped
-   v10 weights and 16-member MC dropout (p = 0.05, seeded generator); the
-   warp launch count must be 3 x steps x IEKF iterations, every pose finite
-   and the ATE under the bar below;
+   v10 weights and 16-member MC dropout (p = 0.05, the JAX package's masks
+   at seed 0: one T1 launch a network call); the warp launch count must
+   be 3 x steps x IEKF iterations, T1's steps x IEKF iterations, every
+   pose finite and the ATE under the bar below;
 5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
    with ``make_sequence`` on the card, and one motion-blurred one
    (``BLUR_SEQ``, ``exposure_s = EXPOSURE_S``: each frame the mean of 3
@@ -63,7 +79,7 @@ Phases, each printed on its own line with its seconds:
    times (once per warp site and lockstep frame, not per sequence), every
    pose finite and each sequence's ATE under its bar (``BATCH_ATE_BARS_M``);
 7. the first ``ROWSKIP_FRAMES`` lockstep frames again with
-   ``BATCH_SAMPLER = "rowskip"`` and the same generator seed: the row-band
+   ``BATCH_SAMPLER = "rowskip"`` and the same MC-dropout keys: the row-band
    kernel must launch 3 x frames x IEKF times, the warp kernel never, and
    the poses must agree with the "full" run's within ``ROWSKIP_POS_TOL_M``;
 8. the stepwise runner: phase 4's sequence cut to its first
@@ -73,7 +89,7 @@ Phases, each printed on its own line with its seconds:
    warm-up step on frame 0 launches too) and no other sampler launch,
    recover from no divergence, give finite poses, ``stage_ms`` of shape
    (F, 5), and poses within ``STEPWISE_POS_TOL_M`` of phase 4's (the same
-   operations and generator stream); prints each staged column's median
+   operations and MC-dropout keys); prints each staged column's median
    and the fused total;
 9. bfloat16 conv towers: phase 4's sequence through ``run_offline`` with
    a bf16 UAHN; 3 x steps x IEKF warp launches, finite poses, the ATE
@@ -289,14 +305,15 @@ SAMPLE_FLOPS_PER_POINT = 21  # 4 clip, 17 bilinear
 SEQ = dict(duration=6.0, t_still=2.5, seed=7, texture_seed=7,
            sigma_w=0.002, sigma_a=0.02, bias_g=0.003, bias_a=0.02)
 # ATE bar. Reference: ``python3 smoke_reference.py OUT_DIR`` runs the same
-# sequence (SEQ through the port's make_sequence on the CPU) through the
+# sequence (SEQ through the port's make_sequence on the CPU: the JAX
+# package's frames, its ground drawn from PRNGKey(texture_seed)) through the
 # JAX package's ``run-vio`` with the v10 weights and scores it with its
-# ``error-singlerun se3``, on the CPU: ATE pos rmse 0.03315 m at seed 0
-# (seeds 1 and 2: 0.03263, 0.03242 m; the port on the CPU, seeds 0-2:
-# 0.03235, 0.03239, 0.03296 m). The margin, ~7x that seed-to-seed spread,
-# covers MC-dropout draws (the port's generator cannot reproduce JAX's
-# keys) and frames rendered on the card.
-REF_ATE_M = 0.03315
+# ``error-singlerun se3``, on the CPU: ATE pos rmse 0.03642 m at seed 0
+# (seeds 1 and 2: 0.03639, 0.03613 m; the port on the CPU draws the same
+# masks and gives 0.03642, 0.03639, 0.03613 m). The margin, ~20x that
+# seed-to-seed spread, covers frames rendered on the card and the card's
+# float32 sums.
+REF_ATE_M = 0.03642
 ATE_MARGIN_M = 0.005
 ATE_BAR_M = REF_ATE_M + ATE_MARGIN_M
 
@@ -326,27 +343,28 @@ BATCH_TEXTURES = 16
 # with its ``error-singlerun se3``, on the CPU (JAX_REF_BATCH_ATE_M, the
 # mean over MC-dropout seeds 0-2). Each bar is that ATE + 0.005 m, or + 5x
 # the JAX package's seed-to-seed spread where that spread is above
-# 0.001 m. Measured: JAX seeds 0/1/2 0.03283/0.03278/0.03215,
-# 0.04416/0.04465/0.04416, 0.01794/0.01804/0.01791, 0.00654/0.00601/0.00596 m
-# (spreads 0.00068, 0.00049, 0.00013, 0.00058 m: the 0.005 m margin holds).
-# The port's run-vio-batch on the CPU, seeds 0/1/2: 0.03244/0.03205/0.03249,
-# 0.04355/0.04401/0.04415, 0.01785/0.01819/0.01775, 0.00609/0.00597/0.00613 m.
-JAX_REF_BATCH_ATE_M = (0.03259, 0.04432, 0.01796, 0.00617)
+# 0.001 m. Measured: JAX seeds 0/1/2 0.03616/0.03611/0.03615,
+# 0.04416/0.04464/0.04416, 0.01795/0.01805/0.01791, 0.00654/0.00601/0.00595 m
+# (spreads 0.00005, 0.00048, 0.00014, 0.00059 m: the 0.005 m margin holds).
+# The port's run-vio-batch on the CPU draws the same masks: every ATE the
+# same to 5 decimals but seed 1's second (0.04465).
+JAX_REF_BATCH_ATE_M = (0.03614, 0.04432, 0.01797, 0.00617)
 BATCH_ATE_BARS_M = tuple(round(a + ATE_MARGIN_M, 5) for a in JAX_REF_BATCH_ATE_M)
 ROWSKIP_FRAMES = 40
 ROWSKIP_POS_TOL_M = 1e-5  # rowskip vs full run, world positions
 # run_stepwise (staged and fused) against phase 4's run_offline, world
-# positions: the same operations on the same generator stream, so 0.0 is
+# positions: the same operations on the same MC-dropout keys, so 0.0 is
 # expected; the bound allows only float32 rounding of another cuDNN choice
 STEPWISE_POS_TOL_M = 1e-5
 STEPWISE_FRAMES = 60  # phase 8: the frame pairs of phase 4's sequence that each mode runs
 # ATE bar of the bf16 phase. Reference: ``python3 smoke_reference.py
 # OUT_DIR --part bf16`` runs SEQ through the JAX package's ``run-vio
 # --bf16`` with the v10 weights on the CPU, scored with its
-# ``error-singlerun se3``: seeds 0/1/2 0.03245/0.03185/0.03167 m, mean
-# 0.03199 m (the port's ``run-vio --bf16`` on the CPU: 0.03189/0.03193/
-# 0.03250 m); the bar is that mean + ATE_MARGIN_M.
-REF_BF16_ATE_M = 0.03199
+# ``error-singlerun se3``: seeds 0/1/2 0.03604/0.03607/0.03578 m, mean
+# 0.03596 m (the port's ``run-vio --bf16`` on the CPU: 0.03624/0.03623/
+# 0.03596 m: the same masks, bf16 rounded at other places); the bar is
+# that mean + ATE_MARGIN_M.
+REF_BF16_ATE_M = 0.03596
 BF16_ATE_BAR_M = REF_BF16_ATE_M + ATE_MARGIN_M
 # phase 10's make-synthetic: seconds of motion after the still phase
 CLI_DURATION_S = 3.0
@@ -378,12 +396,12 @@ RAW_INTERIOR = (slice(40, 180), slice(60, 260))
 # convert-euroc, run-vio (v10, MC-dropout seeds 0-2) and error-singlerun
 # se3 on the CPU. The bar is the JAX mean + 0.005 m, or + 5x its
 # seed-to-seed spread where that spread is above 0.001 m; it covers the
-# effects' noise, which the card's generator draws otherwise than the CPU's.
-# Measured: JAX chain seeds 0/1/2 0.01357/0.01323/0.01332 m (mean 0.01337,
-# spread 0.00034: the 0.005 m margin holds); the port's chain on the CPU
-# 0.01357/0.01352/0.01362 m; the JAX run-vio on the rendered frames, no
-# round trip, 0.01496/0.01449/0.01480 m.
-REF_RAW_ATE_M = 0.01337
+# frames rendered on the card.
+# Measured: JAX chain seeds 0/1/2 0.01272/0.01239/0.01246 m (mean 0.01252,
+# spread 0.00033: the 0.005 m margin holds); the port's chain on the CPU
+# 0.01272/0.01239/0.01245 m; the JAX run-vio on the rendered frames, no
+# round trip, 0.01333/0.01284/0.01335 m.
+REF_RAW_ATE_M = 0.01252
 RAW_ATE_BAR_M = REF_RAW_ATE_M + ATE_MARGIN_M
 # phase 13: the workflow of benchmarks/loop_closure_demo.sh, with its
 # flags: a double-loop pose file (``write_loop_trajectory``) flown by
@@ -404,11 +422,12 @@ LOOP_HUBER = 3.0  # the robust smoothing's --huber
 # run-vio (v10, MC-dropout seeds 0-2) --state-out, close-loops
 # (LOOP_CLOSE_ARGS) and smooth-trajectory --loops-file, scored with its
 # error-singlerun se3, on the CPU. The bar is the JAX mean smoothed ATE +
-# ATE_MARGIN_M. Measured: JAX seeds 0/1/2 online 0.16780/0.16695/0.16746 m,
-# 88/89/89 factors, smoothed 0.11041/0.11095/0.11104 m (mean 0.11080, spread
-# 0.00063); the port's chain on the CPU online 0.16776/0.16720/0.16781 m,
-# 89/89/88 factors, smoothed 0.11080/0.11000/0.11063 m.
-REF_LOOP_ATE_M = 0.11080
+# ATE_MARGIN_M. Measured: JAX seeds 0/1/2 online 0.15613/0.15524/0.15601 m,
+# 93/97/96 factors, smoothed 0.10110/0.10146/0.10183 m (mean 0.10146, spread
+# 0.00073); the port's chain on the CPU draws the same masks: online
+# 0.15614/0.15525/0.15602 m, the same factors, smoothed 0.10110/0.10146/
+# 0.10184 m.
+REF_LOOP_ATE_M = 0.10146
 LOOP_ATE_BAR_M = REF_LOOP_ATE_M + ATE_MARGIN_M
 # phase 14, filter-in-the-loop: FIL_STEPS steps of train/fil.fil_finetune
 # from v10 (every second one a pair step), windows of FIL_WINDOW frames,
@@ -485,6 +504,32 @@ SELFTEST_BENCH = dict(frames=10, steps=16, reps=3)  # the JAX recipe's 400 frame
 # both with cuDNN's deterministic algorithms (one process's weights, so
 # equal to rounding)
 DP_WEIGHTS_TOL = 1e-5
+# The random-stream phase (3b): JAX's draws, written by ``python3
+# smoke_reference.py OUT --part prng`` (a few keys, split, fold_in, bits,
+# uniform, bernoulli and normal of PRNG_COUNT values, and the four masks
+# of phase 4's first network call), and T1's cases on the card: the four
+# masks of one network call (K = 4) and of a close-loops batch of 64 pairs
+# (K = 4 x 64), and one frame's two sensor-effects noise images.
+PRNG_REF = "tests/data/prng_jax.npz"
+PRNG_SEEDS = (0, 7, 2**33 + 5)
+PRNG_FOLDS = (0, 1, 10_000, 2**32 - 1)
+PRNG_COUNT = 1001
+PRNG_NORMAL_JAX_TOL = 1e-6  # XLA's CPU log1p is its own polynomial (tests/test_torch_prng.py)
+PRNG_NORMAL_ULPS = 2  # the kernel's log1pf against torch.log1p on the card
+PRNG_CASES = {
+    "masks K=4": [16 * 5120, 16 * 256] * 2,
+    "masks K=256": [16 * 5120, 16 * 256] * 128,
+    "effects K=2": [H * W] * 2,
+}
+# 32-bit operations a value: threefry's 20 rounds (add, rotate, xor), 5 key
+# injections (3 adds), the 2 initial adds and the final xor; then the mode's
+# float work (uniform: shift, or, sub, fma, max; bernoulli: those and a
+# compare; normal: uniform's, the square, log1p counted as one, the select,
+# sqrt or sub, 9 Horner fmas counted as 2 each, 2 multiplies)
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 1
+PRNG_MODE_OPS = {"bits": 0, "uniform": 5, "bernoulli": 6, "normal": 5 + 6 + 18 + 2}
+PRNG_OUT_BYTES = {"bits": 4, "uniform": 4, "bernoulli": 1, "normal": 4}
+FP32_OPS_PER_S = 67e12  # H100 SXM, CUDA cores (no integer rate is published apart)
 TORCHRUN = ("-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
             "--no-python")
 WATCH_TICKS, WATCH_INTERVAL_S = 3, 0.2  # phase 17b's watch-run
@@ -1148,10 +1193,10 @@ def slice_setup(torch, dev):
     opts.init_imu_thresh = 0.2
     model = build_uahn(load_params(WEIGHTS), device=dev,
                        dropout_rate=opts.mc_dropout, blocks_to_run=opts.blocks_to_run)
-    # warm-up: first cuDNN/cuBLAS calls and the generator
+    # warm-up: first cuDNN/cuBLAS calls and the masks' first draw
     warm = torch.as_tensor(seq.frames[:1], device=dev)
     model(warm, warm, torch.zeros((1, 4, 2), device=dev), use_prior=True,
-          generator=torch.Generator(device=dev))
+          dropout_keys=np.zeros((1, 2), np.uint32))
     return seq, opts, model
 
 
@@ -1296,12 +1341,14 @@ def run_batched(torch, dev, seqs, opts, model):
 
 def run_rowskip(torch, dev, seqs, opts, model, frames: int):
     """Phase 7: the first ``frames`` lockstep frames of the batched run with
-    the row-band sampler and the same generator seed. Returns (results,
-    launches)."""
+    the row-band sampler and the masks of run_offline_batch at seed 0.
+    Returns (results, launches)."""
     from cuahn_vio_torch.ops import warp
     from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
     from cuahn_vio_torch.parallel.sharded_eval import batched_run_sequences
-    from cuahn_vio_torch.pipeline.runner import batch_results, prepare_batch
+    from cuahn_vio_torch.pipeline.runner import batch_frame_keys, batch_results, prepare_batch
+    from cuahn_vio_torch.pipeline.vio import sequence_mask_keys
+    from cuahn_vio_torch.utils import prng
 
     sequences = [(s.imu_t, s.imu_w, s.imu_a, s.cam_t, s.frames) for s in seqs]
     fparams = opts.filter_params(dev)
@@ -1313,14 +1360,16 @@ def run_rowskip(torch, dev, seqs, opts, model, frames: int):
         n_frames=[min(nf, frames) for nf in batch.n_frames],
         times=[t[:frames] for t in batch.times],
     )
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(0)
+    # run_offline_batch's keys at seed 0, its first ``frames`` frame pairs
+    frame_keys = batch_frame_keys(0, len(seqs), frames)
+    mask_keys = prng.keys_tensor(
+        sequence_mask_keys(frame_keys, opts.vio_config().max_iekf_iterations), dev)
     warp.BATCH_SAMPLER = "rowskip"
     try:
         reset_launch_counts()
         _, outs = batched_run_sequences(
             cut.states0, model, fparams, opts.vio_config(), cut.imgs_u8, cut.w_win,
-            cut.a_win, cut.dt_win, cut.n_used, generator,
+            cut.a_win, cut.dt_win, cut.n_used, mask_keys,
         )
         torch.cuda.synchronize()
         launches = dict(launch_counts)
@@ -1360,6 +1409,8 @@ def run_stepwise_phase(torch, dev, seq, opts, model, staged: bool):
 def run_bf16(torch, dev, seq, opts):
     """Phase 9: phase 4's sequence through run_offline with bfloat16 conv
     towers. Returns (result, launches, ms/frame)."""
+    import numpy as np
+
     from cuahn_vio_torch.models.uahn import build_uahn
     from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
     from cuahn_vio_torch.pipeline.runner import run_offline
@@ -1369,7 +1420,7 @@ def run_bf16(torch, dev, seq, opts):
                        blocks_to_run=opts.blocks_to_run, compute_dtype=torch.bfloat16)
     warm = torch.as_tensor(seq.frames[:1], device=dev)  # first bf16 cuDNN calls
     model(warm, warm, torch.zeros((1, 4, 2), device=dev), use_prior=True,
-          generator=torch.Generator(device=dev))
+          dropout_keys=np.zeros((1, 2), np.uint32))
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1475,6 +1526,7 @@ def run_cli(tmp: str) -> dict:
     poses = load_pose_file(os.path.join(tmp, "est.txt"))
     times, stages = load_timing_file(os.path.join(tmp, "t.csv"))
     out.update(poses=len(poses.times), warp_launches=counts[KERNEL],
+               threefry_launches=counts["threefry"],
                other_launches=counts[SAMPLE_KERNEL] + counts["homography_warp_rowskip"])
     # the pose file prints times to 5 decimals, the timing csv to 15
     if stages.shape != (len(poses.times), 5) or not np.allclose(times, poses.times, atol=1e-5):
@@ -1609,6 +1661,8 @@ def train_once(torch, tmp: str, probe_size: int, launcher: tuple = (),
     if (sorted(seen["warps"]) != want_warps or counts["homography_warp"] != len(want_warps)
             or counts["homography_warp_rowskip"]):
         raise AssertionError(f"train-uahn warp launches {seen['warps']} ({counts} counted)")
+    # the MC-dropout masks: one launch a step, one a probe call (two modes)
+    expect_t1("train-uahn", counts["threefry"], TRAIN_STEPS + 2)
     v10 = load_params(WEIGHTS)
     written = {}
     for path in (out_path, out_path + ".best"):
@@ -1627,6 +1681,7 @@ def train_once(torch, tmp: str, probe_size: int, launcher: tuple = (),
     return dict(logged_losses=losses, ms_per_step=ms_step,
                 median_gap_ms=float(np.median(np.diff(ends)) * 1e3),
                 samples_per_s=TRAIN_BATCH / ms_step * 1e3, warp_launches=len(seen["warps"]),
+                threefry_launches=counts["threefry"],
                 sampler_launches=len(seen["samples"]), probe=probe[-1].split(": ", 1)[1],
                 data_parallel="data-parallel over 1 ranks (seq mesh)" in said.splitlines(),
                 weights=written[out_path])
@@ -1747,10 +1802,11 @@ def build_kernels() -> dict:
     seconds}."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.ops.cuda import remap as remap_cuda
     from cuahn_vio_torch.ops.cuda import warp as warp_cuda
 
-    mods = (warp_cuda, remap_cuda)
+    mods = (warp_cuda, remap_cuda, prng_cuda)
     with ThreadPoolExecutor(len(mods)) as pool:
         seconds = list(pool.map(lambda m: m.build_kernel(), mods))
     return {os.path.relpath(m.SOURCE, REPO): s for m, s in zip(mods, seconds)}
@@ -1969,10 +2025,12 @@ def run_raw_chain(torch, dev, tmp: str, model, iekf: int) -> dict:
                      "heldout", "--exposure-ms", "8", "--effects", "--seed", "7", *noise])
     seq = np.load(path("raw_seq.npz"))
     frames = len(seq["frames"])
-    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
+    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL],
+               threefry_launches_effects=counts["threefry"])
     if counts[SAMPLE_KERNEL] != frames:
         raise AssertionError(f"make-synthetic --traj-file: {counts[SAMPLE_KERNEL]} sampler "
                              f"launches for {frames} frames")
+    expect_t1("make-synthetic --effects (each frame's noise)", counts["threefry"], frames)
     verb(["distort-to-euroc", "raw_seq.npz", "--config", "raw_seq_config.yaml", "--out",
          "euroc"])
     codec = png_ms_per_frame(path("euroc"))
@@ -1996,7 +2054,9 @@ def run_raw_chain(torch, dev, tmp: str, model, iekf: int) -> dict:
     _, counts = verb(["run-vio", "conv.npz", "--config", "raw_seq_config.yaml", "--weights",
                      WEIGHTS, "--out", "est_raw.txt", "--state-out", "state_raw.npz"])
     poses = load_pose_file(path("est_raw.txt"))
-    out.update(poses=len(poses.times), warp_launches=counts[KERNEL])
+    out.update(poses=len(poses.times), warp_launches=counts[KERNEL],
+               threefry_launches_run_vio=counts["threefry"])
+    expect_t1("run-vio on the converted frames", counts["threefry"], len(poses.times) * iekf)
     if counts[KERNEL] != 3 * len(poses.times) * iekf or not np.isfinite(poses.poses).all():
         raise AssertionError(f"run-vio on the converted frames: {counts[KERNEL]} warp launches "
                              f"for {len(poses.times)} poses, or non-finite poses")
@@ -2179,16 +2239,20 @@ def loop_run(tmp: str, iekf: int) -> dict:
                                "loopy_traj.txt", *LOOP_SYNTH_ARGS], tmp)
     out["texture"] = said.split("ground texture: ")[1].split(",")[0]
     frames = len(np.load(path("replay.npz"))["frames"])
-    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL])
+    out.update(frames=frames, sampler_launches=counts[SAMPLE_KERNEL],
+               threefry_launches_effects=counts["threefry"])
     if counts[SAMPLE_KERNEL] != frames:
         raise AssertionError(f"make-synthetic: {counts[SAMPLE_KERNEL]} sampler launches for "
                              f"{frames} frames")
+    expect_t1("make-synthetic --effects (each frame's noise)", counts["threefry"], frames)
     _, counts = timed_verb(out, "run-vio", cli,
                            ["run-vio", "replay.npz", "--config", "replay_config.yaml",
                             "--weights", WEIGHTS, "--out", "est.txt", "--state-out",
                             "state.npz"], tmp)
     poses = len(load_pose_file(path("est.txt")).times)
-    out.update(poses=poses, run_vio_warp_launches=counts[KERNEL])
+    out.update(poses=poses, run_vio_warp_launches=counts[KERNEL],
+               threefry_launches_run_vio=counts["threefry"])
+    expect_t1("run-vio", counts["threefry"], poses * iekf)
     if counts[KERNEL] != 3 * poses * iekf:
         raise AssertionError(f"run-vio: {counts[KERNEL]} warp launches for {poses} poses")
     return out
@@ -2233,6 +2297,8 @@ def run_loop(torch, dev, tmp: str, first: dict, beside: dict) -> dict:
             or counts[SAMPLE_KERNEL] or counts["homography_warp_rowskip"]):
         raise AssertionError(f"close-loops: warp launches {warps} ({counts}) for {inferred} "
                              f"pairs inside the geometric gate")
+    out["threefry_launches_close_loops"] = counts["threefry"]
+    expect_t1("close-loops (a batch's masks in one)", counts["threefry"], batches)
     if factors < 1:
         raise AssertionError("close-loops wrote no factor")
     # the warp at each batch size that close-loops launched it at: held to
@@ -2407,6 +2473,10 @@ def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
             or counts[cuda_warp.SAMPLE_KERNEL] != len(seen["samples"])
             or counts[cuda_warp.ROWSKIP_KERNEL] or counts.get("remap")):
         raise AssertionError(f"fil_finetune launch counts {counts}")
+    # the masks: one launch a network call, W x IEKF a FIL step, one a pair step
+    out["threefry_launches"] = counts["threefry"]
+    expect_t1("fil_finetune", counts["threefry"],
+              sum(FIL_WINDOW * FIL_IEKF if kind == "fil" else 1 for kind in kinds))
     if written.keys() != v10.keys() or not all(torch.isfinite(written[k]).all() for k in v10):
         raise AssertionError("the FIL checkpoint is not v10's tree of finite weights")
     tuned = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2671,12 +2741,13 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     n_pairs = len(np.load(path("seq.npz"))["frames"]) - 1
     flow_batch = 16  # eval-flow's default --batch
 
-    def only_warps(seen, want, key):  # the run's launches: exactly ``want`` warps
+    def only_warps(seen, want, key, calls):  # exactly ``want`` warps and ``calls`` T1 draws
         counts = seen["launch_counts"]
         if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
-                or sum(counts.values()) != len(want)):
+                or counts["threefry"] != calls or sum(counts.values()) != len(want) + calls):
             raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
-                                 f"expected {want}")
+                                 f"expected {want} and {calls} threefry launches")
+        out["threefry_launches"] = out.get("threefry_launches", 0) + calls
 
     def refused():  # calibrate-state-covariance on the --cov-calib log: its stderr
         return run_child([sys.executable, "-m", "cuahn_vio_torch.cli",
@@ -2709,7 +2780,7 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         sizes = [flow_batch] * (pairs // flow_batch)
         if pairs % flow_batch:
             sizes.append(pairs % flow_batch)
-        only_warps(seen, [[b, "float32"] for b in sizes for _ in range(3)], key)
+        only_warps(seen, [[b, "float32"] for b in sizes for _ in range(3)], key, len(sizes))
         rmse = float(re.search(r"corner error  px: rmse ([0-9.]+)", said).group(1))
         out[f"flow_rmse_px_{prior}"] = rmse
         out[f"flow_pairs_{prior}"] = pairs
@@ -2722,7 +2793,7 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         raise AssertionError(f"eval-flow --out: pred {dump['pred'].shape}")
 
     said, seen = said_by["inspect-frame"]
-    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame")
+    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame", 1)
     out["inspect_warp_launches"] = len(seen["warps"])
     out["inspect_png_shape"] = list(read_pngs([path("inspect.png")])[0].shape)
     out["inspect_mean_err"] = float(said.rsplit("mean photometric err ", 1)[1].rstrip(")"))
@@ -3015,7 +3086,8 @@ def run_batch_mesh_and_verbs(torch, dev, seqs, results, opts, tmp: str, cli_dir:
                    path("batch_config.yaml"), "--weights", WEIGHTS, "--out-dir",
                    path("algos", "port"), "--mesh"])
     out = dict(batch_frames=k, batch_mesh_s=round(time.perf_counter() - t0, 3),
-               batch_mesh_warp_launches=launch_counts[KERNEL])
+               batch_mesh_warp_launches=launch_counts[KERNEL],
+               batch_mesh_threefry_launches=launch_counts["threefry"])
     if f"sharding {len(names)} sequences over 1 devices" not in said.getvalue():
         raise AssertionError(f"run-vio-batch --mesh said {said.getvalue()!r}")
     unequal = [n for n in names if open(path("algos", "port", f"{n}.txt"), "rb").read()
@@ -3113,6 +3185,140 @@ def remap_entry(launches, err, rows, ptxas) -> dict:
     )
 
 
+def prng_reference_checks(torch, dev, ref) -> dict:
+    """Phase 3b, against JAX (``PRNG_REF``): the host keys exactly, T1's
+    bits, uniform and bernoulli bit for bit, its normals within
+    PRNG_NORMAL_JAX_TOL, and the masks of phase 4's first network call.
+    Returns what it found; raises on a failed check."""
+    import numpy as np
+
+    from cuahn_vio_torch.models.uahn import draw_masks
+    from cuahn_vio_torch.pipeline.vio import sequence_mask_keys
+    from cuahn_vio_torch.utils import prng
+
+    base = prng.prng_key(42)
+    host = dict(
+        seed_keys=np.stack([prng.prng_key(s) for s in ref["seeds"].tolist()]),
+        split6=prng.split(base, 6),
+        fold_keys=prng.fold_in(base, ref["folds"]),
+        draw_keys=prng.fold_in(base, np.arange(3)),
+    )
+    for name, got in host.items():
+        if not np.array_equal(got, ref[name]):
+            raise AssertionError(f"prng: host {name} {got.tolist()} != JAX's {ref[name].tolist()}")
+    keys = prng.keys_tensor(host["draw_keys"], dev)
+    n = ref["bits"].shape[1]
+    drawn = dict(bits=prng.random_bits(keys, (n,)).cpu().numpy().view(np.uint32),
+                 uniform=prng.uniform(keys, (n,), 0.3, 1.7).cpu().numpy(),
+                 bernoulli=prng.bernoulli(keys, (n,), 0.95).cpu().numpy().astype(bool))
+    for name, got in drawn.items():
+        want = ref[name]
+        if not np.array_equal(got.view(want.dtype) if got.dtype != want.dtype and
+                              got.itemsize == want.itemsize else got, want):
+            raise AssertionError(f"prng: T1 {name} differs from JAX's")
+    normal = prng.normal(keys, (n,)).cpu().numpy()
+    out = dict(normal_max_abs_diff_from_jax=float(np.abs(normal - ref["normal"]).max()))
+    if not (out["normal_max_abs_diff_from_jax"] <= PRNG_NORMAL_JAX_TOL
+            and np.array_equal(np.sign(normal), np.sign(ref["normal"]))):
+        raise AssertionError(f"prng: T1 normals {out['normal_max_abs_diff_from_jax']:.3e} from "
+                             f"JAX's (tol {PRNG_NORMAL_JAX_TOL})")
+    # phase 4's first network call: frame pair 0 of split(PRNGKey(0), F), IEKF
+    # iteration 0 (split's first key is F's for every F)
+    table = sequence_mask_keys(prng.split(prng.prng_key(0), 1), 1)
+    call = prng.fold_in(prng.split(prng.prng_key(0), 1)[0], 0)
+    if not np.array_equal(call, ref["mask_call_key"]):
+        raise AssertionError(f"prng: phase 4's first call key {call} != JAX's")
+    masks = draw_masks(prng.keys_tensor(table[0], dev), 0.05, 5120, dev)
+    flat = [m for head in masks for m in head]
+    for name, mask in zip(("mean0", "mean1", "logvar0", "logvar1"), flat):
+        shape = tuple(ref[f"mask_{name}_shape"].tolist())
+        want = np.unpackbits(ref[f"mask_{name}"])[:int(np.prod(shape))].reshape(shape)
+        got = mask[0].cpu().numpy().astype(np.uint8)
+        if got.shape != shape or not np.array_equal(got, want):
+            raise AssertionError(f"prng: phase 4's first {name} mask differs from JAX's")
+    out["masks_equal_jax"] = True
+    return out
+
+
+def check_prng(torch, dev) -> dict:
+    """Phase 3b: T1 against JAX (``prng_reference_checks``) and against its
+    plain version on the card at PRNG_CASES, then timed there. Returns
+    {"reference": ..., "cases": {case: {mode: row}}}; raises on a failed
+    check."""
+    import numpy as np
+
+    from cuahn_vio_torch.utils import prng
+
+    with np.load(os.path.join(REPO, PRNG_REF)) as ref:
+        found = {"reference": prng_reference_checks(torch, dev, dict(ref))}
+    modes = {"bits": (prng.BITS, 0.0, 1.0), "uniform": (prng.UNIFORM, 0.3, 1.7),
+             "bernoulli": (prng.BERNOULLI, 0.95, 1.0), "normal": (prng.NORMAL, 0.0, 1.0)}
+    found["cases"] = {}
+    for case, counts in PRNG_CASES.items():
+        keys = prng.keys_tensor(prng.split(prng.prng_key(len(counts)), len(counts)), dev)
+        rows = found["cases"][case] = {}
+        for name, (mode, a, b) in modes.items():
+            out = prng.draw(keys, counts, mode, a, b)
+            ref = prng.draw_plain(keys, counts, mode, a, b)
+            torch.cuda.synchronize()
+            if out.dtype != ref.dtype or out.shape != ref.shape:
+                raise AssertionError(f"T1 {case} {name}: {out.dtype} {tuple(out.shape)}, plain "
+                                     f"{ref.dtype} {tuple(ref.shape)}")
+            if mode == prng.NORMAL:
+                ulps = int((out.view(torch.int32).long() - ref.view(torch.int32).long()
+                            ).abs().max())
+                if ulps > PRNG_NORMAL_ULPS or not torch.equal(torch.sign(out), torch.sign(ref)):
+                    raise AssertionError(f"T1 {case} normal: {ulps} ulp from its plain version")
+                err = float((out - ref).abs().max())
+            else:
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"T1 {case} {name}: not its plain version bit for bit")
+                ulps, err = 0, 0.0
+            values = sum(counts)
+            ops = values * (THREEFRY_OPS + PRNG_MODE_OPS[name])
+            moved = values * PRNG_OUT_BYTES[name] + 8 * len(counts) + 8 * (len(counts) + 1)
+            bound_ops, bound_bytes = ops / FP32_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+            rows[name] = dict(
+                keys=len(counts), values=values, max_abs_err=err, ulps=ulps,
+                ms=time_graph_ms(torch, lambda: prng.draw(keys, counts, mode, a, b)),
+                plain_ms=time_ms(torch, lambda: prng.draw_plain(keys, counts, mode, a, b), 5),
+                bound_ms=max(bound_ops, bound_bytes),
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                library_ms=None)
+    return found
+
+
+def prng_entry(launches_by_phase: dict, found: dict, ptxas: dict) -> dict:
+    """T1's entry of the kernels line: not a TPU kernel (XLA lowers
+    threefry itself); its launches in phase 4 (the main path) and by
+    phase, the MC-dropout masks' draw (bernoulli, K = 4) in the common
+    fields, and every case and mode under ``shapes``. No PyTorch call
+    computes this function (torch.rand is Philox), so ``library_ms`` is
+    null."""
+    row = found["cases"]["masks K=4"]["bernoulli"]
+    compiled = ptxas["threefry_kernel<2>"]
+    return dict(
+        name="threefry (MC-dropout masks, K=4 bernoulli; sensor-effects normals)",
+        route="cuda", source="cuahn_vio_torch/ops/cuda/prng.cu",
+        replaces="jax/_src/prng.py:1184 (threefry_random_bits, lowered by XLA)",
+        tpu_kernel=False, launches=launches_by_phase["4"], launches_by_phase=launches_by_phase,
+        max_abs_err=max(r["max_abs_err"] for c in found["cases"].values() for r in c.values()),
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None, registers=compiled["registers"],
+        spill_stores=compiled["spill_stores"], spill_loads=compiled["spill_loads"],
+        normal_max_abs_diff_from_jax=found["reference"]["normal_max_abs_diff_from_jax"],
+        shapes={f"{case} {mode}": r for case, rows in found["cases"].items()
+                for mode, r in rows.items()},
+    )
+
+
+def expect_t1(what: str, got: int, want: int) -> None:
+    """T1 launched ``got`` times where ``want`` network calls (or frames of
+    noise) drew from it."""
+    if got != want:
+        raise AssertionError(f"{what}: {got} threefry launches, expected {want}")
+
+
 def main() -> int:
     t_all = time.perf_counter()
     faulthandler.dump_traceback_later(WALL_LIMIT_S, exit=True)
@@ -3123,6 +3329,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from cuahn_vio_torch.ops.cuda import prng as prng_cuda
         from cuahn_vio_torch.ops.cuda import remap as remap_cuda
         from cuahn_vio_torch.ops.cuda import warp as warp_cuda
         from cuahn_vio_torch.ops.homography import f32_parity_mode
@@ -3152,7 +3359,9 @@ def main() -> int:
     build_s = build_kernels()
     ptxas = warp_cuda.ptxas_report()
     remap_ptxas = remap_cuda.ptxas_report()["remap_kernel"]
-    for kern, info in sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]:
+    prng_ptxas = prng_cuda.ptxas_report()
+    for kern, info in (sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]
+                       + sorted(prng_ptxas.items())):
         print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
@@ -3179,16 +3388,29 @@ def main() -> int:
     phase("timing", t0, gpu=f"'{gpu}'")
 
     t0 = time.perf_counter()
+    prng_found = check_prng(torch, dev)
+    for case, rows in prng_found["cases"].items():
+        for mode, r in rows.items():
+            print(f"  T1 {case} {mode}: {r['values']} values, {r['ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                  f"{r['ulps']} ulp", flush=True)
+    phase("prng", t0, gpu=f"'{gpu}'", **prng_found["reference"])
+    t1_launches = {}
+
+    t0 = time.perf_counter()
     launches, steps, iekf, ms_frame, ate_pos, ate_ori, (seq, opts, model, slice_res) = \
         run_slice(torch, dev)
     warp_launches = launches[warp_cuda.KERNEL]
+    t1_launches["4"] = launches[prng_cuda.KERNEL]
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
-          warp_launches=warp_launches, ate_pos_m=f"{ate_pos:.5f}",
+          warp_launches=warp_launches, threefry_launches=t1_launches["4"],
+          ate_pos_m=f"{ate_pos:.5f}",
           ate_ori_deg=f"{ate_ori:.4f}", ate_bar_m=f"{ATE_BAR_M:.5f}")
     if warp_launches != 3 * steps * iekf:
         raise AssertionError(
             f"warp launched {warp_launches}x, expected 3 x {steps} x {iekf}"
         )
+    expect_t1("slice", t1_launches["4"], steps * iekf)
     if not ate_pos <= ATE_BAR_M:
         raise AssertionError(f"ATE {ate_pos:.5f} m above the bar {ATE_BAR_M:.5f} m")
 
@@ -3229,6 +3451,8 @@ def main() -> int:
                              f"expected 3 x {f_max} x {iekf}")
     if b_launches[warp_cuda.ROWSKIP_KERNEL] != 0:
         raise AssertionError("the row-band warp ran under BATCH_SAMPLER='full'")
+    t1_launches["6"] = b_launches[prng_cuda.KERNEL]
+    expect_t1("batched", t1_launches["6"], f_max * iekf)
     for i, (a, bar) in enumerate(zip(ates, BATCH_ATE_BARS_M)):
         if not a <= bar:
             raise AssertionError(f"batched sequence {i}: ATE {a:.5f} m above the bar {bar:.5f} m")
@@ -3246,6 +3470,8 @@ def main() -> int:
                              f"3 x {ROWSKIP_FRAMES} x {iekf} row-band launches only")
     if not pos_diff <= ROWSKIP_POS_TOL_M:
         raise AssertionError(f"rowskip poses {pos_diff:.3e} m from the full run's")
+    t1_launches["7"] = s_launches[prng_cuda.KERNEL]
+    expect_t1("rowskip", t1_launches["7"], ROWSKIP_FRAMES * iekf)
 
     b1_launches = {"4": warp_launches}
     for staged in (True, False):
@@ -3263,6 +3489,8 @@ def main() -> int:
               tol_m=f"{STEPWISE_POS_TOL_M:.0e}",
               **{f"median_{c}_ms": f"{m:.3f}" for c, m in zip(
                   ("load", "prop", "net", "update", "total"), median)})
+        t1_launches[f"8 {mode}"] = sw_launches[prng_cuda.KERNEL]
+        expect_t1(f"stepwise {mode}", t1_launches[f"8 {mode}"], (len(sw.times) + 1) * iekf)
         want = 3 * (len(sw.times) + 1) * iekf  # + the warm-up step
         if (sw_launches[warp_cuda.KERNEL] != want
                 or sw_launches[warp_cuda.ROWSKIP_KERNEL] or sw_launches[warp_cuda.SAMPLE_KERNEL]):
@@ -3279,6 +3507,8 @@ def main() -> int:
     t0 = time.perf_counter()
     bf, bf_launches, bf_ms = run_bf16(torch, dev, seq, opts)
     b1_launches["9"] = bf_launches[warp_cuda.KERNEL]
+    t1_launches["9"] = bf_launches[prng_cuda.KERNEL]
+    expect_t1("bf16", t1_launches["9"], steps * iekf)
     bf_ori, bf_pos = ate_rmse(bf.times, bf.pose_w, seq.gt_times, seq.gt_pose_w)
     phase("bf16", t0, frames=len(bf.times), ms_per_frame=f"{bf_ms:.3f}",
           float32_ms_per_frame=f"{ms_frame:.3f}", warp_launches=bf_launches[warp_cuda.KERNEL],
@@ -3294,7 +3524,9 @@ def main() -> int:
     t0 = time.perf_counter()
     found = run_cli(cli_dir.name)
     b1_launches["10"] = found["warp_launches"]
+    t1_launches["10"] = found["threefry_launches"]
     phase("cli", t0, **found)
+    expect_t1("run-vio --timing-out", found["threefry_launches"], (found["poses"] + 1) * iekf)
     if found["warp_launches"] != 3 * (found["poses"] + 1) * iekf or found["other_launches"]:
         raise AssertionError(f"run-vio --timing-out: {found['warp_launches']} warp launches "
                              f"for {found['poses']} poses")
@@ -3314,6 +3546,7 @@ def main() -> int:
           trained_ate_pos_m=f"{trained['trained_ate_pos_m']:.5f}",
           v10_ate_pos_m=f"{ate_pos:.5f}")
     main_run = trained["runs"][0]  # the main path's launches: the first run's
+    t1_launches["11"] = main_run["threefry_launches"]
     probe_size = trained["probe_size"]
     phase11_weights = trained.pop("first_weights")
 
@@ -3326,6 +3559,7 @@ def main() -> int:
     t0 = time.perf_counter()
     raw = run_raw_chain(torch, dev, cli_dir.name, model, iekf)
     b1_launches["12"] = raw["warp_launches"]
+    t1_launches["12"] = raw["threefry_launches_effects"] + raw["threefry_launches_run_vio"]
     phase("raw", t0, gpu=f"'{gpu}'", remap_device_ms=f"{remap_time[REMAP_FRAMES]['ms']:.5f}",
           remap_device_ms_n1=f"{remap_time[1]['ms']:.5f}", ate_bar_m=f"{RAW_ATE_BAR_M:.5f}",
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in raw.items()})
@@ -3344,6 +3578,8 @@ def main() -> int:
     loop = run_loop(torch, dev, loop_dir.name, first,
                     {"selftest": lambda: selftest_verb(parallel_dir.name)})
     mesh_said = loop.pop("smooth_mesh_said")
+    t1_launches["13"] = (loop["threefry_launches_effects"] + loop["threefry_launches_run_vio"]
+                         + loop["threefry_launches_close_loops"])
     _, selftest_counts = loop.pop("selftest")
     phase("loop", t0, gpu=f"'{gpu}'", ate_bar_m=f"{LOOP_ATE_BAR_M:.5f}",
           jax_ate_pos_m_smoothed=f"{REF_LOOP_ATE_M:.5f}",
@@ -3357,6 +3593,7 @@ def main() -> int:
     fil_run = run_fil(torch, dev, {"cli": os.path.join(cli_dir.name, "seq_gt.txt"),
                                    "loop": os.path.join(loop_dir.name, "replay_gt.txt")},
                       seq, opts)
+    t1_launches["14"] = fil_run["threefry_launches"]
     phase("fil", t0, gpu=f"'{gpu}'", steps=FIL_STEPS, window=FIL_WINDOW, batch=FIL_BATCH,
           v10_ate_pos_m=f"{ate_pos:.5f}",
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in fil_run.items()})
@@ -3366,6 +3603,7 @@ def main() -> int:
     phase("diagnostics", t0, part="15a card vs CPU", **vision)
     t0 = time.perf_counter()
     diag = run_diagnostics(torch, dev, cli_dir.name)
+    t1_launches["15"] = diag["threefry_launches"]
     phase("diagnostics", t0, part="15b verbs", gpu=f"'{gpu}'",
           flow_rmse_bars_px=FLOW_RMSE_BARS_PX,
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in diag.items()})
@@ -3387,9 +3625,12 @@ def main() -> int:
     if verbs["batch_mesh_warp_launches"] != 3 * MESH_BATCH_FRAMES * iekf:
         raise AssertionError(f"run-vio-batch --mesh: {verbs['batch_mesh_warp_launches']} warp "
                              f"launches, expected 3 x {MESH_BATCH_FRAMES} x {iekf}")
+    t1_launches["16"] = verbs["batch_mesh_threefry_launches"]
+    expect_t1("run-vio-batch --mesh", t1_launches["16"], MESH_BATCH_FRAMES * iekf)
 
     t0 = time.perf_counter()
     dp = run_dp_train(torch, probe_size, phase11_weights)
+    t1_launches["17"] = dp["threefry_launches"]
     phase("dp", t0, part="17a train-uahn, a one-rank NCCL job", gpu=f"'{gpu}'",
           ms_per_step=f"{dp['ms_per_step']:.3f}",
           phase11_ms_per_step=f"{main_run['ms_per_step']:.3f}",
@@ -3479,6 +3720,7 @@ def main() -> int:
     kernels[1]["launches_by_phase"] = {"6": batch_warp_launches,
                                        "16": verbs["batch_mesh_warp_launches"]}
     kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]
+    kernels.append(prng_entry(t1_launches, prng_found, prng_ptxas))
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

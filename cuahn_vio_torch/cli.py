@@ -902,6 +902,7 @@ def cmd_inspect_frame(args):
     from cuahn_vio_torch.models.uahn import build_uahn
     from cuahn_vio_torch.ops.homography import f32_parity_mode
     from cuahn_vio_torch.utils.checkpoint import load_params
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.png import write_png
 
     device = _device(args.device)
@@ -911,9 +912,9 @@ def cmd_inspect_frame(args):
     pair = torch.as_tensor(frames[f: f + 2], device=device).to(torch.float32) / 255.0
     torch.manual_seed(0)  # random init only matters without weights
     model = build_uahn(load_params(args.weights) if args.weights else None, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    flow, cov, err_map = model(pair[:1], pair[1:], None, use_prior=False, generator=gen,
+    # the JAX verb's rngs={"dropout": PRNGKey(seed)}
+    flow, cov, err_map = model(pair[:1], pair[1:], None, use_prior=False,
+                               dropout_keys=prng.prng_key(args.seed)[None],
                                return_error_map=True)
     print("4pt flow (px):", flow[0].cpu().numpy().round(3))
     print("cov diag (px^2):", torch.diagonal(cov[0]).cpu().numpy().round(3))
@@ -1250,7 +1251,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--bias-tau", type=float, default=None)
     s.add_argument("--chi2-soft", type=float, default=None)
     s.add_argument("--echo-beta", type=float, default=None)
-    s.add_argument("--seed", type=int, default=0, help="MC-dropout generator seed")
+    s.add_argument("--seed", type=int, default=0,
+                   help="MC-dropout seed (the JAX verb's PRNGKey(seed))")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     s.add_argument("--timing-out", default=None,
                    help="per-frame stage timing csv; runs the stepwise runner "
@@ -1275,7 +1277,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "a randomly initialized UAHN)")
     s.add_argument("--no-network", action="store_true")
     s.add_argument("--init-height", type=float, default=None)
-    s.add_argument("--seed", type=int, default=0, help="MC-dropout generator seed")
+    s.add_argument("--seed", type=int, default=0,
+                   help="MC-dropout seed (the JAX verb's PRNGKey(seed))")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     s.add_argument("--mesh", action="store_true",
                    help="shard the batch over the job's devices (one process: one)")

@@ -7,12 +7,14 @@ per-sample parameters. The photometric chain:
     vignette -> exposure gain/gamma -> defocus blur -> shot+read noise
     -> black-level offset -> clip
 
-The random draws are apart from the arithmetic: ``draw_params`` and
-``draw_effects_pair`` draw uniforms and normals from an explicit
-``torch.Generator`` and hand them to ``params_from_draws`` and
-``effects_pair_from_draws``; ``draw_noise`` draws the per-pixel noise.
-``apply_photometric`` and ``apply_effects_pair`` are deterministic, so the
-same drawn values give the JAX package's frames to float32 rounding.
+The random draws are apart from the arithmetic. ``draw_params_from_key``
+is the JAX ``draw_params`` of a key (``utils/prng``), as ``make-synthetic``
+draws it; for the trainer, ``draw_params`` and ``draw_effects_pair`` draw
+uniforms and normals from an explicit ``torch.Generator`` and hand them to
+``params_from_draws`` and ``effects_pair_from_draws``, and ``draw_noise``
+draws the per-pixel noise. ``apply_photometric`` and
+``apply_effects_pair`` are deterministic, so the same drawn values give
+the JAX package's frames to float32 rounding.
 """
 
 from __future__ import annotations
@@ -20,8 +22,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from cuahn_vio_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -98,6 +103,30 @@ def draw_params(cfg: EffectsConfig, b: int, generator: torch.Generator) -> torch
     dev = generator.device
     u = torch.rand((b, 6), generator=generator, device=dev)
     return params_from_draws(cfg, u, torch.randn((b,), generator=generator, device=dev))
+
+
+def draw_params_from_key(cfg: EffectsConfig, key: np.ndarray) -> torch.Tensor:
+    """(1, 6) the JAX ``draw_params(key, cfg)`` on the CPU: ks = split(key,
+    7); vignette, gain, gamma, read and shot uniform in their ranges (ks[0],
+    ks[1], ks[2], ks[4], ks[5]), the offset ``normal(ks[3]) *
+    offset_sigma``, and the neutral row where ``bernoulli(ks[6],
+    clean_prob)``."""
+    ks = prng.keys_tensor(prng.split(key, 7))
+
+    def uniform(i: int, lo: float, hi: float) -> torch.Tensor:
+        return prng.uniform(ks[i:i + 1], (), lo, hi)[0]
+
+    drawn = torch.stack([
+        uniform(0, 0.0, cfg.vignette_max),
+        uniform(1, cfg.gain_lo, cfg.gain_hi),
+        uniform(2, cfg.gamma_lo, cfg.gamma_hi),
+        prng.normal(ks[3:4], ())[0] * cfg.offset_sigma,
+        uniform(4, 0.0, cfg.read_noise_max),
+        uniform(5, 0.0, cfg.shot_noise_max),
+    ])
+    clean = prng.bernoulli(ks[6:7], (), cfg.clean_prob)[0].bool()
+    neutral = torch.tensor([0.0, 1.0, 1.0, 0.0, 0.0, 0.0])
+    return torch.where(clean, neutral, drawn)[None]
 
 
 def draw_noise(shape, generator: torch.Generator) -> torch.Tensor:

@@ -29,10 +29,11 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from cuahn_vio_torch.data.sensor_effects import apply_photometric, draw_noise, draw_params
+from cuahn_vio_torch.data.sensor_effects import apply_photometric, draw_params_from_key
 from cuahn_vio_torch.data.textures import default_tex_params, sample_plane, texture_u8
 from cuahn_vio_torch.ops.quat import quat_exp, quat_mul, quat_to_rot
 from cuahn_vio_torch.ops.warp import virtual_cam_k
+from cuahn_vio_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -94,13 +95,17 @@ WAVE_FREQS = (0.5, 14.0)  # range of each wave's per-axis frequency (rad/m)
 
 
 def texture_draws(texture_seed: int = 0, n_waves: int = N_WAVES):
-    """The port's own random ground: (freqs (n, 2), signs (n, 2), phases
-    (n,)) from a numpy seed."""
-    rng = np.random.default_rng(texture_seed)
-    freqs = rng.uniform(*WAVE_FREQS, (n_waves, 2))
-    signs = np.sign(rng.normal(size=(n_waves, 2)))
-    phases = rng.uniform(0.0, 2 * math.pi, n_waves)
-    return freqs.astype(np.float32), signs.astype(np.float32), phases.astype(np.float32)
+    """The JAX package's procedural ground of ``PRNGKey(texture_seed)``
+    (its ``ground_texture``): k1, k2, k3 = split(key, 3); freqs =
+    uniform(k1, (n, 2), 0.5, 14), signs = sign(normal(k3, (n, 2))), phases
+    = uniform(k2, (n,), 0, 2 pi). Returns (freqs, signs, phases) float32
+    numpy arrays, drawn on the host (``utils/prng``)."""
+    k1, k2, k3 = prng.split(prng.prng_key(texture_seed), 3)
+    keys = prng.keys_tensor(np.stack([k1, k3, k2]))
+    freqs = prng.uniform(keys[:1], (n_waves, 2), *WAVE_FREQS)[0]
+    signs = torch.sign(prng.normal(keys[1:2], (n_waves, 2))[0])
+    phases = prng.uniform(keys[2:], (n_waves,), 0.0, 2 * math.pi)[0]
+    return freqs.numpy(), signs.numpy(), phases.numpy()
 
 
 def random_texture_draws(b: int, generator: torch.Generator, n_waves: int = N_WAVES):
@@ -260,13 +265,13 @@ def make_sequence(
         exposure_s: camera exposure time; > 0 renders each frame as
             ``render_frame_blurred`` over 3 poses spread across the exposure
             window that ends at the frame's time (physical motion blur).
-        effects: a ``sensor_effects.EffectsConfig`` degrades every frame:
-            one parameter draw and one defocus for the sequence, from a
-            generator seeded with ``effects_seed`` on ``device``; a slow
-            auto-exposure drift of the gain, a numpy random walk from
-            ``effects_seed`` (the JAX package's walk, value for value); and
-            each frame's noise from that generator (the JAX package draws
-            its draws from ``jax.random`` keys instead).
+        effects: a ``sensor_effects.EffectsConfig`` degrades every frame
+            with the JAX package's draws: from ``PRNGKey(effects_seed)``,
+            split in 3, one parameter draw (``draw_params_from_key``) and
+            one defocus for the sequence; a slow auto-exposure drift of the
+            gain, a numpy random walk from ``effects_seed``; and frame i's
+            read and shot noise, the normals of ``split(split(k_frames,
+            F)[i])``, one launch of the threefry kernel T1 a frame.
     Frames are rendered on ``device``, one texture lookup each (one launch
     of the sampler on a photo texture); everything returned is numpy.
     """
@@ -307,10 +312,12 @@ def make_sequence(
         tp_dev = torch.as_tensor(np.asarray(params, np.float32), device=device)
     p_taps, q_taps = exposure_taps(traj, cam_t - t_still, exposure_s, device)
     if effects is not None:
-        fx_gen = torch.Generator(device=device).manual_seed(effects_seed)
-        fx_params = draw_params(effects, 1, fx_gen)
-        defocus = torch.rand((1,), generator=fx_gen, device=fx_gen.device) * (
-            effects.defocus_sigma_max)
+        k_par, k_sig, k_frames = prng.split(prng.prng_key(effects_seed), 3)
+        fx_params = draw_params_from_key(effects, k_par).to(device)
+        defocus = prng.uniform(prng.keys_tensor(k_sig[None]), (1,), 0.0,
+                               effects.defocus_sigma_max)[0].to(device)
+        # each frame's two noise keys, on the device once: (F, 2, 2)
+        noise_keys = prng.keys_tensor(prng.split(prng.split(k_frames, len(cam_t)), 2), device)
         drift = np.clip(np.cumsum(np.random.default_rng(effects_seed).normal(
             0.0, effects.gain_drift / 5.0, len(cam_t))), -0.25, 0.25).astype(np.float32)
     frames = np.zeros((len(cam_t), 224, 320), np.uint8)
@@ -320,8 +327,8 @@ def make_sequence(
         if effects is not None:
             params = fx_params.clone()
             params[:, 1] = fx_params[:, 1] * (1.0 + torch.as_tensor(drift[i]))  # auto exposure
-            img = apply_photometric(img[None], params, defocus,
-                                    draw_noise((1, *img.shape), fx_gen))[0]
+            noise = prng.normal(noise_keys[i], (1, *img.shape))  # (2, 1, H, W)
+            img = apply_photometric(img[None], params, defocus, noise)[0]
         frames[i] = (img * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
 
     # GT at IMU rate, world frame, file convention [x y z qx qy qz qw]

@@ -11,12 +11,11 @@ calibration as z-scores. It separates "the network measures badly" from
 
 The frames go to the device once as uint8; each batch of ``batch`` pairs
 is made float32 / 255 there, as the JAX verb feeds them, so a batch
-launches the float32 warp. Randomness comes from one ``torch.Generator``
-seeded with ``seed``, batch after batch in pair order: with ``prior =
-"noisy"`` a batch's prior noise (2 px normals) first, since the network
-takes it as input, then the batch's MC-dropout masks. (The JAX verb folds
-a pair's index into its key, ``fold_in``; threefry's streams cannot be
-drawn by a torch generator, so the draws differ.)
+launches the float32 warp. Randomness is the JAX verb's, from ``rng =
+PRNGKey(seed)`` (``utils/prng``): pair i calls the network with
+``fold_in(rng, i)``, and with ``prior = "noisy"`` the batch starting at
+pair s adds 2 px times ``normal(fold_in(rng, 10_000 + s), (b, 4, 2))`` to
+its prior. The masks and the noise are drawn by the threefry kernel T1.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import numpy as np
 import torch
 
 from cuahn_vio_torch.data.oracle import true_corner_flow
+from cuahn_vio_torch.utils import prng
 
 PRIOR_NOISE_PX = 2.0  # --prior noisy: the oracle flow + normals of this sigma
 
@@ -69,19 +69,20 @@ def eval_flow(frames: np.ndarray, cam_t: np.ndarray, gt_times: np.ndarray,
     if limit:
         n = min(n, limit)
     imgs = torch.as_tensor(np.ascontiguousarray(frames[: n + 1]), device=dev)  # uint8, once
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    rng = prng.prng_key(seed)
+    # pair i's call key fold_in(rng, i), every pair's masks' keys on the device once
+    mask_keys = prng.keys_tensor(prng.mask_keys(prng.fold_in(rng, np.arange(n))), dev)
     use_prior = prior != "none"
     preds, covs = [], []
     for s in range(0, n, batch):
         e = min(s + batch, n)
         prior_px = flow_true[s:e].reshape(-1, 4, 2)
         if prior == "noisy":
-            prior_px = prior_px + PRIOR_NOISE_PX * torch.randn(
-                prior_px.shape, generator=gen, device=dev)
+            noise_key = prng.keys_tensor(prng.fold_in(rng, 10_000 + s)[None], dev)
+            prior_px = prior_px + PRIOR_NOISE_PX * prng.normal(noise_key, prior_px.shape)[0]
         img = imgs[s: e + 1].to(torch.float32) / 255.0
         flow8, cov88 = model(img[:-1], img[1:], prior_px if use_prior else None,
-                             use_prior=use_prior, generator=gen)
+                             use_prior=use_prior, dropout_keys=mask_keys[s:e])
         preds.append(flow8)
         covs.append(cov88)
     return FlowEval(pred=torch.cat(preds).cpu().numpy(), true=flow_true[:n].cpu().numpy(),

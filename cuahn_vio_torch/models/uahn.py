@@ -24,7 +24,10 @@ reaches a warp. No method depends on ``train()``/``eval()``.
 
 Parameter names match the flax tree (``block2.conv0.weight`` for flax's
 ``block2/conv0/kernel``), so ``utils.checkpoint.load_params`` fills it.
-MC-dropout masks come from an explicit ``torch.Generator``. With
+MC-dropout masks come from JAX keys (``dropout_keys``, ``utils/prng``):
+each batch row's four masks are the ones ``model.apply(...,
+rngs={"dropout": key})`` of the JAX model draws for that row's key, all
+of a call drawn in one launch of the threefry kernel T1. With
 ``compute_dtype=torch.bfloat16`` the four conv towers run in bfloat16
 (cuDNN bf16 convolutions on the card), as the JAX ``compute_dtype`` does.
 """
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -44,6 +48,7 @@ from cuahn_vio_torch.ops.homography import (
     transfer_mean_var,
 )
 from cuahn_vio_torch.ops.warp import homography_warp
+from cuahn_vio_torch.utils import prng
 
 CONV_PLANES = (8, 16, 32, 64, 128, 256, 256)  # model_to_trace.py:88-89
 IMG_HEIGHT, IMG_WIDTH = 224, 320  # the virtual camera
@@ -80,21 +85,46 @@ class ConvTower(nn.Module):
         return x.to(torch.float32)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-             rows: Optional[tuple] = None):
-    """Always-on (MC) dropout with masks drawn from ``generator``; with
-    ``rows`` = (first row, global batch), ``x`` is those rows of a larger
-    batch: the masks are drawn at the global batch's shape and these rows
-    kept, so each rank of a data-parallel job draws what one process does."""
+def draw_masks(dropout_keys, rate: float, n_fc: int, device,
+               batch: Optional[int] = None) -> Optional[tuple]:
+    """The MC-dropout keep-masks of one network call, drawn in one launch:
+    ``((mean Dropout_0, mean Dropout_1), (logvar Dropout_0, logvar
+    Dropout_1))``, each (B, 16, width) bool (width n_fc, then 256), the
+    masks of ``jax.random.bernoulli(site key, 1 - rate)``; None when
+    ``rate`` is 0 (nothing is drawn).
+
+    ``dropout_keys``: the call's keys, one per batch row: a (B, 4, 2)
+    int32 tensor of the rows' mask keys (``prng.mask_keys``, in
+    ``prng.MASK_SITES`` order), or a (B, 2) uint32 numpy array of the
+    rows' call keys (folded here, then copied to ``device``); ``batch``,
+    when given, is the call's B, which the keys must match."""
     if rate == 0.0:
+        return None
+    if dropout_keys is None:
+        raise ValueError("MC-dropout at a rate > 0 needs dropout_keys")
+    if isinstance(dropout_keys, np.ndarray):
+        dropout_keys = prng.keys_tensor(prng.mask_keys(dropout_keys), device)
+    if (dropout_keys.dim() != 3 or dropout_keys.shape[1:] != (4, 2)
+            or batch not in (None, dropout_keys.shape[0])):
+        raise ValueError(f"dropout_keys must be (B, 4, 2) for B = {batch}, got "
+                         f"{tuple(dropout_keys.shape)}")
+    b = dropout_keys.shape[0]
+    widths = (n_fc, 256, n_fc, 256)
+    counts = [MC_DROPOUT_NUM * w for w in widths] * b
+    flat = prng.draw(dropout_keys.reshape(-1, 2), counts, prng.BERNOULLI, 1.0 - rate)
+    rows = flat.view(torch.bool).view(b, -1)
+    starts = np.cumsum((0,) + tuple(MC_DROPOUT_NUM * w for w in widths))
+    masks = [rows[:, starts[i]:starts[i + 1]].view(b, MC_DROPOUT_NUM, w)
+             for i, w in enumerate(widths)]
+    return (masks[0], masks[1]), (masks[2], masks[3])
+
+
+def _dropout(x: torch.Tensor, rate: float, mask: Optional[torch.Tensor]):
+    """Always-on (MC) dropout: ``where(mask, x / keep, 0)`` (Flax's
+    ``Dropout``); no mask passes ``x`` through (rate 0)."""
+    if mask is None:
         return x
-    keep = 1.0 - rate
-    if rows is None:
-        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-    else:
-        u = torch.rand((rows[1], *x.shape[1:]), generator=generator, device=x.device,
-                       dtype=x.dtype)[rows[0]:rows[0] + x.shape[0]]
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class McHead(nn.Module):
@@ -106,12 +136,14 @@ class McHead(nn.Module):
         self.fc0 = nn.Linear(fc_input, 256)
         self.fc1 = nn.Linear(256, out_dim)
 
-    def forward(self, feat, rate: float, generator: Optional[torch.Generator],
-                rows: Optional[tuple] = None):
+    def forward(self, feat, rate: float, masks: Optional[tuple]):
+        """``masks``: this head's (Dropout_0, Dropout_1) keep-masks
+        (``draw_masks``), or None at rate 0."""
+        m0, m1 = masks if masks is not None else (None, None)
         x = feat[:, None, :].expand(-1, MC_DROPOUT_NUM, -1)
-        x = _dropout(x, rate, generator, rows)
+        x = _dropout(x, rate, m0)
         x = F.leaky_relu(self.fc0(x), LEAK)
-        x = _dropout(x, rate, generator, rows)
+        x = _dropout(x, rate, m1)
         return self.fc1(x)
 
 
@@ -210,29 +242,29 @@ class UAHN(nn.Module):
             h_uv = self._refine(self.block3, self.fc_block3, img1, img2, h_uv, 2)
         return h_uv
 
-    def last_block_members(self, img1, img2, h_uv,
-                           generator: Optional[torch.Generator] = None,
-                           rows: Optional[tuple] = None):
+    def last_block_members(self, img1, img2, h_uv, dropout_keys=None):
         """Block 4 tower (once) + the 16 MC-dropout members on img2 warped
         by ``h_uv``, a constant to backprop (detached, as every caller of
-        the JAX method stops its gradient); ``rows`` = (first row, global
-        batch) when the frames are a rank's rows of a larger batch (the
-        masks are that batch's rows).
+        the JAX method stops its gradient). ``dropout_keys``: one key per
+        batch row (``draw_masks``); the masks are drawn before the tower,
+        since they do not depend on the frames.
         Returns (means (B, 16, 4, 2), logvars (B, 16, 4, 2)) in the
         warped-img2 frame."""
+        masks = draw_masks(dropout_keys, self.dropout_rate,
+                           self.head_mean.fc0.in_features, img1.device, img1.shape[0])
         pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv.detach())], dim=1)
         feat = torch.flatten(self.block4(pair), 1)  # (B, fc_input)
         b = feat.shape[0]
-        means = self.head_mean(feat, self.dropout_rate, generator, rows)
-        logvars = self.head_logvar(feat, self.dropout_rate, generator, rows) * 1e-3
+        mean_masks, logvar_masks = masks if masks is not None else (None, None)
+        means = self.head_mean(feat, self.dropout_rate, mean_masks)
+        logvars = self.head_logvar(feat, self.dropout_rate, logvar_masks) * 1e-3
         return (means.reshape(b, MC_DROPOUT_NUM, 4, 2),
                 logvars.reshape(b, MC_DROPOUT_NUM, 4, 2))
 
-    def last_block(self, img1, img2, h_uv,
-                   generator: Optional[torch.Generator] = None):
+    def last_block(self, img1, img2, h_uv, dropout_keys=None):
         """Block 4 + ensemble statistics: (corner prediction (B, 4, 2),
         ensemble variance (B, 4, 2)), warped frame."""
-        means, logvars = self.last_block_members(img1, img2, h_uv, generator)
+        means, logvars = self.last_block_members(img1, img2, h_uv, dropout_keys)
         logvars = torch.clamp(logvars, -LOGVAR_CLAMP, LOGVAR_CLAMP)
         mean_avg = means.mean(dim=1)
         var_avg = torch.exp(logvars).mean(dim=1)
@@ -278,7 +310,7 @@ class UAHN(nn.Module):
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
                 prior_offset: Optional[torch.Tensor] = None,
                 use_prior: bool = False,
-                generator: Optional[torch.Generator] = None,
+                dropout_keys=None,
                 return_error_map: bool = False):
         """Full model (combined_stu_model.forward), without autograd.
 
@@ -286,7 +318,9 @@ class UAHN(nn.Module):
             img1, img2: (B, H, W) uint8 frames or float32 in [0, 1].
             prior_offset: (B, 4, 2) propagated 4-point offset, pixels.
             use_prior: select the prior cascade.
-            generator: MC-dropout random source (on the frames' device).
+            dropout_keys: the MC-dropout keys, one per batch row: (B, 4,
+                2) int32 mask keys on the frames' device, or (B, 2) uint32
+                numpy call keys (``draw_masks``); unused at rate 0.
             return_error_map: also return the photometric error map
                 |warp(img2, H_total) - img1| * 255, H_total = H_part1 @
                 DLT(corners -> block 4's corner prediction).
@@ -296,7 +330,7 @@ class UAHN(nn.Module):
             [err_map (B, H, W) float32, if requested.]
         """
         flow8, cov88, h_part1, warped_4pt = self._flow_cov_h(
-            img1, img2, prior_offset, use_prior, generator)
+            img1, img2, prior_offset, use_prior, dropout_keys)
         if not return_error_map:
             return flow8, cov88
         corners = self.corners.expand(warped_4pt.shape[0], 4, 2)
@@ -307,21 +341,21 @@ class UAHN(nn.Module):
     def flow_and_cov(self, img1: torch.Tensor, img2: torch.Tensor,
                      prior_offset: Optional[torch.Tensor] = None,
                      use_prior: bool = False,
-                     generator: Optional[torch.Generator] = None):
+                     dropout_keys=None):
         """``forward`` with autograd on, the filter-in-the-loop trainer's
         call: gradients reach block 4's tower and heads through the
         ensemble statistics, ``transfer_mean_var`` and ``block_diag_cov8``.
         The part-1 homography is a constant to backprop (computed without
         autograd, the JAX model's ``stop_gradient``), so blocks 1-3 and the
         prior get none."""
-        return self._flow_cov_h(img1, img2, prior_offset, use_prior, generator)[:2]
+        return self._flow_cov_h(img1, img2, prior_offset, use_prior, dropout_keys)[:2]
 
-    def _flow_cov_h(self, img1, img2, prior_offset, use_prior, generator):
+    def _flow_cov_h(self, img1, img2, prior_offset, use_prior, dropout_keys):
         """(flow8, cov88, the part-1 homography, block 4's corner
         prediction in the warped frame)."""
         with torch.no_grad():
             h_part1 = self.part1(img1, img2, prior_offset, use_prior)
-        warped_4pt, ens_var = self.last_block(img1, img2, h_part1, generator)
+        warped_4pt, ens_var = self.last_block(img1, img2, h_part1, dropout_keys)
         pts_orig, cov_4pt = transfer_mean_var(ens_var, h_part1, warped_4pt)
         flow8 = (pts_orig - self.corners).reshape(-1, 8)
         return flow8, block_diag_cov8(cov_4pt), h_part1, warped_4pt

@@ -10,6 +10,7 @@ launch_counts = {
     "homography_warp_rowskip": 0,  # B3: rowskip_kernel
     "bilinear_sample": 0,  # B4: flat_kernel
     "remap": 0,  # C1: remap_kernel (remap.cu), the undistortion remap
+    "threefry": 0,  # T1: threefry_kernel (prng.cu), the JAX random stream
 }
 
 

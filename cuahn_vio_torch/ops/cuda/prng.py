@@ -1,0 +1,91 @@
+"""ctypes binding and wrapper of the threefry kernel T1 (``prng.cu``).
+
+``draw_cuda``: the flat rows of ``counts[i]`` draws of each of K keys
+(bits, uniform, Bernoulli or normal; ``utils/prng.draw``), one launch for
+all rows. The library is built with nvcc at first use (``build.py``),
+never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from cuahn_vio_torch.ops.cuda import build, launch_counts
+from cuahn_vio_torch.utils import prng
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prng.cu")
+KERNEL = "threefry"
+_P = ctypes.c_void_p
+_MAX_VALUES = (2**31 - 1) * 256  # one value a thread, 256 threads a block
+_OUT_DTYPES = {prng.BITS: torch.int32, prng.UNIFORM: torch.float32,
+               prng.BERNOULLI: torch.uint8, prng.NORMAL: torch.float32}
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    # keys, offsets, out, k, total, mode, a, b, stream
+    lib.threefry_draw.argtypes = [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_float, _P]
+    lib.threefry_draw.restype = ctypes.c_int
+    return lib
+
+
+def build_kernel() -> float:
+    """Build and load the library now; returns the compile seconds (0.0 if
+    it was already built)."""
+    _, seconds = build.build(SOURCE)
+    _library()
+    return seconds
+
+
+def ptxas_report() -> dict:
+    """ptxas's registers, shared memory and spills of each mode's kernel."""
+    return build.ptxas_report(build.library_path(SOURCE))
+
+
+@functools.lru_cache(maxsize=64)
+def _row_offsets(counts: tuple, device: str) -> torch.Tensor:
+    """(K + 1,) int64 start of each row on ``device``, and the total last;
+    made once for each layout of rows (the kernel reads it from device
+    memory, as it reads the keys)."""
+    return torch.tensor([0, *np.cumsum(counts)], dtype=torch.int64, device=device)
+
+
+def draw_cuda(keys: torch.Tensor, counts: Sequence[int], mode: int,
+              a: float = 0.0, b: float = 1.0) -> torch.Tensor:
+    """Launch T1 on (K, 2) int32 CUDA keys: ``sum(counts)`` values of
+    ``mode`` (``utils/prng``'s BITS, UNIFORM on [a, b), BERNOULLI with p =
+    a, NORMAL). Raises on anything the kernel does not take and on a failed
+    launch."""
+    if mode not in _OUT_DTYPES:
+        raise ValueError(f"unknown draw mode {mode}")
+    if not keys.is_cuda or keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"the threefry kernel takes (K, 2) int32 CUDA keys, got "
+                         f"{tuple(keys.shape)} {keys.dtype} on {keys.device}")
+    if not keys.is_contiguous():
+        raise ValueError("the threefry kernel takes contiguous keys")
+    counts = tuple(int(c) for c in counts)
+    if len(counts) != keys.shape[0] or min(counts, default=0) < 0:
+        raise ValueError(f"counts {counts} do not fit {keys.shape[0]} keys")
+    total = sum(counts)
+    if total > _MAX_VALUES:
+        raise ValueError(f"{total} values outside the kernel's grid")
+    out = torch.empty(total, dtype=_OUT_DTYPES[mode], device=keys.device)
+    if total == 0:
+        return out
+    offsets = _row_offsets(counts, str(keys.device))
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = _library().threefry_draw(keys.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                                       len(counts), total, mode, a, b, stream)
+    if err != 0:
+        raise RuntimeError(f"threefry kernel launch failed: cudaError {err}")
+    launch_counts[KERNEL] += 1
+    return out

@@ -33,7 +33,7 @@ def batched_run_sequences(
     a_win: torch.Tensor,  # (B, F, T, 3)
     dt_win: torch.Tensor,  # (B, F, T)
     n_used,  # (B, F) host ints: real IMU intervals per sequence and frame
-    generator: Optional[torch.Generator],
+    mask_keys: Optional[torch.Tensor],  # (F, iters, B, 4, 2) or None
     mesh: Optional[Mesh] = None,
 ):
     """Run B sequences in lockstep on their device, or this rank's shard
@@ -42,6 +42,9 @@ def batched_run_sequences(
 
     Each frame propagates to the largest ``n_used`` of the (shard's) batch
     (the dt = 0 steps after a sequence's own count are exact identities).
+    ``mask_keys`` holds every sequence's MC-dropout keys
+    (``vio.sequence_mask_keys``); a rank takes its sequences' columns, so
+    each sequence keeps its masks wherever it runs.
     Returns (final states, FrameOutput) with a leading axis of the
     sequences run here: all B without a mesh or on a one-device mesh.
     """
@@ -51,8 +54,10 @@ def batched_run_sequences(
         states0, imgs_u8, w_win, a_win, dt_win = shard_batch(
             (states0, imgs_u8, w_win, a_win, dt_win), mesh)
         n_used = n_used[lo:hi]
+        if mask_keys is not None:
+            mask_keys = mask_keys[:, :, lo:hi].to(mesh.local).contiguous()
     return run_sequence(states0, model, fparams, cfg, imgs_u8, w_win, a_win,
-                        dt_win, n_used.max(axis=0), generator)
+                        dt_win, n_used.max(axis=0), mask_keys)
 
 
 def aggregate_rmse(err_by_seq: torch.Tensor, mesh: Mesh) -> torch.Tensor:

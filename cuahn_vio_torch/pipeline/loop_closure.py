@@ -20,11 +20,11 @@ inference over the planar scene:
 The port runs the network over all pairs that pass the geometric gate in
 batches of at most ``LOOP_BATCH`` pairs (the JAX module runs one pair at a
 time), on the uint8 frames as ``run-vio`` feeds it, so its warps launch
-once per site and batch. MC-dropout masks come from one generator seeded
-with ``seed``, drawn in pair order (threefry's ``fold_in(key, n)`` is not
-reproduced). The least squares is ``torch.linalg.lstsq``: on CUDA it
-solves by QR (``gels``) only, which rounds otherwise than the JAX
-package's SVD-based solve.
+once per site and batch. MC-dropout masks come from the JAX module's keys:
+candidate pair n calls the network with ``fold_in(PRNGKey(seed), n)``, and
+a batch's masks are one launch of the threefry kernel T1. The least
+squares is ``torch.linalg.lstsq``: on CUDA it solves by QR (``gels``)
+only, which rounds otherwise than the JAX package's SVD-based solve.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from cuahn_vio_torch.data.oracle import camera_pose, true_corner_flow
 from cuahn_vio_torch.filter.state import CORNER_XY1, FOCAL
 from cuahn_vio_torch.ops.quat import quat_to_rot, skew
 from cuahn_vio_torch.parallel.pose_graph import relative_pose
+from cuahn_vio_torch.utils import prng
 
 LOOP_BATCH = 64  # pairs a network call at most
 
@@ -153,12 +154,15 @@ def generate_loop_factors(
     run = torch.nonzero(inside)[:, 0]  # the network's pairs, in pair order
 
     frames = torch.as_tensor(frames, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # candidate pair n's call key, fold_in(PRNGKey(seed), n), for the pairs
+    # that run; copied to the device once
+    call_keys = prng.fold_in(prng.prng_key(seed), run.cpu().numpy())
+    mask_keys = prng.keys_tensor(prng.mask_keys(call_keys), dev)
     flows, covs = [], []
     for s in range(0, run.numel(), LOOP_BATCH):
         k = run[s:s + LOOP_BATCH]
         flow8, cov88 = model(frames[idx_i[k]], frames[idx_j[k]], prior[k], use_prior=True,
-                             generator=gen)
+                             dropout_keys=mask_keys[s:s + LOOP_BATCH])
         flows.append(flow8)
         covs.append(cov88)
     if not flows:

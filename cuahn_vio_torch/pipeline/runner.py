@@ -36,7 +36,9 @@ from cuahn_vio_torch.pipeline.vio import (
     VioConfig,
     make_vio_step,
     run_sequence,
+    sequence_mask_keys,
 )
+from cuahn_vio_torch.utils import prng
 
 
 @dataclass
@@ -174,6 +176,24 @@ def _check_devices(model, fparams: FilterParams, device) -> torch.device:
     return device
 
 
+def _mask_table(model: Optional[Any], cfg: VioConfig, frame_keys: np.ndarray,
+                device) -> Optional[torch.Tensor]:
+    """The run's MC-dropout mask keys (``sequence_mask_keys`` of the (F,
+    [B,] 2) frame keys) on ``device``, copied once; None when the run
+    draws no mask (no network, or dropout rate 0)."""
+    if model is None or getattr(model, "dropout_rate", 0.0) == 0.0:
+        return None
+    return prng.keys_tensor(sequence_mask_keys(frame_keys, cfg.max_iekf_iterations), device)
+
+
+def batch_frame_keys(seed: int, n_sequences: int, frames: int) -> np.ndarray:
+    """(frames, B, 2) frame keys of a batch (the JAX ``run-vio-batch``):
+    ``split(PRNGKey(seed), B)``, one key a sequence, each split over the
+    batch's padded frame count as ``run_offline`` splits its seed's key."""
+    seq_keys = prng.split(prng.prng_key(seed), n_sequences)
+    return prng.split(seq_keys, frames).transpose(1, 0, 2)
+
+
 def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
                 model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
                 opts: RunnerOptions, seed: int = 0, device="cuda") -> RunResult:
@@ -181,16 +201,16 @@ def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
     processed frame onward (steps are image pairs).
 
     ``model`` (a UAHN, or None for dead reckoning) and ``fparams`` must
-    live on ``device``. MC-dropout masks come from a ``torch.Generator``
-    on ``device`` seeded with ``seed``, drawn in frame order.
+    live on ``device``. MC-dropout masks come from the JAX ``run_offline``'s
+    keys: ``split(PRNGKey(seed), F)``, one a frame pair, the IEKF iteration
+    folded in (``_mask_table``), so at one seed the masks are the JAX
+    package's.
     """
     device = _check_devices(model, fparams, device)
     f32_parity_mode()
     init, state0, win, cam_used, frames_used = prepare_sequence(
         imu_t, imu_w, imu_a, cam_t, frames_u8, opts, fparams, device
     )
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
 
     def dev(x):
         return torch.as_tensor(x, device=device)
@@ -198,7 +218,8 @@ def run_offline(imu_t, imu_w, imu_a, cam_t, frames_u8,
     _, outs = run_sequence(
         state0, model, fparams, cfg,
         dev(np.ascontiguousarray(frames_used, np.uint8)),
-        dev(win.w_mid), dev(win.a_mid), dev(win.dt), win.n_used, generator,
+        dev(win.w_mid), dev(win.a_mid), dev(win.dt), win.n_used,
+        _mask_table(model, cfg, prng.split(prng.prng_key(seed), win.dt.shape[0]), device),
     )
     times_out = cam_used[1:] + opts.calib_camimu_dt
     return _outputs_to_result(outs, times_out, init.t0)
@@ -260,10 +281,12 @@ def run_stepwise(imu_t, imu_w, imu_a, cam_t, frames_u8,
     counts to the network. Otherwise the step runs unbroken and its whole
     time goes to the network column, propagation and update reported as 0.
 
-    MC-dropout masks come from a generator seeded with ``seed``, drawn in
-    frame order: the stream of ``run_offline``, so at one seed the two give
-    one trajectory. The warm-up step (frame 0's inputs, result discarded)
-    draws from a generator of its own.
+    MC-dropout masks come from ``run_offline``'s keys, so at one seed the
+    two give one trajectory. (The JAX ``run_stepwise`` splits its key into
+    one more key than its ``run_offline`` does, so its masks, and its
+    poses, differ from its own ``run_offline``'s; this one equals the JAX
+    ``run_offline``.) The warm-up step (frame 0's inputs, result
+    discarded) draws frame 0's masks.
 
     Divergence guard: when ``health_flags`` fails after a frame, the state
     rolls back to the last healthy one with its covariance inflated
@@ -279,7 +302,12 @@ def run_stepwise(imu_t, imu_w, imu_a, cam_t, frames_u8,
     )
     step = make_vio_step(model, fparams, cfg)
     frames_dev = torch.as_tensor(np.ascontiguousarray(frames_used, np.uint8), device=device)
+    mask_keys = _mask_table(model, cfg, prng.split(prng.prng_key(seed), win.dt.shape[0]),
+                            device)
     clock = _StageClock(device)
+
+    def keys(k: int):
+        return None if mask_keys is None else mask_keys[k]
 
     def inputs(k: int):
         """Frame pair k -> k+1 and its IMU window on the device."""
@@ -288,15 +316,11 @@ def run_stepwise(imu_t, imu_w, imu_a, cam_t, frames_u8,
                 int(win.n_used[k]))
 
     # warm-up on frame 0's image (both frames) and the first window, so that
-    # the first row times steady state; its generator is not the run's
-    warm_gen = torch.Generator(device=device)
-    warm_gen.manual_seed(seed)
+    # the first row times steady state
     *_, w, a, dt, n = inputs(0)
-    step(state0, 0, frames_dev[0], frames_dev[0], w, a, dt, n, warm_gen)
+    step(state0, 0, frames_dev[0], frames_dev[0], w, a, dt, n, keys(0))
     clock.sync()
 
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
     state, frame_idx = state0, 0
     last_good, last_good_idx = state0, 0
     n_recoveries = 0
@@ -307,7 +331,7 @@ def run_stepwise(imu_t, imu_w, imu_a, cam_t, frames_u8,
         clock.sync()
         t_b = time.perf_counter()
         clock.start()
-        state, out = step(state, frame_idx, img_prev, img_curr, w, a, dt, n, generator,
+        state, out = step(state, frame_idx, img_prev, img_curr, w, a, dt, n, keys(k),
                           clock if staged_timing else None)
         clock.sync()
         t_c = time.perf_counter()
@@ -402,8 +426,8 @@ def run_offline_batch(sequences, model: Optional[Any], fparams: FilterParams,
                       device="cuda", mesh=None) -> list:
     """``run_offline`` for many sequences in lockstep on one device: one
     RunResult per sequence. The model runs once per lockstep frame on all
-    B frame pairs; MC-dropout masks come from one generator seeded with
-    ``seed``, drawn per frame for the whole batch. With ``mesh``
+    B frame pairs; MC-dropout masks come from the JAX ``run-vio-batch``'s
+    keys (``batch_frame_keys``). With ``mesh``
     (``parallel.mesh``) the sequences are sharded over its ranks, and the
     results are this rank's sequences' (all of them on a one-device
     mesh)."""
@@ -413,11 +437,11 @@ def run_offline_batch(sequences, model: Optional[Any], fparams: FilterParams,
     device = _check_devices(model, fparams, device)
     f32_parity_mode()
     batch = prepare_batch(sequences, opts, fparams, device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    frame_keys = batch_frame_keys(seed, len(batch.n_frames), batch.dt_win.shape[1])
     _, outs = batched_run_sequences(
         batch.states0, model, fparams, cfg, batch.imgs_u8, batch.w_win,
-        batch.a_win, batch.dt_win, batch.n_used, generator, mesh=mesh,
+        batch.a_win, batch.dt_win, batch.n_used,
+        _mask_table(model, cfg, frame_keys, "cpu" if mesh is not None else device), mesh=mesh,
     )
     first = 0 if mesh is None else shard_bounds(len(batch.n_frames), mesh)[0]
     return batch_results(outs, batch, first)

@@ -23,11 +23,18 @@ Batched (``run_sequence`` on (B, F+1, H, W) frames, the JAX package's
 ``jax.vmap`` of ``run_sequence``): B sequences in lockstep. The filter
 stages run under ``torch.func.vmap`` over the leading B of the state and
 the IMU windows; the model runs once per lockstep frame on all B image
-pairs (the warps then launch once per site for the whole batch), with its
-MC-dropout masks drawn per batch element from the one generator. The
+pairs (the warps then launch once per site for the whole batch), with
+each sequence's MC-dropout masks drawn from that sequence's own keys. The
 update gate ``frame_idx > update_gate_frames`` is a host bool shared by
 the batch, as in the JAX vmap. The single-sequence path calls the same
 functions without vmap.
+
+MC-dropout keys: the JAX ``run_sequence`` splits its key into one key a
+frame pair and folds the IEKF iteration into it (``rngs={"dropout":
+fold_in(keys[f], it)}``). ``sequence_mask_keys`` makes the keys of every
+mask of the run from those frame keys on the host, as one (F, iters, [B,]
+4, 2) table that is copied to the device once; each network call takes a
+view of it, and its four masks are one launch of the threefry kernel T1.
 
 ``run_sequence_with_measurements`` is the filter alone, driven by given
 measurements in place of the network (the oracle tests, the
@@ -42,6 +49,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.func import vmap
 from torch.profiler import record_function
@@ -59,6 +67,7 @@ from cuahn_vio_torch.filter.update import (
     propagated_offset8,
 )
 from cuahn_vio_torch.ops.quat import quat_to_rot
+from cuahn_vio_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -142,7 +151,7 @@ class VioStages(NamedTuple):
     ``make_vio_step``."""
 
     prop_fn: Callable  # (state, w_win, a_win, dt_win, n_used) -> state
-    net_fn: Callable  # (prior8, img_prev_u8, img_curr_u8, generator) -> (flow8, cov88)
+    net_fn: Callable  # (prior8, img_prev_u8, img_curr_u8, mask keys) -> (flow8, cov88)
     upd_fn: Callable  # (state, frame_idx, flow8, cov88) -> (state, (chi2, inno, cov_meas))
     finish_fn: Callable  # (state, net_mean, net_cov88, calib) -> (state, FrameOutput)
     refine_prior_fn: Callable  # (state, flow8, cov88) -> prior8
@@ -156,10 +165,10 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
     propagation / inference / update / total). ``make_vio_step`` composes
     the same stages, so the two runners run one sequence of operations.
 
-    Args as ``make_vio_step``. ``net_fn`` draws its MC-dropout masks from
-    the generator it is given (the JAX ``net_fn`` folds the IEKF iteration
-    into its key); called in frame order, then iteration order, the
-    stream is ``run_offline``'s.
+    Args as ``make_vio_step``. ``net_fn`` draws its MC-dropout masks
+    from the mask keys it is given ((4, 2), or (B, 4, 2) batched: a view of
+    ``sequence_mask_keys``' table at the frame and IEKF iteration, the keys
+    of the JAX ``net_fn``'s ``fold_in(key, it)``).
     """
     run = _over_batch if batched else _single
 
@@ -173,14 +182,16 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
     def prior_fn(state: FilterState) -> torch.Tensor:
         return run(propagated_offset8, state)
 
-    def net_fn(prior8, img_prev_u8, img_curr_u8, generator):
+    def net_fn(prior8, img_prev_u8, img_curr_u8, keys):
         with record_function("vio.network"):
             img1 = img_prev_u8 if batched else img_prev_u8[None]
             img2 = img_curr_u8 if batched else img_curr_u8[None]
+            if keys is not None and not batched:
+                keys = keys[None]
             prior_px = (prior8 * FOCAL).reshape(-1, 4, 2)
             flow8, cov88 = model(
                 img1, img2, prior_px if cfg.use_prior else None,
-                use_prior=cfg.use_prior, generator=generator,
+                use_prior=cfg.use_prior, dropout_keys=keys,
             )
             return (flow8, cov88) if batched else (flow8[0], cov88[0])
 
@@ -239,15 +250,17 @@ def make_vio_step(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
         batched: the state, images and windows carry a leading batch dim B
             (B sequences in lockstep).
     Returns ``vio_step(state, frame_idx, img_prev_u8, img_curr_u8, w_win,
-    a_win, dt_win, n_used, generator, clock=None) -> (state,
+    a_win, dt_win, n_used, frame_keys, clock=None) -> (state,
     FrameOutput)``; ``n_used`` is a host int, the largest of the batch when
-    batched. ``clock(column)``, when given, is called as each stage ends
+    batched; ``frame_keys`` is the frame's (iters, [B,] 4, 2) view of
+    ``sequence_mask_keys``' table on the device (None without MC
+    dropout). ``clock(column)``, when given, is called as each stage ends
     with the timing column it belongs to (``PROP``, ``NET``, ``UPDATE``).
     """
     stages = make_vio_stages(model, fparams, cfg, batched)
 
     def vio_step(state: FilterState, frame_idx: int, img_prev_u8, img_curr_u8,
-                 w_win, a_win, dt_win, n_used, generator, clock=None):
+                 w_win, a_win, dt_win, n_used, frame_keys, clock=None):
         tick = clock or (lambda column: None)
         state = stages.prop_fn(state, w_win, a_win, dt_win, n_used)
         tick(PROP)
@@ -255,7 +268,8 @@ def make_vio_step(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
         if model is not None:
             prior8 = stages.prior_fn(state)
             for it in range(cfg.max_iekf_iterations):
-                flow8, cov88 = stages.net_fn(prior8, img_prev_u8, img_curr_u8, generator)
+                flow8, cov88 = stages.net_fn(prior8, img_prev_u8, img_curr_u8,
+                                             None if frame_keys is None else frame_keys[it])
                 tick(NET)
                 if it == cfg.max_iekf_iterations - 1:
                     state, calib = stages.upd_fn(state, frame_idx, flow8, cov88)
@@ -271,11 +285,21 @@ def make_vio_step(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
     return vio_step
 
 
+def sequence_mask_keys(frame_keys, iters: int) -> np.ndarray:
+    """(F, [B,] 2) uint32 frame keys -> the (F, iters, [B,] 4, 2) keys of
+    every MC-dropout mask of a run: frame f's IEKF iteration it calls the
+    network with ``fold_in(frame_keys[f], it)`` (the JAX ``vio_step``),
+    whose four masks' keys are ``prng.mask_keys`` of it."""
+    frame_keys = np.asarray(frame_keys, np.uint32)
+    per_call = np.stack([prng.fold_in(frame_keys, it) for it in range(iters)], axis=1)
+    return prng.mask_keys(per_call)
+
+
 def run_sequence(init_state: FilterState, model: Optional[Any],
                  fparams: FilterParams, cfg: VioConfig,
                  imgs_u8: torch.Tensor, w_win: torch.Tensor,
                  a_win: torch.Tensor, dt_win: torch.Tensor, n_used,
-                 generator: Optional[torch.Generator]):
+                 mask_keys: Optional[torch.Tensor]):
     """Run the step over all frame pairs, of one sequence or of a batch of
     B sequences in lockstep.
 
@@ -286,7 +310,9 @@ def run_sequence(init_state: FilterState, model: Optional[Any],
         w_win, a_win: ([B,] F, T, 3); dt_win: ([B,] F, T); n_used: (F,)
             host ints, for a batch the largest of the batch at each frame
             (dt = 0 steps after a sequence's own count are identities).
-        generator: MC-dropout random source, drawn in frame order.
+        mask_keys: (F, iters, [B,] 4, 2) int32 keys of every MC-dropout
+            mask on the filter's device (``sequence_mask_keys`` through
+            ``prng.keys_tensor``); None without MC dropout.
     Returns (final state, FrameOutput of ([B,] F, ...) stacked tensors).
     """
     batched = imgs_u8.dim() == 4
@@ -300,7 +326,7 @@ def run_sequence(init_state: FilterState, model: Optional[Any],
             state, f, imgs_u8[..., f, :, :].contiguous(),
             imgs_u8[..., f + 1, :, :].contiguous(),
             w_win[..., f, :, :], a_win[..., f, :, :], dt_win[..., f, :],
-            int(n_used[f]), generator,
+            int(n_used[f]), None if mask_keys is None else mask_keys[f],
         )
         outs.append(out)
     frame_dim = 1 if batched else 0

@@ -25,9 +25,13 @@ A window batch runs as B windows in lockstep (``run_sequence`` on (B, W+1,
 H, W) frames: the filter under ``torch.func.vmap``, the network once per
 frame on the B pairs), where the JAX module ``vmap``s the window loss.
 The window loss is split in two so that the randomness can be replaced:
-``draw_windows`` (everything random, from a ``torch.Generator`` in a
-stated order; not JAX's threefry keys) and ``window_losses`` (the loss of
-given draws and rendered frames), with ``render_windows`` between them.
+``draw_windows`` (the draws of textures, effects, IMU noise and initial
+states, from a ``torch.Generator`` in a stated order; not yet JAX's
+threefry keys) and ``window_losses`` (the loss of given draws and rendered
+frames), with ``render_windows`` between them. The MC-dropout masks are
+the JAX module's keys (``utils/prng``): step i's ``key, kb, ks =
+split(key, 3)`` from ``PRNGKey(seed)``, window b's key ``split(ks, B)[b]``
+and its filter run's ``split(window key, 10)[9]`` (``window_mask_keys``).
 The bank keeps no cache (the JAX module caches it in ``/tmp`` under a name
 that leaves out the GT directory).
 """
@@ -49,15 +53,17 @@ from cuahn_vio_torch.filter.state import FilterParams, FilterState
 from cuahn_vio_torch.models.uahn import UAHN
 from cuahn_vio_torch.ops.homography import f32_parity_mode
 from cuahn_vio_torch.ops.quat import quat_conj, quat_exp, quat_log, quat_mul, quat_to_rot
-from cuahn_vio_torch.pipeline.vio import VioConfig, run_sequence
+from cuahn_vio_torch.pipeline.vio import VioConfig, run_sequence, sequence_mask_keys
 from cuahn_vio_torch.train.trainer import (
     OptaxAdamW,
     TrainConfig,
     _clip,
     make_batch,
     make_train_step,
+    step_mask_keys,
     warmup_cosine_decay,
 )
+from cuahn_vio_torch.utils import prng
 
 PAIR_HEIGHT, PAIR_WIDTH = 224, 320  # the interleaved pair steps' render size
 
@@ -231,7 +237,7 @@ def _nees(e: torch.Tensor, p: torch.Tensor, eps: float) -> torch.Tensor:
 
 def window_losses(model_fn: Callable, fparams: FilterParams, cfg: FilConfig,
                   vio_cfg: VioConfig, win: dict, imgs_u8: torch.Tensor,
-                  draws: WindowDraws, generator: Optional[torch.Generator] = None):
+                  draws: WindowDraws, mask_keys: Optional[torch.Tensor] = None):
     """(B,) window losses of given draws and frames, differentiable into
     the network through the whole filter recurrence.
 
@@ -239,7 +245,8 @@ def window_losses(model_fn: Callable, fparams: FilterParams, cfg: FilConfig,
         model_fn: the UAHN's grad-enabled call (``UAHN.flow_and_cov``).
         win: the batch's ``WindowBank`` rows as tensors on the device.
         imgs_u8: (B, W+1, H, W) uint8 frames (``render_windows``).
-        generator: MC-dropout random source.
+        mask_keys: (W, iters, B, 4, 2) MC-dropout mask keys of the
+            windows' filter runs (``window_mask_keys``); None at rate 0.
     """
     dev = imgs_u8.device
     b = imgs_u8.shape[0]
@@ -269,7 +276,7 @@ def window_losses(model_fn: Callable, fparams: FilterParams, cfg: FilConfig,
     )
     # the deployed recurrence, gradients on
     _, outs = run_sequence(state0, model_fn, fparams, vio_cfg, imgs_u8, w_m, a_m, win["dt"],
-                           [cfg.imu_substeps] * cfg.window, generator)
+                           [cfg.imu_substeps] * cfg.window, mask_keys)
 
     # window loss against GT, later frames weighted more
     wgt = torch.arange(1, cfg.window + 1, dtype=torch.float32, device=dev)
@@ -303,18 +310,33 @@ def mean_finite(losses: torch.Tensor) -> torch.Tensor:
         fin.sum(), min=1)
 
 
+def window_mask_keys(step_key: np.ndarray, b: int, window: int, iters: int,
+                     device) -> torch.Tensor:
+    """(window, iters, b, 4, 2) MC-dropout mask keys of a FIL step's b
+    windows on ``device``: window j's filter run takes the key
+    ``split(split(step_key, b)[j], 10)[9]`` (the JAX ``window_loss``'s) and
+    splits it over its frame pairs as ``run_sequence`` does."""
+    run_keys = np.stack([prng.split(k, 10)[9] for k in prng.split(step_key, b)])
+    frame_keys = np.stack([prng.split(k, window) for k in run_keys], axis=1)  # (W, b, 2)
+    return prng.keys_tensor(sequence_mask_keys(frame_keys, iters), device)
+
+
 def make_fil_loss(model: UAHN, fparams: FilterParams, cfg: FilConfig, vio_cfg: VioConfig,
                   c_rot_i, i_t_i2c, tex_bank: torch.Tensor, tex_indices: torch.Tensor):
-    """loss_fn(win, generator) -> scalar: fresh draws for the batch of
-    windows ``win`` (``WindowBank`` rows as device tensors), the render,
-    then ``window_losses`` on the model's grad-enabled forward, averaged
-    over the finite windows."""
+    """loss_fn(win, generator, step_key) -> scalar: fresh draws for the
+    batch of windows ``win`` (``WindowBank`` rows as device tensors), the
+    render, then ``window_losses`` on the model's grad-enabled forward with
+    the masks of ``window_mask_keys(step_key, ...)``, averaged over the
+    finite windows."""
 
-    def loss_fn(win: dict, generator: torch.Generator) -> torch.Tensor:
-        draws = draw_windows(cfg, win["tap_p"].shape[0], generator, tex_indices)
+    def loss_fn(win: dict, generator: torch.Generator, step_key: np.ndarray) -> torch.Tensor:
+        b = win["tap_p"].shape[0]
+        draws = draw_windows(cfg, b, generator, tex_indices)
         imgs = render_windows(win, draws, cfg, c_rot_i, i_t_i2c, tex_bank)
+        keys = window_mask_keys(step_key, b, cfg.window, vio_cfg.max_iekf_iterations,
+                                imgs.device)
         return mean_finite(window_losses(model.flow_and_cov, fparams, cfg, vio_cfg, win,
-                                         imgs, draws, generator))
+                                         imgs, draws, keys))
 
     return loss_fn
 
@@ -373,16 +395,18 @@ def fil_finetune(model: UAHN, fparams: FilterParams, c_rot_i, i_t_i2c,
     pair_step = make_train_step(model, pair_cfg, opt)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    key = prng.prng_key(seed)  # the JAX loop's key chain (the masks' keys)
     for i, (tag, arg) in enumerate(step_kinds(steps, pair_step_every, n_win, cfg.batch_size,
                                               seed)):
+        key, _, ks = prng.split(key, 3)
         if tag == "pair":
             batch = make_batch(pair_cfg, gen, c_rot_i, i_t_i2c, PAIR_HEIGHT, PAIR_WIDTH,
                                tex_bank, tex_idx, None)
-            loss, _ = pair_step(batch, arg, gen)
+            loss, _ = pair_step(batch, arg, step_mask_keys(ks, pair_cfg.batch_size, None, dev))
         else:
             sel = torch.as_tensor(arg, device=dev)
             opt.zero_grad()
-            loss = loss_fn({k: v[sel] for k, v in bank_dev.items()}, gen)
+            loss = loss_fn({k: v[sel] for k, v in bank_dev.items()}, gen, ks)
             loss.backward()
             opt.step()
             loss = loss.detach()

@@ -24,19 +24,22 @@ batch dims where the JAX trainer uses ``vmap``:
 - Optimizer: ``OptaxAdamW``, what the JAX trainer's optax chain computes
   (warmup-cosine schedule, global-norm clip, AdamW, apply_if_finite).
 
-Random draws come from one ``torch.Generator`` on the training device
-(not JAX's threefry keys: the same seed gives other samples than the JAX
-trainer), except the prior-mode coin, drawn on the host from
-``np.random.default_rng(seed)`` as the JAX trainer draws it, so the two
-trainers train the same sequence of modes.
+The pairs and their effects come from one ``torch.Generator`` on the
+training device (not yet JAX's threefry keys: the same seed gives other
+samples than the JAX trainer). Two streams are the JAX trainer's: the
+prior-mode coin, drawn on the host from ``np.random.default_rng(seed)``,
+so the two trainers train the same sequence of modes, and the MC-dropout
+keys (``utils/prng``, on the host, no device sync): step i's key chain
+``key, kb, ks = split(key, 3)`` from ``PRNGKey(seed)`` and sample b's key
+``split(ks, B)[b]``, so each sample's masks depend on its own key.
 
 Data parallelism (the JAX trainer's ``seq`` mesh): inside a job
 (``parallel/mesh``) whose size W divides the batch, rank r trains rows
 [r B/W, (r + 1) B/W) of the global batch and the W ranks compute what one
-process computes on the whole batch. Every rank draws the pairs, the
-effects' noise and the MC-dropout masks at the global batch's shape from
-the one seeded stream and keeps its rows, so it renders and runs only
-those; the loss's denominators and the echo penalty's moments are sums
+process computes on the whole batch. Every rank draws the pairs and the
+effects' noise at the global batch's shape from the one seeded stream and
+keeps its rows, so it renders and runs only those, with its rows' own
+MC-dropout keys; the loss's denominators and the echo penalty's moments are sums
 over the job (``parallel.mesh.differentiable_sum``), and the flat gradient is
 summed by one ``all_reduce`` a step before the optimizer's finite check
 and clip, so every rank applies the same update. Rank 0 alone logs,
@@ -83,6 +86,7 @@ from cuahn_vio_torch.parallel.mesh import (
     shard_bounds,
     world,
 )
+from cuahn_vio_torch.utils import prng
 
 # the optax chain's constants (the JAX trainer's make_optimizer)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -336,9 +340,10 @@ def _huber(err, delta):
 
 
 def make_loss_fn(model: UAHN, cfg: TrainConfig, mesh: Optional[Mesh] = None) -> Callable:
-    """loss_fn(batch, use_prior, generator) -> (total loss, (3,) batch means
-    of the cascade, member-mean and NLL losses), differentiable in the
-    model's parameters; ``generator`` draws the MC-dropout masks.
+    """loss_fn(batch, use_prior, dropout_keys) -> (total loss, (3,) batch
+    means of the cascade, member-mean and NLL losses), differentiable in
+    the model's parameters; ``dropout_keys`` (B, 4, 2) are the rows' mask
+    keys (``step_mask_keys``; None at dropout rate 0).
 
     With ``mesh`` (data-parallel), ``batch`` is this rank's rows of the
     global batch and the loss is this rank's share of the global one: the
@@ -350,25 +355,21 @@ def make_loss_fn(model: UAHN, cfg: TrainConfig, mesh: Optional[Mesh] = None) -> 
     sum to one process's on the whole batch."""
     corners = model.corners
     if mesh is None:
-        n_ranks, rows_of = 1, None
+        n_ranks = 1
 
         def gsum(x):
             return x
     else:
         gsum, n_ranks = differentiable_sum, mesh.size
 
-        def rows_of(b):  # (first row, global batch) of this rank's b rows
-            return mesh.rank * b, mesh.size * b
-
-    def loss_fn(batch: Batch, use_prior: bool, generator: Optional[torch.Generator]):
+    def loss_fn(batch: Batch, use_prior: bool, dropout_keys: Optional[torch.Tensor]):
         img1, img2, gt = batch.img1, batch.img2, batch.gt_flow
         flows, h1 = model.cascade_flows(img1, img2, batch.prior if use_prior else None,
                                         use_prior)
         l_cascade = _huber(flows - gt[:, None], cfg.huber_delta).mean(dim=(1, 2))
 
         h1 = h1.detach()
-        means, logvars = model.last_block_members(
-            img1, img2, h1, generator, None if rows_of is None else rows_of(img1.shape[0]))
+        means, logvars = model.last_block_members(img1, img2, h1, dropout_keys)
         logvars = _clip(logvars, -cfg.logvar_clip, cfg.logvar_clip)
         err = means - _warped_frame_gt(h1, gt, corners)[:, None]  # (B, 16, 4, 2)
         l_mean = _huber(err, cfg.huber_delta).mean(dim=(1, 2, 3))
@@ -538,15 +539,15 @@ def make_optimizer(model: UAHN, cfg: TrainConfig, steps: int,
 
 def make_train_step(model: UAHN, cfg: TrainConfig, opt: OptaxAdamW,
                     mesh: Optional[Mesh] = None) -> Callable:
-    """train_step(batch, use_prior, generator) -> (loss, aux): one gradient
+    """train_step(batch, use_prior, dropout_keys) -> (loss, aux): one gradient
     step of ``opt`` on the model's parameters, in place; with ``mesh``,
     this rank's share of the loss and aux (``make_loss_fn``), and ``opt``
     must sum the gradient over the job."""
     loss_fn = make_loss_fn(model, cfg, mesh)
 
-    def train_step(batch: Batch, use_prior: bool, generator: Optional[torch.Generator]):
+    def train_step(batch: Batch, use_prior: bool, dropout_keys: Optional[torch.Tensor]):
         opt.zero_grad()
-        loss, aux = loss_fn(batch, use_prior, generator)
+        loss, aux = loss_fn(batch, use_prior, dropout_keys)
         loss.backward()
         opt.step()
         return loss.detach(), aux.detach()
@@ -559,9 +560,10 @@ def make_probe_metric(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig, height: i
     """The held-out-texture probe: one frozen batch of ``probe_size`` pairs
     on the held-out textures (never trained on), drawn from a generator
     seeded with ``probe_seed``, and a function model -> (prior-mode,
-    no-prior) mean corner-flow error in px over the valid samples, with the
-    MC-dropout masks of a generator seeded with ``probe_seed + 1`` in both
-    modes on every call (the statistic ``eval-flow`` reports)."""
+    no-prior) mean corner-flow error in px over the valid samples, every
+    sample's MC-dropout masks those of the JAX probe's one key
+    ``PRNGKey(probe_seed + 1)``, in both modes on every call (the statistic
+    ``eval-flow`` reports)."""
     dev = model.corners.device
     bank = texture_bank_u8(dev)
     held = torch.as_tensor(heldout_indices(bank.shape[0]), dtype=torch.long, device=dev)
@@ -569,18 +571,31 @@ def make_probe_metric(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig, height: i
     batch = make_batch(replace(cfg, batch_size=probe_size), gen, c_rot_i, i_t_i2c, height,
                        width, bank, held)
     w = batch.valid.repeat_interleave(4)
+    drop = prng.keys_tensor(np.repeat(prng.mask_keys(prng.prng_key(probe_seed + 1))[None],
+                                      probe_size, axis=0), dev)
 
     def metric(model: UAHN):
         errs = []
         for use_prior in (True, False):
-            drop = torch.Generator(device=dev).manual_seed(probe_seed + 1)
             pred, _ = model(batch.img1, batch.img2, batch.prior if use_prior else None,
-                            use_prior, generator=drop)
+                            use_prior, dropout_keys=drop)
             e = torch.linalg.vector_norm((pred - batch.gt_flow).reshape(-1, 4, 2), dim=-1)
             errs.append(torch.sum(e.reshape(-1) * w) / torch.clamp(w.sum(), min=1.0))
         return errs[0], errs[1]
 
     return metric
+
+
+def step_mask_keys(step_key: np.ndarray, batch_size: int, mesh: Optional[Mesh],
+                   device) -> torch.Tensor:
+    """The (b, 4, 2) MC-dropout mask keys of this rank's rows of a step
+    whose samples' keys are ``split(step_key, batch_size)`` (the JAX
+    ``loss_fn``'s), on ``device``: all rows without a mesh."""
+    keys = prng.split(step_key, batch_size)
+    if mesh is not None:
+        lo, hi = shard_bounds(batch_size, mesh)
+        keys = keys[lo:hi]
+    return prng.keys_tensor(prng.mask_keys(keys), device)
 
 
 def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
@@ -665,11 +680,13 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
     gen = torch.Generator(device=dev).manual_seed(seed)
     # the prior-mode coin: the JAX trainer's host stream, flip for flip
     host_rng = np.random.default_rng(seed)
+    key = prng.prng_key(seed)  # the JAX trainer's key chain (its masks' keys)
     for i in range(steps):
+        key, _, ks = prng.split(key, 3)
         batch = make_batch(cfg, gen, c_rot_i, i_t_i2c, height, width, bank, tex_idx, pair_bank,
                            mesh)
         use_prior = bool(host_rng.random() < cfg.prior_prob)
-        loss, aux = step_fn(batch, use_prior, gen)
+        loss, aux = step_fn(batch, use_prior, step_mask_keys(ks, cfg.batch_size, mesh, dev))
         if log_every and (i % log_every == 0 or i == steps - 1):
             if mesh is not None:  # the ranks' shares sum to the batch's loss and means
                 shares = torch.cat([loss[None], aux])

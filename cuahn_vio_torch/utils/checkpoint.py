@@ -15,6 +15,11 @@ them), which the JAX package's ``load_params`` reads.
 
 No fc reordering is needed: the JAX model flattens features in NCHW order
 (``uahn.py:89-91``), the same order as ``torch.flatten`` on NCHW.
+
+``save_filter_state`` / ``load_filter_state`` write and read a
+``FilterState`` as the JAX package's functions do: an npz with one array a
+field, under the field's name, the optional bias block's fields left out
+when they are None.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import os
 
 import numpy as np
 import torch
+
+from cuahn_vio_torch.filter.state import FilterState
 
 from cuahn_vio_torch.utils.msgpack_reader import unpackb
 from cuahn_vio_torch.utils.msgpack_writer import packb
@@ -96,3 +103,18 @@ def save_params(path: str, state_dict: dict) -> None:
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+
+
+def save_filter_state(path: str, state: FilterState) -> None:
+    """Write ``state`` as an npz of its fields (numpy, on the host); a None
+    field (the bias block when it is off) is left out."""
+    np.savez(path, **{k: v.detach().cpu().numpy() for k, v in state._asdict().items()
+                      if v is not None})
+
+
+def load_filter_state(path: str, device="cuda") -> FilterState:
+    """The ``FilterState`` of an npz written by ``save_filter_state`` (or
+    the JAX package's), its tensors on ``device``; absent fields are
+    None."""
+    with np.load(path) as d:
+        return FilterState(**{k: torch.as_tensor(d[k], device=device) for k in d.files})

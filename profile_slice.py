@@ -62,8 +62,8 @@ LABELS = ("vio.", "train.", "fil.", "track.")
 
 def train_runner(torch, dev):
     """(run, steps) of ``--train``: ``run()`` makes TRAIN_STEPS training
-    steps from a fixed generator state and returns (None, seconds), the
-    last step closed by a synchronize."""
+    steps from a fixed generator state and key chain (``train``'s) and
+    returns (None, seconds), the last step closed by a synchronize."""
     import numpy as np
     from torch.profiler import record_function
 
@@ -71,6 +71,7 @@ def train_runner(torch, dev):
     from cuahn_vio_torch.data.textures import texture_bank_u8, train_indices
     from cuahn_vio_torch.models.uahn import build_uahn
     from cuahn_vio_torch.train import trainer
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.checkpoint import load_params
 
     cfg = trainer.TrainConfig(batch_size=chip_smoke.TRAIN_BATCH)
@@ -84,12 +85,15 @@ def train_runner(torch, dev):
     def steps(n):
         gen.manual_seed(0)
         modes = np.random.default_rng(0)
+        key = prng.prng_key(0)
         for _ in range(n):
+            key, _, ks = prng.split(key, 3)
             with record_function("train.batch"):
                 batch = trainer.make_batch(cfg, gen, c_rot_i, i_t_i2c, bank=bank,
                                            tex_indices=tex_idx)
             with record_function("train.step"):
-                step(batch, bool(modes.random() < cfg.prior_prob), gen)
+                step(batch, bool(modes.random() < cfg.prior_prob),
+                     trainer.step_mask_keys(ks, cfg.batch_size, None, dev))
 
     def run():
         torch.cuda.synchronize()
@@ -104,8 +108,8 @@ def train_runner(torch, dev):
 
 def fil_runner(torch, dev):
     """(run, steps) of ``--fil``: ``run()`` makes FIL_STEPS FIL steps on one
-    batch of windows from a fixed generator state and returns (None,
-    seconds), the last step closed by a synchronize."""
+    batch of windows from a fixed generator state and key chain and
+    returns (None, seconds), the last step closed by a synchronize."""
     import os
     import tempfile
 
@@ -116,6 +120,7 @@ def fil_runner(torch, dev):
     from cuahn_vio_torch.models.uahn import build_uahn
     from cuahn_vio_torch.pipeline.vio import VioConfig
     from cuahn_vio_torch.train import fil, trainer
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.checkpoint import load_params
     from cuahn_vio_torch.utils.config import VioOptions
 
@@ -139,10 +144,12 @@ def fil_runner(torch, dev):
 
     def steps(n):
         gen.manual_seed(0)
+        key = prng.prng_key(0)
         for _ in range(n):
+            key, _, ks = prng.split(key, 3)
             opt.zero_grad()
             with record_function("fil.forward"):
-                loss = loss_fn(win, gen)
+                loss = loss_fn(win, gen, ks)
             with record_function("fil.backward"):
                 loss.backward()
             with record_function("fil.optimizer"):
@@ -183,8 +190,13 @@ def vio_runner(args, torch, dev):
     """(run, steps) of the slice (or, with ``--batch``, the batched
     phase): ``run()`` runs FRAMES frame pairs and returns (None, seconds)."""
     import chip_smoke
-    from cuahn_vio_torch.pipeline.runner import prepare_batch, prepare_sequence
-    from cuahn_vio_torch.pipeline.vio import run_sequence
+    from cuahn_vio_torch.pipeline.runner import (
+        batch_frame_keys,
+        prepare_batch,
+        prepare_sequence,
+    )
+    from cuahn_vio_torch.pipeline.vio import run_sequence, sequence_mask_keys
+    from cuahn_vio_torch.utils import prng
 
     seq, opts, model = chip_smoke.slice_setup(torch, dev)
     seqs = [seq] + (chip_smoke.textured_sequences(dev) if args.batch else [])
@@ -208,12 +220,15 @@ def vio_runner(args, torch, dev):
         n_used = win.n_used
     steps = w.shape[-3]
 
+    # run_offline's (run_offline_batch's) MC-dropout keys at seed 0, on the card once
+    frame_keys = (batch_frame_keys(0, len(cuts), steps) if args.batch
+                  else prng.split(prng.prng_key(0), steps))
+    mask_keys = prng.keys_tensor(sequence_mask_keys(frame_keys, cfg.max_iekf_iterations), dev)
+
     def run():
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_sequence(state0, model, fparams, cfg, frames_dev, w, a, dt, n_used, gen)
+        run_sequence(state0, model, fparams, cfg, frames_dev, w, a, dt, n_used, mask_keys)
         torch.cuda.synchronize()
         return None, time.perf_counter() - t0
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|tune|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|tune|prng|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -74,6 +74,18 @@ to ``chip_smoke.TUNE_ROWS``, all under ``tests/data/``. Then the port's
 is set from it), and the JAX package's single-process
 ``distributed-selftest`` checksums on 8 fake CPU devices
 (``chip_smoke.JAX_SELFTEST``). ~10 min on the CPU.
+
+``prng`` (the random-stream phase's reference, seconds): draws with JAX
+alone and writes ``chip_smoke.PRNG_REF`` (``tests/data/prng_jax.npz``):
+``PRNGKey`` of ``chip_smoke.PRNG_SEEDS``, ``split(PRNGKey(42), 6)``,
+``fold_in(PRNGKey(42), d)`` for ``chip_smoke.PRNG_FOLDS``, and for the
+keys ``fold_in(PRNGKey(42), i)``, i < 3, ``jax.random.bits``, ``uniform``
+on [0.3, 1.7), ``bernoulli(0.95)`` and ``normal`` of
+``chip_smoke.PRNG_COUNT`` values each; and the four MC-dropout masks
+(packed bits) of the smoke's first network call, phase 4's first frame
+pair at seed 0 (``fold_in(split(PRNGKey(0), F)[0], 0)``: ``split``'s first
+key does not depend on F), captured where Flax's ``Dropout`` draws them
+in a live ``UAHN.apply`` at 224x320.
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -362,11 +374,68 @@ def tune(env, out_dir: str, weights: str) -> None:
     print(f"JAX single-process selftest: {sel.stdout.strip()}", flush=True)
 
 
+def prng_reference() -> None:
+    import chip_smoke
+    import flax.linen.stochastic as stochastic
+    import jax
+    import jax.numpy as jnp
+
+    from cuahn_vio.models.uahn import UAHN
+
+    def data(key):
+        return np.asarray(jax.random.key_data(key) if jnp.issubdtype(
+            key.dtype, jax.dtypes.prng_key) else key)
+
+    base = jax.random.PRNGKey(42)
+    keys = jnp.stack([jax.random.fold_in(base, i) for i in range(3)])
+    n = chip_smoke.PRNG_COUNT
+    out = dict(
+        seeds=np.asarray(chip_smoke.PRNG_SEEDS, np.int64),
+        seed_keys=np.stack([data(jax.random.PRNGKey(s)) for s in chip_smoke.PRNG_SEEDS]),
+        split6=data(jax.random.split(base, 6)),
+        folds=np.asarray(chip_smoke.PRNG_FOLDS, np.int64),
+        fold_keys=np.stack([data(jax.random.fold_in(base, d)) for d in chip_smoke.PRNG_FOLDS]),
+        draw_keys=data(keys),
+        bits=np.stack([np.asarray(jax.random.bits(k, (n,), jnp.uint32)) for k in keys]),
+        uniform=np.stack([np.asarray(jax.random.uniform(k, (n,), minval=0.3, maxval=1.7))
+                          for k in keys]),
+        bernoulli=np.stack([np.asarray(jax.random.bernoulli(k, 0.95, (n,))) for k in keys]),
+        normal=np.stack([np.asarray(jax.random.normal(k, (n,))) for k in keys]),
+    )
+    call_key = jax.random.fold_in(jax.random.split(jax.random.PRNGKey(0), 1)[0], 0)
+    drawn = []
+    bernoulli = stochastic.random.bernoulli
+
+    def capture(rng, p, shape):
+        mask = bernoulli(rng, p, shape)
+        drawn.append(np.asarray(mask))
+        return mask
+
+    model = UAHN()
+    img = jnp.zeros((224, 320), jnp.float32)
+    params = model.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+                        img, img)["params"]
+    stochastic.random.bernoulli = capture
+    try:
+        model.apply({"params": params}, img, img, jnp.zeros((4, 2)), use_prior=True,
+                    rngs={"dropout": call_key})
+    finally:
+        stochastic.random.bernoulli = bernoulli
+    out["mask_call_key"] = data(call_key)
+    for name, mask in zip(("mean0", "mean1", "logvar0", "logvar1"), drawn):
+        out[f"mask_{name}"] = np.packbits(mask.reshape(-1))
+        out[f"mask_{name}_shape"] = np.asarray(mask.shape, np.int64)
+    path = os.path.join(REPO, chip_smoke.PRNG_REF)
+    np.savez_compressed(path, **out)
+    print(f"prng: wrote {path} ({os.path.getsize(path)} bytes); masks "
+          f"{[m.shape for m in drawn]}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
     ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "loop", "diag",
-                                       "tune", "both"],
+                                       "tune", "prng", "both"],
                     default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
@@ -376,6 +445,9 @@ def main() -> int:
 
     os.makedirs(args.out_dir, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    if args.part == "prng":
+        prng_reference()
+        return 0
     if args.part == "raw":
         raw(env, args.out_dir, chip_smoke.WEIGHTS)
         return 0

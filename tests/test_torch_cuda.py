@@ -12,7 +12,11 @@ just under and over the shared band) and at a rendered frame's texture
 coordinates, all three bit for bit (0.0); the flat sampler's batched form
 (B = 1, 3 and 16 textures, ragged N, misaligned coordinates) bit for bit
 too; the undistortion remap C1 to its plain version bit for bit (0.0) at
-640x480 -> 224x320 on fisheye, radtan and edge maps. The batched path,
+640x480 -> 224x320 on fisheye, radtan and edge maps; the threefry kernel
+T1 to its plain version bit for bit in bits, uniform and bernoulli and
+within 2 float32 ulp in normal, at the MC-dropout masks' and the sensor
+effects' shapes, with the masks of a network call on the card equal to
+the CPU's. The batched path,
 the stepwise runner, the bf16 towers, the blurred
 render and the CLI run on the card too, and the sparse-vision front end
 and the UAHN's error map follow their CPU results (``chip_smoke.py``
@@ -69,6 +73,54 @@ def test_warp_kernel_matches_plain_version(gpu, dtype, b):
     assert torch.equal(torch.isnan(out), torch.isnan(ref))
     finite = ~torch.isnan(ref)
     assert (out - ref).abs()[finite].max().item() <= TOL
+
+
+# (rows, count of each row) of T1's cases: the four masks of one call and
+# of a 64-pair batch (widths 5120 and 256 alternating), the effects' two
+# noise frames, and ragged counts with an empty row
+T1_CASES = {
+    "masks_1": [16 * 5120, 16 * 256] * 2,
+    "masks_64": [16 * 5120, 16 * 256] * 128,
+    "effects": [224 * 320] * 2,
+    "ragged": [1, 0, 257, 65537],
+}
+
+
+@pytest.mark.parametrize("case", sorted(T1_CASES))
+def test_threefry_kernel_matches_plain_version(gpu, case):
+    from cuahn_vio_torch.utils import prng
+
+    counts = T1_CASES[case]
+    keys = prng.keys_tensor(prng.split(prng.prng_key(len(counts)), len(counts)), gpu)
+    for mode, a, b in ((prng.BITS, 0.0, 1.0), (prng.UNIFORM, 0.3, 1.7),
+                       (prng.BERNOULLI, 0.95, 1.0), (prng.NORMAL, 0.0, 1.0)):
+        before = tcuda.launch_counts["threefry"]
+        out = prng.draw(keys, counts, mode, a, b)
+        ref = prng.draw_plain(keys, counts, mode, a, b)
+        torch.cuda.synchronize()
+        assert tcuda.launch_counts["threefry"] == before + 1
+        assert out.dtype == ref.dtype and out.shape == ref.shape == (sum(counts),)
+        if mode == prng.NORMAL:
+            ulps = (out.view(torch.int32).long() - ref.view(torch.int32).long()).abs()
+            assert ulps.max().item() <= 2 and torch.equal(torch.sign(out), torch.sign(ref))
+        else:
+            assert torch.equal(out, ref)
+
+
+def test_network_masks_on_gpu_equal_the_cpu(gpu):
+    """A 16-member head call's four masks, drawn in one launch on the card,
+    are the CPU's (the plain version's) for the same keys."""
+    from cuahn_vio_torch.models.uahn import draw_masks
+    from cuahn_vio_torch.utils import prng
+
+    keys = prng.split(prng.prng_key(1), 3)
+    before = tcuda.launch_counts["threefry"]
+    on_gpu = draw_masks(keys, 0.05, 5120, gpu)
+    assert tcuda.launch_counts["threefry"] == before + 1
+    on_cpu = draw_masks(keys, 0.05, 5120, "cpu")
+    for head_g, head_c in zip(on_gpu, on_cpu):
+        for g, c in zip(head_g, head_c):
+            assert g.dtype == torch.bool and torch.equal(g.cpu(), c)
 
 
 def test_model_on_gpu_warps_through_the_kernel(gpu):
@@ -197,9 +249,10 @@ def test_batched_path_on_gpu_warps_once_per_site_and_frame(gpu):
 
 
 def test_stepwise_runner_on_gpu_follows_run_offline(gpu):
-    """Staged and fused, at one generator seed with MC dropout on: the
-    poses of run_offline, a warp launch per site and frame (plus the
-    warm-up step's) and a stage row per frame."""
+    """Staged and fused, at one seed with MC dropout on: the poses of
+    run_offline, a warp launch per site and frame (plus the warm-up
+    step's), a threefry launch per frame (the four masks of a call in one)
+    and a stage row per frame."""
     from cuahn_vio_torch.models.uahn import build_uahn
     from cuahn_vio_torch.pipeline.runner import run_offline, run_stepwise
     from cuahn_vio_torch.utils.config import VioOptions
@@ -215,6 +268,7 @@ def test_stepwise_runner_on_gpu_follows_run_offline(gpu):
         tcuda.reset_launch_counts()
         res = run_stepwise(*args, seed=3, device="cuda", staged_timing=staged)
         assert tcuda.launch_counts["homography_warp"] == 3 * (len(res.times) + 1)
+        assert tcuda.launch_counts["threefry"] == len(res.times) + 1
         assert res.stage_ms.shape == (len(res.times), 5) and res.n_recoveries == 0
         np.testing.assert_allclose(res.pose_w, ref.pose_w, atol=1e-6, rtol=0)
 

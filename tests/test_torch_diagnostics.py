@@ -5,8 +5,10 @@ the UAHN's photometric error map, ``eval-flow``, ``inspect-frame`` and
 The sequence: 7 frames of the procedural ground rendered by the port from
 a gentle drift (2 cm, 1 cm and 0.5 cm a frame, a slow yaw), its cameras'
 GT poses written as a 17-column state GT. Both packages run the v10
-weights with MC dropout off (``dropout_rate = 0``: threefry's ``fold_in``
-keys cannot be drawn by the port's generator).
+weights with MC dropout off (``dropout_rate = 0``), so that these tests
+hold the network and the statistics alone;
+``tests/test_torch_dropout_parity.py`` holds ``eval-flow --prior noisy``
+at p = 0.05, where the port draws the JAX verb's ``fold_in`` keys.
 
 Tolerances:
 - the error map (2 pairs, float frames): within 0.05 levels of JAX's on

@@ -6,8 +6,10 @@ The revisit sequence: frames rendered by the port on a procedural
 texture at three poses and at three revisits of them 5-15 cm off, plus
 one far pose whose predicted flow fails the geometric gate; the
 "estimated" poses are the truth with 2 cm noise. Both packages run the
-v10 weights with MC dropout off (``dropout_rate = 0``: threefry's
-``fold_in`` keys cannot be drawn by the port's generator).
+v10 weights with MC dropout off (``dropout_rate = 0``), so that these
+tests hold the geometry alone; ``tests/test_torch_dropout_parity.py``
+holds ``close-loops`` at p = 0.05, where the port draws the JAX verb's
+``fold_in`` masks.
 
 Tolerances:
 - ``find_loop_candidates``: the same pairs;

@@ -4,9 +4,10 @@
   weights at dropout_rate = 0, IEKF = 2, the bias block on and the update
   gate lowered to 2 frames (``tests/test_torch_slice.py``'s short sequence
   and options), and in dead reckoning;
-- staged, fused and ``run_offline`` at one generator seed with dropout on:
-  one trajectory (the runners draw one generator stream; the JAX runners
-  do not, VERDICT.md:140-147);
+- staged, fused and ``run_offline`` at one seed with dropout on: one
+  trajectory (the runners draw their masks from the same keys, those of
+  the JAX ``run_offline``; the JAX ``run_stepwise`` takes each frame
+  pair's key one later, VERDICT.md:140-147);
 - the divergence guard on ``tests/test_runner_features.py``'s NaN-IMU
   case: the JAX runner's ``n_recoveries`` and poses;
 - ``health_flags`` against the JAX checks on good and bad states.
@@ -126,9 +127,9 @@ def test_run_stepwise_dead_reckoning_matches_jax(sequence):
 
 @pytest.mark.parametrize("staged", [True, False], ids=["staged", "fused"])
 def test_stepwise_and_run_offline_share_one_trajectory(sequence, staged):
-    """With MC dropout on (p = 0.05) and one generator seed, the stepwise
-    runner draws the stream of run_offline: the same trajectory, bit for
-    bit, whatever the warm-up drew."""
+    """With MC dropout on (p = 0.05) and one seed, the stepwise runner
+    draws run_offline's masks: the same trajectory, bit for bit, whatever
+    the warm-up drew."""
     to = _seq_options(VioOptions)
     model = build_uahn(load_params(WEIGHTS), device="cpu", dropout_rate=0.05)
     cfg = VioConfig(max_iekf_iterations=2, update_gate_frames=2)

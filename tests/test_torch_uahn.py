@@ -1,7 +1,8 @@
 """The port's UAHN against the flax model, shipped v10 weights, 224x320.
 
-Both run float32 on the CPU with dropout_rate = 0 (MC-dropout masks come
-from different generators, so exact parity is checked without them).
+Both run float32 on the CPU with dropout_rate = 0 (the parity at the
+shipped p = 0.05, with the JAX package's masks drawn from one key, is
+``tests/test_torch_dropout_parity.py``'s).
 Tolerances: flow8 5e-4 px absolute; cov88 1e-4 relative plus 1e-4 px²
 absolute (measured agreement is ~6e-5 px and ~2e-5 relative; the towers
 sum thousands of products in another order, and the JAX model warps with
@@ -18,6 +19,7 @@ import torch
 
 from cuahn_vio.models.uahn import UAHN as JaxUAHN
 from cuahn_vio_torch.models.uahn import MC_DROPOUT_NUM, build_uahn
+from cuahn_vio_torch.utils import prng
 from cuahn_vio_torch.utils.checkpoint import load_params, params_from_numpy
 
 # the suite runs in several worker processes: keep torch to a few threads
@@ -117,28 +119,31 @@ def test_batched_forward_equals_per_example(torch_model, frames):
 
 
 def test_mc_dropout_members_are_seeded_and_distinct(frames):
-    """With dropout on, the 16 members differ, the same generator seed
-    reproduces them, and the keep rate is the configured 0.95."""
+    """With dropout on, the 16 members differ, the same key reproduces
+    them (a call key, or its four mask keys), another key gives others,
+    and the keep rate is the configured 0.95."""
     img1, img2, prior = frames
     model = build_uahn(load_params(WEIGHTS), device="cpu", dropout_rate=0.05)
     i1, i2 = torch.from_numpy(img1)[None], torch.from_numpy(img2)[None]
     h = model.part1(i1, i2, torch.from_numpy(prior)[None], use_prior=True)
 
-    def members(seed):
-        g = torch.Generator().manual_seed(seed)
+    def members(keys):
         with torch.no_grad():
-            return model.last_block_members(i1, i2, h, g)
+            return model.last_block_members(i1, i2, h, keys)
 
-    m1, lv1 = members(5)
-    m2, _ = members(5)
-    m3, _ = members(6)
+    m1, lv1 = members(prng.prng_key(5)[None])
+    m2, _ = members(prng.keys_tensor(prng.mask_keys(prng.prng_key(5)[None])))
+    m3, _ = members(prng.prng_key(6)[None])
     assert m1.shape == (1, MC_DROPOUT_NUM, 4, 2) and lv1.shape == m1.shape
     assert torch.equal(m1, m2) and not torch.equal(m1, m3)
     assert (m1[0].std(dim=0) > 0).all()
+    with pytest.raises(ValueError, match="dropout_keys"):
+        members(None)
     x = torch.ones(200_000)
     from cuahn_vio_torch.models.uahn import _dropout
 
-    kept = (_dropout(x, 0.05, torch.Generator().manual_seed(0)) > 0).float().mean()
+    mask = prng.bernoulli(prng.keys_tensor(prng.prng_key(0)[None]), (200_000,), 0.95)[0]
+    kept = (_dropout(x, 0.05, mask.bool()) > 0).float().mean()
     assert abs(kept.item() - 0.95) < 3e-3
 
 
