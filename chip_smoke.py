@@ -48,18 +48,24 @@ Phases, each printed on its own line with its seconds:
    same frames (as float) and coordinates and its byte bound;
 3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
    ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
-   the card against JAX's bits, uniform and bernoulli bit for bit and its
-   normals within PRNG_NORMAL_JAX_TOL, and the four MC-dropout masks of
-   phase 4's first network call bit for bit; T1 against its plain version
-   (``utils/prng.draw_plain``) on the card at the masks' shapes (K = 4 and
-   4 x 64) and the effects' (2 x 224 x 320): bits, uniform and bernoulli
-   bit for bit, normal within PRNG_NORMAL_ULPS ulp; then T1's time (CUDA
-   graph replays), its plain version's and its bound at those shapes.
+   the card against JAX's bits, uniform, bernoulli and randint (over
+   PRNG_SPANS) bit for bit and its normals and truncated normals within
+   PRNG_NORMAL_JAX_TOL, and the four MC-dropout masks of phase 4's first
+   network call bit for bit; ``init_uahn(PRNGKey(0))`` built on the card
+   (one truncated-normal launch) against the same build on the CPU, every
+   leaf within PRNG_INIT_ULPS ulp, and its build time; T1 against its
+   plain version (``utils/prng.draw_plain``) on the card at the masks'
+   shapes (K = 4 and 4 x 64) and the effects' (2 x 224 x 320) in every
+   mode, and at the UAHN's kernels (PRNG_INIT_CASE) in the truncated-normal
+   mode: bits, uniform and bernoulli bit for bit, the normals within
+   PRNG_NORMAL_ULPS ulp; then T1's time (CUDA graph replays), its plain
+   version's and its bound at those shapes.
    From here on every phase that runs the network at p = 0.05 must launch
    T1 once a network call (phases 4, 6-11 and 13-17: its four masks in one
-   launch) and ``make-synthetic --effects`` once a frame (phases 12 and
-   13: its two noise images); the kernels line carries T1's launches by
-   phase;
+   launch), ``make-synthetic --effects`` once a frame (phases 12 and 13:
+   its two noise images) and the trainers once a field of a batch's draws
+   (phases 11, 14 and 17a); the kernels line carries T1's launches by
+   phase and by mode;
 4. the single-stream slice: a synthetic 2.5 s still + 6 s flight from the
    port's ``make_sequence``, run through ``run_offline`` with the shipped
    v10 weights and 16-member MC dropout (p = 0.05, the JAX package's masks
@@ -107,7 +113,11 @@ Phases, each printed on its own line with its seconds:
    covariance). Every exit code must be
    0 and the timing csv must have one row of 5 stages a pose. Prints
    whether PyYAML is installed: the port needs none;
-11. the trainer: ``train-uahn --resume`` v10 for TRAIN_STEPS steps at
+11. the trainer: first the pair draws of its first step and of its probe
+   on the card against the JAX ``sample_pair`` draws at those keys
+   (TRAIN_DRAWS: uniform, Bernoulli and randint draws equal, the rest
+   within DRAW_TOL), counting a batch's T1 launches; then ``train-uahn
+   --resume`` v10 for TRAIN_STEPS steps at
    224x320, batch TRAIN_BATCH, photo textures and effects on (the CLI's
    default), twice at one seed, the first with cuDNN's deterministic
    algorithms (phase 17a's reference; the second as ``train`` runs by
@@ -118,7 +128,9 @@ Phases, each printed on its own line with its seconds:
    step; launch the flat sampler (B4) twice a step at shape 3 (16
    textures x 3 x 224 x 320 points) and twice for the probe's 32
    textures; launch the warp (B2) in float32 three times a step at B = 16
-   and six times for the probe at B = 32, and no other warp; write the
+   and six times for the probe at B = 32, and no other warp; launch T1
+   for a batch's draws and once for the masks each step, for the probe's
+   batch once and once a probe call; write the
    checkpoint and ``.best``, both read back by the port with every leaf
    finite, of v10's shapes and not v10's values. Prints each run's ms per
    step (the window from the end of the first step to the end of the
@@ -172,7 +184,10 @@ Phases, each printed on its own line with its seconds:
    Gauss-Newton iteration's ms at the run's size with the normal equations
    repeated GN_REPEATS times (``gn_iteration_ms``: the module's repeats
    must be bit-identical);
-14. filter-in-the-loop training in this process: ``train.fil.fil_finetune``
+14. filter-in-the-loop training in this process: first the window draws
+   of its first FIL step on the card against the JAX ``window_loss`` draws
+   at that key (TRAIN_DRAWS, the bounds of phase 11), counting a FIL
+   step's and a pair step's draw launches; then ``train.fil.fil_finetune``
    from v10 for FIL_STEPS steps (FIL steps and pair steps in turn) on a
    bank of FIL_BANK windows of FIL_WINDOW frames cut from the GT files of
    phases 10 and 13, FIL_BATCH windows a FIL step, 224x320, 3 blur taps.
@@ -180,7 +195,8 @@ Phases, each printed on its own line with its seconds:
    launch the flat sampler once (FIL_BATCH textures x (W + 1) x 3 x 224 x
    320 points) and the warp 3 x W x IEKF times at B = FIL_BATCH in uint8,
    a pair step the sampler twice at FIL_PAIR_BATCH textures and the warp
-   3 times at B = FIL_PAIR_BATCH in float32, and nothing else; the weights
+   3 times at B = FIL_PAIR_BATCH in float32, and nothing else, and T1 for
+   a step's draws and once a network call; the weights
    must move from v10, and the checkpoint be written and read back finite.
    Prints the set-up's ms and each step's (host clock, a synchronize at
    the set-up's end and at each step's), the peak device memory and, as a
@@ -215,10 +231,11 @@ Phases, each printed on its own line with its seconds:
    naming its factors). The warp is then held to its plain version and
    timed at each batch size eval-flow launched it at.
 16. the sweep and the parallel layer. 16a, in this process: ``tune-filter``
-   (``cli.main``) over the smoke's sequence (the card's ``make_sequence``
-   where it equals the CPU's, else the CPU's arrays in TUNE_SEQ) and the
-   JAX package's ``run-vio --state-out`` log of it (TUNE_LOG) at TUNE_GRID,
-   256 points, under the port's ``ResourceMonitor`` of this process: no
+   (``cli.main``) over the smoke's sequence (the card's ``make_sequence``,
+   whose IMU stream and ground truth are the host's, the CPU's bit for
+   bit), with a trace of the IMU's float32 ops on the card against the CPU
+   (``trace_imu_ops``), and the JAX package's ``run-vio --state-out`` log
+   of it (TUNE_LOG) at TUNE_GRID, 256 points, under the port's ``ResourceMonitor`` of this process: no
    kernel launch, 256 rows, each row's ``ate_pos`` within TUNE_ATE_TOL_M
    of the JAX verb's row of its grid_index (TUNE_ROWS), the same inf
    pattern and ``n_gated``, the top TUNE_TOP rows in the JAX order up to
@@ -278,6 +295,7 @@ import concurrent.futures
 import dataclasses
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -472,13 +490,11 @@ FIL_IEKF = 1  # train/fil's VioConfig(update_gate_frames=-1): one IEKF iteration
 # sequence (SEQ) and the JAX package's ``run-vio --state-out`` log of it
 # (v10, seed 0; its three keys in TUNE_LOG) over TUNE_GRID, 4 x 4 x 2 x 2 x
 # 2 x 2 = 256 points at the default gate and tau, each row held to the JAX
-# verb's row of its grid_index in TUNE_ROWS. TUNE_SEQ holds the sequence's
-# IMU arrays, cam_t and GT poses as the CPU's make_sequence made them.
-# Reference: ``python3 smoke_reference.py OUT_DIR --part tune`` writes the
-# three files (on the CPU) and prints the port's largest ate_pos
-# difference from the JAX rows on the CPU, which sets TUNE_ATE_TOL_M.
+# verb's row of its grid_index in TUNE_ROWS. Reference: ``python3
+# smoke_reference.py OUT_DIR --part tune`` writes the two files (on the
+# CPU) and prints the port's largest ate_pos difference from the JAX rows
+# on the CPU, which sets TUNE_ATE_TOL_M.
 TUNE_LOG = "tests/data/smoke_tune_log.npz"
-TUNE_SEQ = "tests/data/smoke_tune_seq.npz"
 TUNE_ROWS = "tests/data/smoke_tune_rows_jax.jsonl"
 TUNE_GRID = ("--k-net-cov", "4,7.9,12,20", "--q-scale", "0.5,1,2,4", "--q-pos-extra",
              "1e-5,1e-4", "--bias-sigma-px", "0,0.5", "--chi2-soft", "0,20", "--echo-beta",
@@ -514,6 +530,7 @@ PRNG_REF = "tests/data/prng_jax.npz"
 PRNG_SEEDS = (0, 7, 2**33 + 5)
 PRNG_FOLDS = (0, 1, 10_000, 2**32 - 1)
 PRNG_COUNT = 1001
+PRNG_SPANS = ((0, 10), (-7, 100_000))  # randint's [lo, hi): a texture pick's, a wide one
 PRNG_NORMAL_JAX_TOL = 1e-6  # XLA's CPU log1p is its own polynomial (tests/test_torch_prng.py)
 PRNG_NORMAL_ULPS = 2  # the kernel's log1pf against torch.log1p on the card
 PRNG_CASES = {
@@ -521,15 +538,36 @@ PRNG_CASES = {
     "masks K=256": [16 * 5120, 16 * 256] * 128,
     "effects K=2": [H * W] * 2,
 }
+# the random UAHN's kernels (init_uahn, one truncated-normal launch): drawn
+# in that mode only; the card's build against the CPU's, every kernel value
+# within PRNG_INIT_UNIT_TOL times its leaf's scale plus one rounding of the
+# scaled value (the bound the CPU's build is held to against JAX's,
+# tests/test_torch_init.py: the card's log1pf and the CPU's torch.log1p
+# round apart at a few values)
+PRNG_INIT_CASE = "init K=27"
+PRNG_INIT_UNIT_TOL = 2.4e-7
 # 32-bit operations a value: threefry's 20 rounds (add, rotate, xor), 5 key
 # injections (3 adds), the 2 initial adds and the final xor; then the mode's
 # float work (uniform: shift, or, sub, fma, max; bernoulli: those and a
 # compare; normal: uniform's, the square, log1p counted as one, the select,
 # sqrt or sub, 9 Horner fmas counted as 2 each, 2 multiplies)
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 1
-PRNG_MODE_OPS = {"bits": 0, "uniform": 5, "bernoulli": 6, "normal": 5 + 6 + 18 + 2}
-PRNG_OUT_BYTES = {"bits": 4, "uniform": 4, "bernoulli": 1, "normal": 4}
+PRNG_MODE_OPS = {"bits": 0, "uniform": 5, "bernoulli": 6, "normal": 5 + 6 + 18 + 2,
+                 "truncated_normal": 5 + 6 + 18 + 2 + 2}  # the normal's, and the clip
+PRNG_OUT_BYTES = {"bits": 4, "uniform": 4, "bernoulli": 1, "normal": 4, "truncated_normal": 4}
 FP32_OPS_PER_S = 67e12  # H100 SXM, CUDA cores (no integer rate is published apart)
+# The trainers' draws (phases 11 and 14): the JAX draws of phase 11's first
+# step, of its probe and of phase 14's first FIL step at their keys, written
+# by ``python3 smoke_reference.py OUT --part train`` on the card machine's
+# texture bank (CARD_TEXTURES procedural textures); the first
+# DRAW_NOISE_VALUES values of every noise image. The port's draws on the
+# card: uniform, Bernoulli and randint ones (heights, texture picks,
+# exposures, the effects' uniforms and clean coins) equal, everything made
+# of a normal (or of exp, cos, sin) within DRAW_TOL.
+TRAIN_DRAWS = "tests/data/train_draws_jax.npz"
+CARD_TEXTURES = 12
+DRAW_NOISE_VALUES = 8
+DRAW_TOL = 2e-6
 TORCHRUN = ("-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
             "--no-python")
 WATCH_TICKS, WATCH_INTERVAL_S = 3, 0.2  # phase 17b's watch-run
@@ -1230,7 +1268,11 @@ def run_slice(torch, dev):
     import numpy as np
 
     from cuahn_vio_torch.eval.align import ate_rmse
-    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.ops.cuda import (
+        launch_counts,
+        reset_launch_counts,
+        threefry_launches_by_mode,
+    )
     from cuahn_vio_torch.pipeline.runner import run_offline
 
     seq, opts, model = slice_setup(torch, dev)
@@ -1243,7 +1285,8 @@ def run_slice(torch, dev):
                       seed=0, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(launch_counts)
+    launches = dict(launch_counts, threefry_by_mode={
+        k: v for k, v in threefry_launches_by_mode.items() if v})
     steps = len(res.times)
     if not np.isfinite(res.pose_w).all():
         raise AssertionError("non-finite pose in the slice")
@@ -1583,7 +1626,7 @@ def train_child(argv, deterministic: bool = False) -> None:
     torch.backends.cudnn.deterministic = deterministic
 
     from cuahn_vio_torch import cli
-    from cuahn_vio_torch.ops.cuda import launch_counts
+    from cuahn_vio_torch.ops.cuda import launch_counts, threefry_launches_by_mode
     from cuahn_vio_torch.ops.cuda import warp as cuda_warp
     from cuahn_vio_torch.train import trainer
 
@@ -1615,14 +1658,17 @@ def train_child(argv, deterministic: bool = False) -> None:
     cuda_warp.homography_warp_cuda, cuda_warp.bilinear_sample_cuda = spy_warp, spy_sample
     trainer.make_train_step = timed_step_maker
     cli.main(argv)
-    print("train_child " + json.dumps(dict(seen, launch_counts=launch_counts)), flush=True)
+    print("train_child " + json.dumps(dict(seen, launch_counts=launch_counts,
+                                           threefry_by_mode=threefry_launches_by_mode)),
+          flush=True)
 
 
-def train_once(torch, tmp: str, probe_size: int, launcher: tuple = (),
+def train_once(torch, tmp: str, probe_size: int, batch_t1: int, launcher: tuple = (),
                deterministic: bool = False) -> dict:
     """One ``train-uahn`` run from v10 in a subprocess (``train_child``,
     ``deterministic`` as there) writing ``tmp``/w.msgpack, with its checks:
-    finite logged losses, the launches of B4 and B2 at the trainer's shapes,
+    finite logged losses, the launches of B4 and B2 at the trainer's shapes
+    and of T1 (``batch_t1`` a batch's draws, and a network call's masks),
     the checkpoint and ``.best`` read back; ``launcher``: the arguments of a
     ``python3`` that starts the subprocess (``TORCHRUN``: as a one-rank
     job). Returns what it found; raises on a failed check."""
@@ -1661,8 +1707,9 @@ def train_once(torch, tmp: str, probe_size: int, launcher: tuple = (),
     if (sorted(seen["warps"]) != want_warps or counts["homography_warp"] != len(want_warps)
             or counts["homography_warp_rowskip"]):
         raise AssertionError(f"train-uahn warp launches {seen['warps']} ({counts} counted)")
-    # the MC-dropout masks: one launch a step, one a probe call (two modes)
-    expect_t1("train-uahn", counts["threefry"], TRAIN_STEPS + 2)
+    # a batch's draws and the MC-dropout masks a step; the probe's batch
+    # once, its masks once a probe call (two modes)
+    expect_t1("train-uahn", counts["threefry"], TRAIN_STEPS * (batch_t1 + 1) + batch_t1 + 2)
     v10 = load_params(WEIGHTS)
     written = {}
     for path in (out_path, out_path + ".best"):
@@ -1682,16 +1729,120 @@ def train_once(torch, tmp: str, probe_size: int, launcher: tuple = (),
                 median_gap_ms=float(np.median(np.diff(ends)) * 1e3),
                 samples_per_s=TRAIN_BATCH / ms_step * 1e3, warp_launches=len(seen["warps"]),
                 threefry_launches=counts["threefry"],
+                threefry_launches_by_mode={k: v for k, v in seen["threefry_by_mode"].items() if v},
                 sampler_launches=len(seen["samples"]), probe=probe[-1].split(": ", 1)[1],
                 data_parallel="data-parallel over 1 ranks (seq mesh)" in said.splitlines(),
                 weights=written[out_path])
 
 
+def compare_draws(found: dict, ref, prefix: str, exact: tuple) -> float:
+    """The port's draws ``found`` {name: tensor or array} against the JAX
+    draws ``ref[prefix_name]``: the names in ``exact`` equal, the others
+    within DRAW_TOL. Returns the largest difference; raises on a failed
+    check."""
+    import numpy as np
+
+    worst = 0.0
+    for name, got in found.items():
+        want = ref[f"{prefix}_{name}"]
+        got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+        if got.shape != want.shape:
+            raise AssertionError(f"{prefix} {name}: shape {got.shape}, JAX's {want.shape}")
+        diff = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+        if (name in exact and diff != 0.0) or not diff <= DRAW_TOL:
+            raise AssertionError(f"{prefix} {name}: {diff:.3e} from JAX's draws")
+        worst = max(worst, diff)
+    return worst
+
+
+def noise_head(noise, n: int):
+    """The first ``n`` values of each (H, W) image of a noise tensor."""
+    return noise.reshape(*noise.shape[:-2], -1)[..., :n]
+
+
+def check_pair_draws(torch, dev) -> dict:
+    """Phase 11: the pair draws of ``train-uahn``'s first step (its
+    defaults at batch TRAIN_BATCH, seed 0: the sample keys ``split(kb,
+    TRAIN_BATCH)``) and of its probe (``split(PRNGKey(PROBE_SEED),
+    PROBE_SIZE)`` on the held-out textures), drawn on the card
+    (``draw_pairs`` and the frames' noise) against the JAX ``sample_pair``
+    draws in TRAIN_DRAWS; counts their T1 launches by mode (a training
+    step's batch). Returns what it found; raises on a failed check."""
+    import numpy as np
+
+    from cuahn_vio_torch import cli
+    from cuahn_vio_torch.data.sensor_effects import draw_noise, noise_keys
+    from cuahn_vio_torch.data.textures import heldout_indices, train_indices
+    from cuahn_vio_torch.ops.cuda import reset_launch_counts, threefry_launches_by_mode
+    from cuahn_vio_torch.train import trainer
+    from cuahn_vio_torch.utils import prng
+
+    cfg = cli.train_config(cli.build_parser().parse_args(
+        ["train-uahn", "--batch-size", str(TRAIN_BATCH)]))
+    _, kb, _ = prng.split(prng.prng_key(0), 3)
+    out = {}
+    with np.load(os.path.join(REPO, TRAIN_DRAWS)) as ref:
+        for prefix, key, b, split in (
+                ("step0", kb, TRAIN_BATCH, train_indices),
+                ("probe", prng.prng_key(trainer.PROBE_SEED), trainer.PROBE_SIZE, heldout_indices)):
+            keys = prng.split(key, b)
+            idx = torch.as_tensor(split(CARD_TEXTURES), dtype=torch.long, device=dev)
+            reset_launch_counts()
+            draws = trainer.draw_pairs(cfg, keys, dev, idx)
+            noise = draw_noise(noise_keys(trainer.sample_keys(keys)[:, 9]), (H, W), dev)
+            by_mode = {k: v for k, v in threefry_launches_by_mode.items() if v}
+            found = {k: getattr(draws, k) for k in (
+                "p1", "q1", "p2", "q2", "dp", "rv_d", "tex_idx", "tex_params", "exposure_frac",
+                "prior_sigma", "prior_noise")}
+            found.update(params1=draws.effects.params1, params2=draws.effects.params2,
+                         sigma=draws.effects.sigma,
+                         noise=noise_head(noise, DRAW_NOISE_VALUES).transpose(0, 1))
+            out[prefix] = dict(max_abs_diff_from_jax=compare_draws(
+                found, ref, prefix, ("p1", "tex_idx", "exposure_frac", "sigma")),
+                launches_by_mode=by_mode)
+    out["batch_launches"] = sum(out["step0"]["launches_by_mode"].values())
+    return out
+
+
+def check_window_draws(torch, dev, cfg) -> dict:
+    """Phase 14: the window draws of ``fil_finetune``'s first step (a FIL
+    step at seed 0: the window keys ``split(ks, FIL_BATCH)``, ks =
+    ``split(PRNGKey(0), 3)[2]``) drawn on the card (``draw_windows``)
+    against the JAX ``window_loss`` draws in TRAIN_DRAWS, and the T1
+    launches by mode of a FIL step's draws and of a pair step's batch
+    (``draw_pairs`` and the noise at FIL_PAIR_BATCH). Returns what it found;
+    raises on a failed check."""
+    import numpy as np
+
+    from cuahn_vio_torch.data.sensor_effects import draw_noise, noise_keys
+    from cuahn_vio_torch.data.textures import train_indices
+    from cuahn_vio_torch.ops.cuda import reset_launch_counts, threefry_launches_by_mode
+    from cuahn_vio_torch.train import fil, trainer
+    from cuahn_vio_torch.utils import prng
+
+    _, kb, ks = prng.split(prng.prng_key(0), 3)
+    idx = torch.as_tensor(train_indices(CARD_TEXTURES), dtype=torch.long, device=dev)
+    reset_launch_counts()
+    draws = fil.draw_windows(cfg, prng.split(ks, cfg.batch_size), idx, dev)
+    out = dict(fil_launches_by_mode={k: v for k, v in threefry_launches_by_mode.items() if v})
+    found = draws._asdict()
+    found["frame_noise"] = noise_head(found["frame_noise"], DRAW_NOISE_VALUES)
+    with np.load(os.path.join(REPO, TRAIN_DRAWS)) as ref:
+        out["max_abs_diff_from_jax"] = compare_draws(found, ref, "fil", ("tex_idx",))
+    keys = prng.split(kb, FIL_PAIR_BATCH)
+    reset_launch_counts()
+    trainer.draw_pairs(trainer.TrainConfig(batch_size=FIL_PAIR_BATCH), keys, dev, idx)
+    draw_noise(noise_keys(trainer.sample_keys(keys)[:, 9]), (H, W), dev)
+    out["pair_launches_by_mode"] = {k: v for k, v in threefry_launches_by_mode.items() if v}
+    return out
+
+
 def run_train(torch, dev, seq, opts) -> dict:
-    """Phase 11: TRAIN_RUNS ``train-uahn`` runs from v10 at one seed
-    (``train_once``), how far apart their written weights are, and
-    ``run_offline`` with the first run's weights on phase 4's sequence.
-    Returns what the checks found; raises on a failed one."""
+    """Phase 11: the first step's and the probe's pair draws on the card
+    against JAX's (``check_pair_draws``), TRAIN_RUNS ``train-uahn`` runs
+    from v10 at one seed (``train_once``), how far apart their written
+    weights are, and ``run_offline`` with the first run's weights on phase
+    4's sequence. Returns what the checks found; raises on a failed one."""
     import numpy as np
 
     from cuahn_vio_torch.eval.align import ate_rmse
@@ -1699,10 +1850,17 @@ def run_train(torch, dev, seq, opts) -> dict:
     from cuahn_vio_torch.pipeline.runner import run_offline
     from cuahn_vio_torch.train.trainer import PROBE_SIZE
 
+    from cuahn_vio_torch.data.textures import get_texture_bank
+
+    if len(get_texture_bank()) != CARD_TEXTURES:  # the draws' references were made on it
+        raise AssertionError(f"the texture bank holds {len(get_texture_bank())} textures, the "
+                             f"references' {CARD_TEXTURES}")
+    draws = check_pair_draws(torch, dev)
     runs = []
     for i in range(TRAIN_RUNS):  # the first with cuDNN's deterministic algorithms (17a's reference)
         with tempfile.TemporaryDirectory() as tmp:
-            runs.append(train_once(torch, tmp, PROBE_SIZE, deterministic=i == 0))
+            runs.append(train_once(torch, tmp, PROBE_SIZE, draws["batch_launches"],
+                                   deterministic=i == 0))
     first = runs[0]["weights"]
     weights_diff = max(float((r["weights"][k] - first[k]).abs().max())
                        for r in runs[1:] for k in first)
@@ -1717,15 +1875,15 @@ def run_train(torch, dev, seq, opts) -> dict:
     for r in runs:
         del r["weights"]
     return dict(runs=runs, weights_max_abs_diff=weights_diff, trained_ate_pos_m=ate,
-                probe_size=PROBE_SIZE, first_weights=first)
+                probe_size=PROBE_SIZE, first_weights=first, draws=draws)
 
 
-def run_dp_train(torch, probe_size: int, phase11: dict) -> dict:
+def run_dp_train(torch, probe_size: int, batch_t1: int, phase11: dict) -> dict:
     """Phase 17a: phase 11's run as a one-rank NCCL job (``TORCHRUN``),
     against phase 11's first run's weights (``phase11``). Returns what the
     checks found; raises on a failed one."""
     with tempfile.TemporaryDirectory() as tmp:
-        run = train_once(torch, tmp, probe_size, TORCHRUN, deterministic=True)
+        run = train_once(torch, tmp, probe_size, batch_t1, TORCHRUN, deterministic=True)
     weights = run.pop("weights")
     run["weights_max_abs_diff_from_phase11"] = max(
         float((weights[k] - phase11[k]).abs().max()) for k in phase11)
@@ -2346,9 +2504,11 @@ def run_loop(torch, dev, tmp: str, first: dict, beside: dict) -> dict:
 
 
 def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
-    """Phase 14: ``train.fil.fil_finetune`` in this process from v10 on the
-    GT files ``gt_files`` {name: path} (copied as ``name_with_gt.txt``
-    into a temporary GT directory), with the warp and flat-sampler wrappers
+    """Phase 14: the first FIL step's window draws on the card against
+    JAX's (``check_window_draws``), then ``train.fil.fil_finetune`` in
+    this process from v10 on the GT files ``gt_files`` {name: path}
+    (copied as ``name_with_gt.txt`` into a temporary GT directory), with
+    the warp and flat-sampler wrappers
     spied on (the shape of each launch), every step's gradients checked
     before the optimizer takes them, and the host time (a synchronize
     there) when the set-up is done (the texture bank on the card, the loss
@@ -2362,7 +2522,11 @@ def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
 
     from cuahn_vio_torch.eval.align import ate_rmse
     from cuahn_vio_torch.models.uahn import build_uahn
-    from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
+    from cuahn_vio_torch.ops.cuda import (
+        launch_counts,
+        reset_launch_counts,
+        threefry_launches_by_mode,
+    )
     from cuahn_vio_torch.ops.cuda import warp as cuda_warp
     from cuahn_vio_torch.pipeline.runner import run_offline
     from cuahn_vio_torch.train import fil
@@ -2404,7 +2568,8 @@ def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
     cfg = fil.FilConfig(window=FIL_WINDOW, batch_size=FIL_BATCH)
     c_rot_i, i_t_i2c = camera(torch, dev)
     v10 = load_params(WEIGHTS)
-    out = {}
+    draws = check_window_draws(torch, dev, cfg)
+    out = {"draws_max_abs_diff_from_jax": draws["max_abs_diff_from_jax"]}
     with tempfile.TemporaryDirectory() as tmp:
         gt_dir = os.path.join(tmp, "gt")
         os.makedirs(gt_dir)
@@ -2426,7 +2591,7 @@ def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
                              steps=FIL_STEPS, seed=0, bank=bank, log_every=1, log_fn=log,
                              checkpoint_path=weights, save_every=FIL_STEPS - 1,
                              pair_step_every=2)
-            counts = dict(launch_counts)
+            counts, by_mode = dict(launch_counts), dict(threefry_launches_by_mode)
         finally:
             cuda_warp.homography_warp_cuda, cuda_warp.bilinear_sample_cuda = warp, sample
             fil.OptaxAdamW, fil.step_kinds = adamw, step_kinds
@@ -2473,10 +2638,17 @@ def run_fil(torch, dev, gt_files: dict, seq, opts) -> dict:
             or counts[cuda_warp.SAMPLE_KERNEL] != len(seen["samples"])
             or counts[cuda_warp.ROWSKIP_KERNEL] or counts.get("remap")):
         raise AssertionError(f"fil_finetune launch counts {counts}")
-    # the masks: one launch a network call, W x IEKF a FIL step, one a pair step
+    # a step's draws, and the masks: one launch a network call, W x IEKF a
+    # FIL step, one a pair step
+    fil_draws = sum(draws["fil_launches_by_mode"].values())
+    pair_draws = sum(draws["pair_launches_by_mode"].values())
     out["threefry_launches"] = counts["threefry"]
+    out["threefry_launches_by_mode"] = {k: v for k, v in by_mode.items() if v}
+    out["threefry_draw_launches"] = {"fil": draws["fil_launches_by_mode"],
+                                     "pair": draws["pair_launches_by_mode"]}
     expect_t1("fil_finetune", counts["threefry"],
-              sum(FIL_WINDOW * FIL_IEKF if kind == "fil" else 1 for kind in kinds))
+              sum(fil_draws + FIL_WINDOW * FIL_IEKF if kind == "fil" else pair_draws + 1
+                  for kind in kinds))
     if written.keys() != v10.keys() or not all(torch.isfinite(written[k]).all() for k in v10):
         raise AssertionError("the FIL checkpoint is not v10's tree of finite weights")
     tuned = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2843,30 +3015,19 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     return out
 
 
-def tune_sequence(seq, opts, tmp: str) -> dict:
+def tune_sequence(seq, opts, tmp: str) -> None:
     """Phase 16a's inputs in ``tmp``: ``seq.npz`` (IMU arrays and cam_t),
-    ``seq_gt.txt`` and ``seq_config.yaml`` of the smoke's sequence, from
-    the card's ``make_sequence`` (``seq``) where it equals the CPU's
-    (TUNE_SEQ), else from TUNE_SEQ; returns how far apart they are."""
+    ``seq_gt.txt`` and ``seq_config.yaml`` of the smoke's sequence from the
+    card's ``make_sequence`` (``seq``)."""
     import numpy as np
 
-    from cuahn_vio_torch.eval.traj_io import load_pose_file, save_pose_file
+    from cuahn_vio_torch.eval.traj_io import save_pose_file
 
-    ref = np.load(os.path.join(REPO, TUNE_SEQ))
-    save_pose_file(os.path.join(tmp, "card_gt.txt"), seq.gt_times, seq.gt_pose_w)
-    card_gt = load_pose_file(os.path.join(tmp, "card_gt.txt"))
-    card = dict(imu_t=seq.imu_t, imu_w=seq.imu_w, imu_a=seq.imu_a, cam_t=seq.cam_t,
-                gt_times=card_gt.times, gt_poses=card_gt.poses,
-                init_height=float(seq.gt_pose_w[0, 2]))
-    diff = {k: float(np.abs(np.asarray(card[k], np.float64) - ref[k]).max()) for k in card}
-    src = card if not any(diff.values()) else {k: ref[k] for k in card}
-    np.savez(os.path.join(tmp, "seq.npz"), **{k: src[k] for k in ("imu_t", "imu_w", "imu_a",
-                                                                  "cam_t")})
-    save_pose_file(os.path.join(tmp, "seq_gt.txt"), src["gt_times"], src["gt_poses"])
-    dataclasses.replace(opts, init_height=float(src["init_height"])).to_yaml(
+    np.savez(os.path.join(tmp, "seq.npz"), imu_t=seq.imu_t, imu_w=seq.imu_w, imu_a=seq.imu_a,
+             cam_t=seq.cam_t)
+    save_pose_file(os.path.join(tmp, "seq_gt.txt"), seq.gt_times, seq.gt_pose_w)
+    dataclasses.replace(opts, init_height=float(seq.gt_pose_w[0, 2])).to_yaml(
         os.path.join(tmp, "seq_config.yaml"))
-    return {"sequence": "card" if src is card else "TUNE_SEQ (the card's differs)",
-            "card_vs_cpu_max_abs_diff": {k: v for k, v in diff.items() if v}}
 
 
 def rows_against_jax(rows: list, jax_rows: list, tol_m: float) -> dict:
@@ -2905,6 +3066,56 @@ def rows_against_jax(rows: list, jax_rows: list, tol_m: float) -> dict:
                 jax_top=[r["grid_index"] for r in jax_rows[:TUNE_TOP]])
 
 
+def trace_imu_ops(torch, dev) -> dict:
+    """Phase 16a: where a float32 evaluation of the smoke trajectory's IMU
+    on the card leaves the CPU's (fault C-2 of the card's ``make_sequence``
+    before it took the IMU stream from the host): each op of
+    ``AnalyticTrajectory.imu_true`` at the smoke sequence's IMU times, on
+    the card and on the CPU, as the largest absolute difference: ``sin`` /
+    ``cos`` of the five closed forms' arguments, ``pos_w``, ``quat_i2w``,
+    ``jacfwd``'s q-dot and p-double-dot, the outputs w_body and f_body;
+    and the two last products (the body rate 2 vec(q* q-dot), the specific
+    force R^T (p-double-dot - g)) on each device from the CPU's inputs, so
+    that a product's own share shows."""
+    import numpy as np
+    from torch.func import jacfwd, vmap
+
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory
+    from cuahn_vio_torch.ops.quat import quat_mul, quat_to_rot
+
+    traj = AnalyticTrajectory()
+    imu_t = np.arange(0.0, SEQ["t_still"] + SEQ["duration"], 1.0 / 500.0)
+    shifted = np.maximum(imu_t - SEQ["t_still"], 0.0)
+    conj = torch.tensor([1.0, -1.0, -1.0, -1.0])
+    gravity = torch.tensor([0.0, 0.0, -9.81])
+
+    def body_rate(q, qdot):
+        return 2.0 * quat_mul(q * conj.to(q.device), qdot)[1:4]
+
+    def specific_force(q, acc):
+        return quat_to_rot(q).T @ (acc - gravity.to(q.device))
+
+    def evaluate(device, inputs=None):
+        t = torch.tensor(shifted, dtype=torch.float32, device=device)
+        rates = (traj.wx, traj.wy, traj.wz, traj.w_rock, traj.w_rock * 0.83)
+        args = torch.stack([w * t for w in rates])
+        out = dict(sin=torch.sin(args), cos=torch.cos(args), pos_w=vmap(traj.pos_w)(t),
+                   quat_i2w=vmap(traj.quat_i2w)(t),
+                   qdot=vmap(jacfwd(traj.quat_i2w))(t).to(t.dtype),
+                   acc_w=vmap(jacfwd(jacfwd(traj.pos_w)))(t).to(t.dtype))
+        out["w_body"], out["f_body"] = vmap(traj.imu_true)(t)
+        if inputs is not None:
+            q, qdot, acc = (inputs[k].to(device) for k in ("quat_i2w", "qdot", "acc_w"))
+            out["w_body from the CPU's q, q-dot"] = vmap(body_rate)(q, qdot)
+            out["f_body from the CPU's q, p-double-dot"] = vmap(specific_force)(q, acc)
+        return {k: v.cpu() for k, v in out.items()}
+
+    cpu = evaluate("cpu")
+    cpu = evaluate("cpu", cpu)
+    card = evaluate(dev, cpu)
+    return {k: float((card[k].double() - cpu[k].double()).abs().max()) for k in cpu}
+
+
 def run_sweep(torch, dev, seq, opts, tmp: str) -> dict:
     """Phase 16a: ``tune-filter`` in this process on the card over the
     smoke's sequence and TUNE_LOG at TUNE_GRID, under the port's
@@ -2920,7 +3131,8 @@ def run_sweep(torch, dev, seq, opts, tmp: str) -> dict:
     from cuahn_vio_torch.eval.recorder import ResourceMonitor
     from cuahn_vio_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    out = tune_sequence(seq, opts, tmp)
+    tune_sequence(seq, opts, tmp)
+    out = {"imu_ops_card_vs_cpu_max_abs_diff": trace_imu_ops(torch, dev)}
     frames = len(np.load(os.path.join(REPO, TUNE_LOG))["times"])
     argv = ["tune-filter", os.path.join(tmp, "seq.npz"), os.path.join(REPO, TUNE_LOG),
             os.path.join(tmp, "seq_gt.txt"), "--config", os.path.join(tmp, "seq_config.yaml"),
@@ -3187,9 +3399,10 @@ def remap_entry(launches, err, rows, ptxas) -> dict:
 
 def prng_reference_checks(torch, dev, ref) -> dict:
     """Phase 3b, against JAX (``PRNG_REF``): the host keys exactly, T1's
-    bits, uniform and bernoulli bit for bit, its normals within
-    PRNG_NORMAL_JAX_TOL, and the masks of phase 4's first network call.
-    Returns what it found; raises on a failed check."""
+    bits, uniform, bernoulli and randint (over PRNG_SPANS) bit for bit, its
+    normals and truncated normals within PRNG_NORMAL_JAX_TOL, and the masks
+    of phase 4's first network call. Returns what it found; raises on a
+    failed check."""
     import numpy as np
 
     from cuahn_vio_torch.models.uahn import draw_masks
@@ -3216,12 +3429,19 @@ def prng_reference_checks(torch, dev, ref) -> dict:
         if not np.array_equal(got.view(want.dtype) if got.dtype != want.dtype and
                               got.itemsize == want.itemsize else got, want):
             raise AssertionError(f"prng: T1 {name} differs from JAX's")
-    normal = prng.normal(keys, (n,)).cpu().numpy()
-    out = dict(normal_max_abs_diff_from_jax=float(np.abs(normal - ref["normal"]).max()))
-    if not (out["normal_max_abs_diff_from_jax"] <= PRNG_NORMAL_JAX_TOL
-            and np.array_equal(np.sign(normal), np.sign(ref["normal"]))):
-        raise AssertionError(f"prng: T1 normals {out['normal_max_abs_diff_from_jax']:.3e} from "
-                             f"JAX's (tol {PRNG_NORMAL_JAX_TOL})")
+    for (lo, hi), want in zip(ref["spans"].tolist(), ref["randint"]):
+        got = prng.randint(host["draw_keys"], (n,), lo, hi, dev).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"prng: T1 randint on [{lo}, {hi}) differs from JAX's")
+    out = {}
+    for name, draw in (("normal", lambda: prng.normal(keys, (n,))),
+                       ("truncated_normal", lambda: prng.truncated_normal(keys, (n,), -2.0, 2.0))):
+        got = draw().cpu().numpy()
+        diff = out[f"{name}_max_abs_diff_from_jax"] = float(np.abs(got - ref[name]).max())
+        if not (diff <= PRNG_NORMAL_JAX_TOL and np.array_equal(np.sign(got), np.sign(ref[name]))):
+            raise AssertionError(f"prng: T1 {name} {diff:.3e} from JAX's (tol "
+                                 f"{PRNG_NORMAL_JAX_TOL})")
+    out["randint_equal_jax"] = True
     # phase 4's first network call: frame pair 0 of split(PRNGKey(0), F), IEKF
     # iteration 0 (split's first key is F's for every F)
     table = sequence_mask_keys(prng.split(prng.prng_key(0), 1), 1)
@@ -3240,35 +3460,94 @@ def prng_reference_checks(torch, dev, ref) -> dict:
     return out
 
 
-def check_prng(torch, dev) -> dict:
-    """Phase 3b: T1 against JAX (``prng_reference_checks``) and against its
-    plain version on the card at PRNG_CASES, then timed there. Returns
-    {"reference": ..., "cases": {case: {mode: row}}}; raises on a failed
+def check_init_uahn(torch, dev) -> dict:
+    """Phase 3b: ``init_uahn(PRNGKey(0))`` built on the card (its kernels in
+    one truncated-normal T1 launch) against the same build on the CPU
+    (the plain version), every kernel value within PRNG_INIT_UNIT_TOL of
+    its leaf's scale plus one rounding, biases 0; the card's build time
+    (host clock, synchronized; the second of two builds). Returns what it
+    found (with the largest difference in ulp); raises on a failed
     check."""
     import numpy as np
 
+    from cuahn_vio_torch.models.uahn import TRUNC_NORMAL_STD, init_uahn
+    from cuahn_vio_torch.ops.cuda import reset_launch_counts, threefry_launches_by_mode
     from cuahn_vio_torch.utils import prng
+
+    init_uahn(prng.prng_key(0), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = init_uahn(prng.prng_key(0), device=dev).state_dict()
+    torch.cuda.synchronize()
+    out = dict(card_build_ms=(time.perf_counter() - t0) * 1e3,
+               launches_by_mode={k: v for k, v in threefry_launches_by_mode.items() if v})
+    if out["launches_by_mode"] != {"truncated_normal": 1}:
+        raise AssertionError(f"init_uahn on the card: T1 launches {out['launches_by_mode']}")
+    t0 = time.perf_counter()
+    cpu = init_uahn(prng.prng_key(0), device="cpu").state_dict()
+    out["cpu_build_ms"] = (time.perf_counter() - t0) * 1e3
+    ulps, unequal = 0, 0
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        if name.endswith(".bias"):
+            if got.any() or want.any():
+                raise AssertionError(f"init_uahn {name}: a bias is not 0")
+            continue
+        ulps = max(ulps, int((got.view(torch.int32).long() - want.view(torch.int32).long()
+                              ).abs().max()))
+        unequal += int((got != want).sum())
+        a, b = got.numpy(), want.numpy()
+        std = np.sqrt(np.float32(1.0 / got[0].numel())) / np.float32(TRUNC_NORMAL_STD)
+        if not (np.abs(a - b) <= PRNG_INIT_UNIT_TOL * std + np.spacing(np.abs(b))).all():
+            raise AssertionError(f"init_uahn {name}: the card's {np.abs(a - b).max():.3e} from "
+                                 f"the CPU's")
+    values = sum(v.numel() for v in cpu.values())
+    out.update(leaves=len(cpu), values=values, max_ulps_from_cpu=ulps,
+               unequal_share=unequal / values)
+    return out
+
+
+def check_prng(torch, dev) -> dict:
+    """Phase 3b: T1 against JAX (``prng_reference_checks``), the card's
+    ``init_uahn`` against the CPU's (``check_init_uahn``), and T1 against
+    its plain version on the card at PRNG_CASES in every mode and at the
+    UAHN's kernels (PRNG_INIT_CASE) in the truncated-normal mode, then
+    timed there. Returns {"reference": ..., "init": ..., "cases": {case:
+    {mode: row}}}; raises on a failed check."""
+    import numpy as np
+
+    from cuahn_vio_torch.models.uahn import UAHN
+    from cuahn_vio_torch.utils import prng
+    from cuahn_vio_torch.utils.checkpoint import flax_kernel_shape
 
     with np.load(os.path.join(REPO, PRNG_REF)) as ref:
         found = {"reference": prng_reference_checks(torch, dev, dict(ref))}
+    found["init"] = check_init_uahn(torch, dev)
     modes = {"bits": (prng.BITS, 0.0, 1.0), "uniform": (prng.UNIFORM, 0.3, 1.7),
-             "bernoulli": (prng.BERNOULLI, 0.95, 1.0), "normal": (prng.NORMAL, 0.0, 1.0)}
+             "bernoulli": (prng.BERNOULLI, 0.95, 1.0), "normal": (prng.NORMAL, 0.0, 1.0),
+             "truncated_normal": (prng.TRUNC_NORMAL, -2.0, 2.0)}
+    kernels = [math.prod(flax_kernel_shape(p.shape)) for n, p in UAHN().named_parameters()
+               if n.endswith(".weight")]
+    cases = dict(PRNG_CASES, **{PRNG_INIT_CASE: kernels})
     found["cases"] = {}
-    for case, counts in PRNG_CASES.items():
+    for case, counts in cases.items():
         keys = prng.keys_tensor(prng.split(prng.prng_key(len(counts)), len(counts)), dev)
         rows = found["cases"][case] = {}
         for name, (mode, a, b) in modes.items():
+            if case == PRNG_INIT_CASE and mode != prng.TRUNC_NORMAL:
+                continue
             out = prng.draw(keys, counts, mode, a, b)
             ref = prng.draw_plain(keys, counts, mode, a, b)
             torch.cuda.synchronize()
             if out.dtype != ref.dtype or out.shape != ref.shape:
                 raise AssertionError(f"T1 {case} {name}: {out.dtype} {tuple(out.shape)}, plain "
                                      f"{ref.dtype} {tuple(ref.shape)}")
-            if mode == prng.NORMAL:
+            if mode in (prng.NORMAL, prng.TRUNC_NORMAL):
                 ulps = int((out.view(torch.int32).long() - ref.view(torch.int32).long()
                             ).abs().max())
                 if ulps > PRNG_NORMAL_ULPS or not torch.equal(torch.sign(out), torch.sign(ref)):
-                    raise AssertionError(f"T1 {case} normal: {ulps} ulp from its plain version")
+                    raise AssertionError(f"T1 {case} {name}: {ulps} ulp from its plain version")
                 err = float((out - ref).abs().max())
             else:
                 if not torch.equal(out, ref):
@@ -3288,25 +3567,35 @@ def check_prng(torch, dev) -> dict:
     return found
 
 
-def prng_entry(launches_by_phase: dict, found: dict, ptxas: dict) -> dict:
+def prng_entry(launches_by_phase: dict, by_mode: dict, found: dict, ptxas: dict) -> dict:
     """T1's entry of the kernels line: not a TPU kernel (XLA lowers
-    threefry itself); its launches in phase 4 (the main path) and by
-    phase, the MC-dropout masks' draw (bernoulli, K = 4) in the common
-    fields, and every case and mode under ``shapes``. No PyTorch call
-    computes this function (torch.rand is Philox), so ``library_ms`` is
-    null."""
+    threefry itself); its launches in phase 4 (the main path) and by phase,
+    its launches by mode where a phase counted them (``by_mode``: {phase:
+    {mode: launches}}, and their sum), the MC-dropout masks' draw
+    (bernoulli, K = 4) in the common fields, every case and mode under
+    ``shapes``, and the card's ``init_uahn``. No PyTorch call computes this
+    function (torch.rand is Philox), so ``library_ms`` is null."""
     row = found["cases"]["masks K=4"]["bernoulli"]
     compiled = ptxas["threefry_kernel<2>"]
+    total = {}
+    for counts in by_mode.values():
+        for mode, n in counts.items():
+            total[mode] = total.get(mode, 0) + n
     return dict(
-        name="threefry (MC-dropout masks, K=4 bernoulli; sensor-effects normals)",
+        name="threefry (MC-dropout masks, K=4 bernoulli; the trainers' draws, sensor-effects "
+             "normals, init_uahn's truncated normals)",
         route="cuda", source="cuahn_vio_torch/ops/cuda/prng.cu",
         replaces="jax/_src/prng.py:1184 (threefry_random_bits, lowered by XLA)",
         tpu_kernel=False, launches=launches_by_phase["4"], launches_by_phase=launches_by_phase,
+        launches_by_mode=total, launches_by_mode_by_phase=by_mode,
         max_abs_err=max(r["max_abs_err"] for c in found["cases"].values() for r in c.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=None, registers=compiled["registers"],
         spill_stores=compiled["spill_stores"], spill_loads=compiled["spill_loads"],
         normal_max_abs_diff_from_jax=found["reference"]["normal_max_abs_diff_from_jax"],
+        truncated_normal_max_abs_diff_from_jax=found["reference"][
+            "truncated_normal_max_abs_diff_from_jax"],
+        init_uahn=found["init"],
         shapes={f"{case} {mode}": r for case, rows in found["cases"].items()
                 for mode, r in rows.items()},
     )
@@ -3394,14 +3683,22 @@ def main() -> int:
             print(f"  T1 {case} {mode}: {r['values']} values, {r['ms']:.5f} ms, plain "
                   f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
                   f"{r['ulps']} ulp", flush=True)
-    phase("prng", t0, gpu=f"'{gpu}'", **prng_found["reference"])
+    init = prng_found["init"]
+    print(f"  init_uahn: {init['leaves']} leaves, {init['values']} values, card "
+          f"{init['card_build_ms']:.1f} ms, CPU {init['cpu_build_ms']:.1f} ms, "
+          f"{init['max_ulps_from_cpu']} ulp apart", flush=True)
+    phase("prng", t0, gpu=f"'{gpu}'", **prng_found["reference"],
+          init_uahn_card_ms=f"{init['card_build_ms']:.3f}",
+          init_uahn_ulps_from_cpu=init["max_ulps_from_cpu"])
     t1_launches = {}
+    t1_by_mode = {"3b init_uahn": init["launches_by_mode"]}
 
     t0 = time.perf_counter()
     launches, steps, iekf, ms_frame, ate_pos, ate_ori, (seq, opts, model, slice_res) = \
         run_slice(torch, dev)
     warp_launches = launches[warp_cuda.KERNEL]
     t1_launches["4"] = launches[prng_cuda.KERNEL]
+    t1_by_mode["4"] = launches["threefry_by_mode"]
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
           warp_launches=warp_launches, threefry_launches=t1_launches["4"],
           ate_pos_m=f"{ate_pos:.5f}",
@@ -3542,11 +3839,19 @@ def main() -> int:
               b2_share=f"{3 * times[('warp', 'float32', TRAIN_BATCH)]['ms'] / step_ms:.5f}",
               sampler_launches=run["sampler_launches"], warp_launches=run["warp_launches"],
               losses=run["logged_losses"], probe=f"'{run['probe']}'")
+    draws = trained["draws"]
     phase("train", t0, weights_max_abs_diff_between_runs=f"{trained['weights_max_abs_diff']:.3e}",
           trained_ate_pos_m=f"{trained['trained_ate_pos_m']:.5f}",
-          v10_ate_pos_m=f"{ate_pos:.5f}")
+          v10_ate_pos_m=f"{ate_pos:.5f}",
+          step0_draws_max_abs_diff_from_jax=f"{draws['step0']['max_abs_diff_from_jax']:.3e}",
+          probe_draws_max_abs_diff_from_jax=f"{draws['probe']['max_abs_diff_from_jax']:.3e}",
+          batch_threefry_launches=draws["step0"]["launches_by_mode"],
+          threefry_launches=trained["runs"][0]["threefry_launches"],
+          threefry_launches_by_mode=trained["runs"][0]["threefry_launches_by_mode"])
     main_run = trained["runs"][0]  # the main path's launches: the first run's
     t1_launches["11"] = main_run["threefry_launches"]
+    t1_by_mode["11"] = main_run["threefry_launches_by_mode"]
+    batch_t1 = trained["draws"]["batch_launches"]
     probe_size = trained["probe_size"]
     phase11_weights = trained.pop("first_weights")
 
@@ -3594,6 +3899,7 @@ def main() -> int:
                                    "loop": os.path.join(loop_dir.name, "replay_gt.txt")},
                       seq, opts)
     t1_launches["14"] = fil_run["threefry_launches"]
+    t1_by_mode["14"] = fil_run.pop("threefry_launches_by_mode")
     phase("fil", t0, gpu=f"'{gpu}'", steps=FIL_STEPS, window=FIL_WINDOW, batch=FIL_BATCH,
           v10_ate_pos_m=f"{ate_pos:.5f}",
           **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in fil_run.items()})
@@ -3629,8 +3935,9 @@ def main() -> int:
     expect_t1("run-vio-batch --mesh", t1_launches["16"], MESH_BATCH_FRAMES * iekf)
 
     t0 = time.perf_counter()
-    dp = run_dp_train(torch, probe_size, phase11_weights)
+    dp = run_dp_train(torch, probe_size, batch_t1, phase11_weights)
     t1_launches["17"] = dp["threefry_launches"]
+    t1_by_mode["17"] = dp["threefry_launches_by_mode"]
     phase("dp", t0, part="17a train-uahn, a one-rank NCCL job", gpu=f"'{gpu}'",
           ms_per_step=f"{dp['ms_per_step']:.3f}",
           phase11_ms_per_step=f"{main_run['ms_per_step']:.3f}",
@@ -3720,7 +4027,7 @@ def main() -> int:
     kernels[1]["launches_by_phase"] = {"6": batch_warp_launches,
                                        "16": verbs["batch_mesh_warp_launches"]}
     kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]
-    kernels.append(prng_entry(t1_launches, prng_found, prng_ptxas))
+    kernels.append(prng_entry(t1_launches, t1_by_mode, prng_found, prng_ptxas))
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -80,20 +80,34 @@ def _device(name: str):
 
 
 def _model(opts, weights, device, bf16: bool = False):
-    """The UAHN with ``weights`` (random init when None), built with
-    ``opts.mc_dropout`` (the JAX CLI always uses the UAHN default, 0.05);
-    ``bf16``: bfloat16 conv towers."""
+    """The UAHN with ``weights``; without them, the JAX verbs' random one,
+    ``init_uahn(PRNGKey(0))`` (which loading weights would overwrite
+    leaf for leaf). Built with ``opts.mc_dropout`` (the JAX CLI always uses
+    the UAHN default, 0.05); ``bf16``: bfloat16 conv towers."""
     import torch
 
-    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.models.uahn import build_uahn, init_uahn
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.checkpoint import load_params
 
-    torch.manual_seed(0)  # random init only matters without weights
-    return build_uahn(
-        load_params(weights) if weights else None, device=device,
-        dropout_rate=opts.mc_dropout, blocks_to_run=opts.blocks_to_run,
-        compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-    )
+    kw = dict(device=device, dropout_rate=opts.mc_dropout, blocks_to_run=opts.blocks_to_run,
+              compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+    if weights:
+        return build_uahn(load_params(weights), **kw)
+    return init_uahn(prng.prng_key(0), **kw)
+
+
+def _initial_uahn(seed: int, weights, device):
+    """The trainers' starting UAHN: ``weights`` (``--resume``) where given,
+    else the JAX trainers' ``init_uahn(PRNGKey(seed))`` (which the JAX verbs
+    then overwrite leaf for leaf with ``--resume``)."""
+    from cuahn_vio_torch.models.uahn import build_uahn, init_uahn
+    from cuahn_vio_torch.utils import prng
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    if weights:
+        return build_uahn(load_params(weights), device=device)
+    return init_uahn(prng.prng_key(seed), device=device)
 
 
 def _cov_factors(text: str) -> dict:
@@ -422,41 +436,43 @@ def cmd_train_uahn(args):
             dist.destroy_process_group()
 
 
+def train_config(args):
+    """``train-uahn``'s ``TrainConfig`` of its parsed arguments."""
+    from cuahn_vio_torch.train import TrainConfig
+
+    return TrainConfig(
+        batch_size=args.batch_size, lr=args.lr,
+        trans_sigma=args.trans_sigma, rot_sigma=args.rot_sigma,
+        prior_noise_lo=args.prior_noise_lo,
+        prior_noise_px=args.prior_noise_px,
+        height_range=(args.height_min, args.height_max),
+        tilt_sigma=args.tilt_sigma,
+        use_textures=not args.no_textures,
+        use_effects=not args.no_effects,
+        exposure_frac_max=args.exposure_frac_max,
+        max_flow_px=args.max_flow_px,
+        echo_weight=args.echo_weight,
+        big_baseline_prob=args.big_baseline_prob,
+        traj_pair_prob=args.traj_pair_prob,
+    )
+
+
 def _train_uahn(args, device, lead: bool):
     import torch
 
-    from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
-    from cuahn_vio_torch.train import TrainConfig, train
-    from cuahn_vio_torch.utils.checkpoint import load_params, save_params
+    from cuahn_vio_torch.train import train
+    from cuahn_vio_torch.utils.checkpoint import save_params
     from cuahn_vio_torch.utils.config import VioOptions
 
     opts = VioOptions.from_yaml(args.config) if args.config else VioOptions.uzhfpv_indoor45()
-    model = init_like_flax_(UAHN(), torch.Generator().manual_seed(args.seed))
-    if args.resume:
-        model.load_state_dict(load_params(args.resume))
-        if lead:
-            print(f"resumed from {args.resume}")
-    model.to(device)
+    model = _initial_uahn(args.seed, args.resume, device)
+    if args.resume and lead:
+        print(f"resumed from {args.resume}")
     t = np.asarray(opts.t_imu_to_cam, np.float64)
     c_rot_i = torch.tensor(t[:3, :3], dtype=torch.float32, device=device)
     i_t_i2c = torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32, device=device)
     train(
-        model, c_rot_i, i_t_i2c,
-        TrainConfig(
-            batch_size=args.batch_size, lr=args.lr,
-            trans_sigma=args.trans_sigma, rot_sigma=args.rot_sigma,
-            prior_noise_lo=args.prior_noise_lo,
-            prior_noise_px=args.prior_noise_px,
-            height_range=(args.height_min, args.height_max),
-            tilt_sigma=args.tilt_sigma,
-            use_textures=not args.no_textures,
-            use_effects=not args.no_effects,
-            exposure_frac_max=args.exposure_frac_max,
-            max_flow_px=args.max_flow_px,
-            echo_weight=args.echo_weight,
-            big_baseline_prob=args.big_baseline_prob,
-            traj_pair_prob=args.traj_pair_prob,
-        ),
+        model, c_rot_i, i_t_i2c, train_config(args),
         steps=args.steps, seed=args.seed,
         checkpoint_path=args.out, save_every=args.save_every,
     )
@@ -620,9 +636,8 @@ def cmd_train_fil(args):
     import torch
 
     from cuahn_vio_torch.data.trajpairs import GT_DIR, train_trajectory_files
-    from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
     from cuahn_vio_torch.train.fil import FilConfig, fil_finetune
-    from cuahn_vio_torch.utils.checkpoint import load_params, save_params
+    from cuahn_vio_torch.utils.checkpoint import save_params
     from cuahn_vio_torch.utils.config import VioOptions
 
     device = _device(args.device)
@@ -635,10 +650,8 @@ def cmd_train_fil(args):
         VioOptions.from_yaml(args.config) if args.config
         else VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
     )
-    model = init_like_flax_(UAHN(), torch.Generator().manual_seed(args.seed))
-    model.load_state_dict(load_params(args.resume))
+    model = _initial_uahn(args.seed, args.resume, device)
     print(f"resumed from {args.resume}")
-    model.to(device)
     t = np.asarray(opts.t_imu_to_cam, np.float64)
     c_rot_i = torch.tensor(t[:3, :3], dtype=torch.float32, device=device)
     i_t_i2c = torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32, device=device)
@@ -899,7 +912,7 @@ def cmd_inspect_frame(args):
     written with img1 and img2 as one greyscale PNG (``utils.png``)."""
     import torch
 
-    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.models.uahn import build_uahn, init_uahn
     from cuahn_vio_torch.ops.homography import f32_parity_mode
     from cuahn_vio_torch.utils.checkpoint import load_params
     from cuahn_vio_torch.utils import prng
@@ -910,8 +923,9 @@ def cmd_inspect_frame(args):
     frames = np.load(args.sequence)["frames"]
     f = args.frame
     pair = torch.as_tensor(frames[f: f + 2], device=device).to(torch.float32) / 255.0
-    torch.manual_seed(0)  # random init only matters without weights
-    model = build_uahn(load_params(args.weights) if args.weights else None, device=device)
+    # without weights, the JAX verb's init_uahn(PRNGKey(0))
+    model = (build_uahn(load_params(args.weights), device=device) if args.weights
+             else init_uahn(prng.prng_key(0), device=device))
     # the JAX verb's rngs={"dropout": PRNGKey(seed)}
     flow, cov, err_map = model(pair[:1], pair[1:], None, use_prior=False,
                                dropout_keys=prng.prng_key(args.seed)[None],

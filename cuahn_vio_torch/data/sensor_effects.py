@@ -7,12 +7,10 @@ per-sample parameters. The photometric chain:
     vignette -> exposure gain/gamma -> defocus blur -> shot+read noise
     -> black-level offset -> clip
 
-The random draws are apart from the arithmetic. ``draw_params_from_key``
-is the JAX ``draw_params`` of a key (``utils/prng``), as ``make-synthetic``
-draws it; for the trainer, ``draw_params`` and ``draw_effects_pair`` draw
-uniforms and normals from an explicit ``torch.Generator`` and hand them to
-``params_from_draws`` and ``effects_pair_from_draws``, and ``draw_noise``
-draws the per-pixel noise. ``apply_photometric`` and
+The random draws are apart from the arithmetic: ``draw_params``,
+``draw_effects_pair`` and ``draw_noise`` are the JAX package's draws of B
+keys (``utils/prng``; one T1 launch a field on a GPU), as
+``make-synthetic`` and the trainers draw them. ``apply_photometric`` and
 ``apply_effects_pair`` are deterministic, so the same drawn values give
 the JAX package's frames to float32 rounding.
 """
@@ -78,61 +76,39 @@ def _gauss_blur(img: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def params_from_draws(cfg: EffectsConfig, u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """(B, 6) [vignette, gain, gamma, offset, read_sigma, shot_coef] from B
-    rows of uniforms ``u`` (B, 6) in [0, 1) (vignette, gain, gamma, read,
-    shot, and the clean coin) and standard normals ``n`` (B,) (offset): a
-    row whose coin is under ``clean_prob`` is the neutral one."""
-    drawn = torch.stack([
-        u[:, 0] * cfg.vignette_max,
-        cfg.gain_lo + u[:, 1] * (cfg.gain_hi - cfg.gain_lo),
-        cfg.gamma_lo + u[:, 2] * (cfg.gamma_hi - cfg.gamma_lo),
-        n * cfg.offset_sigma,
-        u[:, 3] * cfg.read_noise_max,
-        u[:, 4] * cfg.shot_noise_max,
-    ], dim=1)
-    clean = (u[:, 5] < cfg.clean_prob)[:, None]
-    neutral = torch.zeros(6, device=u.device)
-    neutral[1:3] = 1.0  # no vignette, gain 1, gamma 1, no offset, no noise
-    return torch.where(clean, neutral, drawn)
-
-
-def draw_params(cfg: EffectsConfig, b: int, generator: torch.Generator) -> torch.Tensor:
-    """``params_from_draws`` of B rows drawn from ``generator``, on its
-    device."""
-    dev = generator.device
-    u = torch.rand((b, 6), generator=generator, device=dev)
-    return params_from_draws(cfg, u, torch.randn((b,), generator=generator, device=dev))
-
-
-def draw_params_from_key(cfg: EffectsConfig, key: np.ndarray) -> torch.Tensor:
-    """(1, 6) the JAX ``draw_params(key, cfg)`` on the CPU: ks = split(key,
-    7); vignette, gain, gamma, read and shot uniform in their ranges (ks[0],
-    ks[1], ks[2], ks[4], ks[5]), the offset ``normal(ks[3]) *
-    offset_sigma``, and the neutral row where ``bernoulli(ks[6],
+def draw_params(cfg: EffectsConfig, keys, device) -> torch.Tensor:
+    """(B, 6) [vignette, gain, gamma, offset, read_sigma, shot_coef], the
+    JAX ``draw_params(key, cfg)`` of each of B host keys (B, 2), on
+    ``device``: ks = split(key, 7); vignette, gain, gamma, read and shot
+    uniform in their ranges (ks[0], ks[1], ks[2], ks[4], ks[5]), the offset
+    ``normal(ks[3]) * offset_sigma``, and the neutral row (no vignette,
+    gain 1, gamma 1, no offset, no noise) where ``bernoulli(ks[6],
     clean_prob)``."""
-    ks = prng.keys_tensor(prng.split(key, 7))
+    ks = prng.split(keys, 7)
 
     def uniform(i: int, lo: float, hi: float) -> torch.Tensor:
-        return prng.uniform(ks[i:i + 1], (), lo, hi)[0]
+        return prng.draw_field(ks[:, i], (), prng.UNIFORM, device, lo, hi)
 
     drawn = torch.stack([
         uniform(0, 0.0, cfg.vignette_max),
         uniform(1, cfg.gain_lo, cfg.gain_hi),
         uniform(2, cfg.gamma_lo, cfg.gamma_hi),
-        prng.normal(ks[3:4], ())[0] * cfg.offset_sigma,
+        prng.draw_field(ks[:, 3], (), prng.NORMAL, device) * cfg.offset_sigma,
         uniform(4, 0.0, cfg.read_noise_max),
         uniform(5, 0.0, cfg.shot_noise_max),
-    ])
-    clean = prng.bernoulli(ks[6:7], (), cfg.clean_prob)[0].bool()
-    neutral = torch.tensor([0.0, 1.0, 1.0, 0.0, 0.0, 0.0])
-    return torch.where(clean, neutral, drawn)[None]
+    ], dim=1)
+    clean = prng.draw_field(ks[:, 6], (), prng.BERNOULLI, device, cfg.clean_prob).bool()
+    neutral = torch.tensor([0.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=drawn.device)
+    return torch.where(clean[:, None], neutral, drawn)
 
 
-def draw_noise(shape, generator: torch.Generator) -> torch.Tensor:
-    """(2, *shape) standard normals: the read and the shot noise of frames
-    of ``shape``, on the generator's device."""
-    return torch.randn((2, *shape), generator=generator, device=generator.device)
+def draw_noise(keys, hw: tuple, device) -> torch.Tensor:
+    """(2, ..., H, W) standard normals of the host noise keys (..., 2): the
+    read (0) and the shot (1) noise of frames of size ``hw``, the normals
+    of ``split(key, 2)`` (the JAX ``apply_photometric``'s), all in one
+    launch."""
+    ks = np.moveaxis(prng.split(keys, 2), -2, 0)
+    return prng.draw_field(ks, tuple(hw), prng.NORMAL, device)
 
 
 def apply_photometric(img: torch.Tensor, params: torch.Tensor, defocus_sigma,
@@ -163,33 +139,36 @@ class EffectsDraw(NamedTuple):
     sigma: torch.Tensor  # (B,) defocus, px, shared by the pair
 
 
-def effects_pair_from_draws(cfg: EffectsConfig, params: torch.Tensor, u: torch.Tensor,
-                            n: torch.Tensor) -> EffectsDraw:
-    """The parameters of B frame pairs from their first frame's ``params``
-    (B, 6), uniforms ``u`` (B,) (defocus) and standard normals ``n`` (B,)
-    (gain drift): lens and exposure shared by a pair (one camera,
-    consecutive frames), the second frame's gain drifted (auto exposure);
-    clean samples keep their neutral gain and skip defocus."""
+def draw_effects_pair(cfg: EffectsConfig, keys, device) -> EffectsDraw:
+    """The parameters of B frame pairs, the JAX ``apply_effects_pair``'s
+    draws of each of B host keys (B, 2), on ``device``: kp, kd, kg, kn1,
+    kn2, _ = split(key, 6); the lens and exposure ``draw_params(kp)``,
+    shared by a pair (one camera, consecutive frames), the defocus
+    uniform(kd) in [0, defocus_sigma_max), the second frame's gain drifted
+    by 1 + normal(kg) gain_drift (auto exposure); clean samples keep their
+    neutral gain and skip defocus. The frames' noise keys kn1 and kn2 are
+    ``noise_keys``'."""
+    ks = prng.split(keys, 6)
+    params = draw_params(cfg, ks[:, 0], device)
     neutral = params[:, 1] == 1.0
-    sigma = u * cfg.defocus_sigma_max * (~neutral)
-    drift = 1.0 + n * cfg.gain_drift
+    sigma = prng.draw_field(ks[:, 1], (), prng.UNIFORM, device, 0.0,
+                            cfg.defocus_sigma_max) * (~neutral)
+    drift = 1.0 + prng.draw_field(ks[:, 2], (), prng.NORMAL, device) * cfg.gain_drift
     params2 = params.clone()
     params2[:, 1] = params[:, 1] * torch.where(neutral, torch.ones_like(drift), drift)
     return EffectsDraw(params, params2, sigma)
 
 
-def draw_effects_pair(cfg: EffectsConfig, b: int, generator: torch.Generator) -> EffectsDraw:
-    """``effects_pair_from_draws`` of B pairs drawn from ``generator``."""
-    dev = generator.device
-    params = draw_params(cfg, b, generator)
-    u = torch.rand((b,), generator=generator, device=dev)
-    return effects_pair_from_draws(cfg, params, u,
-                                   torch.randn((b,), generator=generator, device=dev))
+def noise_keys(keys) -> np.ndarray:
+    """(2, B, 2): the noise keys kn1, kn2 of the two frames of each pair of
+    ``draw_effects_pair``'s keys (B, 2)."""
+    return np.moveaxis(prng.split(keys, 6)[:, 3:5], 1, 0)
 
 
 def apply_effects_pair(img1: torch.Tensor, img2: torch.Tensor, draw: EffectsDraw,
                        noise1: torch.Tensor, noise2: torch.Tensor):
     """Degrade B training pairs (B, H, W) with ``draw``; the noise of each
-    frame is its own (``draw_noise``). Returns (out1, out2)."""
+    frame is its own (``draw_noise`` of ``noise_keys``). Returns (out1,
+    out2)."""
     return (apply_photometric(img1, draw.params1, draw.sigma, noise1),
             apply_photometric(img2, draw.params2, draw.sigma, noise2))

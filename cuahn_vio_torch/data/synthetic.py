@@ -16,7 +16,8 @@ photo-texture ground, exposure blur and the sensor-effect chain:
   exposure window (motion blur);
 - ``make_sequence``: IMU stream (optional noise/biases from a numpy seed)
   + uint8 camera frames (optionally through ``data/sensor_effects``) +
-  ground truth.
+  ground truth; the IMU stream and the ground truth are evaluated on the
+  host on every device, the frames rendered on the device.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from cuahn_vio_torch.data.sensor_effects import apply_photometric, draw_params_from_key
+from cuahn_vio_torch.data.sensor_effects import apply_photometric, draw_params
 from cuahn_vio_torch.data.textures import default_tex_params, sample_plane, texture_u8
 from cuahn_vio_torch.ops.quat import quat_exp, quat_mul, quat_to_rot
 from cuahn_vio_torch.ops.warp import virtual_cam_k
@@ -96,26 +97,22 @@ WAVE_FREQS = (0.5, 14.0)  # range of each wave's per-axis frequency (rad/m)
 
 def texture_draws(texture_seed: int = 0, n_waves: int = N_WAVES):
     """The JAX package's procedural ground of ``PRNGKey(texture_seed)``
-    (its ``ground_texture``): k1, k2, k3 = split(key, 3); freqs =
-    uniform(k1, (n, 2), 0.5, 14), signs = sign(normal(k3, (n, 2))), phases
-    = uniform(k2, (n,), 0, 2 pi). Returns (freqs, signs, phases) float32
-    numpy arrays, drawn on the host (``utils/prng``)."""
-    k1, k2, k3 = prng.split(prng.prng_key(texture_seed), 3)
-    keys = prng.keys_tensor(np.stack([k1, k3, k2]))
-    freqs = prng.uniform(keys[:1], (n_waves, 2), *WAVE_FREQS)[0]
-    signs = torch.sign(prng.normal(keys[1:2], (n_waves, 2))[0])
-    phases = prng.uniform(keys[2:], (n_waves,), 0.0, 2 * math.pi)[0]
-    return freqs.numpy(), signs.numpy(), phases.numpy()
+    (``random_texture_draws`` of that key on the CPU), as (freqs, signs,
+    phases) float32 numpy arrays."""
+    draws = random_texture_draws(prng.prng_key(texture_seed)[None], "cpu", n_waves)
+    return tuple(x[0].numpy() for x in draws)
 
 
-def random_texture_draws(b: int, generator: torch.Generator, n_waves: int = N_WAVES):
-    """B random grounds, ``texture_draws``' ranges drawn from ``generator``
-    on its device: (freqs (B, n, 2), signs (B, n, 2), phases (B, n))."""
-    dev = generator.device
-    lo, hi = WAVE_FREQS
-    freqs = lo + torch.rand((b, n_waves, 2), generator=generator, device=dev) * (hi - lo)
-    signs = torch.sign(torch.randn((b, n_waves, 2), generator=generator, device=dev))
-    phases = torch.rand((b, n_waves), generator=generator, device=dev) * (2 * math.pi)
+def random_texture_draws(keys, device, n_waves: int = N_WAVES):
+    """The JAX ``ground_texture`` draws of each of B host keys (B, 2), on
+    ``device``: k1, k2, k3 = split(key, 3); freqs = uniform(k1, (n, 2),
+    0.5, 14), signs = sign(normal(k3, (n, 2))), phases = uniform(k2, (n,),
+    0, 2 pi); one T1 launch each on a GPU. Returns (freqs (B, n, 2), signs
+    (B, n, 2), phases (B, n))."""
+    ks = prng.split(keys, 3)
+    freqs = prng.draw_field(ks[:, 0], (n_waves, 2), prng.UNIFORM, device, *WAVE_FREQS)
+    signs = torch.sign(prng.draw_field(ks[:, 2], (n_waves, 2), prng.NORMAL, device))
+    phases = prng.draw_field(ks[:, 1], (n_waves,), prng.UNIFORM, device, 0.0, 2 * math.pi)
     return freqs, signs, phases
 
 
@@ -267,7 +264,7 @@ def make_sequence(
             window that ends at the frame's time (physical motion blur).
         effects: a ``sensor_effects.EffectsConfig`` degrades every frame
             with the JAX package's draws: from ``PRNGKey(effects_seed)``,
-            split in 3, one parameter draw (``draw_params_from_key``) and
+            split in 3, one parameter draw (``sensor_effects.draw_params``) and
             one defocus for the sequence; a slow auto-exposure drift of the
             gain, a numpy random walk from ``effects_seed``; and frame i's
             read and shot noise, the normals of ``split(split(k_frames,
@@ -285,8 +282,11 @@ def make_sequence(
 
     imu_t = np.arange(0.0, t_still + duration, 1.0 / imu_hz)
     shifted = np.maximum(imu_t - t_still, 0.0)
-    t_dev = torch.tensor(shifted, dtype=torch.float32, device=device)
-    w_true, a_true = vmap(lambda t: traj.imu_true(t, gravity_mag))(t_dev)
+    # the IMU stream and the ground truth: the closed forms on the host, so
+    # that a sequence has the same bits on every device (a GPU's float32
+    # sin and cos round otherwise than the CPU's)
+    t_host = torch.tensor(shifted, dtype=torch.float32)
+    w_true, a_true = vmap(lambda t: traj.imu_true(t, gravity_mag))(t_host)
     w_true = w_true.cpu().numpy().astype(np.float64)
     a_true = a_true.cpu().numpy().astype(np.float64)
     # still phase: hover at the t=0 pose
@@ -313,7 +313,7 @@ def make_sequence(
     p_taps, q_taps = exposure_taps(traj, cam_t - t_still, exposure_s, device)
     if effects is not None:
         k_par, k_sig, k_frames = prng.split(prng.prng_key(effects_seed), 3)
-        fx_params = draw_params_from_key(effects, k_par).to(device)
+        fx_params = draw_params(effects, k_par[None], "cpu").to(device)  # once, on the host
         defocus = prng.uniform(prng.keys_tensor(k_sig[None]), (1,), 0.0,
                                effects.defocus_sigma_max)[0].to(device)
         # each frame's two noise keys, on the device once: (F, 2, 2)
@@ -334,7 +334,7 @@ def make_sequence(
     # GT at IMU rate, world frame, file convention [x y z qx qy qz qw]
     p_all, q_all, v_all = vmap(
         lambda t: (traj.pos_w(t), traj.quat_i2w(t), jacfwd(traj.pos_w)(t).to(t.dtype))
-    )(t_dev)
+    )(t_host)
     p_all = p_all.cpu().numpy()
     q_all = q_all.cpu().numpy()
     v_all = v_all.cpu().numpy().astype(np.float64)

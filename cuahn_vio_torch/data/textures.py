@@ -24,8 +24,8 @@ the numpy code that builds the bank; it imports nothing of the JAX package):
   (B4) on CUDA. A uint8 texture is sampled on its raw levels and the blend
   scaled by 1/255, which is the JAX package's ``exact_u8`` Pallas call.
 
-- ``random_tex_params``: the trainer's random similarity transforms, drawn
-  from an explicit ``torch.Generator``.
+- ``random_tex_params``: the trainers' random similarity transforms, the
+  JAX package's draws of B keys (``utils/prng``).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from cuahn_vio_torch.ops.warp import bilinear_sample
+from cuahn_vio_torch.utils import prng
 
 TEXTURE_SIZE = 512
 HELDOUT_EVERY = 7  # bank[i] with i % 7 == 3 is held out from training
@@ -229,24 +230,28 @@ def default_tex_params(scale_m: float = 4.0) -> torch.Tensor:
     return torch.tensor([scale_m, 1.0, 0.0, 0.0, 0.0], dtype=torch.float32)
 
 
-def tex_params_from_draws(u: torch.Tensor,
-                          scale_range: tuple[float, float] = (1.5, 10.0)) -> torch.Tensor:
-    """(B, 5) float32 [scale_m, cos, sin, off_u, off_v] from uniforms ``u``
-    (B, 4) in [0, 1): scale log-uniform in ``scale_range`` (the same photo
-    as fine gravel or as large floor slabs), rotation uniform in [0, 2 pi),
-    offsets uniform in [0, 2)."""
-    lo, hi = math.log(scale_range[0]), math.log(scale_range[1])
-    th = u[:, 1] * (2 * math.pi)
-    return torch.stack([torch.exp(lo + u[:, 0] * (hi - lo)), torch.cos(th), torch.sin(th),
-                        2.0 * u[:, 2], 2.0 * u[:, 3]], dim=1)
+def tex_params_from_draws(log_s: torch.Tensor, th: torch.Tensor,
+                          off: torch.Tensor) -> torch.Tensor:
+    """(B, 5) float32 [scale_m, cos, sin, off_u, off_v] from B drawn log
+    scales, rotations (rad) and (B, 2) offsets."""
+    return torch.stack([torch.exp(log_s), torch.cos(th), torch.sin(th), off[:, 0], off[:, 1]],
+                       dim=1)
 
 
-def random_tex_params(b: int, generator: torch.Generator,
+def random_tex_params(keys, device,
                       scale_range: tuple[float, float] = (1.5, 10.0)) -> torch.Tensor:
-    """``tex_params_from_draws`` of B rows drawn from ``generator``, on its
-    device."""
-    u = torch.rand((b, 4), generator=generator, device=generator.device)
-    return tex_params_from_draws(u, scale_range)
+    """The JAX ``random_tex_params`` of each of B host keys (B, 2), on
+    ``device``: k1, k2, k3 = split(key, 3); the scale log-uniform in
+    ``scale_range`` (uniform(k1) in [log lo, log hi): the same photo as
+    fine gravel or as large floor slabs), the rotation uniform(k2) in [0,
+    2 pi), the offsets uniform(k3, (2,)) in [0, 2); one T1 launch each on
+    a GPU, then ``tex_params_from_draws``."""
+    ks = prng.split(keys, 3)
+    lo, hi = math.log(scale_range[0]), math.log(scale_range[1])
+    log_s = prng.draw_field(ks[:, 0], (), prng.UNIFORM, device, lo, hi)
+    th = prng.draw_field(ks[:, 1], (), prng.UNIFORM, device, 0.0, 2 * math.pi)
+    off = prng.draw_field(ks[:, 2], (2,), prng.UNIFORM, device, 0.0, 2.0)
+    return tex_params_from_draws(log_s, th, off)
 
 
 def texture_bank_u8(device) -> torch.Tensor:

@@ -361,19 +361,40 @@ class UAHN(nn.Module):
         return flow8, block_diag_cov8(cov_4pt), h_part1, warped_4pt
 
 
-def init_like_flax_(model: UAHN, generator: torch.Generator) -> UAHN:
-    """Flax's default initialization, in place: every conv and dense kernel
-    LeCun-normal (a normal truncated at 2 sigma, scaled to variance
-    1/fan_in), every bias 0 (torch's default init differs). The JAX CLI's
-    ``train-uahn`` starts from this (``init_uahn``), with other draws."""
+# the std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def init_uahn(key, img_height: int = IMG_HEIGHT, img_width: int = IMG_WIDTH,
+              blocks_to_run: int = 3, compute_dtype: torch.dtype = torch.float32,
+              device="cuda", dropout_rate: float = 0.05) -> UAHN:
+    """The UAHN on ``device``, in eval mode, with the parameters of the JAX
+    ``init_uahn(key, ...)``: Flax's ``model.init({"params": key, ...})``.
+
+    Each conv and dense kernel is LeCun normal, ``variance_scaling(1,
+    "fan_in", "truncated_normal")``: ``truncated_normal(k, -2, 2, shape) *
+    (sqrt(float32(1 / fan_in)) / float32(TRUNC_NORMAL_STD))`` in float32,
+    drawn in Flax's layout (conv HWIO, fan_in = kh kw c_in; dense (in, out),
+    fan_in = in) and then carried into the port's (``kernel_to_port``).
+    Its key k is the first ``make_rng("params")`` of its module's scope,
+    ``flax_fold(key, <path below the root>, 1)`` (``block2/conv0``,
+    ``fc_block1``, ``head_mean/fc0``); every bias is 0. All kernels are
+    drawn in one T1 launch on a GPU. ``key``: (2,) uint32 (``prng_key``)."""
+    from cuahn_vio_torch.utils.checkpoint import flax_kernel_shape, kernel_to_port
+
+    model = UAHN(dropout_rate, blocks_to_run, compute_dtype, img_height, img_width)
+    model = model.to(device).eval()
+    kernels = [(n, p) for n, p in model.named_parameters() if n.endswith(".weight")]
+    keys = np.stack([prng.flax_fold(key, *n[:-len(".weight")].split("."), 1) for n, _ in kernels])
+    draws = prng.truncated_normal(prng.keys_tensor(keys, device),
+                                  [flax_kernel_shape(p.shape) for _, p in kernels], -2.0, 2.0)
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                # the std of a unit normal truncated at +-2
-                std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                m.bias.zero_()
+        for (name, p), z in zip(kernels, draws):
+            std = np.sqrt(np.float32(1.0 / p[0].numel())) / np.float32(TRUNC_NORMAL_STD)
+            p.copy_(kernel_to_port(z * float(std), name))
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.zero_()
     return model
 
 
@@ -382,7 +403,8 @@ def build_uahn(state_dict: Optional[dict] = None, device="cuda",
                compute_dtype: torch.dtype = torch.float32,
                img_height: int = IMG_HEIGHT, img_width: int = IMG_WIDTH) -> UAHN:
     """The UAHN (224x320 by default) on ``device``, in eval mode, with
-    ``state_dict`` loaded (random init when None). ``compute_dtype=
+    ``state_dict`` loaded (PyTorch's default init when None: a weightless
+    verb takes ``init_uahn``). ``compute_dtype=
     torch.bfloat16`` runs the conv towers in bfloat16 (``run-vio --bf16``);
     the weights stay float32, and the warps, DLTs, fc heads and covariance
     path float32."""

@@ -2,7 +2,8 @@
 
 Each kernel's wrapper adds one to ``launch_counts[name]`` where it
 launches the kernel, and nowhere else, so a run can show that its main
-path went through the kernel.
+path went through the kernel. T1's launches are also counted by draw mode
+(``threefry_launches_by_mode``).
 """
 
 launch_counts = {
@@ -13,7 +14,12 @@ launch_counts = {
     "threefry": 0,  # T1: threefry_kernel (prng.cu), the JAX random stream
 }
 
+threefry_launches_by_mode = {  # T1's launches, by the mode of utils/prng.MODE_NAMES
+    "bits": 0, "uniform": 0, "bernoulli": 0, "normal": 0, "truncated_normal": 0,
+}
+
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, threefry_launches_by_mode):
+        for name in counts:
+            counts[name] = 0

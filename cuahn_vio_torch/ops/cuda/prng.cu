@@ -1,10 +1,13 @@
 // The JAX random stream on Hopper (sm_90a): Threefry-2x32 draws, as bits,
-// uniform floats, Bernoulli masks or normals, for K keys in one launch.
+// uniform floats, Bernoulli masks, normals or truncated normals, for K keys
+// in one launch.
 //
 // Replaces no TPU kernel: XLA lowers jax.random's threefry itself. It is
 // written by hand because the port must draw what the JAX package draws at
 // a seed (the MC-dropout masks of every network call, the sensor-effect
-// noise of make-synthetic), and the plain version (utils/prng.draw_plain)
+// noise of make-synthetic and of the trainers' pairs and windows, their
+// poses, textures and IMU noise, the UAHN's initial kernels), and the plain
+// version (utils/prng.draw_plain)
 // is ~150 int64 launches a draw on a path that is already bound by the
 // host's launches.
 //
@@ -22,11 +25,15 @@
 //                      sqrt(2) * erf_inv(u) (float32), with XLA's float32
 //                      erf_inv: w = -log1p(-u*u), Giles' polynomial in
 //                      w - 2.5 (w < 5) or sqrt(w) - 3, Horner in fmas.
+//   mode 4, truncated normal: u = max(a, fma(f, b - a, a)), a and b the erf
+//                      of the bounds over sqrt(2); min(max(sqrt(2) *
+//                      erf_inv(u), c), d), c and d the bounds moved one
+//                      float inward (jax.random.truncated_normal).
 // The fmas are where XLA's CPU backend contracts jax.random's arithmetic
 // (uniform's scale-and-shift, the Horner steps); the build has -fmad=false,
 // so no other contraction happens and the plain version repeats the
 // arithmetic op for op. bits, uniform and bernoulli equal it bit for bit;
-// normal may differ where log1pf rounds otherwise than torch.log1p.
+// the normals may differ where log1pf rounds otherwise than torch.log1p.
 //
 // What bounds it: the integer operations. A value costs ~78 32-bit integer
 // operations of threefry (20 rounds of add, funnel-shift rotate, xor; 5 key
@@ -104,7 +111,8 @@ __device__ __forceinline__ float erf_inv_f32(float x) {
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 threefry_kernel(const uint32_t* __restrict__ keys, const int64_t* __restrict__ offsets,
-                void* __restrict__ out, int k, int64_t total, float a, float b) {
+                void* __restrict__ out, int k, int64_t total, float a, float b, float c,
+                float d) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= total) return;
   int lo = 0, hi = k - 1;  // the row: the last i with offsets[i] <= idx
@@ -122,9 +130,12 @@ threefry_kernel(const uint32_t* __restrict__ keys, const int64_t* __restrict__ o
     static_cast<float*>(out)[idx] = fmaxf(a, __fmaf_rn(unit_float(bits), b - a, a));
   } else if (kMode == 2) {
     static_cast<uint8_t*>(out)[idx] = unit_float(bits) < a ? 1 : 0;
-  } else {
+  } else if (kMode == 3) {
     const float u = fmaxf(kNormalLo, __fmaf_rn(unit_float(bits), 1.0f - kNormalLo, kNormalLo));
     static_cast<float*>(out)[idx] = kSqrt2 * erf_inv_f32(u);
+  } else {
+    const float u = fmaxf(a, __fmaf_rn(unit_float(bits), b - a, a));
+    static_cast<float*>(out)[idx] = fminf(fmaxf(kSqrt2 * erf_inv_f32(u), c), d);
   }
 }
 
@@ -132,18 +143,30 @@ extern "C" {
 
 // keys (k, 2) uint32 and offsets (k + 1,) int64 (row starts, the total
 // last) on the current device, out of `total` elements of the mode's type
-// (uint32, float32, uint8, float32); returns the launch's cudaError_t.
+// (uint32, float32, uint8, float32, float32); returns the launch's
+// cudaError_t.
 int threefry_draw(const void* keys, const void* offsets, void* out, int k, long long total,
-                  int mode, float a, float b, void* stream) {
+                  int mode, float a, float b, float c, float d, void* stream) {
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   const auto* kp = static_cast<const uint32_t*>(keys);
   const auto* op = static_cast<const int64_t*>(offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: threefry_kernel<0><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b); break;
-    case 1: threefry_kernel<1><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b); break;
-    case 2: threefry_kernel<2><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b); break;
-    case 3: threefry_kernel<3><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b); break;
+    case 0:
+      threefry_kernel<0><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b, c, d);
+      break;
+    case 1:
+      threefry_kernel<1><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b, c, d);
+      break;
+    case 2:
+      threefry_kernel<2><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b, c, d);
+      break;
+    case 3:
+      threefry_kernel<3><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b, c, d);
+      break;
+    case 4:
+      threefry_kernel<4><<<blocks, kThreads, 0, s>>>(kp, op, out, k, total, a, b, c, d);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,11 @@
 """ctypes binding and wrapper of the threefry kernel T1 (``prng.cu``).
 
 ``draw_cuda``: the flat rows of ``counts[i]`` draws of each of K keys
-(bits, uniform, Bernoulli or normal; ``utils/prng.draw``), one launch for
-all rows. The library is built with nvcc at first use (``build.py``),
-never at import.
+(bits, uniform, Bernoulli, normal or truncated normal;
+``utils/prng.draw``), one launch for all rows, counted in
+``launch_counts["threefry"]`` and by mode in ``threefry_launches_by_mode``.
+The library is built with nvcc at first use (``build.py``), never at
+import.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from cuahn_vio_torch.ops.cuda import build, launch_counts
+from cuahn_vio_torch.ops.cuda import build, launch_counts, threefry_launches_by_mode
 from cuahn_vio_torch.utils import prng
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prng.cu")
@@ -24,15 +26,17 @@ KERNEL = "threefry"
 _P = ctypes.c_void_p
 _MAX_VALUES = (2**31 - 1) * 256  # one value a thread, 256 threads a block
 _OUT_DTYPES = {prng.BITS: torch.int32, prng.UNIFORM: torch.float32,
-               prng.BERNOULLI: torch.uint8, prng.NORMAL: torch.float32}
+               prng.BERNOULLI: torch.uint8, prng.NORMAL: torch.float32,
+               prng.TRUNC_NORMAL: torch.float32}
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    # keys, offsets, out, k, total, mode, a, b, stream
+    # keys, offsets, out, k, total, mode, a, b, c, d, stream
     lib.threefry_draw.argtypes = [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_float, ctypes.c_float, _P]
+                                  ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_float, _P]
     lib.threefry_draw.restype = ctypes.c_int
     return lib
 
@@ -62,8 +66,8 @@ def draw_cuda(keys: torch.Tensor, counts: Sequence[int], mode: int,
               a: float = 0.0, b: float = 1.0) -> torch.Tensor:
     """Launch T1 on (K, 2) int32 CUDA keys: ``sum(counts)`` values of
     ``mode`` (``utils/prng``'s BITS, UNIFORM on [a, b), BERNOULLI with p =
-    a, NORMAL). Raises on anything the kernel does not take and on a failed
-    launch."""
+    a, NORMAL, TRUNC_NORMAL on (a, b)). Raises on anything the kernel does
+    not take and on a failed launch."""
     if mode not in _OUT_DTYPES:
         raise ValueError(f"unknown draw mode {mode}")
     if not keys.is_cuda or keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
@@ -81,11 +85,15 @@ def draw_cuda(keys: torch.Tensor, counts: Sequence[int], mode: int,
     if total == 0:
         return out
     offsets = _row_offsets(counts, str(keys.device))
+    # the kernel's four floats: the truncated normal's are its uniform's
+    # bounds and its clip bounds
+    floats = prng.truncation_bounds(a, b) if mode == prng.TRUNC_NORMAL else (a, b, 0.0, 0.0)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = _library().threefry_draw(keys.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                                       len(counts), total, mode, a, b, stream)
+                                       len(counts), total, mode, *floats, stream)
     if err != 0:
         raise RuntimeError(f"threefry kernel launch failed: cudaError {err}")
     launch_counts[KERNEL] += 1
+    threefry_launches_by_mode[prng.MODE_NAMES[mode]] += 1
     return out

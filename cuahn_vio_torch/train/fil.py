@@ -24,14 +24,15 @@ consistently with its initial covariance.
 A window batch runs as B windows in lockstep (``run_sequence`` on (B, W+1,
 H, W) frames: the filter under ``torch.func.vmap``, the network once per
 frame on the B pairs), where the JAX module ``vmap``s the window loss.
-The window loss is split in two so that the randomness can be replaced:
-``draw_windows`` (the draws of textures, effects, IMU noise and initial
-states, from a ``torch.Generator`` in a stated order; not yet JAX's
-threefry keys) and ``window_losses`` (the loss of given draws and rendered
-frames), with ``render_windows`` between them. The MC-dropout masks are
-the JAX module's keys (``utils/prng``): step i's ``key, kb, ks =
+The window loss is split in two: ``draw_windows`` (the draws of textures,
+effects, IMU noise and initial states) and ``window_losses`` (the loss of
+given draws and rendered frames), with ``render_windows`` between them.
+Every draw is the JAX module's (``utils/prng``, the threefry kernel T1 on
+a GPU, one launch a field for the batch): step i's ``key, kb, ks =
 split(key, 3)`` from ``PRNGKey(seed)``, window b's key ``split(ks, B)[b]``
-and its filter run's ``split(window key, 10)[9]`` (``window_mask_keys``).
+and its fields' ``split(window key, 10)`` (``draw_windows``; the tenth,
+its filter run's MC-dropout key, ``window_mask_keys``); a pair step's
+batch is the trainer's ``make_batch`` of kb.
 The bank keeps no cache (the JAX module caches it in ``/tmp`` under a name
 that leaves out the GT directory).
 """
@@ -45,7 +46,12 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from cuahn_vio_torch.data.sensor_effects import EffectsConfig, apply_photometric, draw_params
+from cuahn_vio_torch.data.sensor_effects import (
+    EffectsConfig,
+    apply_photometric,
+    draw_noise,
+    draw_params,
+)
 from cuahn_vio_torch.data.synthetic import render_frame
 from cuahn_vio_torch.data.textures import random_tex_params, texture_bank_u8, train_indices
 from cuahn_vio_torch.data.trajpairs import GT_DIR
@@ -191,22 +197,28 @@ class WindowDraws(NamedTuple):
     init_bg: torch.Tensor  # (B, 3)
 
 
-def draw_windows(cfg: FilConfig, b: int, generator: torch.Generator,
-                 tex_indices: torch.Tensor) -> WindowDraws:
-    """B windows' draws from ``generator``, in the order of the fields of
-    ``WindowDraws`` (the JAX window loss's order of key splits)."""
-    dev = generator.device
+def draw_windows(cfg: FilConfig, keys, tex_indices: torch.Tensor, device) -> WindowDraws:
+    """The draws of B windows from their host keys ``keys`` (B, 2) (the JAX
+    ``loss_fn``'s ``split(step key, B)``), on ``device``: each window's
+    ``split(key, 10)`` as the JAX ``window_loss`` takes it, [0] the
+    texture (``randint`` over ``tex_indices``), [1] its transform, [2] the
+    lens (``draw_params``), [3] ``split(., W + 1)`` the frames' read and
+    shot noise, [4] bias_g, [5] bias_a, [6] the gyro and [7] the
+    accelerometer white noise, [8] ``split(., 5)`` the initial tilt, p, v,
+    ba and bg errors ([9] is the masks', ``window_mask_keys``); one sampler
+    call a field for the batch, the nine small normals in one."""
+    ks = prng.split(keys, 10)
     hgt, wid = cfg.img_hw
     w, t = cfg.window, cfg.imu_substeps
-    pick = torch.randint(0, tex_indices.shape[0], (b,), generator=generator, device=dev)
-    tex_idx = tex_indices[pick]
-    tex_params = random_tex_params(b, generator, cfg.tex_scale_range)
-    lens = draw_params(EffectsConfig(), b, generator)
-    normal = lambda *shape: torch.randn(shape, generator=generator, device=dev)  # noqa: E731
+    pick = prng.randint(ks[:, 0], (), 0, tex_indices.shape[0], device).long()
+    ik = prng.split(ks[:, 8], 5)
+    normals = prng.draw_fields(
+        [(ks[:, 4], (3,)), (ks[:, 5], (3,)), (ks[:, 6], (w, t, 3)), (ks[:, 7], (w, t, 3)),
+         (ik[:, 0], (2,))] + [(ik[:, i], (3,)) for i in range(1, 5)], prng.NORMAL, device)
     return WindowDraws(
-        tex_idx, tex_params, lens, normal(2, b, w + 1, hgt, wid), normal(b, 3), normal(b, 3),
-        normal(b, w, t, 3), normal(b, w, t, 3), normal(b, 2), normal(b, 3), normal(b, 3),
-        normal(b, 3), normal(b, 3),
+        tex_indices[pick], random_tex_params(ks[:, 1], device, cfg.tex_scale_range),
+        draw_params(EffectsConfig(), ks[:, 2], device),
+        draw_noise(prng.split(ks[:, 3], w + 1), (hgt, wid), device), *normals,
     )
 
 
@@ -323,15 +335,16 @@ def window_mask_keys(step_key: np.ndarray, b: int, window: int, iters: int,
 
 def make_fil_loss(model: UAHN, fparams: FilterParams, cfg: FilConfig, vio_cfg: VioConfig,
                   c_rot_i, i_t_i2c, tex_bank: torch.Tensor, tex_indices: torch.Tensor):
-    """loss_fn(win, generator, step_key) -> scalar: fresh draws for the
-    batch of windows ``win`` (``WindowBank`` rows as device tensors), the
-    render, then ``window_losses`` on the model's grad-enabled forward with
-    the masks of ``window_mask_keys(step_key, ...)``, averaged over the
-    finite windows."""
+    """loss_fn(win, step_key) -> scalar, the JAX ``loss_fn(params, win,
+    step_key)``: the draws of the batch of windows ``win`` (``WindowBank``
+    rows as device tensors) from ``split(step_key, B)`` (``draw_windows``),
+    the render, then ``window_losses`` on the model's grad-enabled forward
+    with the masks of ``window_mask_keys(step_key, ...)``, averaged over
+    the finite windows."""
 
-    def loss_fn(win: dict, generator: torch.Generator, step_key: np.ndarray) -> torch.Tensor:
+    def loss_fn(win: dict, step_key: np.ndarray) -> torch.Tensor:
         b = win["tap_p"].shape[0]
-        draws = draw_windows(cfg, b, generator, tex_indices)
+        draws = draw_windows(cfg, prng.split(step_key, b), tex_indices, tex_bank.device)
         imgs = render_windows(win, draws, cfg, c_rot_i, i_t_i2c, tex_bank)
         keys = window_mask_keys(step_key, b, cfg.window, vio_cfg.max_iekf_iterations,
                                 imgs.device)
@@ -394,19 +407,18 @@ def fil_finetune(model: UAHN, fparams: FilterParams, c_rot_i, i_t_i2c,
     opt = OptaxAdamW(model.parameters(), schedule, pair_cfg.weight_decay, pair_cfg.grad_clip)
     pair_step = make_train_step(model, pair_cfg, opt)
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    key = prng.prng_key(seed)  # the JAX loop's key chain (the masks' keys)
+    key = prng.prng_key(seed)  # the JAX loop's key chain
     for i, (tag, arg) in enumerate(step_kinds(steps, pair_step_every, n_win, cfg.batch_size,
                                               seed)):
-        key, _, ks = prng.split(key, 3)
+        key, kb, ks = prng.split(key, 3)
         if tag == "pair":
-            batch = make_batch(pair_cfg, gen, c_rot_i, i_t_i2c, PAIR_HEIGHT, PAIR_WIDTH,
+            batch = make_batch(pair_cfg, kb, c_rot_i, i_t_i2c, PAIR_HEIGHT, PAIR_WIDTH,
                                tex_bank, tex_idx, None)
             loss, _ = pair_step(batch, arg, step_mask_keys(ks, pair_cfg.batch_size, None, dev))
         else:
             sel = torch.as_tensor(arg, device=dev)
             opt.zero_grad()
-            loss = loss_fn({k: v[sel] for k, v in bank_dev.items()}, gen, ks)
+            loss = loss_fn({k: v[sel] for k, v in bank_dev.items()}, ks)
             loss.backward()
             opt.step()
             loss = loss.detach()

@@ -24,25 +24,30 @@ batch dims where the JAX trainer uses ``vmap``:
 - Optimizer: ``OptaxAdamW``, what the JAX trainer's optax chain computes
   (warmup-cosine schedule, global-norm clip, AdamW, apply_if_finite).
 
-The pairs and their effects come from one ``torch.Generator`` on the
-training device (not yet JAX's threefry keys: the same seed gives other
-samples than the JAX trainer). Two streams are the JAX trainer's: the
-prior-mode coin, drawn on the host from ``np.random.default_rng(seed)``,
-so the two trainers train the same sequence of modes, and the MC-dropout
-keys (``utils/prng``, on the host, no device sync): step i's key chain
-``key, kb, ks = split(key, 3)`` from ``PRNGKey(seed)`` and sample b's key
-``split(ks, B)[b]``, so each sample's masks depend on its own key.
+Every draw is the JAX trainer's (``utils/prng``, the threefry kernel T1 on
+a GPU): step i's key chain ``key, kb, ks = split(key, 3)`` from
+``PRNGKey(seed)``; the batch's sample keys ``split(kb, B)`` and each
+sample's ``split(k, 16)`` (``sample_pair``'s), every field from the key
+and in the shape the JAX code uses for it, one sampler call (one T1
+launch) a field for the whole batch, as ``jax_threefry_partitionable``
+makes a draw under ``vmap`` over keys equal to the same draw key by key;
+the held-out probe's batch from ``split(PRNGKey(probe_seed), 32)``; the
+MC-dropout keys of sample b ``split(ks, B)[b]``, so each sample's masks
+depend on its own key. The prior-mode coin is drawn on the host from
+``np.random.default_rng(seed)``, as the JAX trainer's, so the two trainers
+train the same sequence of modes on the same pairs from the same initial
+weights (``models/uahn.init_uahn``).
 
 Data parallelism (the JAX trainer's ``seq`` mesh): inside a job
 (``parallel/mesh``) whose size W divides the batch, rank r trains rows
 [r B/W, (r + 1) B/W) of the global batch and the W ranks compute what one
-process computes on the whole batch. Every rank draws the pairs and the
-effects' noise at the global batch's shape from the one seeded stream and
-keeps its rows, so it renders and runs only those, with its rows' own
-MC-dropout keys; the loss's denominators and the echo penalty's moments are sums
-over the job (``parallel.mesh.differentiable_sum``), and the flat gradient is
-summed by one ``all_reduce`` a step before the optimizer's finite check
-and clip, so every rank applies the same update. Rank 0 alone logs,
+process computes on the whole batch. A rank draws, renders and runs only
+its rows, from its rows' keys ``split(kb, B)[rB/W:(r + 1)B/W]`` (a
+counter-based stream: the same draws as the whole batch's rows), with its
+rows' own MC-dropout keys; the loss's denominators and the echo penalty's
+moments are sums over the job (``parallel.mesh.differentiable_sum``), and
+the flat gradient is summed by one ``all_reduce`` a step before the
+optimizer's finite check and clip, so every rank applies the same update. Rank 0 alone logs,
 probes and writes checkpoints. A batch that W does not divide trains
 unsharded on every rank, as in the JAX trainer.
 """
@@ -63,6 +68,7 @@ from cuahn_vio_torch.data.sensor_effects import (
     apply_effects_pair,
     draw_effects_pair,
     draw_noise,
+    noise_keys,
 )
 from cuahn_vio_torch.data.synthetic import (
     random_texture_draws,
@@ -82,7 +88,6 @@ from cuahn_vio_torch.parallel.mesh import (
     Mesh,
     differentiable_sum,
     make_mesh,
-    shard_batch,
     shard_bounds,
     world,
 )
@@ -92,6 +97,7 @@ from cuahn_vio_torch.utils import prng
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_ERRORS = 10000  # apply_if_finite's
 PROBE_SIZE = 32  # pairs of the held-out-texture probe's batch
+PROBE_SEED = 20240817  # its batch's key, PRNGKey(PROBE_SEED); its masks' PRNGKey(PROBE_SEED + 1)
 
 
 @dataclass(frozen=True)
@@ -162,19 +168,22 @@ class PairDraws(NamedTuple):
     from_bank: Optional[torch.Tensor] = None  # (B,) bool: the pose pair is the bank's
 
 
-def _uniform(b, lo, hi, generator):
-    u = torch.rand((b,), generator=generator, device=generator.device)
-    return lo + u * (hi - lo)
+def sample_keys(keys) -> np.ndarray:
+    """(B, 16, 2): each sample key's ``split(k, 16)``, the keys of the JAX
+    ``sample_pair``'s fields: 0 height, 1 tilt, 2 yaw, 3 dp, 4 rv_d, 5 the
+    texture's randint or the procedural ground, 6 the prior's noise, 7 the
+    texture transform, 8 the exposure, 9 the effects, 10 the prior's sigma,
+    11 the bank coin, 12 the bank randint, 13 the bank yaw, 14 the
+    big-baseline coin, 15 its stretch."""
+    return prng.split(np.asarray(keys, np.uint32), 16)
 
 
-def _bank_pairs(pair_bank, b: int, generator: torch.Generator):
-    """B pose pairs of ``pair_bank`` (p1, q1, p2, q2 on the device), each
-    turned by its own random world yaw (the planar measurement model is
-    yaw-invariant, and the texture transform randomizes planar position)."""
+def _bank_pairs(pair_bank, idx: torch.Tensor, yaw: torch.Tensor):
+    """The pose pairs ``idx`` of ``pair_bank`` (p1, q1, p2, q2 on the
+    device), each turned by its world ``yaw`` (the planar measurement model
+    is yaw-invariant, and the texture transform randomizes planar
+    position)."""
     bp1, bq1, bp2, bq2 = pair_bank
-    dev = generator.device
-    idx = torch.randint(0, bp1.shape[0], (b,), generator=generator, device=dev)
-    yaw = _uniform(b, 0.0, 2 * math.pi, generator)
     zero = torch.zeros_like(yaw)
     q_yaw = quat_exp(torch.stack([zero, zero, yaw], dim=1))
     cy, sy = torch.cos(yaw), torch.sin(yaw)
@@ -187,58 +196,66 @@ def _bank_pairs(pair_bank, b: int, generator: torch.Generator):
             quat_mul(q_yaw, bq2[idx]))
 
 
-def draw_pairs(cfg: TrainConfig, b: int, generator: torch.Generator,
+def draw_pairs(cfg: TrainConfig, keys, device,
                tex_indices: Optional[torch.Tensor] = None,
                pair_bank: Optional[tuple] = None) -> PairDraws:
-    """Draw B training pairs from ``generator`` (on the training device):
-    frame 1 at a random height, tilt and yaw over the plane, frame 2 moved
-    by a random translation and rotation; with ``pair_bank`` (the
-    flight-realistic pairs of ``data/trajpairs`` on the device), a
-    ``cfg.traj_pair_prob`` share of the pairs drawn from it instead, each
-    at a random world yaw, and every pair's blur motion taken from its two
-    poses (dp = p2 - p1, rv_d = log(q1^-1 q2)); a ``big_baseline_prob``
-    share of the translations stretched; with ``tex_indices`` (the bank
-    indices of the texture split) a texture, its transform, the exposure
-    and the effects parameters per pair, else a procedural ground per
-    pair; and the prior's noise."""
-    dev = generator.device
-    height = _uniform(b, cfg.height_range[0], cfg.height_range[1], generator)
-    tilt = torch.randn((b, 2), generator=generator, device=dev) * cfg.tilt_sigma
-    yaw = _uniform(b, -math.pi, math.pi, generator)
-    q1 = quat_exp(torch.cat([tilt, yaw[:, None]], dim=1))
-    dp = torch.randn((b, 3), generator=generator, device=dev) * cfg.trans_sigma
-    rv_d = torch.randn((b, 3), generator=generator, device=dev) * cfg.rot_sigma
+    """The draws of the B training pairs of the host sample keys ``keys``
+    (B, 2), on ``device``: the JAX ``sample_pair``'s of each key
+    (``sample_keys``), one sampler call a field for the batch. Frame 1 at
+    a random height, tilt and yaw over the plane, frame 2 moved by a random
+    translation and rotation; with ``pair_bank`` (the flight-realistic
+    pairs of ``data/trajpairs`` on the device), a ``cfg.traj_pair_prob``
+    share of the pairs taken from it instead, each at a random world yaw
+    (the random pose is drawn all the same, as in the JAX code), and every
+    pair's blur motion taken from its two poses (dp = p2 - p1, rv_d =
+    log(q1^-1 q2)); a ``big_baseline_prob`` share of the translations
+    stretched; with ``tex_indices`` (the bank indices of the texture split)
+    a texture, its transform, the exposure and the effects parameters per
+    pair, else a procedural ground per pair; and the prior's noise."""
+    ks = sample_keys(keys)
+
+    def uniform(i: int, lo: float, hi: float) -> torch.Tensor:
+        return prng.draw_field(ks[:, i], (), prng.UNIFORM, device, lo, hi)
+
+    height = uniform(0, *cfg.height_range)
+    tilt, dp, rv_d, prior_noise = prng.draw_fields(
+        [(ks[:, 1], (2,)), (ks[:, 3], (3,)), (ks[:, 4], (3,)), (ks[:, 6], (4, 2))],
+        prng.NORMAL, device)
+    yaw = uniform(2, -math.pi, math.pi)
+    q1 = quat_exp(torch.cat([tilt * cfg.tilt_sigma, yaw[:, None]], dim=1))
+    dp, rv_d = dp * cfg.trans_sigma, rv_d * cfg.rot_sigma
     q2 = quat_mul(q1, quat_exp(rv_d))
-    p1 = torch.cat([torch.zeros((b, 2), device=dev), height[:, None]], dim=1)
+    p1 = torch.cat([torch.zeros_like(dp[:, :2]), height[:, None]], dim=1)
     from_bank = None
     if pair_bank is not None and cfg.traj_pair_prob > 0.0:
-        bank = _bank_pairs(pair_bank, b, generator)
-        from_bank = torch.rand((b,), generator=generator, device=dev) < cfg.traj_pair_prob
+        idx = prng.randint(ks[:, 12], (), 0, pair_bank[0].shape[0], device).long()
+        bank = _bank_pairs(pair_bank, idx, uniform(13, 0.0, 2 * math.pi))
+        from_bank = prng.draw_field(ks[:, 11], (), prng.BERNOULLI, device,
+                                    cfg.traj_pair_prob).bool()
         pick = from_bank[:, None]
         p1, q1, p2, q2 = (torch.where(pick, x, y) for x, y in zip(bank, (p1, q1, p1 + dp, q2)))
         dp = p2 - p1  # the blur taps follow the actual inter-frame motion
         rv_d = quat_log(quat_mul(quat_conj(q1), q2))
     if cfg.big_baseline_prob > 0.0:
-        big = torch.rand((b,), generator=generator, device=dev) < cfg.big_baseline_prob
-        stretch = _uniform(b, cfg.big_baseline_scale[0], cfg.big_baseline_scale[1], generator)
-        dp = dp * torch.where(big, stretch, torch.ones_like(stretch))[:, None]
+        big = prng.draw_field(ks[:, 14], (), prng.BERNOULLI, device, cfg.big_baseline_prob)
+        stretch = uniform(15, *cfg.big_baseline_scale)
+        dp = dp * torch.where(big.bool(), stretch, torch.ones_like(stretch))[:, None]
     extra = {}
     if tex_indices is not None:
-        pick = torch.randint(0, tex_indices.shape[0], (b,), generator=generator, device=dev)
+        pick = prng.randint(ks[:, 5], (), 0, tex_indices.shape[0], device).long()
         extra = dict(
             tex_idx=tex_indices[pick],
-            tex_params=random_tex_params(b, generator, cfg.tex_scale_range),
-            exposure_frac=_uniform(b, 0.0, cfg.exposure_frac_max, generator),
-            effects=(draw_effects_pair(EffectsConfig(), b, generator)
+            tex_params=random_tex_params(ks[:, 7], device, cfg.tex_scale_range),
+            exposure_frac=uniform(8, 0.0, cfg.exposure_frac_max),
+            effects=(draw_effects_pair(EffectsConfig(), ks[:, 9], device)
                      if cfg.use_effects else None),
         )
     else:
-        extra["waves"] = random_texture_draws(b, generator)
+        extra["waves"] = random_texture_draws(ks[:, 5], device)
     log_lo, log_hi = math.log(cfg.prior_noise_lo), math.log(cfg.prior_noise_px)
     return PairDraws(
         p1=p1, q1=q1, p2=p1 + dp, q2=q2, dp=dp, rv_d=rv_d,
-        prior_sigma=torch.exp(_uniform(b, log_lo, log_hi, generator)),
-        prior_noise=torch.randn((b, 4, 2), generator=generator, device=dev),
+        prior_sigma=torch.exp(uniform(10, log_lo, log_hi)), prior_noise=prior_noise,
         from_bank=from_bank, **extra,
     )
 
@@ -296,25 +313,28 @@ def render_pairs(draws: PairDraws, cfg: TrainConfig, c_rot_i, i_t_i2c,
     return Batch(img1=img1, img2=img2, gt_flow=gt_flow, prior=prior, valid=valid)
 
 
-def make_batch(cfg: TrainConfig, generator: torch.Generator, c_rot_i, i_t_i2c,
-               height: int = 224, width: int = 320,
+def make_batch(cfg: TrainConfig, key, c_rot_i, i_t_i2c, height: int = 224, width: int = 320,
                bank: Optional[torch.Tensor] = None,
                tex_indices: Optional[torch.Tensor] = None,
                pair_bank: Optional[tuple] = None, mesh: Optional[Mesh] = None) -> Batch:
-    """``cfg.batch_size`` fresh training pairs, on the photo textures
-    ``tex_indices`` of ``bank`` (both None: the procedural ground), a share
-    of their poses from ``pair_bank``: ``draw_pairs``, the effects' noise,
-    then ``render_pairs``. With ``mesh``, all of it is drawn for the whole
-    batch and this rank's rows (``shard_bounds``) are rendered."""
-    b = cfg.batch_size
-    draws = draw_pairs(cfg, b, generator, tex_indices, pair_bank)
+    """The JAX ``make_batch(key, ...)``: ``cfg.batch_size`` fresh training
+    pairs from the sample keys ``split(key, B)`` (``key`` a host (2,)
+    uint32 key), on the photo textures ``tex_indices`` of ``bank`` (both
+    None: the procedural ground), a share of their poses from
+    ``pair_bank``, on ``c_rot_i``'s device: ``draw_pairs``, the effects'
+    noise (each frame's read and shot normals, one launch for the batch's
+    2 x 2 x B frames), then ``render_pairs``. With ``mesh``, only this
+    rank's rows (``shard_bounds``) are drawn and rendered."""
+    device = c_rot_i.device
+    keys = prng.split(key, cfg.batch_size)
+    if mesh is not None:
+        lo, hi = shard_bounds(cfg.batch_size, mesh)
+        keys = keys[lo:hi]
+    draws = draw_pairs(cfg, keys, device, tex_indices, pair_bank)
     noise = None
     if draws.effects is not None:
-        noise = tuple(draw_noise((b, height, width), generator) for _ in range(2))
-    if mesh is not None:
-        lo, hi = shard_bounds(b, mesh)
-        draws = shard_batch(draws, mesh)
-        noise = None if noise is None else tuple(n[:, lo:hi] for n in noise)
+        drawn = draw_noise(noise_keys(sample_keys(keys)[:, 9]), (height, width), device)
+        noise = (drawn[:, 0], drawn[:, 1])
     return render_pairs(draws, cfg, c_rot_i, i_t_i2c, height, width, bank, noise)
 
 
@@ -556,20 +576,20 @@ def make_train_step(model: UAHN, cfg: TrainConfig, opt: OptaxAdamW,
 
 
 def make_probe_metric(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig, height: int,
-                      width: int, probe_size: int, probe_seed: int = 20240817) -> Callable:
+                      width: int, probe_size: int, probe_seed: int = PROBE_SEED) -> Callable:
     """The held-out-texture probe: one frozen batch of ``probe_size`` pairs
-    on the held-out textures (never trained on), drawn from a generator
-    seeded with ``probe_seed``, and a function model -> (prior-mode,
-    no-prior) mean corner-flow error in px over the valid samples, every
-    sample's MC-dropout masks those of the JAX probe's one key
-    ``PRNGKey(probe_seed + 1)``, in both modes on every call (the statistic
-    ``eval-flow`` reports)."""
+    on the held-out textures (never trained on), the JAX probe's
+    ``split(PRNGKey(probe_seed), probe_size)`` samples without the pose-pair
+    bank (``make_batch`` of the key ``PRNGKey(probe_seed)``), and a
+    function model -> (prior-mode, no-prior) mean corner-flow error in px
+    over the valid samples, every sample's MC-dropout masks those of the
+    JAX probe's one key ``PRNGKey(probe_seed + 1)``, in both modes on every
+    call (the statistic ``eval-flow`` reports)."""
     dev = model.corners.device
     bank = texture_bank_u8(dev)
     held = torch.as_tensor(heldout_indices(bank.shape[0]), dtype=torch.long, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(probe_seed)
-    batch = make_batch(replace(cfg, batch_size=probe_size), gen, c_rot_i, i_t_i2c, height,
-                       width, bank, held)
+    batch = make_batch(replace(cfg, batch_size=probe_size), prng.prng_key(probe_seed),
+                       c_rot_i, i_t_i2c, height, width, bank, held)
     w = batch.valid.repeat_interleave(4)
     drop = prng.keys_tensor(np.repeat(prng.mask_keys(prng.prng_key(probe_seed + 1))[None],
                                       probe_size, axis=0), dev)
@@ -677,13 +697,12 @@ def train(model: UAHN, c_rot_i, i_t_i2c, cfg: TrainConfig = TrainConfig(),
         probe_fn = make_probe_metric(model, c_rot_i, i_t_i2c, cfg, height, width,
                                      probe_size=PROBE_SIZE)
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
     # the prior-mode coin: the JAX trainer's host stream, flip for flip
     host_rng = np.random.default_rng(seed)
-    key = prng.prng_key(seed)  # the JAX trainer's key chain (its masks' keys)
+    key = prng.prng_key(seed)  # the JAX trainer's key chain
     for i in range(steps):
-        key, _, ks = prng.split(key, 3)
-        batch = make_batch(cfg, gen, c_rot_i, i_t_i2c, height, width, bank, tex_idx, pair_bank,
+        key, kb, ks = prng.split(key, 3)
+        batch = make_batch(cfg, kb, c_rot_i, i_t_i2c, height, width, bank, tex_idx, pair_bank,
                            mesh)
         use_prior = bool(host_rng.random() < cfg.prior_prob)
         loss, aux = step_fn(batch, use_prior, step_mask_keys(ks, cfg.batch_size, mesh, dev))

@@ -44,6 +44,28 @@ def _flatten(tree: dict, prefix: str = ""):
             yield name, np.asarray(v)
 
 
+def kernel_to_port(kernel, name: str = "kernel"):
+    """A Flax kernel (numpy array or tensor) in the port's layout: conv
+    HWIO -> OIHW, dense (in, out) -> (out, in)."""
+    if kernel.ndim == 4:
+        return (kernel.permute(3, 2, 0, 1) if torch.is_tensor(kernel)
+                else kernel.transpose(3, 2, 0, 1))
+    if kernel.ndim == 2:
+        return kernel.T
+    raise ValueError(f"unexpected kernel rank {kernel.ndim} for {name}")
+
+
+def flax_kernel_shape(weight_shape) -> tuple:
+    """The Flax shape of a port weight's shape: OIHW -> HWIO, (out, in) ->
+    (in, out)."""
+    if len(weight_shape) == 4:
+        o, i, kh, kw = weight_shape
+        return (kh, kw, i, o)
+    if len(weight_shape) == 2:
+        return (weight_shape[1], weight_shape[0])
+    raise ValueError(f"unexpected weight shape {tuple(weight_shape)}")
+
+
 def params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
     """The JAX package's parameter tree (nested dicts of numpy arrays) ->
     the port's UAHN state dict (float32 CPU tensors)."""
@@ -51,12 +73,7 @@ def params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
     for name, arr in _flatten(tree):
         if name.endswith(".kernel"):
             name = name[: -len(".kernel")] + ".weight"
-            if arr.ndim == 4:  # conv HWIO -> OIHW
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 2:  # dense (in, out) -> (out, in)
-                arr = arr.T
-            else:
-                raise ValueError(f"unexpected kernel rank {arr.ndim} for {name}")
+            arr = kernel_to_port(arr, name)
         out[name] = torch.tensor(np.asarray(arr, dtype=np.float32))
     return out
 

@@ -49,13 +49,26 @@ shape them (one shape for every key, or one shape each):
   -log1p(-u u), then one of Giles' two 9-term polynomials, split at w < 5
   ("Approximating the erfinv function", 2010), by Horner's rule in fused
   multiply-adds.
+- ``truncated_normal(lower, upper)``: sqrt(2) erf_inv(u), u uniform on
+  [erf(lower / sqrt2), erf(upper / sqrt2)) (uniform's fma), clipped to
+  (nextafter(lower, +inf), nextafter(upper, -inf))
+  (``jax.random.truncated_normal``; the two erf values are float32's
+  correctly rounded ones, which XLA's erf gives at the initializers'
+  +-2).
+- ``randint(lo, hi)``: of the two keys of ``split(key)``, 32 random bits
+  each (hi, lo words), then ``lo + ((hi % span) * m + lo % span) % span``
+  in uint32 arithmetic that wraps, span = hi - lo (1 where hi <= lo), m =
+  (2^16 % span)^2 % span (``jax.random.randint`` for int32; the integer
+  work is a few values a draw, in torch on the bits of one T1 launch).
 
 On a CUDA tensor of keys the samplers launch the hand-written kernel T1
 (``ops/cuda/prng.cu``), one launch for all K rows; on a CPU tensor they
 take ``draw_plain``, the same arithmetic in torch int64 masked to 32 bits.
-bits, uniform and bernoulli equal ``jax.random``'s bit for bit; normal is
-within 5e-7 (99 % of values bit-equal), since XLA's CPU ``log1p`` is its
-own polynomial.
+bits, uniform, bernoulli and randint equal ``jax.random``'s bit for bit;
+normal and truncated normal are within 5e-7 (99 % of values bit-equal),
+since XLA's CPU ``log1p`` is its own polynomial. ``draw_fields`` draws
+several fields of one mode, each from its own host keys at its own shape,
+in one launch (one copy of their keys to the device).
 """
 
 from __future__ import annotations
@@ -73,7 +86,8 @@ MASK32 = 0xFFFFFFFF
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 KS_PARITY = 0x1BD11BDA
 # the draw modes of ``draw`` and of kernel T1
-BITS, UNIFORM, BERNOULLI, NORMAL = 0, 1, 2, 3
+BITS, UNIFORM, BERNOULLI, NORMAL, TRUNC_NORMAL = 0, 1, 2, 3, 4
+MODE_NAMES = ("bits", "uniform", "bernoulli", "normal", "truncated_normal")
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
 # XLA's float32 erf_inv (ErfInv32): p(w) coefficients, highest power first,
@@ -181,29 +195,45 @@ def mask_keys(keys) -> np.ndarray:
 
 def keys_tensor(keys, device="cpu") -> torch.Tensor:
     """(..., 2) uint32 keys -> an int32 tensor of the same words on
-    ``device``."""
+    ``device``; to a GPU through pinned memory, without waiting for the
+    device (the host goes on queueing work)."""
     arr = np.ascontiguousarray(np.asarray(keys, np.uint32)).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    host = torch.from_numpy(arr.copy())
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def truncation_bounds(lower: float, upper: float) -> tuple[float, float, float, float]:
+    """``truncated_normal``'s float32 constants of (lower, upper): the
+    uniform's bounds erf(lower / sqrt2), erf(upper / sqrt2) (float32's
+    correctly rounded erf of the float32 quotient) and the clip bounds
+    nextafter(lower, +inf), nextafter(upper, -inf)."""
+    lo, hi, s2 = np.float32(lower), np.float32(upper), np.float32(SQRT2_F32)
+    erf = [float(np.float32(math.erf(float(x / s2)))) for x in (lo, hi)]
+    return (erf[0], erf[1], float(np.nextafter(lo, np.float32(np.inf))),
+            float(np.nextafter(hi, np.float32(-np.inf))))
 
 
 # -------------------------------------------------------------- device side
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK32
-
-
 def threefry2x32_plain(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
                        x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 in int64 arithmetic masked to 32 bits; the key words
-    broadcast against the counter words (all int64 holding uint32)."""
+    broadcast against the counter words (all int64 holding uint32). The
+    rounds run in place (a draw of millions of values is bound by
+    allocating its temporaries)."""
     ks = (k0, k1, k0 ^ k1 ^ KS_PARITY)
-    a, b = (x0 + ks[0]) & MASK32, (x1 + ks[1]) & MASK32
+    a = (x0 + ks[0]).bitwise_and_(MASK32)
+    b = (x1 + ks[1]).bitwise_and_(MASK32)
+    high = torch.empty_like(b)
     for i in range(5):
         for r in ROTATIONS[i % 2]:
-            a = (a + b) & MASK32
-            b = _rotl(b, r) ^ a
-        a = (a + ks[(i + 1) % 3]) & MASK32
-        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            a.add_(b).bitwise_and_(MASK32)
+            torch.bitwise_left_shift(b, r, out=high)  # b rotated left by r, xor a
+            b.bitwise_right_shift_(32 - r).bitwise_or_(high).bitwise_and_(MASK32).bitwise_xor_(a)
+        a.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        b.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK32)
     return a, b
 
 
@@ -241,7 +271,7 @@ def draw_plain(keys: torch.Tensor, counts: Sequence[int], mode: int,
     """Kernel T1's plain version: the flat rows of ``counts[i]`` draws of
     each key of the (K, 2) int32 ``keys``, concatenated. ``mode``: BITS
     (int32), UNIFORM on [a, b) (float32), BERNOULLI with p = a (uint8),
-    NORMAL (float32)."""
+    NORMAL (float32), TRUNC_NORMAL on (a, b) (float32)."""
     k = keys.to(torch.int64) & MASK32
     counts = [int(c) for c in counts]
     row = torch.repeat_interleave(torch.arange(len(counts), device=keys.device),
@@ -258,6 +288,10 @@ def draw_plain(keys: torch.Tensor, counts: Sequence[int], mode: int,
         return (uniform_from_bits(bits, 0.0, 1.0) < float(np.float32(a))).to(torch.uint8)
     if mode == NORMAL:
         return SQRT2_F32 * erf_inv_f32(uniform_from_bits(bits, NORMAL_LO, 1.0))
+    if mode == TRUNC_NORMAL:
+        u_lo, u_hi, clip_lo, clip_hi = truncation_bounds(a, b)
+        out = SQRT2_F32 * erf_inv_f32(uniform_from_bits(bits, u_lo, u_hi))
+        return torch.clamp(out, clip_lo, clip_hi)
     raise ValueError(f"unknown draw mode {mode}")
 
 
@@ -307,3 +341,59 @@ def bernoulli(keys: torch.Tensor, shapes, p: float):
 def normal(keys: torch.Tensor, shapes):
     """``jax.random.normal(key, shape)`` (float32) of each key."""
     return _sample(keys, shapes, NORMAL)
+
+
+def truncated_normal(keys: torch.Tensor, shapes, lower: float, upper: float):
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` (float32)
+    of each key."""
+    return _sample(keys, shapes, TRUNC_NORMAL, lower, upper)
+
+
+def _mul32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x * y mod 2^32 of int64 tensors holding uint32, without int64
+    overflow (y in 16-bit halves)."""
+    return (x * (y & 0xFFFF) + (((x * (y >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
+def randint(keys, shape: tuple, lo: int, hi: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, lo, hi)`` (int32) of each of the
+    host keys (..., 2) uint32 -> (..., *shape) int32 on ``device``: the
+    bits of the keys' two halves of ``split(key)`` in one draw (one T1
+    launch on a GPU), then the integer arithmetic."""
+    keys = np.asarray(keys, np.uint32)
+    lead = keys.shape[:-1]
+    halves = np.moveaxis(split(keys.reshape(-1, 2), 2), 1, 0)  # (2, K, 2): k1s, then k2s
+    n = math.prod(shape)
+    k = halves.shape[1]
+    bits = draw(keys_tensor(halves.reshape(-1, 2), device), [n] * (2 * k), BITS)
+    bits = bits.view(2, k * n).to(torch.int64) & MASK32
+    lo32, hi32 = int(lo) & MASK32, int(hi) & MASK32
+    span = 1 if int(hi) <= int(lo) else (hi32 - lo32) & MASK32
+    mult = ((2 ** 16 % span) ** 2 & MASK32) % span  # uint32 products wrap
+    offset = (_mul32(bits[0] % span, torch.full_like(bits[0], mult)) + bits[1] % span) & MASK32
+    out = (lo32 + offset % span) & MASK32
+    return (out - ((out >> 31) << 32)).to(torch.int32).view(*lead, *shape)
+
+
+def draw_field(keys, shape: tuple, mode: int, device, a: float = 0.0,
+               b: float = 1.0) -> torch.Tensor:
+    """One field of ``draw_fields``: (..., *shape) draws of the host keys
+    (..., 2), one launch."""
+    return draw_fields([(keys, shape)], mode, device, a, b)[0]
+
+
+def draw_fields(fields, mode: int, device, a: float = 0.0, b: float = 1.0) -> list:
+    """Several fields of one mode in one draw (one T1 launch on a GPU):
+    field i is (host keys (..., 2) uint32, shape); its keys go to
+    ``device`` in one copy with the others', and it comes back as a
+    (..., *shape) tensor, each key's draw that of ``_sample``."""
+    keys = [np.asarray(k, np.uint32) for k, _ in fields]
+    counts, sizes = [], []
+    for k, (_, shape) in zip(keys, fields):
+        n = math.prod(k.shape[:-1])
+        counts += [math.prod(shape)] * n
+        sizes.append(n * math.prod(shape))
+    table = keys_tensor(np.concatenate([k.reshape(-1, 2) for k in keys]), device)
+    flat = draw(table, counts, mode, a, b)
+    return [r.view(*k.shape[:-1], *shape)
+            for r, k, (_, shape) in zip(torch.split(flat, sizes), keys, fields)]

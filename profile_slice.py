@@ -62,8 +62,8 @@ LABELS = ("vio.", "train.", "fil.", "track.")
 
 def train_runner(torch, dev):
     """(run, steps) of ``--train``: ``run()`` makes TRAIN_STEPS training
-    steps from a fixed generator state and key chain (``train``'s) and
-    returns (None, seconds), the last step closed by a synchronize."""
+    steps from a fixed key chain (``train``'s) and returns (None, seconds),
+    the last step closed by a synchronize."""
     import numpy as np
     from torch.profiler import record_function
 
@@ -80,16 +80,14 @@ def train_runner(torch, dev):
     bank = texture_bank_u8(dev)
     tex_idx = torch.as_tensor(train_indices(bank.shape[0]), device=dev)
     step = trainer.make_train_step(model, cfg, trainer.make_optimizer(model, cfg, 1000))
-    gen = torch.Generator(device=dev)
 
     def steps(n):
-        gen.manual_seed(0)
         modes = np.random.default_rng(0)
         key = prng.prng_key(0)
         for _ in range(n):
-            key, _, ks = prng.split(key, 3)
+            key, kb, ks = prng.split(key, 3)
             with record_function("train.batch"):
-                batch = trainer.make_batch(cfg, gen, c_rot_i, i_t_i2c, bank=bank,
+                batch = trainer.make_batch(cfg, kb, c_rot_i, i_t_i2c, bank=bank,
                                            tex_indices=tex_idx)
             with record_function("train.step"):
                 step(batch, bool(modes.random() < cfg.prior_prob),
@@ -108,8 +106,8 @@ def train_runner(torch, dev):
 
 def fil_runner(torch, dev):
     """(run, steps) of ``--fil``: ``run()`` makes FIL_STEPS FIL steps on one
-    batch of windows from a fixed generator state and key chain and
-    returns (None, seconds), the last step closed by a synchronize."""
+    batch of windows from a fixed key chain and returns (None, seconds),
+    the last step closed by a synchronize."""
     import os
     import tempfile
 
@@ -140,16 +138,14 @@ def fil_runner(torch, dev):
         model.parameters(),
         lambda count: trainer.warmup_cosine_decay(count, 0.0, 2e-5, 100, 2000, 2e-6),
         trainer.TrainConfig().weight_decay, trainer.TrainConfig().grad_clip)
-    gen = torch.Generator(device=dev)
 
     def steps(n):
-        gen.manual_seed(0)
         key = prng.prng_key(0)
         for _ in range(n):
             key, _, ks = prng.split(key, 3)
             opt.zero_grad()
             with record_function("fil.forward"):
-                loss = loss_fn(win, gen, ks)
+                loss = loss_fn(win, ks)
             with record_function("fil.backward"):
                 loss.backward()
             with record_function("fil.optimizer"):

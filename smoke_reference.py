@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The ATE references behind ``chip_smoke.py``'s bars, on the CPU.
 
-    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|tune|prng|both]
+    python3 smoke_reference.py OUT_DIR [--part single|batch|bf16|raw|loop|diag|tune|prng|train|both]
 
 ``single`` (the single-stream slice's bar): makes the smoke's sequence
 (``chip_smoke.SEQ``) with the port's ``make_sequence`` on the CPU and
@@ -65,9 +65,7 @@ mean + ``chip_smoke.FLOW_RMSE_MARGIN_PX``).
 does, runs it through the JAX package's ``run-vio --state-out`` with the v10
 weights at seed 0, and writes the three keys of that log that
 ``tune-filter`` reads (``times``, ``net_mean``, ``net_cov88``) to
-``chip_smoke.TUNE_LOG``, the sequence's IMU arrays, ``cam_t``, GT poses
-(as the GT file holds them) and ``init_height`` to ``chip_smoke.TUNE_SEQ`` (the card's ``make_sequence`` is held to them),
-and the JAX ``tune-filter`` rows of ``chip_smoke.TUNE_GRID`` (256 points)
+``chip_smoke.TUNE_LOG``, and the JAX ``tune-filter`` rows of ``chip_smoke.TUNE_GRID`` (256 points)
 to ``chip_smoke.TUNE_ROWS``, all under ``tests/data/``. Then the port's
 ``tune-filter --device cpu`` on the same files, printing its largest
 ``ate_pos`` difference from the JAX rows (``chip_smoke.TUNE_ATE_TOL_M``
@@ -86,6 +84,22 @@ on [0.3, 1.7), ``bernoulli(0.95)`` and ``normal`` of
 pair at seed 0 (``fold_in(split(PRNGKey(0), F)[0], 0)``: ``split``'s first
 key does not depend on F), captured where Flax's ``Dropout`` draws them
 in a live ``UAHN.apply`` at 224x320.
+
+``prng`` also writes ``jax.random.randint`` over ``chip_smoke.PRNG_SPANS``
+and ``truncated_normal`` on (-2, 2) of ``chip_smoke.PRNG_COUNT`` values
+for the same keys.
+
+``train`` (the trainers' draws, seconds): writes ``chip_smoke.TRAIN_DRAWS``
+(``tests/data/train_draws_jax.npz``), the JAX draws of phase 11's first
+step (``train-uahn``'s defaults at batch ``chip_smoke.TRAIN_BATCH``, seed
+0: ``sample_pair``'s draws of ``split(kb, B)``, kb = ``split(PRNGKey(0),
+3)[1]``, as the pairs' poses, textures, transforms, exposures, effects and
+prior noise), of its probe batch (``split(PRNGKey(20240817), 32)`` on the
+held-out textures) and of phase 14's first FIL step (``window_loss``'s
+draws of ``split(ks, FIL_BATCH)``, ks = ``split(PRNGKey(0), 3)[2]``), on
+the card machine's texture bank (12 textures: its training split of 10
+and held-out split of 2), with the first ``chip_smoke.DRAW_NOISE_VALUES``
+values of every noise image.
 
 Needs JAX (for the reference runs) and PyYAML; a run takes minutes.
 """
@@ -341,16 +355,6 @@ def tune(env, out_dir: str, weights: str) -> None:
     log = np.load(path("state_tune.npz"))
     np.savez_compressed(os.path.join(REPO, chip_smoke.TUNE_LOG),
                         **{k: log[k] for k in ("times", "net_mean", "net_cov88")})
-    seq = np.load(path("seq.npz"))
-    from cuahn_vio_torch.eval.traj_io import load_pose_file
-
-    from cuahn_vio_torch.utils.config import VioOptions
-
-    gt = load_pose_file(path("seq_gt.txt"))
-    np.savez_compressed(os.path.join(REPO, chip_smoke.TUNE_SEQ),
-                        **{k: seq[k] for k in ("imu_t", "imu_w", "imu_a", "cam_t")},
-                        gt_times=gt.times, gt_poses=gt.poses,
-                        init_height=VioOptions.from_yaml(path("seq_config.yaml")).init_height)
     log_path = os.path.join(REPO, chip_smoke.TUNE_LOG)
     args = [path("seq.npz"), log_path, path("seq_gt.txt"), "--config", path("seq_config.yaml"),
             *chip_smoke.TUNE_GRID]
@@ -401,6 +405,11 @@ def prng_reference() -> None:
                           for k in keys]),
         bernoulli=np.stack([np.asarray(jax.random.bernoulli(k, 0.95, (n,))) for k in keys]),
         normal=np.stack([np.asarray(jax.random.normal(k, (n,))) for k in keys]),
+        spans=np.asarray(chip_smoke.PRNG_SPANS, np.int64),
+        randint=np.stack([np.stack([np.asarray(jax.random.randint(k, (n,), lo, hi))
+                                    for k in keys]) for lo, hi in chip_smoke.PRNG_SPANS]),
+        truncated_normal=np.stack([np.asarray(jax.random.truncated_normal(k, -2, 2, (n,)))
+                                   for k in keys]),
     )
     call_key = jax.random.fold_in(jax.random.split(jax.random.PRNGKey(0), 1)[0], 0)
     drawn = []
@@ -431,11 +440,131 @@ def prng_reference() -> None:
           f"{[m.shape for m in drawn]}", flush=True)
 
 
+def jax_pair_draws(keys, cfg, tex_indices, n_noise: int, hw: tuple) -> dict:
+    """The JAX ``sample_pair``'s draws of each sample key (no pose-pair
+    bank, photo ground with effects), named as the port's ``PairDraws``,
+    and the first ``n_noise`` values of each frame's read and shot noise
+    image, (2 frames, 2 kinds, B, n_noise)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cuahn_vio.data import sensor_effects as jfx
+    from cuahn_vio.data import textures as jtex
+    from cuahn_vio.ops.quat import quat_exp, quat_mul
+
+    assert cfg.use_textures and cfg.use_effects and cfg.big_baseline_prob == 0.0
+
+    def one(k):
+        ks = jax.random.split(k, 16)
+        p1 = jnp.array([0.0, 0.0, 0.0]).at[2].set(jax.random.uniform(
+            ks[0], minval=cfg.height_range[0], maxval=cfg.height_range[1]))
+        q1 = quat_exp(jnp.concatenate([
+            jax.random.normal(ks[1], (2,)) * cfg.tilt_sigma,
+            jax.random.uniform(ks[2], (1,), minval=-np.pi, maxval=np.pi)]))
+        dp = jax.random.normal(ks[3], (3,)) * cfg.trans_sigma
+        rv_d = jax.random.normal(ks[4], (3,)) * cfg.rot_sigma
+        kp, kd, kg, kn1, kn2, _ = jax.random.split(ks[9], 6)
+        params = jfx.draw_params(kp, jfx.EffectsConfig())
+        drift = 1.0 + jax.random.normal(kg) * jfx.EffectsConfig().gain_drift
+        noise = jnp.stack([jnp.stack([jax.random.normal(k2, hw).reshape(-1)[:n_noise]
+                                      for k2 in jax.random.split(kn)]) for kn in (kn1, kn2)])
+        return dict(
+            p1=p1, q1=q1, p2=p1 + dp, q2=quat_mul(q1, quat_exp(rv_d)), dp=dp, rv_d=rv_d,
+            tex_idx=tex_indices[jax.random.randint(ks[5], (), 0, tex_indices.shape[0])],
+            tex_params=jtex.random_tex_params(ks[7], cfg.tex_scale_range),
+            exposure_frac=jax.random.uniform(ks[8], maxval=cfg.exposure_frac_max),
+            params1=params,
+            params2=params.at[1].multiply(jnp.where(params[1] == 1.0, 1.0, drift)),
+            sigma=jax.random.uniform(kd, maxval=jfx.EffectsConfig().defocus_sigma_max)
+            * (params[1] != 1.0),
+            prior_sigma=jnp.exp(jax.random.uniform(
+                ks[10], minval=jnp.log(cfg.prior_noise_lo), maxval=jnp.log(cfg.prior_noise_px))),
+            prior_noise=jax.random.normal(ks[6], (4, 2)), noise=noise)
+
+    rows = [one(k) for k in jnp.asarray(keys)]
+    out = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
+    out["noise"] = np.moveaxis(out["noise"], 0, 2)  # (2 frames, 2 kinds, B, n)
+    return out
+
+
+def jax_window_draws(keys, cfg, tex_indices, n_noise: int) -> dict:
+    """The JAX ``window_loss``'s draws of each window key, named as the
+    port's ``WindowDraws`` (the normals before their scale), and the first
+    ``n_noise`` values of each frame's read and shot noise image, (2, B,
+    W + 1, n_noise)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cuahn_vio.data import sensor_effects as jfx
+    from cuahn_vio.data import textures as jtex
+
+    w, t = cfg.window, cfg.imu_substeps
+
+    def one(k):
+        ks = jax.random.split(k, 10)
+        ik = jax.random.split(ks[8], 5)
+        noise = jnp.stack([jnp.stack([jax.random.normal(k2, tuple(cfg.img_hw)).reshape(-1)[
+            :n_noise] for k2 in jax.random.split(fk)]) for fk in jax.random.split(ks[3], w + 1)])
+        return dict(
+            tex_idx=tex_indices[jax.random.randint(ks[0], (), 0, tex_indices.shape[0])],
+            tex_params=jtex.random_tex_params(ks[1], cfg.tex_scale_range),
+            lens=jfx.draw_params(ks[2], jfx.EffectsConfig()),
+            frame_noise=jnp.moveaxis(noise, 1, 0),  # (2, W + 1, n)
+            bias_g=jax.random.normal(ks[4], (3,)), bias_a=jax.random.normal(ks[5], (3,)),
+            noise_w=jax.random.normal(ks[6], (w, t, 3)),
+            noise_a=jax.random.normal(ks[7], (w, t, 3)),
+            init_tilt=jax.random.normal(ik[0], (2,)), init_p=jax.random.normal(ik[1], (3,)),
+            init_v=jax.random.normal(ik[2], (3,)), init_ba=jax.random.normal(ik[3], (3,)),
+            init_bg=jax.random.normal(ik[4], (3,)))
+
+    rows = [one(k) for k in jnp.asarray(keys)]
+    out = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
+    out["frame_noise"] = np.moveaxis(out["frame_noise"], 0, 1)  # (2, B, W + 1, n)
+    return out
+
+
+def train_reference() -> None:
+    import dataclasses
+    import inspect
+
+    import chip_smoke
+    import jax
+
+    from cuahn_vio.data import textures as jtex
+    from cuahn_vio.train import fil as jfil
+    from cuahn_vio.train import trainer as jtrain
+    from cuahn_vio_torch import cli
+    from cuahn_vio_torch.train.trainer import PROBE_SEED, PROBE_SIZE
+
+    n_bank = chip_smoke.CARD_TEXTURES
+    hw = (chip_smoke.H, chip_smoke.W)
+    port_cfg = cli.train_config(cli.build_parser().parse_args(
+        ["train-uahn", "--batch-size", str(chip_smoke.TRAIN_BATCH)]))
+    cfg = jtrain.TrainConfig(**dataclasses.asdict(port_cfg))
+    n = chip_smoke.DRAW_NOISE_VALUES
+    _, kb, ks = jax.random.split(jax.random.PRNGKey(0), 3)
+    out = {f"step0_{k}": v for k, v in jax_pair_draws(
+        jax.random.split(kb, cfg.batch_size), cfg, np.asarray(jtex.train_indices(n_bank)),
+        n, hw).items()}
+    jax_seed = inspect.signature(jtrain.make_probe_metric).parameters["probe_seed"].default
+    assert jax_seed == PROBE_SEED
+    probe = jax_pair_draws(jax.random.split(jax.random.PRNGKey(PROBE_SEED), PROBE_SIZE), cfg,
+                           np.asarray(jtex.heldout_indices(n_bank)), n, hw)
+    out.update({f"probe_{k}": v for k, v in probe.items()})
+    fcfg = jfil.FilConfig(window=chip_smoke.FIL_WINDOW, batch_size=chip_smoke.FIL_BATCH)
+    fil = jax_window_draws(jax.random.split(ks, fcfg.batch_size), fcfg,
+                           np.asarray(jtex.train_indices(n_bank)), n)
+    out.update({f"fil_{k}": v for k, v in fil.items()})
+    path = os.path.join(REPO, chip_smoke.TRAIN_DRAWS)
+    np.savez_compressed(path, **out)
+    print(f"train: wrote {path} ({os.path.getsize(path)} bytes, {len(out)} arrays)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
     ap.add_argument("--part", choices=["single", "batch", "bf16", "raw", "loop", "diag",
-                                       "tune", "prng", "both"],
+                                       "tune", "prng", "train", "both"],
                     default="both")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
@@ -447,6 +576,9 @@ def main() -> int:
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     if args.part == "prng":
         prng_reference()
+        return 0
+    if args.part == "train":
+        train_reference()
         return 0
     if args.part == "raw":
         raw(env, args.out_dir, chip_smoke.WEIGHTS)

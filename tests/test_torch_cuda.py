@@ -93,18 +93,46 @@ def test_threefry_kernel_matches_plain_version(gpu, case):
     counts = T1_CASES[case]
     keys = prng.keys_tensor(prng.split(prng.prng_key(len(counts)), len(counts)), gpu)
     for mode, a, b in ((prng.BITS, 0.0, 1.0), (prng.UNIFORM, 0.3, 1.7),
-                       (prng.BERNOULLI, 0.95, 1.0), (prng.NORMAL, 0.0, 1.0)):
+                       (prng.BERNOULLI, 0.95, 1.0), (prng.NORMAL, 0.0, 1.0),
+                       (prng.TRUNC_NORMAL, -2.0, 2.0)):
         before = tcuda.launch_counts["threefry"]
+        by_mode = tcuda.threefry_launches_by_mode[prng.MODE_NAMES[mode]]
         out = prng.draw(keys, counts, mode, a, b)
         ref = prng.draw_plain(keys, counts, mode, a, b)
         torch.cuda.synchronize()
         assert tcuda.launch_counts["threefry"] == before + 1
+        assert tcuda.threefry_launches_by_mode[prng.MODE_NAMES[mode]] == by_mode + 1
         assert out.dtype == ref.dtype and out.shape == ref.shape == (sum(counts),)
-        if mode == prng.NORMAL:
+        if mode in (prng.NORMAL, prng.TRUNC_NORMAL):
             ulps = (out.view(torch.int32).long() - ref.view(torch.int32).long()).abs()
             assert ulps.max().item() <= 2 and torch.equal(torch.sign(out), torch.sign(ref))
         else:
             assert torch.equal(out, ref)
+
+
+def test_init_uahn_on_gpu_equals_the_cpu(gpu):
+    """The random UAHN drawn on the card (every kernel in one T1 launch,
+    truncated normal) is the CPU's: biases 0, every kernel value within a
+    unit draw's 2.4e-7 times the leaf's scale plus one rounding (the bound
+    the CPU's build is held to against JAX's, ``tests/test_torch_init.py``:
+    the card's log1pf and the CPU's torch.log1p round apart at a few
+    values)."""
+    from cuahn_vio_torch.models.uahn import TRUNC_NORMAL_STD, init_uahn
+    from cuahn_vio_torch.utils import prng
+
+    before = dict(tcuda.threefry_launches_by_mode)
+    card = init_uahn(prng.prng_key(0), device=gpu).state_dict()
+    assert tcuda.threefry_launches_by_mode["truncated_normal"] == \
+        before["truncated_normal"] + 1
+    cpu = init_uahn(prng.prng_key(0), device="cpu").state_dict()
+    for name, want in cpu.items():
+        got = card[name].cpu().numpy()
+        want = want.numpy()
+        if name.endswith(".bias"):
+            assert not got.any() and not want.any(), name
+            continue
+        std = np.sqrt(np.float32(1.0 / got[0].size)) / np.float32(TRUNC_NORMAL_STD)
+        assert (np.abs(got - want) <= 2.4e-7 * std + np.spacing(np.abs(want))).all(), name
 
 
 def test_network_masks_on_gpu_equal_the_cpu(gpu):
@@ -466,6 +494,7 @@ def test_train_step_on_gpu_follows_the_cpu(gpu):
     from cuahn_vio_torch.ops.homography import f32_parity_mode
     from cuahn_vio_torch.data.textures import texture_bank_u8
     from cuahn_vio_torch.train import trainer as T
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.config import VioOptions
 
     f32_parity_mode()
@@ -476,14 +505,16 @@ def test_train_step_on_gpu_follows_the_cpu(gpu):
            torch.tensor(-t[:3, :3].T @ t[:3, 3], dtype=torch.float32))
     bank = texture_bank_u8(gpu)
     tcuda.reset_launch_counts()
-    batch = T.make_batch(cfg, torch.Generator(device=gpu).manual_seed(0),
-                         *(x.to(gpu) for x in cam), hgt, wid, bank,
+    batch = T.make_batch(cfg, prng.prng_key(0), *(x.to(gpu) for x in cam), hgt, wid, bank,
                          torch.arange(bank.shape[0], device=gpu))
     assert tcuda.launch_counts["bilinear_sample"] == 2
     torch.manual_seed(0)
-    cpu_model = UAHN(dropout_rate=0.0, img_height=hgt, img_width=wid)
-    gpu_model = copy.deepcopy(cpu_model).to(gpu)
+    initial = UAHN(dropout_rate=0.0, img_height=hgt, img_width=wid)
     for use_prior in (True, False):
+        # each mode's step from the same weights on both devices (a step's
+        # update would carry rounding into the next mode's comparison)
+        cpu_model = copy.deepcopy(initial)
+        gpu_model = copy.deepcopy(initial).to(gpu)
         out = []
         for model, dev in ((cpu_model, torch.device("cpu")), (gpu_model, gpu)):
             step = T.make_train_step(model, cfg, T.make_optimizer(model, cfg, 10))
@@ -616,6 +647,7 @@ def test_fil_step_on_gpu_follows_the_cpu(gpu, tmp_path):
     from cuahn_vio_torch.ops.homography import f32_parity_mode
     from cuahn_vio_torch.pipeline.vio import VioConfig
     from cuahn_vio_torch.train import fil
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.config import VioOptions
 
     import chip_smoke
@@ -630,7 +662,7 @@ def test_fil_step_on_gpu_follows_the_cpu(gpu, tmp_path):
     tex = torch.as_tensor(quantize_u8(np.stack(_procedural_extras(128)[:4])))
     torch.manual_seed(0)
     cpu_model = UAHN(dropout_rate=0.0, img_height=64, img_width=64)
-    draws = fil.draw_windows(cfg, 2, torch.Generator().manual_seed(0), torch.arange(4))
+    draws = fil.draw_windows(cfg, prng.split(prng.prng_key(0), 2), torch.arange(4), "cpu")
     frames, out = None, []
     for model, dev in ((cpu_model, torch.device("cpu")), (copy.deepcopy(cpu_model).to(gpu), gpu)):
         win = {k: torch.as_tensor(v, device=dev) for k, v in bank._asdict().items()}
@@ -760,8 +792,10 @@ def test_diagnostics_verbs_on_gpu(gpu, tmp_path):
 
 def test_replay_on_gpu_follows_the_cpu(gpu):
     """``replay_measurements`` of the smoke's committed log
-    (``chip_smoke.TUNE_LOG``) over an 8-point grid on the card and on the
-    CPU: positions within 1e-4 m, no kernel launched."""
+    (``chip_smoke.TUNE_LOG``) on its sequence (the card's ``make_sequence``
+    of ``chip_smoke.SEQ``) over an 8-point grid on the card and on the
+    CPU: positions within 1e-4 m, no kernel launched by the replay."""
+    from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, make_sequence
     from cuahn_vio_torch.eval import tuning
     from cuahn_vio_torch.ops.homography import f32_parity_mode
     from cuahn_vio_torch.utils.config import VioOptions
@@ -769,11 +803,13 @@ def test_replay_on_gpu_follows_the_cpu(gpu):
     import chip_smoke
 
     f32_parity_mode()
-    seq = np.load(os.path.join(chip_smoke.REPO, chip_smoke.TUNE_SEQ))
     log = np.load(os.path.join(chip_smoke.REPO, chip_smoke.TUNE_LOG))
     opts = VioOptions.uzhfpv_indoor45().apply_profile("calibrated")
+    made = make_sequence(AnalyticTrajectory(), np.asarray(opts.t_imu_to_cam), device=gpu,
+                         **chip_smoke.SEQ)
+    seq = {k: getattr(made, k) for k in ("imu_t", "imu_w", "imu_a", "cam_t")}
     opts.calib_camimu_dt, opts.init_imu_thresh = 0.0, 0.2
-    opts.init_height = float(seq["init_height"])
+    opts.init_height = float(made.gt_pose_w[0, 2])
     grid = [tuning.SweepConfig(k_net_cov=k, q_scale=qs, echo_beta=eb, bias_sigma_px=eb)
             for k in (4.0, 12.0) for qs in (1.0, 4.0) for eb in (0.0, 0.3)]
     outs = {}
@@ -831,8 +867,9 @@ def test_train_data_parallel_in_a_one_rank_nccl_group_follows_the_plain_path(gpu
     path's (cuDNN's backward is not bit-deterministic)."""
     import torch.distributed as dist
 
-    from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
+    from cuahn_vio_torch.models.uahn import init_uahn
     from cuahn_vio_torch.train import trainer as T
+    from cuahn_vio_torch.utils import prng
     from cuahn_vio_torch.utils.config import VioOptions
 
     t = np.asarray(VioOptions().t_imu_to_cam, np.float64)
@@ -841,8 +878,7 @@ def test_train_data_parallel_in_a_one_rank_nccl_group_follows_the_plain_path(gpu
     cfg = T.TrainConfig(batch_size=4, blur_taps=2, echo_weight=0.5, prior_prob=1.0)
 
     def run():
-        model = init_like_flax_(UAHN(img_height=56, img_width=80),
-                                torch.Generator().manual_seed(0)).to(gpu)
+        model = init_uahn(prng.prng_key(0), 56, 80, device=gpu)
         log = []
         T.train(model, *cam, cfg, steps=2, seed=0, log_every=1, height=56, width=80,
                 log_fn=lambda m, **_: log.append(m), probe_every=0,

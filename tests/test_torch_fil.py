@@ -21,6 +21,9 @@ Tolerances:
   constant to backprop) none;
 - the step schedule and the windows of each FIL step: equal to the JAX
   loop's.
+
+``tests/test_torch_fil_keys.py`` holds the port's own draws of a step key
+(``draw_windows``) and the loss of the key alone to the JAX window loss's.
 """
 
 import os
@@ -47,6 +50,7 @@ from cuahn_vio_torch.models.uahn import UAHN
 from cuahn_vio_torch.pipeline.vio import VioConfig
 from cuahn_vio_torch.train import fil as tfil
 from cuahn_vio_torch.utils import checkpoint as tckpt
+from cuahn_vio_torch.utils import prng
 from tests.test_propagate import T_ITOC
 from tests.test_torch_fil_bank import CFG, gt_dir  # noqa: F401 (a fixture)
 
@@ -73,7 +77,9 @@ def _tex_bank():
 def _jax_draws(cfg, win, key, tex_bank, tex_idx, c_rot_i, i_t_i2c):
     """The JAX window loss's draws and frames for one window, from its key
     splits (``cuahn_vio/train/fil.py`` window_loss): (uint8 frames, the
-    normals in ``WindowDraws`` order from bias_g on)."""
+    normals in ``WindowDraws`` order from bias_g on, the other draws: the
+    texture pick, its transform, the lens and the frames' read and shot
+    normals)."""
     ks = jax.random.split(key, 10)
     idx = tex_idx[jax.random.randint(ks[0], (), 0, tex_idx.shape[0])]
     texture = tex_bank[idx]
@@ -95,7 +101,12 @@ def _jax_draws(cfg, win, key, tex_bank, tex_idx, c_rot_i, i_t_i2c):
                jax.random.normal(ik[0], (2,)), jax.random.normal(ik[1], (3,)),
                jax.random.normal(ik[2], (3,)), jax.random.normal(ik[3], (3,)),
                jax.random.normal(ik[4], (3,)))
-    return np.asarray(imgs), [np.asarray(x) for x in normals]
+    hw = tuple(cfg.img_hw)
+    noise = [[jax.random.normal(k, hw) for k in jax.random.split(fk)] for fk in fkeys]
+    other = dict(idx=idx, tex_params=tparams, lens=lens,
+                 frame_noise=np.moveaxis(np.asarray(noise), 1, 0))  # (2, W + 1, H, W)
+    return (np.asarray(imgs), [np.asarray(x) for x in normals],
+            {k: np.asarray(v) for k, v in other.items()})
 
 
 @pytest.fixture(scope="module")
@@ -191,9 +202,8 @@ def test_render_windows_is_one_sampler_call_per_batch(gt_dir, monkeypatch):
     cfg = tfil.FilConfig(window=2, blur_taps=3, img_hw=(SIDE, SIDE))
     bank = tfil.build_window_bank(3, cfg, seed=1, gt_dir=gt_dir)
     win = {k: torch.as_tensor(v) for k, v in bank._asdict().items()}
-    gen = torch.Generator().manual_seed(0)
     tex = torch.as_tensor(_tex_bank())
-    draws = tfil.draw_windows(cfg, 3, gen, torch.arange(4))
+    draws = tfil.draw_windows(cfg, prng.split(prng.prng_key(0), 3), torch.arange(4), "cpu")
     calls = []
     sample = tex_mod.bilinear_sample
 

@@ -5,8 +5,10 @@ Flax on the CPU, and ``make-synthetic``'s key-drawn data against the JAX
 - keys, ``split``, ``fold_in``, bits, uniform and bernoulli: equal to
   ``jax.random``'s bit for bit (``jax_threefry_partitionable``, JAX's
   default);
-- normal: within 1e-6 absolute, signs equal (XLA's CPU ``log1p`` is its
-  own polynomial, so ~1 % of values differ in the last bits);
+- randint: equal bit for bit;
+- normal and truncated normal (at the initializers' (-2, 2)): within 1e-6
+  absolute, signs equal (XLA's CPU ``log1p`` is its own polynomial, so ~1 %
+  of values differ in the last bits);
 - Flax's rng folding: a live ``nn.Dropout`` mask and the four masks of the
   JAX ``UAHN``'s heads under ``rngs={"dropout": key}``, captured by
   wrapping ``jax.random.bernoulli`` where Flax calls it;
@@ -26,7 +28,7 @@ from cuahn_vio.data.sensor_effects import EffectsConfig as JaxEffectsConfig
 from cuahn_vio.data.synthetic import AnalyticTrajectory as JaxTraj
 from cuahn_vio.data.synthetic import make_sequence as jax_make_sequence
 from cuahn_vio.models.uahn import UAHN as JaxUAHN
-from cuahn_vio_torch.data.sensor_effects import EffectsConfig, draw_params_from_key
+from cuahn_vio_torch.data.sensor_effects import EffectsConfig, draw_params
 from cuahn_vio_torch.data.synthetic import AnalyticTrajectory, make_sequence
 from cuahn_vio_torch.ops import cuda as tcuda
 from cuahn_vio_torch.utils import prng
@@ -111,6 +113,53 @@ def test_normal_matches_jax(shape):
         assert got.dtype == np.float32
         np.testing.assert_allclose(got, want, atol=NORMAL_ATOL, rtol=0)
         np.testing.assert_array_equal(np.sign(got), np.sign(want))
+
+
+@pytest.mark.parametrize("lo, hi", [(0, 10), (0, 16), (-7, 100_000), (3, 3), (5, 2),
+                                    (-2**31, 2**31 - 1)],
+                         ids=["span10", "span16", "span100007", "empty", "reversed", "int32"])
+def test_randint_matches_jax(lo, hi):
+    """``jax.random.randint`` for int32, bit for bit: spans that are and
+    are not powers of 2, hi <= lo (lo every time), the widest span; shapes
+    () and (4,), keys with leading dims."""
+    keys = _keys(5)
+    for shape in ((), (4,)):
+        got = prng.randint(keys, shape, lo, hi)
+        assert got.dtype == torch.int32 and got.shape == (5, *shape)
+        want = np.stack([np.asarray(jax.random.randint(jnp.asarray(k), shape, lo, hi))
+                         for k in keys])
+        np.testing.assert_array_equal(got.numpy(), want)
+    nested = prng.randint(keys[:4].reshape(2, 2, 2), (3,), lo, hi)
+    assert nested.shape == (2, 2, 3)
+    np.testing.assert_array_equal(nested.reshape(4, 3).numpy(),
+                                  prng.randint(keys[:4], (3,), lo, hi).numpy())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_truncated_normal_matches_jax(shape):
+    """``jax.random.truncated_normal(key, -2, 2, shape)`` (the initializers'
+    bounds): within NORMAL_ATOL, signs equal, every value inside (-2, 2)."""
+    keys = _keys()
+    got = prng.truncated_normal(prng.keys_tensor(keys), shape, -2.0, 2.0)
+    assert got.dtype == torch.float32 and got.shape == (3, *shape)
+    assert float(got.abs().max()) < 2.0
+    for i, key in enumerate(keys):
+        want = np.asarray(jax.random.truncated_normal(jnp.asarray(key), -2, 2, shape))
+        np.testing.assert_allclose(got[i].numpy(), want, atol=NORMAL_ATOL, rtol=0)
+        np.testing.assert_array_equal(np.sign(got[i].numpy()), np.sign(want))
+
+
+def test_draw_fields_is_each_fields_own_draw():
+    """Fields of one mode in one draw (host keys of any leading shape, each
+    its own value shape) equal each field drawn alone."""
+    a, b = prng.split(prng.prng_key(1), 6).reshape(2, 3, 2), prng.split(prng.prng_key(2), 4)
+    before = dict(tcuda.launch_counts)
+    x, y = prng.draw_fields([(a, (5,)), (b, (2, 3))], prng.UNIFORM, "cpu", 0.5, 4.0)
+    assert tcuda.launch_counts == before
+    assert x.shape == (2, 3, 5) and y.shape == (4, 2, 3)
+    assert torch.equal(x.reshape(6, 5), prng.uniform(prng.keys_tensor(a.reshape(6, 2)), (5,),
+                                                     0.5, 4.0))
+    assert torch.equal(y, prng.draw_field(b, (2, 3), prng.UNIFORM, "cpu", 0.5, 4.0))
 
 
 def test_rows_of_mixed_counts_are_each_keys_own_draw():
@@ -221,7 +270,7 @@ def test_make_sequence_effects_match_jax(t_imu_to_cam):
     k_par = prng.split(prng.prng_key(3), 3)[0]
     from cuahn_vio.data.sensor_effects import draw_params as jax_draw_params
 
-    params = draw_params_from_key(EffectsConfig(), k_par)[0].numpy()
+    params = draw_params(EffectsConfig(), k_par[None], "cpu")[0].numpy()
     # the offset is a normal times 0.02: within 0.02 x 1e-6
     np.testing.assert_allclose(
         params, np.asarray(jax_draw_params(jnp.asarray(k_par), JaxEffectsConfig())),

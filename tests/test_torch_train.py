@@ -5,10 +5,10 @@ weights (``params_from_numpy``).
 
 Tolerances:
 - oracle: ``true_corner_flow`` within 1e-4 px;
-- draws: the port's arithmetic on the JAX package's own uniforms and
-  normals (``tex_params_from_draws``, ``params_from_draws``,
-  ``effects_pair_from_draws``) within 1e-6 relative + 1e-7 absolute
-  (float32 rounding of the same formulas);
+- draws: the port's texture transforms and effects parameters of a key
+  (``random_tex_params``, ``draw_effects_pair``) against the JAX package's
+  of the same key within 1e-6 relative + 1e-7 absolute (the same bits;
+  float32 rounding of exp, cos, sin and the offset's normal);
 - effects: ``apply_photometric`` and ``apply_effects_pair`` at zero read
   and shot noise within 1e-6 absolute;
 - a rendered training pair (the same poses, tex params and effects
@@ -59,6 +59,7 @@ from cuahn_vio_torch.models.uahn import UAHN
 from cuahn_vio_torch.ops.warp import homography_warp
 from cuahn_vio_torch.train import trainer as ttrain
 from cuahn_vio_torch.utils import checkpoint as tckpt
+from cuahn_vio_torch.utils import prng
 from cuahn_vio_torch.utils.config import VioOptions
 
 # the suite runs in several worker processes: keep torch to a few threads
@@ -72,6 +73,7 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-3  # of the leaf's max |g|
 OPT_RTOL = 1e-6
 NEAR_M = 20.0  # ground within this of the camera: rendered frames compared there
+RENDER_KEY = 26  # PRNGKey of the rendered pairs' draws: a pair that sees the horizon
 
 
 def _camera():
@@ -136,46 +138,34 @@ def test_true_corner_flow_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=FLOW_TOL_PX, rtol=0)
 
 
-def _uniforms(key, n=None):
-    return np.asarray(jax.random.uniform(key, () if n is None else (n,)), np.float32)
-
-
 def test_tex_and_effects_parameters_from_jax_draws():
-    """The port's parameter arithmetic on the uniforms and normals that the
-    JAX package's own draws consume (same keys, same bits)."""
-    keys = jax.random.split(jax.random.PRNGKey(3), 64)
+    """The port's texture transforms and effects parameters of 64 keys,
+    one sampler call a field, against the JAX package's own functions of
+    each key (the same bits; exp, cos and sin within float32 rounding)."""
+    keys = prng.split(prng.prng_key(3), 64)
     cfg = jfx.EffectsConfig()
-    u_tex, ref_tex, u_fx, n_fx, ref_fx = [], [], [], [], []
-    u_pair, n_pair, ref_sigma, ref_p2 = [], [], [], []
-    for key in keys:
-        k1, k2, k3 = jax.random.split(key, 3)
-        u_tex.append([_uniforms(k1), _uniforms(k2), *_uniforms(k3, 2)])
+    ref_tex, ref_fx, ref_sigma, ref_p2 = [], [], [], []
+    for key in jnp.asarray(keys):
         ref_tex.append(np.asarray(jtex.random_tex_params(key)))
         # sensor_effects.apply_effects_pair's draws
         kp, kd, kg = jax.random.split(key, 6)[:3]
-        ks = jax.random.split(kp, 7)
-        u_fx.append([_uniforms(ks[i]) for i in (0, 1, 2, 4, 5, 6)])
-        n_fx.append(np.asarray(jax.random.normal(ks[3])))
         params = jfx.draw_params(kp, cfg)
         ref_fx.append(np.asarray(params))
-        u_pair.append(_uniforms(kd))
-        n_pair.append(np.asarray(jax.random.normal(kg)))
         ref_sigma.append(np.asarray(jax.random.uniform(kd, maxval=cfg.defocus_sigma_max)
                                     * (params[1] != 1.0)))
         drift = 1.0 + jax.random.normal(kg) * cfg.gain_drift
         ref_p2.append(np.asarray(params.at[1].multiply(jnp.where(params[1] == 1.0, 1.0,
                                                                  drift))))
-    tex = ttex.tex_params_from_draws(torch.tensor(np.array(u_tex)))
+    tex = ttex.random_tex_params(keys, "cpu")
     np.testing.assert_allclose(tex.numpy(), np.array(ref_tex), rtol=1e-6, atol=1e-7)
     tcfg = tfx.EffectsConfig()
-    fx = tfx.params_from_draws(tcfg, torch.tensor(np.array(u_fx)), torch.tensor(np.array(n_fx)))
+    draw = tfx.draw_effects_pair(tcfg, keys, "cpu")
+    fx = draw.params1
     np.testing.assert_allclose(fx.numpy(), np.array(ref_fx), rtol=1e-6, atol=1e-7)
     assert 0 < (fx[:, 1] == 1.0).sum() < len(keys)  # clean and degraded samples both
-    draw = tfx.effects_pair_from_draws(tcfg, fx, torch.tensor(np.array(u_pair)),
-                                       torch.tensor(np.array(n_pair)))
     np.testing.assert_allclose(draw.sigma.numpy(), np.array(ref_sigma), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(draw.params2.numpy(), np.array(ref_p2), rtol=1e-6, atol=1e-7)
-    assert torch.equal(draw.params1, fx)
+    assert torch.equal(tfx.draw_params(tcfg, prng.split(keys, 6)[:, 0], "cpu"), fx)
 
 
 @pytest.fixture(scope="module")
@@ -205,26 +195,20 @@ def test_apply_photometric_matches_jax_without_noise(smooth_frames):
 
 def test_apply_effects_pair_matches_jax_without_noise(smooth_frames):
     """JAX's apply_effects_pair with its own draws (no read or shot noise)
-    against the port's, fed the uniforms and normals behind those draws."""
+    against the port's draws of the same keys: parameters, defocus and
+    drift (``draw_effects_pair``), and the frames' noise (``draw_noise``
+    of ``noise_keys``, which zero sigmas scale away)."""
     cfg = jfx.EffectsConfig(read_noise_max=0.0, shot_noise_max=0.0)
     tcfg = tfx.EffectsConfig(read_noise_max=0.0, shot_noise_max=0.0)
     img1, img2 = smooth_frames[:2], smooth_frames[2:]
-    keys = jax.random.split(jax.random.PRNGKey(6), 2)
-    ref1, ref2 = jax.vmap(lambda a, b, k: jfx.apply_effects_pair(a, b, k, cfg))(img1, img2, keys)
-    u, n, ud, nd = [], [], [], []
-    for key in keys:
-        kp, kd, kg = jax.random.split(key, 6)[:3]
-        ks = jax.random.split(kp, 7)
-        u.append([_uniforms(ks[i]) for i in (0, 1, 2, 4, 5, 6)])
-        n.append(np.asarray(jax.random.normal(ks[3])))
-        ud.append(_uniforms(kd))
-        nd.append(np.asarray(jax.random.normal(kg)))
-    params = tfx.params_from_draws(tcfg, torch.tensor(np.array(u)), torch.tensor(np.array(n)))
-    draw = tfx.effects_pair_from_draws(tcfg, params, torch.tensor(np.array(ud)),
-                                       torch.tensor(np.array(nd)))
-    noise = tfx.draw_noise((2, H, W), torch.Generator().manual_seed(0))
+    keys = prng.split(prng.prng_key(6), 2)
+    ref1, ref2 = jax.vmap(lambda a, b, k: jfx.apply_effects_pair(a, b, k, cfg))(
+        img1, img2, jnp.asarray(keys))
+    draw = tfx.draw_effects_pair(tcfg, keys, "cpu")
+    noise = tfx.draw_noise(tfx.noise_keys(keys), (H, W), "cpu")
+    assert noise.shape == (2, 2, 2, H, W)
     out1, out2 = tfx.apply_effects_pair(torch.as_tensor(img1), torch.as_tensor(img2), draw,
-                                        noise, noise)
+                                        noise[:, 0], noise[:, 1])
     np.testing.assert_allclose(out1.numpy(), np.asarray(ref1), atol=FX_TOL, rtol=0)
     np.testing.assert_allclose(out2.numpy(), np.asarray(ref2), atol=FX_TOL, rtol=0)
 
@@ -235,8 +219,8 @@ def test_rendered_pair_matches_jax():
     trainer's steps (blur taps, ``render_frame_blurred``,
     ``apply_photometric``, rounding to uint8 levels), compared where the
     ground lies within NEAR_M of the camera (and on the sky, 0 in both).
-    The second pair looks over the horizon (the 45 deg camera, tilted
-    further): beyond ~50 m a float32 rounding of the ray's angle moves
+    A pair of RENDER_KEY's looks over the horizon (the 45 deg camera,
+    tilted further): beyond ~50 m a float32 rounding of the ray's angle moves
     its ground point by a sizable part of a texel at these grazing angles,
     and the two packages' renders of that far ground differ by up to tens
     of levels; both are float32 noise of an aliased texture there."""
@@ -244,7 +228,7 @@ def test_rendered_pair_matches_jax():
     cfg = ttrain.TrainConfig()
     bank = ttex.get_texture_bank()
     bank_u8 = torch.as_tensor(np.stack([ttex.texture_u8(t) for t in bank[:12]]))
-    draws = ttrain.draw_pairs(cfg, b, torch.Generator().manual_seed(7),
+    draws = ttrain.draw_pairs(cfg, prng.split(prng.prng_key(RENDER_KEY), b), "cpu",
                               torch.arange(12))
     fx = draws.effects
     quiet = [p.clone() for p in (fx.params1, fx.params2)]
@@ -593,7 +577,7 @@ def test_make_synthetic_effects_follows_the_jax_chain():
     seq = make_sequence(AnalyticTrajectory(), t_ic, effects=cfg, effects_seed=3, **kw)
     clean = make_sequence(AnalyticTrajectory(), t_ic, **kw)
     k_par, k_sig, _ = jax.random.split(jax.random.PRNGKey(3), 3)
-    params = tfx.draw_params_from_key(cfg, np.asarray(k_par))[0].numpy()
+    params = tfx.draw_params(cfg, np.asarray(k_par)[None], "cpu")[0].numpy()
     defocus = float(jax.random.uniform(k_sig, maxval=cfg.defocus_sigma_max))
     drift = np.clip(np.cumsum(np.random.default_rng(3).normal(
         0.0, cfg.gain_drift / 5.0, len(seq.cam_t))), -0.25, 0.25).astype(np.float32)

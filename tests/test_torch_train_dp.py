@@ -44,14 +44,15 @@ import numpy as np, torch
 import torch.distributed as dist
 
 torch.set_num_threads(2)
-from cuahn_vio_torch.models.uahn import UAHN, init_like_flax_
+from cuahn_vio_torch.models.uahn import init_uahn
+from cuahn_vio_torch.utils import prng
 from cuahn_vio_torch.parallel.mesh import init_distributed
 from cuahn_vio_torch.train import trainer as T
 from cuahn_vio_torch.utils.config import VioOptions
 
 out, batch, echo, prior_prob = sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), float(sys.argv[4])
 init_distributed(device="cpu")  # a no-op without the job's environment
-model = init_like_flax_(UAHN(img_height=56, img_width=80), torch.Generator().manual_seed(0))
+model = init_uahn(prng.prng_key(0), 56, 80, device="cpu")
 n_params = sum(p.numel() for p in model.parameters())
 flat_reduces = []
 all_reduce = dist.all_reduce

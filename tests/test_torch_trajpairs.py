@@ -26,6 +26,7 @@ from cuahn_vio.data.synthetic import AnalyticTrajectory as JAnalytic
 from cuahn_vio_torch.data import trajpairs as tpairs
 from cuahn_vio_torch.models.uahn import UAHN
 from cuahn_vio_torch.train import trainer as ttrain
+from cuahn_vio_torch.utils import prng
 from cuahn_vio_torch.utils.config import VioOptions
 
 JAX_CACHE = (f"/tmp/cuahn_trajpairs_{0.1}_{jpairs.Z_OFFSET}_{jpairs.FRAME_DT}.npz")
@@ -117,7 +118,7 @@ def test_draw_pairs_takes_its_share_from_the_bank(gt_dir):
 
     bank, pairs = _bank_tensors(gt_dir)
     cfg = ttrain.TrainConfig(traj_pair_prob=0.7)
-    d = ttrain.draw_pairs(cfg, 4000, torch.Generator().manual_seed(3), None, pairs)
+    d = ttrain.draw_pairs(cfg, prng.split(prng.prng_key(3), 4000), "cpu", None, pairs)
     share = d.from_bank.float().mean().item()
     assert abs(share - 0.7) < 0.03
     sel = d.from_bank
