@@ -31,9 +31,12 @@ Phases, each printed on its own line with its seconds:
    trainer batch's coordinates), at ragged N, at 4-byte-misaligned
    coordinates, on a texture whose rows are not whole 4-byte words, and at in-range, edge,
    off-image, +-inf and NaN ones; the remap C1 at 640x480 -> 224x320 on
-   the default config's fisheye map and on a radtan map, at N = 1 and
-   N = 165 frames, and on a map of off-image, edge, exactly integer and
-   NaN coordinates;
+   the default config's fisheye map, on a radtan map and on a map of
+   off-image, edge, exactly integer and NaN coordinates, at N = 1, 7 and
+   165 frames, each map's tiles counted by path by the kernel itself
+   (shared ring or global taps) and held to ``ops/remap.tile_boxes``: every
+   fisheye and radtan tile on the shared ring, at least one edge-map tile
+   on global taps;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
@@ -45,7 +48,9 @@ Phases, each printed on its own line with its seconds:
    five shapes on uint8 textures, beside the launch floor (a one-element
    ``add_`` in the same CUDA graph); the remap C1 at N = 1 and N = 165
    raw 640x480 frames on the fisheye map, beside ``grid_sample`` on the
-   same frames (as float) and coordinates and its byte bound;
+   same frames (as float) and coordinates and its byte bound, and with a
+   cold L2 (each call after a read of L2_FLUSH_BYTES, in one graph, less
+   the reads alone);
 3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
    ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
    the card against JAX's bits, uniform, bernoulli and randint (over
@@ -401,6 +406,8 @@ TRAIN_RUNS = 2  # at one seed: the step time's spread in one call, and the weigh
 REMAP_FRAMES = 165
 REMAP_FLOPS_PER_PIXEL = 11
 REMAP_FLOPS_PER_MAP_ENTRY = 10
+REMAP_PARITY_FRAMES = (1, 7, REMAP_FRAMES)  # phase 2: a ring's tail and a chunk's
+L2_FLUSH_BYTES = 256 << 20  # read between cold calls: five times the 50 MB L2
 # phase 12's make-synthetic --traj-file: seconds after the still phase (the
 # replayed GT file hovers for its own first 2.5 s, then flies), and the
 # interior RMSE bar of tests/test_euroc_e2e.py
@@ -1992,31 +1999,58 @@ def remap_maps(torch, dev) -> dict:
     }
 
 
-def check_remap(torch, dev) -> float:
+def remap_layout_checked(remap_cuda) -> dict:
+    """C1's constants from the built library, which must be those that
+    ``ops/remap.tile_boxes`` assumes (TILE, STAGE_BYTES, CHUNK)."""
+    from cuahn_vio_torch.ops import remap
+
+    got = remap_cuda.layout()
+    want = dict(tile_rows=remap.TILE[0], tile_cols=remap.TILE[1],
+                stage_bytes=remap.STAGE_BYTES, chunk=remap.CHUNK)
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"remap.cu's layout {got} is not ops/remap.py's {want}")
+    return got
+
+
+def check_remap(torch, dev) -> tuple[int, dict]:
     """Phase 2, C1: the remap kernel against ``remap_u8_plain`` on the card,
-    bit for bit, on ``remap_maps`` at N = 1 and REMAP_FRAMES raw 640x480
-    frames. Returns the max abs error (0)."""
+    bit for bit, on ``remap_maps`` at REMAP_PARITY_FRAMES raw 640x480
+    frames; each launch's tiles by path as the kernel counts them, held to
+    ``tile_boxes``, with every fisheye and radtan tile on the shared ring
+    and an edge-map tile on global taps. Returns (max abs error (0),
+    {map: {"shared": tiles, "global": tiles}})."""
     import numpy as np
 
     from cuahn_vio_torch.ops.cuda.remap import remap_u8_cuda
-    from cuahn_vio_torch.ops.remap import remap_u8_plain
+    from cuahn_vio_torch.ops.remap import remap_u8_plain, tile_boxes
 
     rng = np.random.default_rng(8)
-    worst = 0
+    frames = {n: torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8),
+                                 device=dev) for n in REMAP_PARITY_FRAMES}
+    worst, paths = 0, {}
     for name, (mx, my) in remap_maps(torch, dev).items():
-        for n in (1, REMAP_FRAMES):
-            frames = torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8),
-                                     device=dev)
-            out = remap_u8_cuda(frames, mx, my)
-            ref = remap_u8_plain(frames, mx, my)
+        shared = tile_boxes(mx, my, 480, 640)["shared"]
+        want = [int(shared.sum()), int((~shared).sum())]
+        paths[name] = dict(zip(("shared", "global"), want))
+        for n, raw in frames.items():
+            counted = torch.zeros(2, dtype=torch.int32, device=dev)
+            out = remap_u8_cuda(raw, mx, my, counted)
+            ref = remap_u8_plain(raw, mx, my)
             torch.cuda.synchronize()
             err = int((out.int() - ref.int()).abs().max())
-            print(f"  remap parity {name} N={n} 640x480 -> {H}x{W}: max abs err {err} levels",
+            print(f"  remap parity {name} N={n} 640x480 -> {H}x{W}: max abs err {err} levels; "
+                  f"tiles on the shared ring {counted[0]}, on global taps {counted[1]}",
                   flush=True)
             if err != 0:
                 raise AssertionError(f"remap kernel vs plain {err}: not bit-identical")
+            if counted.tolist() != want:
+                raise AssertionError(f"remap {name}: the kernel's tiles by path {counted.tolist()}"
+                                     f", tile_boxes's {want}")
             worst = max(worst, err)
-    return worst
+    if paths["fisheye"]["global"] or paths["radtan"]["global"] or not paths["edges"]["global"]:
+        raise AssertionError(f"remap tiles by path {paths}: the camera maps must stream every "
+                             "tile through shared memory, the edge map must take global taps")
+    return worst, paths
 
 
 def remap_bound_ms(torch, n: int, mx, my, src_h: int, src_w: int) -> tuple[float, int]:
@@ -2036,12 +2070,26 @@ def remap_bound_ms(torch, n: int, mx, my, src_h: int, src_w: int) -> tuple[float
     return max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3, footprint
 
 
+def time_cold_ms(torch, fn, flush, per_graph: int = 10, replays: int = 5) -> float:
+    """Device time of one ``fn`` call with a cold L2: ``flush`` (a read of
+    more than the L2 holds) then ``fn``, ``per_graph`` times in one CUDA
+    graph, less the same graph of ``flush`` alone."""
+    def both():
+        flush()
+        fn()
+
+    return (time_graph_ms(torch, both, per_graph, replays)
+            - time_graph_ms(torch, flush, per_graph, replays))
+
+
 def time_remap(torch, dev) -> dict:
     """Phase 3, C1: the remap kernel, its plain version and ``grid_sample``
     (float32 frames, the same coordinates as a normalized grid; the
     yardstick, which the port never calls) on the fisheye map at N = 1 and
-    REMAP_FRAMES, beside the byte bound and the launch floor. Returns {N:
-    {ms, plain_ms, library_ms, floor_ms, bound_ms, footprint}}."""
+    REMAP_FRAMES, beside the byte bound and the launch floor, and the
+    kernel with a cold L2 (``time_cold_ms``). The bound ratio uses the
+    CUDA-graph (hot) time, as the earlier rows of this kernel did. Returns {N:
+    {ms, cold_ms, plain_ms, library_ms, floor_ms, bound_ms, footprint}}."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2052,6 +2100,8 @@ def time_remap(torch, dev) -> dict:
     grid = torch.stack([2 * mx / 639.0 - 1, 2 * my / 479.0 - 1], dim=-1)
     rng = np.random.default_rng(9)
     one = torch.zeros(1, device=dev)
+    spill = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+    spill_sum = torch.zeros((), device=dev)
     rows = {}
     for n in (1, REMAP_FRAMES):
         frames = torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8),
@@ -2072,9 +2122,12 @@ def time_remap(torch, dev) -> dict:
             floor_ms=lambda: one.add_(1.0),
         ), bound, 200 if n == 1 else 20)
         row["footprint"] = footprint
+        row["cold_ms"] = time_cold_ms(torch, lambda: remap_u8_cuda(frames, mx, my),
+                                      lambda: torch.sum(spill, dim=0, out=spill_sum))
         rows[n] = row
         print(f"  remap N={n} 640x480 -> {H}x{W} device time (CUDA graph): kernel "
-              f"{row['ms']:.5f} ms | plain {row['plain_ms']:.5f} ms | grid_sample "
+              f"{row['ms']:.5f} ms (cold L2 {row['cold_ms']:.5f}) | plain {row['plain_ms']:.5f} ms"
+              f" | grid_sample "
               f"{row['library_ms']:.5f} ms (float, |diff| {lib_err:.2f}) | kernel / "
               f"grid_sample {row['ms'] / row['library_ms']:.3f} | byte bound "
               f"{row['bound_ms']:.5f} ms ({footprint} raw bytes read a frame) | kernel / bound "
@@ -3376,11 +3429,12 @@ def sample_entry(sharp_launches, blur_launches, err, rows, ptxas, points_per_thr
     return entry
 
 
-def remap_entry(launches, err, rows, ptxas) -> dict:
+def remap_entry(launches, err, rows, ptxas, paths, layout) -> dict:
     """C1's entry of the kernels line: not a TPU kernel (it replaces the JAX
     package's host C++ remap); its launches in phase 12, the times of a
-    REMAP_FRAMES-frame batch in the common fields, and each batch's times
-    and bound under ``shapes``."""
+    REMAP_FRAMES-frame batch in the common fields (hot L2; ``cold_ms`` with
+    a cold one), each batch's times and bound under ``shapes``, the tiles
+    of each parity map by path, and its compiled resources."""
     row = rows[REMAP_FRAMES]
     return dict(
         name=f"remap (convert-euroc, 640x480 -> {H}x{W}, N={REMAP_FRAMES})", route="cuda",
@@ -3388,10 +3442,12 @@ def remap_entry(launches, err, rows, ptxas) -> dict:
         replaces="cuahn_vio/runtime/undistort.cpp:92", tpu_kernel=False,
         launches=launches, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by="bytes", library_ms=row["library_ms"],
-        registers=ptxas["registers"], spill_stores=ptxas["spill_stores"],
-        spill_loads=ptxas["spill_loads"],
-        shapes={str(n): dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-                             bound_ms=r["bound_ms"], launch_floor_ms=r["floor_ms"],
+        cold_ms=row["cold_ms"], registers=ptxas["registers"], smem_bytes=ptxas["smem_bytes"],
+        spill_stores=ptxas["spill_stores"], spill_loads=ptxas["spill_loads"],
+        tiles_by_path=paths, layout=layout,
+        shapes={str(n): dict(ms=r["ms"], cold_ms=r["cold_ms"], plain_ms=r["plain_ms"],
+                             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                             launch_floor_ms=r["floor_ms"],
                              raw_bytes_read_per_frame=r["footprint"])
                 for n, r in rows.items()},
     )
@@ -3656,13 +3712,14 @@ def main() -> int:
               f"spill loads {info['spill_loads']} B", flush=True)
     phase("build", t0, nvcc_s="{" + ", ".join(f"{k}: {v:.3f}" for k, v in build_s.items()) + "}",
           threads_per_block=warp_cuda.threads_per_block(), band_bytes=warp_cuda.band_bytes(),
-          remap_frames_per_thread=remap_cuda.frames_per_thread())
+          remap_layout=remap_layout_checked(remap_cuda),
+          remap_grid_n165=remap_cuda.grid(REMAP_FRAMES, H, W))
 
     t0 = time.perf_counter()
     warp_errs = check_kernel(torch, dev)
     rowskip_err = check_rowskip(torch, dev)
     sample_errs = check_sample(torch, dev)
-    remap_err = check_remap(torch, dev)
+    remap_err, remap_paths = check_remap(torch, dev)
     phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
           sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
@@ -3993,7 +4050,8 @@ def main() -> int:
     kernels[3]["launches_by_phase"] = {"5": sample_launches + blur_launches,
                                        "10": found["sampler_launches"],
                                        "12": raw["sampler_launches"]}
-    kernels.append(remap_entry(raw["remap_launches"], remap_err, remap_time, remap_ptxas))
+    kernels.append(remap_entry(raw["remap_launches"], remap_err, remap_time, remap_ptxas,
+                               remap_paths, remap_cuda.layout()))
     kernels += [
         kernel_entry(f"homography_warp (B={b} uint8, close-loops)", 468 if b > 1 else 154,
                      row["launches"], row["max_abs_err"], row, compiled("warp_kernel", b))

@@ -7,6 +7,8 @@ host runtime (``cuahn_vio/runtime/undistort.cpp:92-139``):
   kernel C1 (``ops/cuda/remap.cu``), one launch for the whole batch; a
   CPU tensor goes to ``remap_u8_plain``.
 - ``remap_u8_plain``: the plain PyTorch version, on any device.
+- ``tile_boxes``: the raw box that each output tile of C1 reads, and
+  whether the tile streams it through shared memory (the kernel's rule).
 
 What both compute, for each of N frames and each output pixel i:
 ``x0 = floor(map_x[i])``, ``wx = map_x[i] - x0`` in float32 (the same for
@@ -34,6 +36,13 @@ import torch
 
 COORD_CLIP = 1e6
 MAX_SIDE = 1 << 16  # raw frames up to 65536 pixels a side
+# C1's layout (ops/cuda/remap.cu, whose remap_layout gives the same):
+# output tiles of TILE (rows, columns); a tile's raw box, its columns
+# widened to whole CHUNK-byte copies, streams through shared stages of
+# STAGE_BYTES when it fits one
+TILE = (16, 32)
+STAGE_BYTES = 6144
+CHUNK = 16
 
 
 def check_remap_args(frames: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> None:
@@ -86,6 +95,45 @@ def remap_u8_plain(frames: torch.Tensor, map_x: torch.Tensor,
             src = flat[:, idx].reshape(acc.shape).to(torch.float32)
             acc = torch.where(inside, fma_f32((wyk * wxk).expand_as(src), src, acc), acc)
     return torch.clamp(acc + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def tile_boxes(map_x: torch.Tensor, map_y: torch.Tensor, src_h: int, src_w: int,
+               tile: tuple = TILE) -> dict:
+    """The raw box that each ``tile`` (rows, columns) of the (H, W) maps
+    reads from an (src_h, src_w) frame, as the C1 kernel finds it: the
+    least and greatest raw row and column of the tile's in-image taps (a
+    NaN coordinate has none; coordinates clipped to +-COORD_CLIP), the
+    columns widened to whole CHUNK-byte chunks. Returns (tiles down, tiles
+    across) int64 tensors ``row0``, ``row1`` (rows [row0, row1), empty
+    when equal), ``col0``, ``col1`` (columns [col0, col1)), ``bytes`` (the
+    box's stage bytes, rows x columns) and the bool ``shared``: the tile
+    streams its box through shared memory (bytes <= STAGE_BYTES), else it
+    reads its taps from global memory."""
+    th, tw = tile
+    h, w = map_x.shape
+    nan = torch.isnan(map_x) | torch.isnan(map_y)
+    sx = torch.clamp(torch.where(nan, torch.zeros_like(map_x), map_x), -COORD_CLIP, COORD_CLIP)
+    sy = torch.clamp(torch.where(nan, torch.zeros_like(map_y), map_y), -COORD_CLIP, COORD_CLIP)
+    x0, y0 = torch.floor(sx).to(torch.int64), torch.floor(sy).to(torch.int64)
+    clo, chi = x0.clamp(min=0), (x0 + 1).clamp(max=src_w - 1)
+    rlo, rhi = y0.clamp(min=0), (y0 + 1).clamp(max=src_h - 1)
+    taps = ~nan & (clo <= chi) & (rlo <= rhi)  # the pixel has an in-image tap
+    ty, tx = -(-h // th), -(-w // tw)
+    big = torch.iinfo(torch.int64).max
+
+    def reduce(v, fill, op):
+        grid = torch.full((ty * th, tx * tw), fill, dtype=torch.int64, device=v.device)
+        grid[:h, :w] = torch.where(taps, v, torch.full_like(v, fill))
+        return op(grid.reshape(ty, th, tx, tw).permute(0, 2, 1, 3).reshape(ty, tx, th * tw), -1)
+
+    r0, r1 = reduce(rlo, big, torch.amin), reduce(rhi, -1, torch.amax) + 1
+    c0, c1 = reduce(clo, big, torch.amin), reduce(chi, -1, torch.amax)
+    empty = r1 <= r0
+    r0, r1 = torch.where(empty, 0, r0), torch.where(empty, 0, r1)
+    c0 = torch.where(empty, 0, c0 // CHUNK * CHUNK)
+    c1 = torch.where(empty, 0, c1 // CHUNK * CHUNK + CHUNK)
+    nbytes = (r1 - r0) * (c1 - c0)
+    return dict(row0=r0, row1=r1, col0=c0, col1=c1, bytes=nbytes, shared=nbytes <= STAGE_BYTES)
 
 
 def remap_u8(frames: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ just under and over the shared band) and at a rendered frame's texture
 coordinates, all three bit for bit (0.0); the flat sampler's batched form
 (B = 1, 3 and 16 textures, ragged N, misaligned coordinates) bit for bit
 too; the undistortion remap C1 to its plain version bit for bit (0.0) at
-640x480 -> 224x320 on fisheye, radtan and edge maps; the threefry kernel
+raw 640x480, 641x479 and 752x480 -> 224x320 on fisheye, radtan, edge and
+scattered maps (each tile's path as ``ops/remap.tile_boxes`` states it),
+from 1 to 165 frames, on frames off a 16-byte boundary and a ragged map;
+the threefry kernel
 T1 to its plain version bit for bit in bits, uniform and bernoulli and
 within 2 float32 ulp in normal, at the MC-dropout masks' and the sensor
 effects' shapes, with the masks of a network call on the card equal to
@@ -532,7 +535,7 @@ def test_train_step_on_gpu_follows_the_cpu(gpu):
             assert (g_gpu[name] - g).abs().max().item() <= 1e-3 * scale, name
 
 
-def _remap_maps(kind, dev):
+def _remap_maps(kind, dev, src_h=480, src_w=640):
     from cuahn_vio_torch.runtime.undistort import build_undist_map
 
     if kind in ("fisheye", "radtan"):
@@ -542,29 +545,68 @@ def _remap_maps(kind, dev):
                 ([458.654, 457.296, 367.215, 248.375],
                  [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]))
         return build_undist_map(k, d, kind == "fisheye", device=dev)
+    if kind == "scattered":  # every tile's taps spread over the frame: all over the stage
+        rng = np.random.default_rng(5)
+        return (torch.as_tensor(rng.uniform(-3, src_w + 2, (224, 320)).astype(np.float32),
+                                device=dev),
+                torch.as_tensor(rng.uniform(-3, src_h + 2, (224, 320)).astype(np.float32),
+                                device=dev))
     v, u = torch.meshgrid(torch.arange(224, dtype=torch.float32, device=dev),
                           torch.arange(320, dtype=torch.float32, device=dev), indexing="ij")
     mx, my = u * 2.1 - 20.0, v * 2.3 - 15.0  # integer, fractional, off-image, edges
-    mx[0, :6] = torch.tensor([-1.0, -0.5, 639.0, 639.5, 640.0, float("nan")])
-    my[1, :5] = torch.tensor([479.0, 479.25, 480.0, -1.0, 1e9])
+    mx[0, :6] = torch.tensor([-1.0, -0.5, src_w - 1.0, src_w - 0.5, float(src_w), float("nan")])
+    my[1, :5] = torch.tensor([src_h - 1.0, src_h - 0.75, float(src_h), -1.0, 1e9])
+    # the four corners in one tile: its box is the whole frame (global taps)
+    mx[2, :4] = torch.tensor([0.0, src_w - 1.0, 0.5, src_w - 1.5])
+    my[2, :4] = torch.tensor([0.0, src_h - 1.0, src_h - 1.5, 0.25])
     return mx.contiguous(), my.contiguous()
 
 
-@pytest.mark.parametrize("kind", ["fisheye", "radtan", "edges"])
-@pytest.mark.parametrize("n", [1, 9])
-def test_remap_kernel_is_bit_identical_to_its_plain_version(gpu, kind, n):
-    """C1 against ``remap_u8_plain`` on the card, 640x480 -> 224x320, one
-    launch for the batch (9 frames: two frame chunks of a thread)."""
-    from cuahn_vio_torch.ops.remap import remap_u8, remap_u8_plain
+@pytest.mark.parametrize("src_h, src_w", [(480, 640), (479, 641), (480, 752)])
+@pytest.mark.parametrize("kind", ["fisheye", "radtan", "edges", "scattered"])
+@pytest.mark.parametrize("n", [1, 9, 17, 165])
+def test_remap_kernel_is_bit_identical_to_its_plain_version(gpu, kind, n, src_h, src_w):
+    """C1 against ``remap_u8_plain`` on the card, raw -> 224x320, one launch
+    for the batch (9 and 17 frames: a ring's and a frame chunk's tails; 165,
+    a sequence), at raw widths whose rows are 16-byte aligned (640, EuRoC's
+    752) and not (641); the tiles by path as ``tile_boxes`` states them:
+    the camera maps all on the shared ring, the edge map one tile and the
+    scattered map every tile on global taps."""
+    from cuahn_vio_torch.ops.cuda.remap import remap_u8_cuda
+    from cuahn_vio_torch.ops.remap import remap_u8, remap_u8_plain, tile_boxes
 
     rng = np.random.default_rng(n)
-    frames = torch.as_tensor(rng.integers(0, 256, (n, 480, 640)).astype(np.uint8), device=gpu)
-    mx, my = _remap_maps(kind, gpu)
+    frames = torch.as_tensor(rng.integers(0, 256, (n, src_h, src_w)).astype(np.uint8),
+                             device=gpu)
+    mx, my = _remap_maps(kind, gpu, src_h, src_w)
     tcuda.reset_launch_counts()
     out = remap_u8(frames, mx, my)
     torch.cuda.synchronize()
     assert tcuda.launch_counts["remap"] == 1
     assert torch.equal(out, remap_u8_plain(frames, mx, my))
+    counted = torch.zeros(2, dtype=torch.int32, device=gpu)
+    assert torch.equal(remap_u8_cuda(frames, mx, my, counted), out)
+    shared = tile_boxes(mx, my, src_h, src_w)["shared"]
+    assert counted.tolist() == [int(shared.sum()), int((~shared).sum())]
+    assert {"fisheye": shared.all(), "radtan": shared.all(), "edges": (~shared).sum() == 1,
+            "scattered": ~shared.any()}[kind]
+
+
+def test_remap_kernel_takes_offset_frames_and_ragged_maps(gpu):
+    """Frames that start off a 16-byte boundary (a slice of a batch) fill the
+    ring byte by byte, and a 37x55 map leaves ragged tiles and stores byte
+    by byte: both bit-identical to the plain version."""
+    from cuahn_vio_torch.ops.remap import remap_u8, remap_u8_plain
+
+    rng = np.random.default_rng(3)
+    batch = torch.as_tensor(rng.integers(0, 256, (6 * 480 * 640 + 1,)).astype(np.uint8),
+                            device=gpu)
+    frames = batch[1:].view(6, 480, 640)
+    for mx, my in (_remap_maps("fisheye", gpu), tuple(m[:37, :55].contiguous() for m in
+                                                     _remap_maps("edges", gpu))):
+        out = remap_u8(frames, mx, my)
+        torch.cuda.synchronize()
+        assert torch.equal(out, remap_u8_plain(frames, mx, my))
 
 
 def test_remap_wrapper_refuses_what_the_kernel_does_not_take(gpu):

@@ -6,7 +6,8 @@ runtime (``cuahn_vio.runtime``, ``undistort.cpp``), on the CPU.
   float32 ulp everywhere (the port takes the fisheye angle from the C
   library's ``atan``, as the C++ does, and is equal here; the bound is for
   float64 operations that another build may round otherwise).
-- ``remap_u8_plain`` against the C++ ``remap_u8_batch``, bit for bit. That
+- ``remap_u8_plain`` against the C++ ``remap_u8_batch``, bit for bit (at
+  48x64, and at the raw widths 641 and 752 at N = 3). That
   needs the C++ rounding as the JAX package builds it: ``g++ -O3
   -march=native -std=c++17`` does contract ``acc += w * src`` into a fused
   multiply-add (GCC's ``-ffp-contract=off`` in ISO mode is for C, not
@@ -86,6 +87,31 @@ def test_remap_plain_is_bit_identical_to_the_cpp_remap(kind, n, rng):
     np.testing.assert_array_equal(
         tremap.remap_u8(torch.as_tensor(frames), torch.as_tensor(mx), torch.as_tensor(my)).numpy(),
         want)
+
+
+@pytest.mark.parametrize("src_h, src_w", [(479, 641), (480, 752)], ids=["641x479", "752x480"])
+@pytest.mark.parametrize("kind", ["identity", "translation", "off-image", "random"])
+def test_remap_plain_is_bit_identical_to_the_cpp_remap_at_raw_widths(kind, src_h, src_w, rng):
+    """The same at the raw widths the kernel C1 handles apart (641: rows off
+    16-byte boundaries; EuRoC's 752), 224x320 out, N = 3."""
+    frames = rng.integers(0, 256, (3, src_h, src_w)).astype(np.uint8)
+    mx, my = _maps(kind, rng, 224, 320, src_h, src_w)
+    want = jrt.undistort_frames(frames, mx, my)
+    got = tremap.remap_u8_plain(torch.as_tensor(frames), torch.as_tensor(mx),
+                                torch.as_tensor(my)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("src_h, src_w", [(479, 641), (480, 752)], ids=["641x479", "752x480"])
+@pytest.mark.parametrize("fisheye", [True, False], ids=["fisheye", "radtan"])
+def test_undistort_frames_match_the_cpp_runtime_at_raw_widths(fisheye, src_h, src_w, rng):
+    """The camera maps at those raw sizes, N = 3, bit for bit."""
+    k, d = (UZH_K, UZH_D) if fisheye else (EUROC_K, EUROC_D)
+    frames = rng.integers(0, 256, (3, src_h, src_w)).astype(np.uint8)
+    want = jrt.undistort_frames(frames, *jrt.build_undist_map(k, d, fisheye))
+    got = trt.undistort_frames(torch.as_tensor(frames),
+                               *trt.build_undist_map(k, d, fisheye, device="cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("fisheye", [True, False], ids=["fisheye", "radtan"])
