@@ -60,11 +60,13 @@ Phases, each printed on its own line with its seconds:
    (one truncated-normal launch) against the same build on the CPU, every
    leaf within PRNG_INIT_ULPS ulp, and its build time; T1 against its
    plain version (``utils/prng.draw_plain``) on the card at the masks'
-   shapes (K = 4 and 4 x 64) and the effects' (2 x 224 x 320) in every
-   mode, and at the UAHN's kernels (PRNG_INIT_CASE) in the truncated-normal
-   mode: bits, uniform and bernoulli bit for bit, the normals within
-   PRNG_NORMAL_ULPS ulp; then T1's time (CUDA graph replays), its plain
-   version's and its bound at those shapes.
+   shapes (K = 4 and 4 x 64), the effects' (2 x 224 x 320) and the
+   layouts a thread's run of values makes risky (short rows, 4,096 rows of
+   1,001) in every mode, and at the UAHN's kernels (PRNG_INIT_CASE) in the
+   truncated-normal mode: bits, uniform and bernoulli bit for bit, the
+   normals within PRNG_NORMAL_ULPS ulp; then T1's time (CUDA graph
+   replays), its plain version's and its bound at those shapes (its bytes,
+   or its draw's integer-pipe bound from its SASS, ``sass_bound.py``).
    From here on every phase that runs the network at p = 0.05 must launch
    T1 once a network call (phases 4, 6-11 and 13-17: its four masks in one
    launch), ``make-synthetic --effects`` once a frame (phases 12 and 13:
@@ -542,8 +544,17 @@ PRNG_NORMAL_JAX_TOL = 1e-6  # XLA's CPU log1p is its own polynomial (tests/test_
 PRNG_NORMAL_ULPS = 2  # the kernel's log1pf against torch.log1p on the card
 PRNG_CASES = {
     "masks K=4": [16 * 5120, 16 * 256] * 2,
+    # the batched path's masks at B = 2 and 4 sequences (phases 6 and 7):
+    # under the long runs' switch (``ops/cuda/prng.values_per_thread``)
+    "masks K=8": [16 * 5120, 16 * 256] * 4,
+    "masks K=16": [16 * 5120, 16 * 256] * 8,
     "masks K=256": [16 * 5120, 16 * 256] * 128,
     "effects K=2": [H * W] * 2,
+    # the layouts a thread's run of values makes risky: rows of 0, 1, R - 1,
+    # R + 1 and 3R values for runs of 4, 8 and 16 (a run over three rows,
+    # a total that is no multiple of a run), and 4,096 rows of 1,001
+    "short rows K=16": [c for r in (4, 8, 16) for c in (0, 1, r - 1, r + 1, 3 * r)] + [2],
+    "rows K=4096": [1001] * 4096,
 }
 # the random UAHN's kernels (init_uahn, one truncated-normal launch): drawn
 # in that mode only; the card's build against the CPU's, every kernel value
@@ -553,16 +564,11 @@ PRNG_CASES = {
 # round apart at a few values)
 PRNG_INIT_CASE = "init K=27"
 PRNG_INIT_UNIT_TOL = 2.4e-7
-# 32-bit operations a value: threefry's 20 rounds (add, rotate, xor), 5 key
-# injections (3 adds), the 2 initial adds and the final xor; then the mode's
-# float work (uniform: shift, or, sub, fma, max; bernoulli: those and a
-# compare; normal: uniform's, the square, log1p counted as one, the select,
-# sqrt or sub, 9 Horner fmas counted as 2 each, 2 multiplies)
-THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 1
-PRNG_MODE_OPS = {"bits": 0, "uniform": 5, "bernoulli": 6, "normal": 5 + 6 + 18 + 2,
-                 "truncated_normal": 5 + 6 + 18 + 2 + 2}  # the normal's, and the clip
+# T1's modes (utils/prng.MODE_NAMES) and the (a, b) each case draws with;
+# the bytes a value writes
+T1_MODE_ARGS = {"bits": (0.0, 1.0), "uniform": (0.3, 1.7), "bernoulli": (0.95, 1.0),
+                "normal": (0.0, 1.0), "truncated_normal": (-2.0, 2.0)}
 PRNG_OUT_BYTES = {"bits": 4, "uniform": 4, "bernoulli": 1, "normal": 4, "truncated_normal": 4}
-FP32_OPS_PER_S = 67e12  # H100 SXM, CUDA cores (no integer rate is published apart)
 # The trainers' draws (phases 11 and 14): the JAX draws of phase 11's first
 # step, of its probe and of phase 14's first FIL step at their keys, written
 # by ``python3 smoke_reference.py OUT --part train`` on the card machine's
@@ -3564,35 +3570,52 @@ def check_init_uahn(torch, dev) -> dict:
     return out
 
 
+def t1_cases() -> dict:
+    """{case: row counts} of T1's card cases: PRNG_CASES and the UAHN's
+    kernels (PRNG_INIT_CASE)."""
+    from cuahn_vio_torch.models.uahn import UAHN
+    from cuahn_vio_torch.utils.checkpoint import flax_kernel_shape
+
+    kernels = [math.prod(flax_kernel_shape(p.shape)) for n, p in UAHN().named_parameters()
+               if n.endswith(".weight")]
+    return dict(PRNG_CASES, **{PRNG_INIT_CASE: kernels})
+
+
+def t1_modes(case: str) -> tuple:
+    """The modes T1 draws ``case`` in: every mode, the UAHN's kernels in
+    the truncated-normal mode only."""
+    return ("truncated_normal",) if case == PRNG_INIT_CASE else tuple(T1_MODE_ARGS)
+
+
 def check_prng(torch, dev) -> dict:
     """Phase 3b: T1 against JAX (``prng_reference_checks``), the card's
     ``init_uahn`` against the CPU's (``check_init_uahn``), and T1 against
-    its plain version on the card at PRNG_CASES in every mode and at the
-    UAHN's kernels (PRNG_INIT_CASE) in the truncated-normal mode, then
-    timed there. Returns {"reference": ..., "init": ..., "cases": {case:
-    {mode: row}}}; raises on a failed check."""
+    its plain version on the card at ``t1_cases`` in ``t1_modes``, then
+    timed there, its bound the larger of its bytes at the HBM rate and its
+    function's operations on the integer and float pipes
+    (``sass_bound.t1_function_bound``, at the card's maximum SM clock; the
+    bounds of the SASS that the kernel issues, without and with its row
+    search, ``sass_bound.t1_bound``, beside it). Returns {"reference": ..., "init": ..., "cases":
+    {case: {mode: row}}}; raises on a failed check."""
     import numpy as np
 
-    from cuahn_vio_torch.models.uahn import UAHN
+    import sass_bound
+    from cuahn_vio_torch.ops.cuda import build
+    from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.utils import prng
-    from cuahn_vio_torch.utils.checkpoint import flax_kernel_shape
 
     with np.load(os.path.join(REPO, PRNG_REF)) as ref:
         found = {"reference": prng_reference_checks(torch, dev, dict(ref))}
     found["init"] = check_init_uahn(torch, dev)
-    modes = {"bits": (prng.BITS, 0.0, 1.0), "uniform": (prng.UNIFORM, 0.3, 1.7),
-             "bernoulli": (prng.BERNOULLI, 0.95, 1.0), "normal": (prng.NORMAL, 0.0, 1.0),
-             "truncated_normal": (prng.TRUNC_NORMAL, -2.0, 2.0)}
-    kernels = [math.prod(flax_kernel_shape(p.shape)) for n, p in UAHN().named_parameters()
-               if n.endswith(".weight")]
-    cases = dict(PRNG_CASES, **{PRNG_INIT_CASE: kernels})
+    sass = sass_bound.sass_pipes(sass_bound.disassemble(build.library_path(prng_cuda.SOURCE)))
+    sms, _, max_mhz = sass_bound.card_clock(torch)
     found["cases"] = {}
-    for case, counts in cases.items():
+    for case, counts in t1_cases().items():
         keys = prng.keys_tensor(prng.split(prng.prng_key(len(counts)), len(counts)), dev)
         rows = found["cases"][case] = {}
-        for name, (mode, a, b) in modes.items():
-            if case == PRNG_INIT_CASE and mode != prng.TRUNC_NORMAL:
-                continue
+        for name in t1_modes(case):
+            mode = prng.MODE_NAMES.index(name)
+            a, b = T1_MODE_ARGS[name]
             out = prng.draw(keys, counts, mode, a, b)
             ref = prng.draw_plain(keys, counts, mode, a, b)
             torch.cuda.synchronize()
@@ -3610,16 +3633,20 @@ def check_prng(torch, dev) -> dict:
                     raise AssertionError(f"T1 {case} {name}: not its plain version bit for bit")
                 ulps, err = 0, 0.0
             values = sum(counts)
-            ops = values * (THREEFRY_OPS + PRNG_MODE_OPS[name])
+            run = prng_cuda.values_per_thread(mode, values)
+            issue = sass_bound.t1_bound(sass[f"threefry_kernel<{mode},{run}>"], len(counts),
+                                        values, run, sms, max_mhz)
+            function = sass_bound.t1_function_bound(name, values, sms, max_mhz)
             moved = values * PRNG_OUT_BYTES[name] + 8 * len(counts) + 8 * (len(counts) + 1)
-            bound_ops, bound_bytes = ops / FP32_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+            bound_ops, bound_bytes = function["bound_ms"], moved / HBM_BYTES_PER_S * 1e3
             rows[name] = dict(
-                keys=len(counts), values=values, max_abs_err=err, ulps=ulps,
+                keys=len(counts), values=values, run=run, max_abs_err=err, ulps=ulps,
                 ms=time_graph_ms(torch, lambda: prng.draw(keys, counts, mode, a, b)),
                 plain_ms=time_ms(torch, lambda: prng.draw_plain(keys, counts, mode, a, b), 5),
                 bound_ms=max(bound_ops, bound_bytes),
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes",
-                library_ms=None)
+                bound_pipe=function["bound_by"], sass_draw_bound_ms=issue["draw_bound_ms"],
+                sass_kernel_bound_ms=issue["bound_ms"], library_ms=None)
     return found
 
 
@@ -3632,7 +3659,8 @@ def prng_entry(launches_by_phase: dict, by_mode: dict, found: dict, ptxas: dict)
     ``shapes``, and the card's ``init_uahn``. No PyTorch call computes this
     function (torch.rand is Philox), so ``library_ms`` is null."""
     row = found["cases"]["masks K=4"]["bernoulli"]
-    compiled = ptxas["threefry_kernel<2>"]
+    compiled = ptxas[f"threefry_kernel<2,{row['run']}>"]
+    spills = [(k["spill_stores"], k["spill_loads"]) for k in ptxas.values()]
     total = {}
     for counts in by_mode.values():
         for mode, n in counts.items():
@@ -3647,7 +3675,8 @@ def prng_entry(launches_by_phase: dict, by_mode: dict, found: dict, ptxas: dict)
         max_abs_err=max(r["max_abs_err"] for c in found["cases"].values() for r in c.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=None, registers=compiled["registers"],
-        spill_stores=compiled["spill_stores"], spill_loads=compiled["spill_loads"],
+        registers_by_kernel={k: v["registers"] for k, v in sorted(ptxas.items())},
+        spill_stores=max(st for st, _ in spills), spill_loads=max(ld for _, ld in spills),
         normal_max_abs_diff_from_jax=found["reference"]["normal_max_abs_diff_from_jax"],
         truncated_normal_max_abs_diff_from_jax=found["reference"][
             "truncated_normal_max_abs_diff_from_jax"],
@@ -3737,8 +3766,11 @@ def main() -> int:
     prng_found = check_prng(torch, dev)
     for case, rows in prng_found["cases"].items():
         for mode, r in rows.items():
-            print(f"  T1 {case} {mode}: {r['values']} values, {r['ms']:.5f} ms, plain "
-                  f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            print(f"  T1 {case} {mode}: {r['values']} values, runs of {r['run']}, "
+                  f"{r['ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
+                  f"{r['bound_pipe']}; the kernel's SASS {r['sass_draw_bound_ms']:.6f} ms, "
+                  f"with the row search {r['sass_kernel_bound_ms']:.6f} ms), "
                   f"{r['ulps']} ulp", flush=True)
     init = prng_found["init"]
     print(f"  init_uahn: {init['leaves']} leaves, {init['values']} values, card "

@@ -4,8 +4,11 @@
 (bits, uniform, Bernoulli, normal or truncated normal;
 ``utils/prng.draw``), one launch for all rows, counted in
 ``launch_counts["threefry"]`` and by mode in ``threefry_launches_by_mode``.
-The library is built with nvcc at first use (``build.py``), never at
-import.
+A thread of the kernel draws a run of consecutive values
+(``values_per_thread``: the longest that still leaves every SM enough
+threads); in runs the Bernoulli coin is an integer compare with
+``utils/prng.bernoulli_threshold`` of p, made here. The library is
+built with nvcc at first use (``build.py``), never at import.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from cuahn_vio_torch.utils import prng
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prng.cu")
 KERNEL = "threefry"
 _P = ctypes.c_void_p
-_MAX_VALUES = (2**31 - 1) * 256  # one value a thread, 256 threads a block
+# the grid's 2^31 - 1 blocks of 128 threads of one value or more
+_MAX_VALUES = (2**31 - 1) * 128
 _OUT_DTYPES = {prng.BITS: torch.int32, prng.UNIFORM: torch.float32,
                prng.BERNOULLI: torch.uint8, prng.NORMAL: torch.float32,
                prng.TRUNC_NORMAL: torch.float32}
@@ -33,11 +37,13 @@ _OUT_DTYPES = {prng.BITS: torch.int32, prng.UNIFORM: torch.float32,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    # keys, offsets, out, k, total, mode, a, b, c, d, stream
+    # keys, offsets, out, k, total, mode, a, b, c, d, threshold, stream
     lib.threefry_draw.argtypes = [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                                  ctypes.c_float, _P]
+                                  ctypes.c_float, ctypes.c_uint, _P]
     lib.threefry_draw.restype = ctypes.c_int
+    lib.threefry_values_per_thread.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.threefry_values_per_thread.restype = ctypes.c_int
     return lib
 
 
@@ -52,6 +58,13 @@ def build_kernel() -> float:
 def ptxas_report() -> dict:
     """ptxas's registers, shared memory and spills of each mode's kernel."""
     return build.ptxas_report(build.library_path(SOURCE))
+
+
+def values_per_thread(mode: int, total: int) -> int:
+    """Values a thread of the kernel draws (its run) in a draw of ``total``
+    values in ``mode`` on the current device: the mode's longest run,
+    shorter where that would leave an SM too few threads."""
+    return _library().threefry_values_per_thread(mode, total)
 
 
 @functools.lru_cache(maxsize=64)
@@ -85,13 +98,14 @@ def draw_cuda(keys: torch.Tensor, counts: Sequence[int], mode: int,
     if total == 0:
         return out
     offsets = _row_offsets(counts, str(keys.device))
-    # the kernel's four floats: the truncated normal's are its uniform's
-    # bounds and its clip bounds
+    # the kernel's four floats (the truncated normal's are its uniform's
+    # bounds and its clip bounds) and the Bernoulli coin's threshold
     floats = prng.truncation_bounds(a, b) if mode == prng.TRUNC_NORMAL else (a, b, 0.0, 0.0)
+    threshold = prng.bernoulli_threshold(a) if mode == prng.BERNOULLI else 0
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = _library().threefry_draw(keys.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                                       len(counts), total, mode, *floats, stream)
+                                       len(counts), total, mode, *floats, threshold, stream)
     if err != 0:
         raise RuntimeError(f"threefry kernel launch failed: cudaError {err}")
     launch_counts[KERNEL] += 1

@@ -215,6 +215,21 @@ def truncation_bounds(lower: float, upper: float) -> tuple[float, float, float, 
             float(np.nextafter(hi, np.float32(-np.inf))))
 
 
+def bernoulli_threshold(p: float) -> int:
+    """The integer T with ``(bits >> 9) < T`` exactly when
+    ``jax.random.bernoulli``'s coin ``unit float < float32(p)`` holds: the
+    unit float of 32 bits is m 2^-23 exactly, m = bits >> 9 < 2^23, so T
+    is ceil(float32(p) 2^23) (exact in float64): 0 for p <= 0 or NaN, and
+    2^23, every coin, from float32(p) = 1 - 2^-24 up. Kernel T1 draws its
+    Bernoulli values in runs with it."""
+    p32 = float(np.float32(p))
+    if not p32 > 0.0:
+        return 0
+    if p32 >= 1.0:
+        return 2**23
+    return math.ceil(p32 * 2.0**23)
+
+
 # -------------------------------------------------------------- device side
 
 def threefry2x32_plain(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,

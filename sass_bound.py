@@ -22,25 +22,37 @@ its instructions (NOPs left out) by the pipe that issues them on Hopper:
 
 Every instruction also takes one of the SM's four issue slots a clock
 (128 lanes). A loop's body (the instructions from a backward branch's
-target to the branch) is counted apart. Beside the static counts, the
-fewest instructions on a path from the entry to the kernel's first
-unconditional EXIT (forward edges only: each loop counted apart; a branch
-around a rare case, such as ``sqrtf``'s slow path and the subroutine it
-calls, taken), so that a count a value is one that every value issues.
+target to the branch) is counted apart, each loop on its own too. Beside
+the static counts, the fewest instructions on a path from the entry to
+the kernel's first unconditional EXIT (forward edges only: each loop
+counted apart; a branch around a rare case, such as ``sqrtf``'s slow
+path, a run's walk into the next row, a partial run's value-by-value
+stores, taken), so that a count a value is one that every value issues.
 
-T1's bound: for each mode and each shape of ``chip_smoke.PRNG_CASES`` and
-the UAHN's kernels (K keys; a thread's binary search over the K + 1 row
-offsets runs ceil(log2 K) times), a value's clocks on one SM are the most
-of total / 128, alu / 64, imad / 64, (fma + imad) / 128 and xu / 16 of
-the shortest path and ceil(log2 K) loop bodies, and
-the bound is values x clocks / (SMs x the SM clock), at the card's
-maximum SM clock (``nvidia-smi clocks.max.sm``; the published 67 TFLOP/s
-FP32 is 132 SMs x 128 lanes x 2 x 1.98 GHz). Two such bounds: the
-kernel's (the path and the row search, what this kernel issues) and the
-draw's (the path alone: the threefry hash and the mode's arithmetic,
-what any kernel drawing these values must issue). The old bound
-(chip_smoke: ~84-113 operations a value at 67 TFLOP/s) is printed
-beside them.
+T1's bound (``t1_bound``): for each mode and each shape of
+``chip_smoke.PRNG_CASES`` and the UAHN's kernels (K keys), a thread of
+the kernel the draw launches draws a run of R values
+(``ops/cuda/prng.values_per_thread``; 1 for a kernel of one value a
+thread) and searches its row once, ceil(log2 K) times the first loop's
+body. A value's SM clocks are the most of total / 128, alu /
+64, imad / 64, (fma + imad) / 128 and xu / 16 of (the shortest path and
+the search) / R, and the bound is values x clocks / (SMs x the SM clock),
+at the card's maximum SM clock (``nvidia-smi clocks.max.sm``; the
+published 67 TFLOP/s FP32 is 132 SMs x 128 lanes x 2 x 1.98 GHz). Two such
+bounds: the kernel's (the path and the row search, what this kernel
+issues) and the draw's (the path alone / R: the threefry hash, the mode's
+arithmetic and the run's share of the row's key and the store). A run's
+walk into the next row (at most one a row: K - 1 walks of ~30
+instructions a draw) is left out. ``chip_smoke.py`` phase 3b reports the
+draw's bound beside T1's ``bound_ms``.
+
+Both move with the code the compiler made. T1's function bound
+(``t1_function_bound``) does not: it counts the operations of the function
+a value, from its formula (``T1_HASH_OPS``, ``T1_MODE_OPS``), each on the
+pipes that can issue it, the adds split between the ALU and IMAD pipes as
+evenly as the other operations allow, and is what ``chip_smoke.py`` phase
+3b reports as T1's ``bound_ms`` (with the bytes' bound, whichever is
+larger).
 
 Prints one line a kernel and a shape, and writes every number to
 ``--out`` (default ``cuahn_vio_torch/_build/sass_bound.json``). Fails
@@ -74,7 +86,9 @@ PIPES = (
 )
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
 FUNC = re.compile(r"Function : (\S+)")
-BRANCH_TARGET = re.compile(r"BRA\S*\s+(?:`\(([^)]+)\)|(?:\w+\s+)?0x([0-9a-f]+))")
+# a branch's target: a label, or an address after an optional predicate
+# operand ("BRA P1, 0x350", "BRA !P2, 0x1c0") or a divergence token
+BRANCH_TARGET = re.compile(r"BRA\S*\s+(?:!?U?P\w+,\s*)?(?:`\(([^)]+)\)|(?:\w+\s+)?0x([0-9a-f]+))")
 LABEL = re.compile(r"^\s*([$.\w]+):\s*$")
 
 
@@ -126,8 +140,9 @@ def shortest_path(ops, targets) -> list:
 
 def sass_pipes(text: str) -> dict:
     """{kernel: {"all": pipe counts, "loop": pipe counts of its loop bodies,
-    "straight": the rest, "path": those of ``shortest_path``, "loops": n,
-    "opcodes": {opcode: n}}} of the ``cuobjdump -sass`` text."""
+    "loop_bodies": those of each loop, by address, "straight": the rest,
+    "path": those of ``shortest_path``, "loops": n, "opcodes": {opcode:
+    n}}} of the ``cuobjdump -sass`` text."""
     from cuahn_vio_torch.ops.cuda.build import kernel_name
 
     result, name, ops, labels, branches, pending = {}, None, [], {}, [], []
@@ -149,8 +164,11 @@ def sass_pipes(text: str) -> dict:
         opcodes = {}
         for op in names:
             opcodes[op] = opcodes.get(op, 0) + 1
+        bodies = [count(op for a, op in zip(addrs, names) if lo <= a <= hi)
+                  for lo, hi in sorted(loops)]
         result[name] = dict(all=count(names),
                             loop=count(op for op, il in zip(names, in_loop) if il),
+                            loop_bodies=bodies,
                             straight=count(op for _, op, _ in straight),
                             path=count(shortest_path(straight, targets)),
                             loops=len(loops), opcodes=dict(sorted(opcodes.items())))
@@ -206,6 +224,85 @@ def add(a: dict, b: dict, times: float = 1.0) -> dict:
     return out
 
 
+def t1_bound(info: dict, keys: int, values: int, run: int, sms: int, mhz: float) -> dict:
+    """T1's issue bounds for a draw of ``values`` values over ``keys`` rows
+    by the mode's kernel of SASS counts ``info`` (``sass_pipes``), which
+    draws ``run`` values a thread: the kernel's (the shortest path and
+    ceil(log2 K) bodies of the first loop, the row search, over the run)
+    and the draw's (the path over the run), in ms at ``sms`` SMs of
+    ``mhz``."""
+    iters = math.ceil(math.log2(keys)) if keys > 1 else 0
+    search = info["loop_bodies"][0] if iters else {}
+    per_value = {p: n / run for p, n in add(info["path"], search, iters).items()}
+    draw = {p: n / run for p, n in info["path"].items()}
+    clk, by = clocks_per_item(per_value)
+    draw_clk, draw_by = clocks_per_item(draw)
+    to_ms = values / (sms * mhz * 1e6) * 1e3
+    return dict(keys=keys, values=values, run=run, search_iterations=iters,
+                per_value=per_value, clocks_per_value_per_sm=clk, bound_by=by,
+                bound_ms=clk * to_ms, draw_per_value=draw, draw_clocks_per_value_per_sm=draw_clk,
+                draw_bound_by=draw_by, draw_bound_ms=draw_clk * to_ms)
+
+
+# T1's function a value, by the pipes that can issue each operation: the
+# threefry hash (20 rounds of add, rotate and xor; 12 key adds: the key
+# before the first round and 5 injections into both words; the final
+# xor): 20 rotates and 21 xors on the ALU pipe, 32 adds on the ALU or the
+# IMAD pipe
+T1_HASH_OPS = {"alu": 41, "add": 32}
+# each mode's own operations a value, as its formula has it (prng.cu's
+# header): the coin's compare and its byte's select; the unit float's shift
+# and or, its subtract of 1, the fma and the max; the normals' erf_inv with
+# log1p counted as one log2 and its scale (x*x, 1 - x*x, the scale, the
+# shift of w, 8 Horner fmas, p*x, the factor sqrt(2); w's compare and the
+# edge's compare and select) and the truncated normal's clip to two bounds;
+# the selects between erf_inv's two polynomials are left out (a warp that
+# branches on w avoids them)
+T1_MODE_OPS = {
+    "bits": {},
+    "uniform": {"alu": 3, "fma": 2},
+    "bernoulli": {"alu": 2},
+    "normal": {"alu": 6, "fma": 16, "xu": 1},
+    "truncated_normal": {"alu": 8, "fma": 16, "xu": 1},
+}
+
+
+def t1_function_bound(mode: str, values: int, sms: int, mhz: float) -> dict:
+    """T1's bound from its function alone: ``values`` values of ``mode``
+    (``T1_HASH_OPS`` and ``T1_MODE_OPS``), the adds put on the ALU or the
+    IMAD pipe so that the busiest of the issue slots and the pipes is least
+    busy, in ms at ``sms`` SMs of ``mhz``."""
+    ops = add(T1_HASH_OPS, T1_MODE_OPS[mode])
+    adds, best = ops.pop("add"), None
+    for on_alu in range(adds + 1):
+        c = dict(ops, alu=ops.get("alu", 0) + on_alu, imad=adds - on_alu)
+        c["total"] = sum(c.values())
+        clk, by = clocks_per_item(c)
+        if best is None or clk < best[0]:
+            best = (clk, by, c)
+    clk, by, c = best
+    return dict(mode=mode, values=values, per_value=c, clocks_per_value_per_sm=clk, bound_by=by,
+                bound_ms=clk * values / (sms * mhz * 1e6) * 1e3)
+
+
+def card_clock(torch) -> tuple[int, float, float]:
+    """(SMs, SM clock now, its maximum in MHz) of GPU 0."""
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    sm_mhz, max_mhz = (float(v) for v in clocks.split(","))
+    return torch.cuda.get_device_properties(0).multi_processor_count, sm_mhz, max_mhz
+
+
+def disassemble(library: str) -> str:
+    """``cuobjdump -sass`` of a built library."""
+    from cuahn_vio_torch.ops.cuda import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -219,66 +316,51 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import chip_smoke
-    from cuahn_vio_torch.models.uahn import UAHN
     from cuahn_vio_torch.ops.cuda import build
     from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.ops.cuda import remap as remap_cuda
-    from cuahn_vio_torch.utils.checkpoint import flax_kernel_shape
+    from cuahn_vio_torch.utils import prng
 
     args.out = args.out or os.path.join(build.BUILD_DIR, "sass_bound.json")
     out_dir = os.path.dirname(os.path.abspath(args.out))
     os.makedirs(out_dir, exist_ok=True)
     gpu = chip_smoke.gpu_name_and_power()
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    sm_mhz, max_mhz = (float(v) for v in clocks.split(","))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms, sm_mhz, max_mhz = card_clock(torch)
     print(f"{gpu}; {sms} SMs; SM clock {sm_mhz:.0f} MHz now, {max_mhz:.0f} MHz max", flush=True)
 
-    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     result = {"gpu": gpu, "sms": sms, "sm_mhz": sm_mhz, "max_sm_mhz": max_mhz, "kernels": {},
               "t1_bound": {}}
     for mod in (prng_cuda, remap_cuda):
         path, _ = build.build(mod.SOURCE)
-        text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
+        text = disassemble(path)
         stem = os.path.splitext(os.path.basename(mod.SOURCE))[0]
         with open(os.path.join(out_dir, f"sass_{stem}.txt"), "w") as f:
             f.write(text)
         for kern, info in sass_pipes(text).items():
             result["kernels"][kern] = info
             print(f"  {kern}: {info['loops']} loop(s); outside loops {info['straight']}, on the "
-                  f"shortest path {info['path']}; loop bodies {info['loop']}", flush=True)
+                  f"shortest path {info['path']}; first loop's body "
+                  f"{(info['loop_bodies'] or [{}])[0]}", flush=True)
 
-    kernels = [math.prod(flax_kernel_shape(p.shape)) for n, p in UAHN().named_parameters()
-               if n.endswith(".weight")]
-    cases = dict(chip_smoke.PRNG_CASES, **{chip_smoke.PRNG_INIT_CASE: kernels})
-    modes = ("bits", "uniform", "bernoulli", "normal", "truncated_normal")
-    for case, counts in cases.items():
-        k, values = len(counts), sum(counts)
-        iters = math.ceil(math.log2(k)) if k > 1 else 0
-        for m, mode in enumerate(modes):
-            if case == chip_smoke.PRNG_INIT_CASE and mode != "truncated_normal":
-                continue
-            info = result["kernels"][f"threefry_kernel<{m}>"]
-            per_value = add(info["path"], info["loop"], iters)
-            clk, by = clocks_per_item(per_value)
-            ms = values * clk / (sms * max_mhz * 1e6) * 1e3
-            draw_clk, draw_by = clocks_per_item(info["path"])
-            draw_ms = values * draw_clk / (sms * max_mhz * 1e6) * 1e3
-            old_ops = values * (chip_smoke.THREEFRY_OPS + chip_smoke.PRNG_MODE_OPS[mode])
-            old_ms = old_ops / chip_smoke.FP32_OPS_PER_S * 1e3
-            result["t1_bound"][f"{case} {mode}"] = dict(
-                keys=k, values=values, search_iterations=iters, per_value=per_value,
-                clocks_per_value_per_sm=clk, bound_by=by, bound_ms=ms, draw_per_value=info["path"],
-                draw_clocks_per_value_per_sm=draw_clk, draw_bound_by=draw_by,
-                draw_bound_ms=draw_ms, old_bound_ms=old_ms)
-            print(f"  T1 {case} {mode}: {values} values, {per_value['total']:.0f} instructions a "
-                  f"value ({', '.join(f'{p} {n:.0f}' for p, n in sorted(per_value.items()) if p != 'total')}"
-                  f"), {clk:.4f} SM clocks a value ({by}); kernel bound {ms:.6f} ms at "
-                  f"{max_mhz:.0f} MHz; draw bound (no row search: {draw_clk:.4f} clocks, "
-                  f"{draw_by}) {draw_ms:.6f} ms; old (operations at 67 TFLOP/s) {old_ms:.6f} ms",
+    for case, counts in chip_smoke.t1_cases().items():
+        for mode in chip_smoke.t1_modes(case):
+            m = prng.MODE_NAMES.index(mode)
+            run = prng_cuda.values_per_thread(m, sum(counts))
+            row = t1_bound(result["kernels"][f"threefry_kernel<{m},{run}>"], len(counts),
+                           sum(counts), run, sms, max_mhz)
+            row["function"] = t1_function_bound(mode, sum(counts), sms, max_mhz)
+            result["t1_bound"][f"{case} {mode}"] = row
+            per_value = row["per_value"]
+            pipes = ", ".join(f"{p} {n:.2f}" for p, n in sorted(per_value.items())
+                              if p != "total")
+            print(f"  T1 {case} {mode}: {row['values']} values, runs of {row['run']}, "
+                  f"{per_value['total']:.2f} instructions a value ({pipes}), "
+                  f"{row['clocks_per_value_per_sm']:.4f} SM clocks a value ({row['bound_by']}); "
+                  f"kernel bound {row['bound_ms']:.6f} ms at {max_mhz:.0f} MHz; draw bound "
+                  f"(no row search: {row['draw_clocks_per_value_per_sm']:.4f} clocks, "
+                  f"{row['draw_bound_by']}) {row['draw_bound_ms']:.6f} ms; function bound "
+                  f"({row['function']['clocks_per_value_per_sm']:.4f} clocks, "
+                  f"{row['function']['bound_by']}) {row['function']['bound_ms']:.6f} ms",
                   flush=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

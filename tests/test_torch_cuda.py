@@ -18,8 +18,10 @@ from 1 to 165 frames, on frames off a 16-byte boundary and a ragged map;
 the threefry kernel
 T1 to its plain version bit for bit in bits, uniform and bernoulli and
 within 2 float32 ulp in normal, at the MC-dropout masks' and the sensor
-effects' shapes, with the masks of a network call on the card equal to
-the CPU's. The batched path,
+effects' shapes and at the layouts its runs of values make risky, its
+Bernoulli coin at the edges of p, a refused launch raising with no
+fallback, and the masks of a network call on the card equal to the
+CPU's. The batched path,
 the stepwise runner, the bf16 towers, the blurred
 render and the CLI run on the card too, and the sparse-vision front end
 and the UAHN's error map follow their CPU results (``chip_smoke.py``
@@ -80,12 +82,28 @@ def test_warp_kernel_matches_plain_version(gpu, dtype, b):
 
 # (rows, count of each row) of T1's cases: the four masks of one call and
 # of a 64-pair batch (widths 5120 and 256 alternating), the effects' two
-# noise frames, and ragged counts with an empty row
+# noise frames, ragged counts with an empty row, and the layouts a thread's
+# run of values makes risky (tests/test_torch_prng_runs.py): rows of 0, 1,
+# R - 1, R + 1 and 3R values for runs of R = 4, 8 and 16, runs over many
+# rows of 1 value, empty rows at both ends, 4,096 rows of 1,001 values,
+# and ragged rows at totals that take each run length
 T1_CASES = {
     "masks_1": [16 * 5120, 16 * 256] * 2,
     "masks_64": [16 * 5120, 16 * 256] * 128,
     "effects": [224 * 320] * 2,
     "ragged": [1, 0, 257, 65537],
+    "short_rows": [c for r in (4, 8, 16) for c in (0, 1, r - 1, r + 1, 3 * r)] + [2],
+    "ones": [1] * 37 + [0, 0] + [1] * 3,
+    "empty_ends": [0, 0, 17, 0, 33, 0, 0],
+    "rows_4096x1001": [1001] * 4096,
+    # a batch of 4 sequences' masks (runs of 4), totals at which a draw
+    # takes runs of 2, 4 and 8 (``values_per_thread``), and runs of 16 (8)
+    # over many rows of 0, 1, 3 and 5 values
+    "masks_4": [16 * 5120, 16 * 256] * 8,
+    "ragged_mid": [3, 0, 100_003, 1, 200_000, 7, 0, 150_001],
+    "ragged_large": [5, 700_001, 0, 1, 99_999],
+    "ragged_xl": [1_500_001, 3, 0, 99_998],
+    "many_short_rows": [1] * 5000 + [0, 3, 1, 5] * 1000 + [2_200_000],
 }
 
 
@@ -111,6 +129,45 @@ def test_threefry_kernel_matches_plain_version(gpu, case):
             assert ulps.max().item() <= 2 and torch.equal(torch.sign(out), torch.sign(ref))
         else:
             assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.05, 0.5, 0.95, 1.0 - 2.0**-24, 1.0, 2.0, 1e-45, -0.5],
+                         ids=["zero", "rate", "half", "keep", "below_one", "one", "two",
+                              "subnormal", "negative"])
+def test_threefry_bernoulli_threshold_matches_plain_version(gpu, p):
+    """The kernel's coin, (bits >> 9) < bernoulli_threshold(p), is the
+    plain version's float compare at the edges of p, one value a thread
+    and in long runs."""
+    from cuahn_vio_torch.utils import prng
+
+    for counts in ([16 * 5120, 16 * 256, 5, 0, 3000], [16 * 5120, 5, 0, 2_200_000]):
+        keys = prng.keys_tensor(prng.split(prng.prng_key(9), len(counts)), gpu)
+        out = prng.draw(keys, counts, prng.BERNOULLI, p)
+        assert torch.equal(out, prng.draw_plain(keys, counts, prng.BERNOULLI, p)), counts
+
+
+def test_threefry_launch_failure_raises_without_fallback(gpu, monkeypatch):
+    """A refused launch raises; a draw on CUDA keys never reaches the plain
+    version."""
+    from cuahn_vio_torch.ops.cuda import prng as prng_cuda
+    from cuahn_vio_torch.utils import prng
+
+    keys = prng.keys_tensor(prng.split(prng.prng_key(3), 2), gpu)
+    prng_cuda.build_kernel()
+
+    def refused(*args):
+        return 1  # cudaErrorInvalidValue
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA draw reached the plain version")
+
+    monkeypatch.setattr(prng, "draw_plain", plain)
+    lib = prng_cuda._library()
+    monkeypatch.setattr(lib, "threefry_draw", refused)
+    before = tcuda.launch_counts["threefry"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        prng.draw(keys, [7, 9], prng.BERNOULLI, 0.95)
+    assert tcuda.launch_counts["threefry"] == before
 
 
 def test_init_uahn_on_gpu_equals_the_cpu(gpu):

@@ -54,7 +54,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def variant_source(base: str, name: str, spec: str, out_dir: str) -> str:
     """A copy of ``base`` with each ``kConst=V`` of ``spec`` set, written to
-    ``out_dir/name/remap.cu``; raises on a constant it does not have."""
+    ``out_dir/name/`` under the base's file name; raises on a constant it
+    does not have."""
     with open(base) as f:
         text = f.read()
     for item in spec.split(","):
@@ -62,7 +63,7 @@ def variant_source(base: str, name: str, spec: str, out_dir: str) -> str:
         text, hits = re.subn(rf"(constexpr \w+ {const} = )[^;]+;", rf"\g<1>{value};", text)
         if hits != 1:
             raise ValueError(f"{base} has no single constexpr {const}")
-    path = os.path.join(out_dir, name, "remap.cu")
+    path = os.path.join(out_dir, name, os.path.basename(base))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(text)
