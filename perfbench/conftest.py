@@ -1,0 +1,10 @@
+"""pytest settings of the benchmark's own tests (``python3 -m pytest perfbench``)."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")

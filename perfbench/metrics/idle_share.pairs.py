@@ -1,0 +1,6 @@
+"""Per cent of the traced window in which no device activity ran."""
+from perfbench.lib.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
