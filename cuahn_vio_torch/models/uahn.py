@@ -22,6 +22,15 @@ part-1 block) and ``last_block_members``; every homography is detached
 before it warps, as the JAX model stops its gradient, so no gradient
 reaches a warp. No method depends on ``train()``/``eval()``.
 
+Under a profiler the call is labelled by stage (``utils/spans``):
+``vio.uahn.call`` around ``forward``, and inside it ``vio.uahn.prior``
+(the prior's DLT), ``vio.uahn.block1``-``block3`` (each refinement:
+warp, pool, tower, fc, DLT, compose), ``vio.uahn.masks`` (the MC-dropout
+masks, T1's one launch), ``vio.uahn.block4`` (block 4's warp and
+full-resolution tower), ``vio.uahn.heads`` (the 16-member heads and the
+ensemble statistics) and ``vio.uahn.transfer`` (the covariance transfer
+into the original frame). With no profiler a span costs a flag read.
+
 Parameter names match the flax tree (``block2.conv0.weight`` for flax's
 ``block2/conv0/kernel``), so ``utils.checkpoint.load_params`` fills it.
 MC-dropout masks come from JAX keys (``dropout_keys``, ``utils/prng``):
@@ -49,6 +58,7 @@ from cuahn_vio_torch.ops.homography import (
 )
 from cuahn_vio_torch.ops.warp import homography_warp
 from cuahn_vio_torch.utils import prng
+from cuahn_vio_torch.utils.spans import span
 
 CONV_PLANES = (8, 16, 32, 64, 128, 256, 256)  # model_to_trace.py:88-89
 IMG_HEIGHT, IMG_WIDTH = 224, 320  # the virtual camera
@@ -57,6 +67,7 @@ LEAK = 0.1  # LeakyReLU slope, model_to_trace.py:12
 # bound on the scaled aleatoric log-variance: exp(11.5) ~ 1e5 px^2 already
 # means "no information", and an inf variance would poison the EKF solve
 LOGVAR_CLAMP = 11.5
+BLOCK_SPANS = ("vio.uahn.block1", "vio.uahn.block2", "vio.uahn.block3")  # of ``_refine``
 
 
 class ConvTower(nn.Module):
@@ -207,53 +218,65 @@ class UAHN(nn.Module):
             "corners", corner_points(img_height, img_width), persistent=False
         )
 
-    def _refine(self, tower, fc, img1, img2, h_uv, pool: int):
-        """One cascade block: warp img2 by the current H (none for block 1),
-        pool, predict a residual offset, DLT, right-compose.
+    def _refine(self, block: int, img1, img2, h_uv):
+        """Cascade block ``block`` (1-3): warp img2 by the current H (none
+        for block 1), average-pool by 8, 4 or 2, predict a residual offset,
+        DLT, right-compose.
 
         The incoming H is a constant to backprop (detached, the JAX model's
         ``stop_gradient``): each block learns to refine whatever estimate
         it is handed."""
-        if h_uv is not None:
-            h_uv = h_uv.detach()
-        img2_in = _as_float(img2) if h_uv is None else homography_warp(img2, h_uv)
-        pair = torch.stack([_as_float(img1), img2_in], dim=1)  # (B, 2, H, W)
-        x = tower(F.avg_pool2d(pair, pool, pool))
-        offset8 = fc(torch.flatten(x, 1))
-        corners = self.corners.expand(offset8.shape[0], 4, 2)
-        h_blk = dlt_solve(corners, corners + offset8.reshape(-1, 4, 2))
-        return h_blk if h_uv is None else h_uv @ h_blk
+        tower, fc = getattr(self, f"block{block}"), getattr(self, f"fc_block{block}")
+        pool = 2 ** (4 - block)
+        with span(BLOCK_SPANS[block - 1]):
+            if h_uv is not None:
+                h_uv = h_uv.detach()
+            img2_in = _as_float(img2) if h_uv is None else homography_warp(img2, h_uv)
+            pair = torch.stack([_as_float(img1), img2_in], dim=1)  # (B, 2, H, W)
+            x = tower(F.avg_pool2d(pair, pool, pool))
+            offset8 = fc(torch.flatten(x, 1))
+            corners = self.corners.expand(offset8.shape[0], 4, 2)
+            h_blk = dlt_solve(corners, corners + offset8.reshape(-1, 4, 2))
+            return h_blk if h_uv is None else h_uv @ h_blk
+
+    def _prior_h(self, prior_offset: Optional[torch.Tensor]) -> torch.Tensor:
+        """The prior's homography (B, 3, 3): DLT of the corners moved by the
+        propagated 4-point offset (B, 4, 2), pixels."""
+        if prior_offset is None:
+            raise ValueError("use_prior needs prior_offset (B, 4, 2)")
+        with span("vio.uahn.prior"):
+            corners = self.corners.expand(prior_offset.shape[0], 4, 2)
+            return dlt_solve(corners, corners + prior_offset)
 
     def part1(self, img1, img2, prior_offset: Optional[torch.Tensor],
               use_prior: bool) -> torch.Tensor:
         """Blocks 1-3 -> part-1 homography (B, 3, 3)."""
         if use_prior:
-            if prior_offset is None:
-                raise ValueError("use_prior needs prior_offset (B, 4, 2)")
-            corners = self.corners.expand(prior_offset.shape[0], 4, 2)
-            h_uv = dlt_solve(corners, corners + prior_offset)
+            h_uv = self._prior_h(prior_offset)
             if self.blocks_to_run == 1:
                 return h_uv
         else:
-            h_uv = self._refine(self.block1, self.fc_block1, img1, img2, None, 8)
+            h_uv = self._refine(1, img1, img2, None)
         if not use_prior or self.blocks_to_run == 3:
-            h_uv = self._refine(self.block2, self.fc_block2, img1, img2, h_uv, 4)
+            h_uv = self._refine(2, img1, img2, h_uv)
         if not use_prior or self.blocks_to_run >= 2:
-            h_uv = self._refine(self.block3, self.fc_block3, img1, img2, h_uv, 2)
+            h_uv = self._refine(3, img1, img2, h_uv)
         return h_uv
 
-    def last_block_members(self, img1, img2, h_uv, dropout_keys=None):
-        """Block 4 tower (once) + the 16 MC-dropout members on img2 warped
-        by ``h_uv``, a constant to backprop (detached, as every caller of
-        the JAX method stops its gradient). ``dropout_keys``: one key per
-        batch row (``draw_masks``); the masks are drawn before the tower,
-        since they do not depend on the frames.
-        Returns (means (B, 16, 4, 2), logvars (B, 16, 4, 2)) in the
-        warped-img2 frame."""
-        masks = draw_masks(dropout_keys, self.dropout_rate,
-                           self.head_mean.fc0.in_features, img1.device, img1.shape[0])
-        pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv.detach())], dim=1)
-        feat = torch.flatten(self.block4(pair), 1)  # (B, fc_input)
+    def _tower4(self, img1, img2, h_uv, dropout_keys):
+        """The call's masks (``draw_masks``; drawn first, since they do not
+        depend on the frames) and block 4's tower on img2 warped by
+        ``h_uv``: (features (B, fc_input), masks)."""
+        with span("vio.uahn.masks"):
+            masks = draw_masks(dropout_keys, self.dropout_rate,
+                               self.head_mean.fc0.in_features, img1.device, img1.shape[0])
+        with span("vio.uahn.block4"):
+            pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv.detach())], dim=1)
+            return torch.flatten(self.block4(pair), 1), masks
+
+    def _members(self, feat, masks):
+        """The 16 MC-dropout members of the heads on block 4's features:
+        (means (B, 16, 4, 2), logvars (B, 16, 4, 2))."""
         b = feat.shape[0]
         mean_masks, logvar_masks = masks if masks is not None else (None, None)
         means = self.head_mean(feat, self.dropout_rate, mean_masks)
@@ -261,15 +284,28 @@ class UAHN(nn.Module):
         return (means.reshape(b, MC_DROPOUT_NUM, 4, 2),
                 logvars.reshape(b, MC_DROPOUT_NUM, 4, 2))
 
+    def last_block_members(self, img1, img2, h_uv, dropout_keys=None):
+        """Block 4 tower (once) + the 16 MC-dropout members on img2 warped
+        by ``h_uv``, a constant to backprop (detached, as every caller of
+        the JAX method stops its gradient). ``dropout_keys``: one key per
+        batch row (``draw_masks``).
+        Returns (means (B, 16, 4, 2), logvars (B, 16, 4, 2)) in the
+        warped-img2 frame."""
+        feat, masks = self._tower4(img1, img2, h_uv, dropout_keys)
+        with span("vio.uahn.heads"):
+            return self._members(feat, masks)
+
     def last_block(self, img1, img2, h_uv, dropout_keys=None):
         """Block 4 + ensemble statistics: (corner prediction (B, 4, 2),
         ensemble variance (B, 4, 2)), warped frame."""
-        means, logvars = self.last_block_members(img1, img2, h_uv, dropout_keys)
-        logvars = torch.clamp(logvars, -LOGVAR_CLAMP, LOGVAR_CLAMP)
-        mean_avg = means.mean(dim=1)
-        var_avg = torch.exp(logvars).mean(dim=1)
-        emp_var = torch.square(means - mean_avg[:, None]).mean(dim=1)
-        return self.corners + mean_avg, emp_var + var_avg
+        feat, masks = self._tower4(img1, img2, h_uv, dropout_keys)
+        with span("vio.uahn.heads"):
+            means, logvars = self._members(feat, masks)
+            logvars = torch.clamp(logvars, -LOGVAR_CLAMP, LOGVAR_CLAMP)
+            mean_avg = means.mean(dim=1)
+            var_avg = torch.exp(logvars).mean(dim=1)
+            emp_var = torch.square(means - mean_avg[:, None]).mean(dim=1)
+            return self.corners + mean_avg, emp_var + var_avg
 
     def _flow_of(self, h_uv: torch.Tensor) -> torch.Tensor:
         """(B, 8) corner flow, pixels, of homographies (B, 3, 3)."""
@@ -289,20 +325,17 @@ class UAHN(nn.Module):
         """
         flows = []
         if use_prior:
-            if prior_offset is None:
-                raise ValueError("use_prior needs prior_offset (B, 4, 2)")
-            corners = self.corners.expand(prior_offset.shape[0], 4, 2)
-            h_uv = dlt_solve(corners, corners + prior_offset)
+            h_uv = self._prior_h(prior_offset)
             if self.blocks_to_run == 1:
                 return self._flow_of(h_uv)[:, None], h_uv
         else:
-            h_uv = self._refine(self.block1, self.fc_block1, img1, img2, None, 8)
+            h_uv = self._refine(1, img1, img2, None)
             flows.append(self._flow_of(h_uv))
         if not use_prior or self.blocks_to_run == 3:
-            h_uv = self._refine(self.block2, self.fc_block2, img1, img2, h_uv, 4)
+            h_uv = self._refine(2, img1, img2, h_uv)
             flows.append(self._flow_of(h_uv))
         if not use_prior or self.blocks_to_run >= 2:
-            h_uv = self._refine(self.block3, self.fc_block3, img1, img2, h_uv, 2)
+            h_uv = self._refine(3, img1, img2, h_uv)
             flows.append(self._flow_of(h_uv))
         return torch.stack(flows, dim=1), h_uv
 
@@ -329,14 +362,15 @@ class UAHN(nn.Module):
             cov88 (B, 8, 8): block-diagonal measurement covariance, px².
             [err_map (B, H, W) float32, if requested.]
         """
-        flow8, cov88, h_part1, warped_4pt = self._flow_cov_h(
-            img1, img2, prior_offset, use_prior, dropout_keys)
-        if not return_error_map:
-            return flow8, cov88
-        corners = self.corners.expand(warped_4pt.shape[0], 4, 2)
-        h_total = h_part1 @ dlt_solve(corners, warped_4pt)
-        err_map = torch.abs(homography_warp(img2, h_total) - _as_float(img1)) * 255.0
-        return flow8, cov88, err_map
+        with span("vio.uahn.call"):
+            flow8, cov88, h_part1, warped_4pt = self._flow_cov_h(
+                img1, img2, prior_offset, use_prior, dropout_keys)
+            if not return_error_map:
+                return flow8, cov88
+            corners = self.corners.expand(warped_4pt.shape[0], 4, 2)
+            h_total = h_part1 @ dlt_solve(corners, warped_4pt)
+            err_map = torch.abs(homography_warp(img2, h_total) - _as_float(img1)) * 255.0
+            return flow8, cov88, err_map
 
     def flow_and_cov(self, img1: torch.Tensor, img2: torch.Tensor,
                      prior_offset: Optional[torch.Tensor] = None,
@@ -356,9 +390,10 @@ class UAHN(nn.Module):
         with torch.no_grad():
             h_part1 = self.part1(img1, img2, prior_offset, use_prior)
         warped_4pt, ens_var = self.last_block(img1, img2, h_part1, dropout_keys)
-        pts_orig, cov_4pt = transfer_mean_var(ens_var, h_part1, warped_4pt)
-        flow8 = (pts_orig - self.corners).reshape(-1, 8)
-        return flow8, block_diag_cov8(cov_4pt), h_part1, warped_4pt
+        with span("vio.uahn.transfer"):
+            pts_orig, cov_4pt = transfer_mean_var(ens_var, h_part1, warped_4pt)
+            flow8 = (pts_orig - self.corners).reshape(-1, 8)
+            return flow8, block_diag_cov8(cov_4pt), h_part1, warped_4pt
 
 
 # the std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)

@@ -15,9 +15,9 @@ The step is composed of the stages of ``make_vio_stages`` (propagation,
 network, update, finish), which the stepwise runner also times one by
 one. ``run_sequence`` is a Python loop over frame pairs. All per-frame
 tensors stay on the device; outputs are stacked once at the end. The
-stages carry ``record_function`` labels (vio.propagate, vio.network,
-vio.update) that a ``torch.profiler`` trace groups by
-(``profile_slice.py``).
+stages carry spans (``utils/spans``: vio.propagate, vio.network,
+vio.update; the network's own ``vio.uahn.*`` inside vio.network) that a
+``torch.profiler`` trace groups by (``profile_slice.py``).
 
 Batched (``run_sequence`` on (B, F+1, H, W) frames, the JAX package's
 ``jax.vmap`` of ``run_sequence``): B sequences in lockstep. The filter
@@ -52,7 +52,6 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 from torch.func import vmap
-from torch.profiler import record_function
 
 from cuahn_vio_torch.filter.propagate import propagate_window
 from cuahn_vio_torch.filter.state import (
@@ -68,6 +67,7 @@ from cuahn_vio_torch.filter.update import (
 )
 from cuahn_vio_torch.ops.quat import quat_to_rot
 from cuahn_vio_torch.utils import prng
+from cuahn_vio_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -173,7 +173,7 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
     run = _over_batch if batched else _single
 
     def prop_fn(state: FilterState, w_win, a_win, dt_win, n_used) -> FilterState:
-        with record_function("vio.propagate"):
+        with span("vio.propagate"):
             return run(
                 lambda s, w, a, dt: propagate_window(s, fparams, w, a, dt, n_used),
                 state, w_win, a_win, dt_win, out_dims=_state_dims(state),
@@ -183,7 +183,7 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
         return run(propagated_offset8, state)
 
     def net_fn(prior8, img_prev_u8, img_curr_u8, keys):
-        with record_function("vio.network"):
+        with span("vio.network"):
             img1 = img_prev_u8 if batched else img_prev_u8[None]
             img2 = img_curr_u8 if batched else img_curr_u8[None]
             if keys is not None and not batched:
@@ -198,7 +198,7 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
     def refine_prior_fn(state: FilterState, flow8, cov88) -> torch.Tensor:
         """Mean-only refinement of the offset prior for the next IEKF
         inference (never committed to the state)."""
-        with record_function("vio.update"):
+        with span("vio.update"):
             return run(
                 lambda s, m, c: propagated_offset8(hnet_update(
                     s, fparams, m, c, update_offset=True, cov_update=False,
@@ -210,7 +210,7 @@ def make_vio_stages(model: Optional[Any], fparams: FilterParams, cfg: VioConfig,
         """Innovation statistics, then the EKF update (offsets not updated,
         VioManager.cpp:261-263) once the frame is past the startup gate (a
         host bool, shared by a batch)."""
-        with record_function("vio.update"):
+        with span("vio.update"):
             inno, _, chi2, _, cov_meas = run(
                 lambda s, m, c: innovation_stats(s, fparams, m, c), state, flow8, cov88,
             )

@@ -26,8 +26,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from cuahn_vio_torch.utils.spans import span
 from cuahn_vio_torch.vision.detect import grid_detect
 
 DET_MIN = 1e-8  # a level's 2x2 normal equations are conditioned above this determinant
@@ -187,9 +187,9 @@ def track_sequence(frames: torch.Tensor, n: int, grid_y: int = 8, grid_x: int = 
     img2 = as_float(0)
     for f in range(1, n):
         img1, img2 = img2, as_float(f)
-        with record_function("track.klt"):
+        with span("track.klt"):
             pts2, ok = track_pyramidal(img1, img2, pts)
-        with record_function("track.detect"):
+        with span("track.detect"):
             fresh_pts, fresh_valid, _ = grid_detect(img2, grid_y=grid_y, grid_x=grid_x)
         # re-detect: refill dead slots from this frame's grid detection
         ok = ok & valid
