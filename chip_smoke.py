@@ -2302,19 +2302,40 @@ def warp_child(argv) -> None:
     """Phases 13 and 15's subprocess: ``python -m cuahn_vio_torch.cli``
     ARGV with the warp wrapper spied on (the batch and dtype of each
     launch; the launch itself and its count are the wrapper's); prints them
-    and the launch counts as the last line."""
+    and the launch counts as the last line. A network call replayed from
+    CUDA graphs (``models/uahn_graphs``) launches the warps its capture
+    recorded, as the launch counts count them; the stages' eager pass
+    before a capture launches what the replay that follows it does, and
+    is not counted."""
+    import torch
+
     from cuahn_vio_torch import cli
+    from cuahn_vio_torch.models import uahn_graphs
     from cuahn_vio_torch.ops.cuda import launch_counts
     from cuahn_vio_torch.ops.cuda import warp as cuda_warp
 
-    seen = []
+    seen, captured = [], []
     warp = cuda_warp.homography_warp_cuda
+    build, replay = uahn_graphs.StageGraphs.__init__, uahn_graphs.StageGraphs.replay
 
     def spy_warp(imgs, h_uv):
-        seen.append([imgs.shape[0], str(imgs.dtype).split(".")[-1]])
+        into = captured if torch.cuda.is_current_stream_capturing() else seen
+        into.append([imgs.shape[0], str(imgs.dtype).split(".")[-1]])
         return warp(imgs, h_uv)
 
+    def spy_build(graphs, stages, inputs):
+        n = len(seen)
+        build(graphs, stages, inputs)
+        del seen[n:]
+        graphs.spied_warps = captured[:]
+        captured.clear()
+
+    def spy_replay(graphs, inputs):
+        seen.extend(graphs.spied_warps)
+        return replay(graphs, inputs)
+
     cuda_warp.homography_warp_cuda = spy_warp
+    uahn_graphs.StageGraphs.__init__, uahn_graphs.StageGraphs.replay = spy_build, spy_replay
     cli.main(argv)
     print("warp_child " + json.dumps(dict(warps=seen, launch_counts=launch_counts)), flush=True)
 

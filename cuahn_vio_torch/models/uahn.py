@@ -30,6 +30,10 @@ masks, T1's one launch), ``vio.uahn.block4`` (block 4's warp and
 full-resolution tower), ``vio.uahn.heads`` (the 16-member heads and the
 ensemble statistics) and ``vio.uahn.transfer`` (the covariance transfer
 into the original frame). With no profiler a span costs a flag read.
+These stages are ``call_stages``: ``forward`` runs them in turn, or, on
+a CUDA device once a call's key recurs, replays them from one CUDA graph
+a stage (``models/uahn_graphs``), each replay inside its stage's span and
+all of them inside ``vio.uahn.replay``.
 
 Parameter names match the flax tree (``block2.conv0.weight`` for flax's
 ``block2/conv0/kernel``), so ``utils.checkpoint.load_params`` fills it.
@@ -50,6 +54,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cuahn_vio_torch.models.uahn_graphs import GraphCache
+from cuahn_vio_torch.ops.cuda import uahn_calls
 from cuahn_vio_torch.ops.homography import (
     block_diag_cov8,
     corner_points,
@@ -96,21 +102,13 @@ class ConvTower(nn.Module):
         return x.to(torch.float32)
 
 
-def draw_masks(dropout_keys, rate: float, n_fc: int, device,
-               batch: Optional[int] = None) -> Optional[tuple]:
-    """The MC-dropout keep-masks of one network call, drawn in one launch:
-    ``((mean Dropout_0, mean Dropout_1), (logvar Dropout_0, logvar
-    Dropout_1))``, each (B, 16, width) bool (width n_fc, then 256), the
-    masks of ``jax.random.bernoulli(site key, 1 - rate)``; None when
-    ``rate`` is 0 (nothing is drawn).
+def mask_keys_tensor(dropout_keys, device, batch: Optional[int] = None) -> torch.Tensor:
+    """A call's MC-dropout keys as the (B, 4, 2) int32 tensor of its rows'
+    mask keys (``prng.mask_keys``, in ``prng.MASK_SITES`` order).
 
-    ``dropout_keys``: the call's keys, one per batch row: a (B, 4, 2)
-    int32 tensor of the rows' mask keys (``prng.mask_keys``, in
-    ``prng.MASK_SITES`` order), or a (B, 2) uint32 numpy array of the
+    ``dropout_keys``: that tensor, or a (B, 2) uint32 numpy array of the
     rows' call keys (folded here, then copied to ``device``); ``batch``,
     when given, is the call's B, which the keys must match."""
-    if rate == 0.0:
-        return None
     if dropout_keys is None:
         raise ValueError("MC-dropout at a rate > 0 needs dropout_keys")
     if isinstance(dropout_keys, np.ndarray):
@@ -119,6 +117,22 @@ def draw_masks(dropout_keys, rate: float, n_fc: int, device,
             or batch not in (None, dropout_keys.shape[0])):
         raise ValueError(f"dropout_keys must be (B, 4, 2) for B = {batch}, got "
                          f"{tuple(dropout_keys.shape)}")
+    return dropout_keys
+
+
+def draw_masks(dropout_keys, rate: float, n_fc: int, device,
+               batch: Optional[int] = None) -> Optional[tuple]:
+    """The MC-dropout keep-masks of one network call, drawn in one launch:
+    ``((mean Dropout_0, mean Dropout_1), (logvar Dropout_0, logvar
+    Dropout_1))``, each (B, 16, width) bool (width n_fc, then 256), the
+    masks of ``jax.random.bernoulli(site key, 1 - rate)``; None when
+    ``rate`` is 0 (nothing is drawn).
+
+    ``dropout_keys``, ``device``, ``batch``: the call's keys, as
+    ``mask_keys_tensor`` takes them."""
+    if rate == 0.0:
+        return None
+    dropout_keys = mask_keys_tensor(dropout_keys, device, batch)
     b = dropout_keys.shape[0]
     widths = (n_fc, 256, n_fc, 256)
     counts = [MC_DROPOUT_NUM * w for w in widths] * b
@@ -217,6 +231,7 @@ class UAHN(nn.Module):
         self.register_buffer(
             "corners", corner_points(img_height, img_width), persistent=False
         )
+        self._graphs = GraphCache()  # forward's calls replayed as CUDA graphs
 
     def _refine(self, block: int, img1, img2, h_uv):
         """Cascade block ``block`` (1-3): warp img2 by the current H (none
@@ -248,31 +263,32 @@ class UAHN(nn.Module):
             corners = self.corners.expand(prior_offset.shape[0], 4, 2)
             return dlt_solve(corners, corners + prior_offset)
 
+    def _refinements(self, use_prior: bool) -> list:
+        """The blocks that refine part 1's first estimate (block 1's, or
+        the prior's): 2 and 3; in prior mode those that ``blocks_to_run``
+        keeps (3 keeps both, 2 keeps block 3, 1 neither)."""
+        return [b for b in (2, 3) if not use_prior or self.blocks_to_run >= 5 - b]
+
     def part1(self, img1, img2, prior_offset: Optional[torch.Tensor],
               use_prior: bool) -> torch.Tensor:
         """Blocks 1-3 -> part-1 homography (B, 3, 3)."""
-        if use_prior:
-            h_uv = self._prior_h(prior_offset)
-            if self.blocks_to_run == 1:
-                return h_uv
-        else:
-            h_uv = self._refine(1, img1, img2, None)
-        if not use_prior or self.blocks_to_run == 3:
-            h_uv = self._refine(2, img1, img2, h_uv)
-        if not use_prior or self.blocks_to_run >= 2:
-            h_uv = self._refine(3, img1, img2, h_uv)
+        h_uv = self._prior_h(prior_offset) if use_prior else self._refine(1, img1, img2, None)
+        for block in self._refinements(use_prior):
+            h_uv = self._refine(block, img1, img2, h_uv)
         return h_uv
 
-    def _tower4(self, img1, img2, h_uv, dropout_keys):
-        """The call's masks (``draw_masks``; drawn first, since they do not
-        depend on the frames) and block 4's tower on img2 warped by
-        ``h_uv``: (features (B, fc_input), masks)."""
+    def _masks(self, dropout_keys, img1):
+        """The call's MC-dropout masks (``draw_masks``; None at rate 0)."""
         with span("vio.uahn.masks"):
-            masks = draw_masks(dropout_keys, self.dropout_rate,
-                               self.head_mean.fc0.in_features, img1.device, img1.shape[0])
+            return draw_masks(dropout_keys, self.dropout_rate,
+                              self.head_mean.fc0.in_features, img1.device, img1.shape[0])
+
+    def _block4(self, img1, img2, h_uv):
+        """Block 4's tower on img2 warped by ``h_uv`` (a constant to
+        backprop): features (B, fc_input)."""
         with span("vio.uahn.block4"):
             pair = torch.stack([_as_float(img1), homography_warp(img2, h_uv.detach())], dim=1)
-            return torch.flatten(self.block4(pair), 1), masks
+            return torch.flatten(self.block4(pair), 1)
 
     def _members(self, feat, masks):
         """The 16 MC-dropout members of the heads on block 4's features:
@@ -291,14 +307,14 @@ class UAHN(nn.Module):
         batch row (``draw_masks``).
         Returns (means (B, 16, 4, 2), logvars (B, 16, 4, 2)) in the
         warped-img2 frame."""
-        feat, masks = self._tower4(img1, img2, h_uv, dropout_keys)
+        masks = self._masks(dropout_keys, img1)  # drawn first: they need no frame
+        feat = self._block4(img1, img2, h_uv)
         with span("vio.uahn.heads"):
             return self._members(feat, masks)
 
-    def last_block(self, img1, img2, h_uv, dropout_keys=None):
-        """Block 4 + ensemble statistics: (corner prediction (B, 4, 2),
-        ensemble variance (B, 4, 2)), warped frame."""
-        feat, masks = self._tower4(img1, img2, h_uv, dropout_keys)
+    def _statistics(self, feat, masks):
+        """The ensemble statistics of the members: (corner prediction (B,
+        4, 2), ensemble variance (B, 4, 2)), warped frame."""
         with span("vio.uahn.heads"):
             means, logvars = self._members(feat, masks)
             logvars = torch.clamp(logvars, -LOGVAR_CLAMP, LOGVAR_CLAMP)
@@ -306,6 +322,14 @@ class UAHN(nn.Module):
             var_avg = torch.exp(logvars).mean(dim=1)
             emp_var = torch.square(means - mean_avg[:, None]).mean(dim=1)
             return self.corners + mean_avg, emp_var + var_avg
+
+    def _transfer(self, h_part1, pred, var):
+        """Block 4's prediction and variance into the original img2 frame:
+        (flow8 (B, 8), cov88 (B, 8, 8))."""
+        with span("vio.uahn.transfer"):
+            pts_orig, cov_4pt = transfer_mean_var(var, h_part1, pred)
+            flow8 = (pts_orig - self.corners).reshape(-1, 8)
+            return flow8, block_diag_cov8(cov_4pt)
 
     def _flow_of(self, h_uv: torch.Tensor) -> torch.Tensor:
         """(B, 8) corner flow, pixels, of homographies (B, 3, 3)."""
@@ -321,23 +345,65 @@ class UAHN(nn.Module):
 
         Returns (flows (B, n_executed, 8), h_uv (B, 3, 3)). Supervising each
         stage's flow against the true flow trains the cascade as the
-        reference's progressive scheme does.
+        reference's progressive scheme does (prior mode with
+        ``blocks_to_run`` 1: the prior's flow alone).
         """
-        flows = []
         if use_prior:
-            h_uv = self._prior_h(prior_offset)
-            if self.blocks_to_run == 1:
-                return self._flow_of(h_uv)[:, None], h_uv
+            h_uv, flows = self._prior_h(prior_offset), []
         else:
             h_uv = self._refine(1, img1, img2, None)
+            flows = [self._flow_of(h_uv)]
+        for block in self._refinements(use_prior):
+            h_uv = self._refine(block, img1, img2, h_uv)
             flows.append(self._flow_of(h_uv))
-        if not use_prior or self.blocks_to_run == 3:
-            h_uv = self._refine(2, img1, img2, h_uv)
-            flows.append(self._flow_of(h_uv))
-        if not use_prior or self.blocks_to_run >= 2:
-            h_uv = self._refine(3, img1, img2, h_uv)
+        if not flows:
             flows.append(self._flow_of(h_uv))
         return torch.stack(flows, dim=1), h_uv
+
+    def call_stages(self, use_prior: bool) -> list:
+        """The stages of a network call, in order, as (span, step) pairs:
+        ``step(t)`` reads the call's tensors from ``t`` by name and returns
+        those it adds: ``h`` (the part-1 homography so far, computed
+        without autograd: the JAX model's ``stop_gradient``), ``masks``,
+        ``feat`` (block 4's features), ``pred`` and ``var`` (block 4's
+        corner prediction and ensemble variance, warped frame), ``flow8``
+        and ``cov88``. ``forward`` and ``flow_and_cov`` run them in turn
+        (``_run``); ``uahn_graphs`` captures one CUDA graph of each."""
+        no_grad = torch.no_grad()
+        if use_prior:
+            stages = [("vio.uahn.prior", no_grad(lambda t: {"h": self._prior_h(t["prior"])}))]
+        else:
+            stages = [(BLOCK_SPANS[0], no_grad(
+                lambda t: {"h": self._refine(1, t["img1"], t["img2"], None)}))]
+        for block in self._refinements(use_prior):
+            stages.append((BLOCK_SPANS[block - 1], no_grad(
+                lambda t, block=block: {"h": self._refine(block, t["img1"], t["img2"], t["h"])})))
+        return stages + [
+            ("vio.uahn.masks", lambda t: {"masks": self._masks(t.get("keys"), t["img1"])}),
+            ("vio.uahn.block4", lambda t: {"feat": self._block4(t["img1"], t["img2"], t["h"])}),
+            ("vio.uahn.heads",
+             lambda t: dict(zip(("pred", "var"), self._statistics(t["feat"], t["masks"])))),
+            ("vio.uahn.transfer",
+             lambda t: dict(zip(("flow8", "cov88"), self._transfer(t["h"], t["pred"], t["var"])))),
+        ]
+
+    def _call_inputs(self, img1, img2, prior_offset, use_prior: bool, dropout_keys) -> dict:
+        """A call's input tensors by name, as its stages read them:
+        ``img1``, ``img2``, ``prior`` in prior mode, and ``keys``
+        (``mask_keys_tensor``) at a dropout rate above 0."""
+        t = {"img1": img1, "img2": img2}
+        if use_prior:
+            t["prior"] = prior_offset
+        if self.dropout_rate != 0.0:
+            t["keys"] = mask_keys_tensor(dropout_keys, img1.device, img1.shape[0])
+        return t
+
+    def _run(self, t: dict, use_prior: bool) -> dict:
+        """The call's stages run in turn on its inputs ``t``; returns ``t``
+        with every stage's outputs."""
+        for _, step in self.call_stages(use_prior):
+            t.update(step(t))
+        return t
 
     @torch.no_grad()
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
@@ -347,13 +413,19 @@ class UAHN(nn.Module):
                 return_error_map: bool = False):
         """Full model (combined_stu_model.forward), without autograd.
 
+        On a CUDA device, a call whose shapes, mode and weights recur is
+        replayed from CUDA graphs, one a stage, from its key's second call
+        on (``models/uahn_graphs``); the outputs are the eager call's, bit
+        for bit, and new tensors each call. A call with the error map runs
+        eagerly.
+
         Args:
             img1, img2: (B, H, W) uint8 frames or float32 in [0, 1].
             prior_offset: (B, 4, 2) propagated 4-point offset, pixels.
             use_prior: select the prior cascade.
             dropout_keys: the MC-dropout keys, one per batch row: (B, 4,
                 2) int32 mask keys on the frames' device, or (B, 2) uint32
-                numpy call keys (``draw_masks``); unused at rate 0.
+                numpy call keys (``mask_keys_tensor``); unused at rate 0.
             return_error_map: also return the photometric error map
                 |warp(img2, H_total) - img1| * 255, H_total = H_part1 @
                 DLT(corners -> block 4's corner prediction).
@@ -363,37 +435,35 @@ class UAHN(nn.Module):
             [err_map (B, H, W) float32, if requested.]
         """
         with span("vio.uahn.call"):
-            flow8, cov88, h_part1, warped_4pt = self._flow_cov_h(
-                img1, img2, prior_offset, use_prior, dropout_keys)
+            t = self._call_inputs(img1, img2, prior_offset, use_prior, dropout_keys)
+            key = None if return_error_map else self._graphs.key(self, t, use_prior)
+            graphs = (None if key is None
+                      else self._graphs.lookup(key, lambda: self.call_stages(use_prior), t))
+            if graphs is not None:
+                uahn_calls["replayed"] += 1
+                return graphs.replay(t)
+            uahn_calls["eager"] += 1
+            t = self._run(t, use_prior)
             if not return_error_map:
-                return flow8, cov88
-            corners = self.corners.expand(warped_4pt.shape[0], 4, 2)
-            h_total = h_part1 @ dlt_solve(corners, warped_4pt)
+                return t["flow8"], t["cov88"]
+            corners = self.corners.expand(t["pred"].shape[0], 4, 2)
+            h_total = t["h"] @ dlt_solve(corners, t["pred"])
             err_map = torch.abs(homography_warp(img2, h_total) - _as_float(img1)) * 255.0
-            return flow8, cov88, err_map
+            return t["flow8"], t["cov88"], err_map
 
     def flow_and_cov(self, img1: torch.Tensor, img2: torch.Tensor,
                      prior_offset: Optional[torch.Tensor] = None,
                      use_prior: bool = False,
                      dropout_keys=None):
         """``forward`` with autograd on, the filter-in-the-loop trainer's
-        call: gradients reach block 4's tower and heads through the
-        ensemble statistics, ``transfer_mean_var`` and ``block_diag_cov8``.
-        The part-1 homography is a constant to backprop (computed without
-        autograd, the JAX model's ``stop_gradient``), so blocks 1-3 and the
-        prior get none."""
-        return self._flow_cov_h(img1, img2, prior_offset, use_prior, dropout_keys)[:2]
-
-    def _flow_cov_h(self, img1, img2, prior_offset, use_prior, dropout_keys):
-        """(flow8, cov88, the part-1 homography, block 4's corner
-        prediction in the warped frame)."""
-        with torch.no_grad():
-            h_part1 = self.part1(img1, img2, prior_offset, use_prior)
-        warped_4pt, ens_var = self.last_block(img1, img2, h_part1, dropout_keys)
-        with span("vio.uahn.transfer"):
-            pts_orig, cov_4pt = transfer_mean_var(ens_var, h_part1, warped_4pt)
-            flow8 = (pts_orig - self.corners).reshape(-1, 8)
-            return flow8, block_diag_cov8(cov_4pt), h_part1, warped_4pt
+        call (always eager): gradients reach block 4's tower and heads
+        through the ensemble statistics, ``transfer_mean_var`` and
+        ``block_diag_cov8``. The part-1 homography is a constant to
+        backprop (computed without autograd, the JAX model's
+        ``stop_gradient``), so blocks 1-3 and the prior get none."""
+        t = self._run(self._call_inputs(img1, img2, prior_offset, use_prior, dropout_keys),
+                      use_prior)
+        return t["flow8"], t["cov88"]
 
 
 # the std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)

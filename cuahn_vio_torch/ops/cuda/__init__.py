@@ -3,7 +3,10 @@
 Each kernel's wrapper adds one to ``launch_counts[name]`` where it
 launches the kernel, and nowhere else, so a run can show that its main
 path went through the kernel. T1's launches are also counted by draw mode
-(``threefry_launches_by_mode``).
+(``threefry_launches_by_mode``). A UAHN call replayed from CUDA graphs
+(``models/uahn_graphs``) adds the launches its graphs captured, so the
+counters read the same whether a call ran eagerly or was replayed;
+``uahn_calls`` counts how each no-grad UAHN call ran.
 """
 
 launch_counts = {
@@ -18,8 +21,16 @@ threefry_launches_by_mode = {  # T1's launches, by the mode of utils/prng.MODE_N
     "bits": 0, "uniform": 0, "bernoulli": 0, "normal": 0, "truncated_normal": 0,
 }
 
+LAUNCH_COUNTERS = (launch_counts, threefry_launches_by_mode)
+
+uahn_calls = {  # UAHN.forward's calls, by how each ran
+    "eager": 0,  # op by op: on the CPU, with the error map, a key's first call
+    "captured": 0,  # captured into one CUDA graph a stage (and then replayed)
+    "replayed": 0,  # replayed from its stages' graphs (the captured call too)
+}
+
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, threefry_launches_by_mode):
+    for counts in (*LAUNCH_COUNTERS, uahn_calls):
         for name in counts:
             counts[name] = 0

@@ -67,11 +67,13 @@ def values_per_thread(mode: int, total: int) -> int:
     return _library().threefry_values_per_thread(mode, total)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _row_offsets(counts: tuple, device: str) -> torch.Tensor:
     """(K + 1,) int64 start of each row on ``device``, and the total last;
     made once for each layout of rows (the kernel reads it from device
-    memory, as it reads the keys)."""
+    memory, as it reads the keys) and kept for the process: a CUDA graph
+    that captured a draw (``models/uahn_graphs``) reads it at every
+    replay. A program draws a few layouts, one a call site and shape."""
     return torch.tensor([0, *np.cumsum(counts)], dtype=torch.int64, device=device)
 
 
