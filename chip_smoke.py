@@ -8,7 +8,8 @@ Phases, each printed on its own line with its seconds:
 1. build the kernels with nvcc for sm_90a, one nvcc per source, started
    together (``cuahn_vio_torch/ops/cuda/warp.cu``: the warp B1/B2, the
    row-band warp B3 and the flat sampler B4; ``remap.cu``: the
-   undistortion remap C1; ``prng.cu``: the threefry kernel T1), and print
+   undistortion remap C1; ``prng.cu``: the threefry kernel T1; ``conv.cu``:
+   V1, the towers' low-channel convolutions), and print
    each kernel's registers, shared memory and spill bytes (``-Xptxas
    -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
@@ -36,7 +37,10 @@ Phases, each printed on its own line with its seconds:
    165 frames, each map's tiles counted by path by the kernel itself
    (shared ring or global taps) and held to ``ops/remap.tile_boxes``: every
    fisheye and radtan tile on the shared ring, at least one edge-map tile
-   on global taps;
+   on global taps; V1 at its three layers (``LOWC_LAYERS``, the v10
+   weights) at B = 64, 8 and 1 and at ragged sizes, each output within
+   ``ops/cuda/conv.rounding_bound`` of its plain version (the same float32
+   sums in the same order, one rounding a term against two);
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
@@ -50,7 +54,10 @@ Phases, each printed on its own line with its seconds:
    raw 640x480 frames on the fisheye map, beside ``grid_sample`` on the
    same frames (as float) and coordinates and its byte bound, and with a
    cold L2 (each call after a read of L2_FLUSH_BYTES, in one graph, less
-   the reads alone);
+   the reads alone); V1 at its three layers at B = 64 beside their FLOP
+   bound, its plain version, and cuDNN's best algorithm for the
+   convolution with its bias (``library_ms``: benchmark mode over every
+   engine, NCHW and NHWC) and the LeakyReLU pass that follows it;
 3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
    ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
    the card against JAX's bits, uniform, bernoulli and randint (over
@@ -77,7 +84,8 @@ Phases, each printed on its own line with its seconds:
    port's ``make_sequence``, run through ``run_offline`` with the shipped
    v10 weights and 16-member MC dropout (p = 0.05, the JAX package's masks
    at seed 0: one T1 launch a network call); the warp launch count must
-   be 3 x steps x IEKF iterations, T1's steps x IEKF iterations, every
+   be 3 x steps x IEKF iterations, T1's steps x IEKF iterations, V1's 3 x
+   steps x IEKF iterations (block 3's conv0, block 4's conv0 and conv1), every
    pose finite and the ATE under the bar below;
 5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
    with ``make_sequence`` on the card, and one motion-blurred one
@@ -226,10 +234,11 @@ Phases, each printed on its own line with its seconds:
    (``eval_flow_rate``). 15b, the verbs as subprocesses of ``python -m
    cuahn_vio_torch.cli`` with their warp launches recorded, side by side
    but for ``track-features``, which runs alone: ``eval-flow
-   --prior gt`` over every pair (3 float32 warps a batch of at most 16,
-   nothing else; the corner-error RMSE under FLOW_RMSE_BARS_PX) and
-   ``--prior none --limit DIAG_NONE_LIMIT`` (block 1 runs, 3 warps a
-   batch); ``inspect-frame`` (exactly 4 float32 warps at B = 1; the PNG
+   --prior gt`` over every pair (3 float32 warps, one T1 draw and 3 V1
+   launches a batch of at most 16, nothing else; the corner-error RMSE
+   under FLOW_RMSE_BARS_PX) and ``--prior none --limit DIAG_NONE_LIMIT``
+   (block 1 runs, 3 warps a batch); ``inspect-frame`` (exactly 4 float32
+   warps at B = 1, one T1 draw and 3 V1 launches; the PNG
    224 x 960, the mean error finite); ``track-features`` (no kernel
    launch, 80 slots a frame, ids non-decreasing; ms/frame and survivors
    beside the JAX package's); ``calibrate-covariance`` and
@@ -1145,6 +1154,101 @@ def time_kernel(torch, dev):
             for kernel, dtype, b, iters in cases}
 
 
+# V1's layers (``ops/cuda/conv.SHAPES``) as the towers run them at 224x320:
+# (label, tower, layer, input height, input width)
+LOWC_LAYERS = (("block4.conv0", "block4", 0, H, W), ("block4.conv1", "block4", 1, H, W),
+               ("block3.conv0", "block3", 0, H // 2, W // 2))
+LOWC_BATCHES = (64, 8, 1)  # close-loops, run-vio-batch, run-vio
+# ragged parity inputs (B, H, W): no multiple of a tile, smaller than one,
+# odd under the stride
+LOWC_RAGGED = ((3, 37, 53), (2, 5, 3), (2, 9, 11))
+
+
+def lowc_conv_layers(torch, dev) -> list:
+    """(label, conv layer with the v10 weights, input H, input W) of V1's
+    three layers."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    model = build_uahn(load_params(WEIGHTS), device=dev)
+    return [(label, getattr(getattr(model, tower), f"conv{i}"), h, w)
+            for label, tower, i, h, w in LOWC_LAYERS]
+
+
+def check_lowc_conv(torch, dev) -> dict:
+    """Phase 2, V1: against its plain version on the card at each layer's
+    shape at B = 64, 8 and 1 and on the ragged inputs; each output within
+    ``conv.rounding_bound``. Returns {label: (max abs error, largest share
+    of the bound)}."""
+    from cuahn_vio_torch.ops.cuda.conv import lowc_conv_cuda, lowc_conv_plain, rounding_bound
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    found = {}
+    for label, conv, h, w in lowc_conv_layers(torch, dev):
+        worst_err, worst_share = 0.0, 0.0
+        for b, hh, ww in [(b, h, w) for b in LOWC_BATCHES] + list(LOWC_RAGGED):
+            x = torch.rand((b, conv.in_channels, hh, ww), generator=gen, device=dev) * 2 - 0.5
+            with torch.no_grad():
+                got = lowc_conv_cuda(x, conv.weight, conv.bias, conv.stride[0])
+                want = lowc_conv_plain(x, conv.weight, conv.bias, conv.stride[0])
+                bound = rounding_bound(x, conv.weight, conv.bias, conv.stride[0])
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"V1 {label} at {(b, hh, ww)}: shape {tuple(got.shape)} "
+                                     f"against {tuple(want.shape)}, or not finite")
+            err = (got - want).abs()
+            share = float(torch.where(err == 0, 0.0, err / bound).max())
+            if share > 1.0:
+                raise AssertionError(f"V1 {label} at {(b, hh, ww)}: {float(err.max()):.3e} "
+                                     f"apart from its plain version, {share:.2f}x its bound")
+            worst_err, worst_share = max(worst_err, float(err.max())), max(worst_share, share)
+        found[label] = (worst_err, worst_share)
+    return found
+
+
+def time_lowc_conv(torch, dev) -> dict:
+    """Phase 3, V1: device times (CUDA-graph replays, in turns) at each
+    layer's B = 64 shape of V1, its plain version, and cuDNN's best
+    algorithm for the convolution with its bias (``library_ms``: benchmark
+    mode trying every engine, the faster of NCHW and NHWC; the port never
+    calls it), its LeakyReLU pass, and the FLOP bound. Returns {label:
+    {ms, plain_ms, library_ms, library_layout, leaky_ms, bound_ms}}."""
+    import torch.nn.functional as F
+
+    from cuahn_vio_torch.ops.cuda.conv import lowc_conv_cuda, lowc_conv_plain
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = {}
+    benchmark, limit = torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, 0
+    try:
+        for label, conv, h, w in lowc_conv_layers(torch, dev):
+            x = torch.rand((64, conv.in_channels, h, w), generator=gen, device=dev)
+            wt, bias, s, pad = conv.weight.detach(), conv.bias.detach(), conv.stride, conv.padding
+            x_nhwc = x.contiguous(memory_format=torch.channels_last)
+            w_nhwc = wt.contiguous(memory_format=torch.channels_last)
+            y = F.conv2d(x, wt, bias, s, pad)
+            flops = 2 * y.numel() * conv.in_channels * conv.kernel_size[0] ** 2
+            bytes_moved = 4 * (x.numel() + y.numel() + wt.numel() + bias.numel())
+            fns = {
+                "ms": lambda: lowc_conv_cuda(x, wt, bias, s[0]),
+                "plain_ms": lambda: lowc_conv_plain(x, wt, bias, s[0]),
+                "nchw": lambda: F.conv2d(x, wt, bias, s, pad),
+                "nhwc": lambda: F.conv2d(x_nhwc, w_nhwc, bias, s, pad),
+                "leaky_ms": lambda: F.leaky_relu(y, 0.1),
+            }
+            row, _ = timed(torch, fns, max(flops / F32_FLOPS_PER_S,
+                                           bytes_moved / HBM_BYTES_PER_S) * 1e3, iters=20)
+            layout = min(("nchw", "nhwc"), key=lambda k: row[k])
+            rows[label] = dict(ms=row["ms"], plain_ms=row["plain_ms"],
+                               library_ms=row[layout], library_layout=layout,
+                               leaky_ms=row["leaky_ms"], bound_ms=row["bound_ms"],
+                               gflop=flops / 1e9)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = benchmark, limit
+    return rows
+
+
 def sample_bound_ms(torch, tex, su, sv) -> tuple[float, int]:
     """(least ms, distinct texels read) of one flat-sampler call: 8 B of
     coordinates and 4 B of output a point, and each texel that an in-image
@@ -1973,11 +2077,12 @@ def build_kernels() -> dict:
     seconds}."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from cuahn_vio_torch.ops.cuda import conv as conv_cuda
     from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.ops.cuda import remap as remap_cuda
     from cuahn_vio_torch.ops.cuda import warp as warp_cuda
 
-    mods = (warp_cuda, remap_cuda, prng_cuda)
+    mods = (warp_cuda, remap_cuda, prng_cuda, conv_cuda)
     with ThreadPoolExecutor(len(mods)) as pool:
         seconds = list(pool.map(lambda m: m.build_kernel(), mods))
     return {os.path.relpath(m.SOURCE, REPO): s for m, s in zip(mods, seconds)}
@@ -2993,12 +3098,16 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     n_pairs = len(np.load(path("seq.npz"))["frames"]) - 1
     flow_batch = 16  # eval-flow's default --batch
 
-    def only_warps(seen, want, key, calls):  # exactly ``want`` warps and ``calls`` T1 draws
+    def only_warps(seen, want, key, calls):
+        """Exactly ``want`` warps, and ``calls`` network calls: a T1 draw and
+        three V1 launches each."""
         counts = seen["launch_counts"]
         if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
-                or counts["threefry"] != calls or sum(counts.values()) != len(want) + calls):
+                or counts["threefry"] != calls or counts["lowc_conv"] != 3 * calls
+                or sum(counts.values()) != len(want) + 4 * calls):
             raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
-                                 f"expected {want} and {calls} threefry launches")
+                                 f"expected {want}, {calls} threefry and {3 * calls} "
+                                 "lowc_conv launches")
         out["threefry_launches"] = out.get("threefry_launches", 0) + calls
 
     def refused():  # calibrate-state-covariance on the --cov-calib log: its stderr
@@ -3724,6 +3833,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from cuahn_vio_torch.ops.cuda import conv as conv_cuda
         from cuahn_vio_torch.ops.cuda import prng as prng_cuda
         from cuahn_vio_torch.ops.cuda import remap as remap_cuda
         from cuahn_vio_torch.ops.cuda import warp as warp_cuda
@@ -3755,8 +3865,9 @@ def main() -> int:
     ptxas = warp_cuda.ptxas_report()
     remap_ptxas = remap_cuda.ptxas_report()["remap_kernel"]
     prng_ptxas = prng_cuda.ptxas_report()
+    conv_ptxas = conv_cuda.ptxas_report()
     for kern, info in (sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]
-                       + sorted(prng_ptxas.items())):
+                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())):
         print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
@@ -3770,16 +3881,26 @@ def main() -> int:
     rowskip_err = check_rowskip(torch, dev)
     sample_errs = check_sample(torch, dev)
     remap_err, remap_paths = check_remap(torch, dev)
+    lowc_errs = check_lowc_conv(torch, dev)
     phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
           sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
           sampler_batch_shapes_max_abs_err=f"{sample_errs['batch']:.3e}",
-          sampler_max_abs_err=f"{sample_errs['all']:.3e}", remap_max_abs_err=remap_err)
+          sampler_max_abs_err=f"{sample_errs['all']:.3e}", remap_max_abs_err=remap_err,
+          lowc_conv_max_abs_err=f"{max(e for e, _ in lowc_errs.values()):.3e}",
+          lowc_conv_max_share_of_bound=f"{max(sh for _, sh in lowc_errs.values()):.4f}")
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)
     sample_time = time_sample(torch, dev)
     remap_time = time_remap(torch, dev)
+    lowc_time = time_lowc_conv(torch, dev)
+    for label, row in lowc_time.items():
+        print(f"  V1 {label} B=64: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['gflop']:.3f} GFLOP at 67 TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f} %), "
+              f"plain {row['plain_ms']:.3f} ms, cuDNN's best (library_ms, "
+              f"{row['library_layout']}) {row['library_ms']:.5f} ms + LeakyReLU "
+              f"{row['leaky_ms']:.5f} ms", flush=True)
     gpu = gpu_name_and_power()
     phase("timing", t0, gpu=f"'{gpu}'")
 
@@ -3811,6 +3932,7 @@ def main() -> int:
     t1_by_mode["4"] = launches["threefry_by_mode"]
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
           warp_launches=warp_launches, threefry_launches=t1_launches["4"],
+          lowc_conv_launches=launches[conv_cuda.KERNEL],
           ate_pos_m=f"{ate_pos:.5f}",
           ate_ori_deg=f"{ate_ori:.4f}", ate_bar_m=f"{ATE_BAR_M:.5f}")
     if warp_launches != 3 * steps * iekf:
@@ -3818,6 +3940,9 @@ def main() -> int:
             f"warp launched {warp_launches}x, expected 3 x {steps} x {iekf}"
         )
     expect_t1("slice", t1_launches["4"], steps * iekf)
+    if launches[conv_cuda.KERNEL] != 3 * steps * iekf:
+        raise AssertionError(f"V1 launched {launches[conv_cuda.KERNEL]}x, expected 3 x {steps} x "
+                             f"{iekf} (block 3's conv0, block 4's conv0 and conv1 a call)")
     if not ate_pos <= ATE_BAR_M:
         raise AssertionError(f"ATE {ate_pos:.5f} m above the bar {ATE_BAR_M:.5f} m")
 
@@ -4139,6 +4264,18 @@ def main() -> int:
                                        "16": verbs["batch_mesh_warp_launches"]}
     kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]
     kernels.append(prng_entry(t1_launches, t1_by_mode, prng_found, prng_ptxas))
+    kernels += [
+        dict(name=f"lowc_conv ({label}, B=64, close-loops)", route="cuda",
+             source="cuahn_vio_torch/ops/cuda/conv.cu",
+             replaces="none: cuDNN's conv2d, bias and LeakyReLU passes of the tower layer",
+             launches=launches[conv_cuda.KERNEL], max_abs_err=lowc_errs[label][0], ms=row["ms"],
+             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by="flops",
+             library_ms=row["library_ms"],
+             registers=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["registers"],
+             spill_stores=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["spill_stores"],
+             spill_loads=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["spill_loads"])
+        for (label, row), shape in zip(lowc_time.items(), ("2,8,7,1", "8,16,5,2", "2,16,7,1"))
+    ]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

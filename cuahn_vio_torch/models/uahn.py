@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cuahn_vio_torch.models.uahn_graphs import GraphCache
+from cuahn_vio_torch.ops.cuda import conv as conv_cuda
 from cuahn_vio_torch.ops.cuda import uahn_calls
 from cuahn_vio_torch.ops.homography import (
     block_diag_cov8,
@@ -81,7 +82,11 @@ class ConvTower(nn.Module):
 
     The layers run in ``compute_dtype``: the input and the (float32)
     weights are cast to it per call, and the output is cast back to
-    float32 for the fc layers (the JAX ``ConvTower``'s ``dtype``)."""
+    float32 for the fc layers (the JAX ``ConvTower``'s ``dtype``). On the
+    card, in float32 and with autograd off, a layer of V1's shapes (block
+    4's ``conv0`` and ``conv1``, block 3's ``conv0``) runs as one launch of
+    V1 with its bias and LeakyReLU (``ops/cuda/conv``); every other layer
+    and call as cuDNN's (or the CPU's) ``conv2d`` and a ``leaky_relu``."""
 
     def __init__(self, in_channels: int, specs: Sequence[tuple[int, int, int]],
                  compute_dtype: torch.dtype = torch.float32):
@@ -96,6 +101,9 @@ class ConvTower(nn.Module):
         dtype = self.compute_dtype
         x = x.to(dtype)
         for conv in self.children():
+            if conv_cuda.takes(x.device, dtype, conv):
+                x = conv_cuda.lowc_conv(x, conv.weight, conv.bias, conv.stride[0])
+                continue
             x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
                          conv.padding)
             x = F.leaky_relu(x, LEAK)

@@ -94,7 +94,7 @@ _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 _PLAIN = re.compile(r"_Z(\d+)")  # a function at file scope: _Z<length><name><args>
-_KERNEL = re.compile(r"([a-z]+_kernel)I([a-z])?((?:Li\d+E)*)(?:Lb([01])E)?")
+_KERNEL = re.compile(r"([a-z][a-z_]*_kernel)I([a-z])?((?:Li\d+E)*)(?:Lb([01])E)?")
 
 
 def kernel_name(mangled: str) -> str | None:
@@ -102,7 +102,8 @@ def kernel_name(mangled: str) -> str | None:
     Itanium type code: h uint8, f float), ``flat_kernel<h,8,1>`` for
     ``flat_kernel<uint8_t, 8, true>``, ``flat_kernel<f>`` for
     ``flat_kernel<float>``, ``threefry_kernel<2,16>`` for
-    ``threefry_kernel<2, 16>`` (int arguments alone); ``remap_kernel`` for
+    ``threefry_kernel<2, 16>`` (int arguments alone), ``lowc_conv_kernel<2,8,7,1>``
+    for ``lowc_conv_kernel<2, 8, 7, 1>``; ``remap_kernel`` for
     the plain (not templated) ``remap_kernel(...)``; None for any other
     function."""
     k = _KERNEL.search(mangled)

@@ -7,7 +7,8 @@ bit for bit. The cache's policy runs here with a stand-in for the capture
 that replays the stages eagerly.
 
 On the card (marked ``cuda``, skipped without one): a replay against the
-eager call of the same tree bit for bit, at the batches ``close-loops``,
+eager call of the same tree bit for bit (V1 on the path of both: 3 launches
+a call), at the batches ``close-loops``,
 ``run-vio``, ``run-vio-batch`` and ``eval-flow`` use; outputs that do not
 alias; a recapture after a parameter's storage is swapped; the launch
 counters; the spans under the profiler. On the GPU machine:
@@ -287,9 +288,12 @@ def test_replay_is_the_eager_call(gpu, b, use_prior, dtype):
         outs.append(model(img1, img2, prior if use_prior else None, use_prior=use_prior,
                           dropout_keys=keys))
     assert len(model._graphs.captured()) == 1
+    before = tcuda.launch_counts["lowc_conv"]
     for (img1, img2, prior, keys), out in zip(calls, outs):
         want = _eager(model, img1, img2, prior if use_prior else None, use_prior, keys)
         assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    # the eager calls ran block 3's conv0 and block 4's conv0 and conv1 on V1
+    assert tcuda.launch_counts["lowc_conv"] == before + 3 * len(calls)
     # successive replays return tensors of their own
     ptrs = {t.data_ptr() for out in outs for t in out}
     assert len(ptrs) == 2 * len(outs)
@@ -334,6 +338,7 @@ def test_launch_counters_move_alike(gpu):
         moved.append([{k: c[k] - b[k] for k in c} for c, b in zip(tcuda.LAUNCH_COUNTERS, before)])
     assert moved[0] == moved[1] == moved[2]
     assert moved[0][0]["homography_warp"] == 3 and moved[0][0]["threefry"] == 1
+    assert moved[0][0]["lowc_conv"] == 3  # V1: block 3's conv0, block 4's conv0 and conv1
     assert moved[0][1]["bernoulli"] == 1
 
 
