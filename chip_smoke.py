@@ -9,7 +9,8 @@ Phases, each printed on its own line with its seconds:
    together (``cuahn_vio_torch/ops/cuda/warp.cu``: the warp B1/B2, the
    row-band warp B3 and the flat sampler B4; ``remap.cu``: the
    undistortion remap C1; ``prng.cu``: the threefry kernel T1; ``conv.cu``:
-   V1, the towers' low-channel convolutions), and print
+   V1, the towers' low-channel convolutions; ``conv_gemm.cu``: V2, the
+   towers' other layers of blocks 2-4), and print
    each kernel's registers, shared memory and spill bytes (``-Xptxas
    -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
@@ -40,7 +41,11 @@ Phases, each printed on its own line with its seconds:
    on global taps; V1 at its three layers (``LOWC_LAYERS``, the v10
    weights) at B = 64, 8 and 1 and at ragged sizes, each output within
    ``ops/cuda/conv.rounding_bound`` of its plain version (the same float32
-   sums in the same order, one rounding a term against two);
+   sums in the same order, one rounding a term against two); V2 at its
+   eight layer shapes (``GEMM_LAYERS``, the v10 weights of each shape's
+   first layer) at B = 64, 16, 8, 1 and 13 and at ragged sizes, within the
+   same bound of its plain version (the same GEMM in the library's order),
+   and a pair's row of the B = 64 launch bit for bit its B = 1 launch;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
@@ -57,7 +62,8 @@ Phases, each printed on its own line with its seconds:
    the reads alone); V1 at its three layers at B = 64 beside their FLOP
    bound, its plain version, and cuDNN's best algorithm for the
    convolution with its bias (``library_ms``: benchmark mode over every
-   engine, NCHW and NHWC) and the LeakyReLU pass that follows it;
+   engine, NCHW and NHWC) and the LeakyReLU pass that follows it; V2 the
+   same way at its eight shapes at B = 64, 16 and 1;
 3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
    ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
    the card against JAX's bits, uniform, bernoulli and randint (over
@@ -85,7 +91,8 @@ Phases, each printed on its own line with its seconds:
    v10 weights and 16-member MC dropout (p = 0.05, the JAX package's masks
    at seed 0: one T1 launch a network call); the warp launch count must
    be 3 x steps x IEKF iterations, T1's steps x IEKF iterations, V1's 3 x
-   steps x IEKF iterations (block 3's conv0, block 4's conv0 and conv1), every
+   steps x IEKF iterations (block 3's conv0, block 4's conv0 and conv1),
+   V2's 14 x steps x IEKF iterations (the other layers of blocks 2-4), every
    pose finite and the ATE under the bar below;
 5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
    with ``make_sequence`` on the card, and one motion-blurred one
@@ -234,11 +241,12 @@ Phases, each printed on its own line with its seconds:
    (``eval_flow_rate``). 15b, the verbs as subprocesses of ``python -m
    cuahn_vio_torch.cli`` with their warp launches recorded, side by side
    but for ``track-features``, which runs alone: ``eval-flow
-   --prior gt`` over every pair (3 float32 warps, one T1 draw and 3 V1
-   launches a batch of at most 16, nothing else; the corner-error RMSE
+   --prior gt`` over every pair (3 float32 warps, one T1 draw, 3 V1 and 14
+   V2 launches a batch of at most 16, nothing else; the corner-error RMSE
    under FLOW_RMSE_BARS_PX) and ``--prior none --limit DIAG_NONE_LIMIT``
-   (block 1 runs, 3 warps a batch); ``inspect-frame`` (exactly 4 float32
-   warps at B = 1, one T1 draw and 3 V1 launches; the PNG
+   (block 1 runs, 3 warps a batch; V2 15 times, block 1's conv2 having
+   block 2's conv2's shape); ``inspect-frame`` (the full cascade: exactly
+   4 float32 warps at B = 1, one T1 draw, 3 V1 and 15 V2 launches; the PNG
    224 x 960, the mean error finite); ``track-features`` (no kernel
    launch, 80 slots a frame, ids non-decreasing; ms/frame and survivors
    beside the JAX package's); ``calibrate-covariance`` and
@@ -1249,6 +1257,119 @@ def time_lowc_conv(torch, dev) -> dict:
     return rows
 
 
+# V2's layer shapes (``ops/cuda/conv_gemm.SHAPES``), each as its first
+# layer in the towers at 224x320: (label, tower, layer, the tower's input
+# H and W)
+GEMM_LAYERS = (("block2.conv0", "block2", 0, H // 4, W // 4),
+               ("block2.conv1", "block2", 1, H // 4, W // 4),
+               ("block3.conv1", "block3", 1, H // 2, W // 2),
+               ("block4.conv2", "block4", 2, H, W),
+               ("block3.conv2", "block3", 2, H // 2, W // 2),
+               ("block3.conv3", "block3", 3, H // 2, W // 2),
+               ("block2.conv2", "block2", 2, H // 4, W // 4),
+               ("block2.conv3", "block2", 3, H // 4, W // 4))
+GEMM_BATCHES = (64, 16, 8, 1, 13)  # close-loops, eval-flow, run-vio-batch, run-vio, a ragged B
+GEMM_TIMED_BATCHES = (64, 16, 1)
+
+
+def gemm_conv_layers(torch, dev) -> list:
+    """(label, conv layer with the v10 weights, its input H, its input W)
+    of V2's eight shapes, the sizes from the layers before it."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.cuda.conv import out_size
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    model = build_uahn(load_params(WEIGHTS), device=dev)
+    out = []
+    for label, tower, i, h, w in GEMM_LAYERS:
+        layers = list(getattr(model, tower).children())
+        for layer in layers[:i]:
+            k, st = layer.kernel_size[0], layer.stride[0]
+            h, w = out_size(h, k, st), out_size(w, k, st)
+        out.append((label, layers[i], h, w))
+    return out
+
+
+def check_gemm_conv(torch, dev) -> dict:
+    """Phase 2, V2: against its plain version on the card at each shape's
+    tower size at B = 64, 16, 8, 1 and 13 and on LOWC_RAGGED's sizes; each
+    output within ``conv.rounding_bound``; rows 0 and 63 of the B = 64
+    launch the same bits as those pairs launched alone. Returns {label:
+    (max abs error, largest share of the bound)}."""
+    from cuahn_vio_torch.ops.cuda.conv_gemm import conv_gemm_cuda, conv_gemm_plain, rounding_bound
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    found = {}
+    for label, conv, h, w in gemm_conv_layers(torch, dev):
+        worst_err, worst_share = 0.0, 0.0
+        wt, bias, s = conv.weight.detach(), conv.bias.detach(), conv.stride[0]
+        for b, hh, ww in [(b, h, w) for b in GEMM_BATCHES] + list(LOWC_RAGGED):
+            x = torch.rand((b, conv.in_channels, hh, ww), generator=gen, device=dev) * 2 - 0.5
+            got = conv_gemm_cuda(x, wt, bias, s)
+            want = conv_gemm_plain(x, wt, bias, s)
+            bound = rounding_bound(x, wt, bias, s)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"V2 {label} at {(b, hh, ww)}: shape {tuple(got.shape)} "
+                                     f"against {tuple(want.shape)}, or not finite")
+            err = (got - want).abs()
+            share = float(torch.where(err == 0, 0.0, err / bound).max())
+            if share > 1.0:
+                raise AssertionError(f"V2 {label} at {(b, hh, ww)}: {float(err.max()):.3e} "
+                                     f"apart from its plain version, {share:.2f}x its bound")
+            if b == 64:
+                for i in (0, 63):
+                    if not conv_gemm_cuda(x[i:i + 1].contiguous(), wt, bias, s).equal(got[i:i + 1]):
+                        raise AssertionError(f"V2 {label}: pair {i} of 64 not the bits of B = 1")
+            worst_err, worst_share = max(worst_err, float(err.max())), max(worst_share, share)
+        found[label] = (worst_err, worst_share)
+    return found
+
+
+def time_gemm_conv(torch, dev) -> dict:
+    """Phase 3, V2: device times (CUDA-graph replays, in turns) at each
+    shape's tower size at B = 64, 16 and 1: V2, its plain version, cuDNN's
+    best algorithm for the convolution with its bias (``library_ms``, as
+    ``time_lowc_conv``'s), its LeakyReLU pass, and the FLOP bound. Returns
+    {(label, B): {ms, plain_ms, library_ms, library_layout, leaky_ms,
+    bound_ms, gflop}}."""
+    import torch.nn.functional as F
+
+    from cuahn_vio_torch.ops.cuda.conv_gemm import conv_gemm_cuda, conv_gemm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows = {}
+    benchmark, limit = torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, 0
+    try:
+        for label, conv, h, w in gemm_conv_layers(torch, dev):
+            for b in GEMM_TIMED_BATCHES:
+                x = torch.rand((b, conv.in_channels, h, w), generator=gen, device=dev)
+                wt, bias, s, pad = conv.weight.detach(), conv.bias.detach(), conv.stride, conv.padding
+                x_nhwc = x.contiguous(memory_format=torch.channels_last)
+                w_nhwc = wt.contiguous(memory_format=torch.channels_last)
+                y = F.conv2d(x, wt, bias, s, pad)
+                flops = 2 * y.numel() * conv.in_channels * conv.kernel_size[0] ** 2
+                bytes_moved = 4 * (x.numel() + y.numel() + wt.numel() + bias.numel())
+                fns = {
+                    "ms": lambda: conv_gemm_cuda(x, wt, bias, s[0]),
+                    "plain_ms": lambda: conv_gemm_plain(x, wt, bias, s[0]),
+                    "nchw": lambda: F.conv2d(x, wt, bias, s, pad),
+                    "nhwc": lambda: F.conv2d(x_nhwc, w_nhwc, bias, s, pad),
+                    "leaky_ms": lambda: F.leaky_relu(y, 0.1),
+                }
+                row, _ = timed(torch, fns, max(flops / F32_FLOPS_PER_S,
+                                               bytes_moved / HBM_BYTES_PER_S) * 1e3, iters=5)
+                layout = min(("nchw", "nhwc"), key=lambda k: row[k])
+                rows[(label, b)] = dict(ms=row["ms"], plain_ms=row["plain_ms"],
+                                        library_ms=row[layout], library_layout=layout,
+                                        leaky_ms=row["leaky_ms"], bound_ms=row["bound_ms"],
+                                        gflop=flops / 1e9)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = benchmark, limit
+    return rows
+
+
 def sample_bound_ms(torch, tex, su, sv) -> tuple[float, int]:
     """(least ms, distinct texels read) of one flat-sampler call: 8 B of
     coordinates and 4 B of output a point, and each texel that an in-image
@@ -2078,11 +2199,12 @@ def build_kernels() -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+    from cuahn_vio_torch.ops.cuda import conv_gemm
     from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.ops.cuda import remap as remap_cuda
     from cuahn_vio_torch.ops.cuda import warp as warp_cuda
 
-    mods = (warp_cuda, remap_cuda, prng_cuda, conv_cuda)
+    mods = (warp_cuda, remap_cuda, prng_cuda, conv_cuda, conv_gemm)
     with ThreadPoolExecutor(len(mods)) as pool:
         seconds = list(pool.map(lambda m: m.build_kernel(), mods))
     return {os.path.relpath(m.SOURCE, REPO): s for m, s in zip(mods, seconds)}
@@ -3098,16 +3220,17 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     n_pairs = len(np.load(path("seq.npz"))["frames"]) - 1
     flow_batch = 16  # eval-flow's default --batch
 
-    def only_warps(seen, want, key, calls):
-        """Exactly ``want`` warps, and ``calls`` network calls: a T1 draw and
-        three V1 launches each."""
+    def only_warps(seen, want, key, calls, gemm):
+        """Exactly ``want`` warps, and ``calls`` network calls: a T1 draw,
+        three V1 launches and ``gemm`` V2 launches each."""
         counts = seen["launch_counts"]
         if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
                 or counts["threefry"] != calls or counts["lowc_conv"] != 3 * calls
-                or sum(counts.values()) != len(want) + 4 * calls):
+                or counts["conv_gemm"] != gemm * calls
+                or sum(counts.values()) != len(want) + (4 + gemm) * calls):
             raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
-                                 f"expected {want}, {calls} threefry and {3 * calls} "
-                                 "lowc_conv launches")
+                                 f"expected {want}, {calls} threefry, {3 * calls} lowc_conv "
+                                 f"and {gemm * calls} conv_gemm launches")
         out["threefry_launches"] = out.get("threefry_launches", 0) + calls
 
     def refused():  # calibrate-state-covariance on the --cov-calib log: its stderr
@@ -3141,7 +3264,10 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         sizes = [flow_batch] * (pairs // flow_batch)
         if pairs % flow_batch:
             sizes.append(pairs % flow_batch)
-        only_warps(seen, [[b, "float32"] for b in sizes for _ in range(3)], key, len(sizes))
+        # V2 takes blocks 2-4's 14 layers, and block 1's conv2 (block 2's
+        # conv2's shape) where block 1 runs
+        only_warps(seen, [[b, "float32"] for b in sizes for _ in range(3)], key, len(sizes),
+                   14 if prior == "gt" else 15)
         rmse = float(re.search(r"corner error  px: rmse ([0-9.]+)", said).group(1))
         out[f"flow_rmse_px_{prior}"] = rmse
         out[f"flow_pairs_{prior}"] = pairs
@@ -3154,7 +3280,7 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         raise AssertionError(f"eval-flow --out: pred {dump['pred'].shape}")
 
     said, seen = said_by["inspect-frame"]
-    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame", 1)
+    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame", 1, 15)  # the full cascade
     out["inspect_warp_launches"] = len(seen["warps"])
     out["inspect_png_shape"] = list(read_pngs([path("inspect.png")])[0].shape)
     out["inspect_mean_err"] = float(said.rsplit("mean photometric err ", 1)[1].rstrip(")"))
@@ -3834,6 +3960,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+        from cuahn_vio_torch.ops.cuda import conv_gemm
         from cuahn_vio_torch.ops.cuda import prng as prng_cuda
         from cuahn_vio_torch.ops.cuda import remap as remap_cuda
         from cuahn_vio_torch.ops.cuda import warp as warp_cuda
@@ -3866,8 +3993,10 @@ def main() -> int:
     remap_ptxas = remap_cuda.ptxas_report()["remap_kernel"]
     prng_ptxas = prng_cuda.ptxas_report()
     conv_ptxas = conv_cuda.ptxas_report()
+    gemm_ptxas = conv_gemm.ptxas_report()
     for kern, info in (sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]
-                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())):
+                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())
+                       + sorted(gemm_ptxas.items())):
         print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
@@ -3882,13 +4011,16 @@ def main() -> int:
     sample_errs = check_sample(torch, dev)
     remap_err, remap_paths = check_remap(torch, dev)
     lowc_errs = check_lowc_conv(torch, dev)
+    gemm_errs = check_gemm_conv(torch, dev)
     phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
           sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
           sampler_batch_shapes_max_abs_err=f"{sample_errs['batch']:.3e}",
           sampler_max_abs_err=f"{sample_errs['all']:.3e}", remap_max_abs_err=remap_err,
           lowc_conv_max_abs_err=f"{max(e for e, _ in lowc_errs.values()):.3e}",
-          lowc_conv_max_share_of_bound=f"{max(sh for _, sh in lowc_errs.values()):.4f}")
+          lowc_conv_max_share_of_bound=f"{max(sh for _, sh in lowc_errs.values()):.4f}",
+          conv_gemm_max_abs_err=f"{max(e for e, _ in gemm_errs.values()):.3e}",
+          conv_gemm_max_share_of_bound=f"{max(sh for _, sh in gemm_errs.values()):.4f}")
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)
@@ -3899,6 +4031,13 @@ def main() -> int:
         print(f"  V1 {label} B=64: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
               f"({row['gflop']:.3f} GFLOP at 67 TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f} %), "
               f"plain {row['plain_ms']:.3f} ms, cuDNN's best (library_ms, "
+              f"{row['library_layout']}) {row['library_ms']:.5f} ms + LeakyReLU "
+              f"{row['leaky_ms']:.5f} ms", flush=True)
+    gemm_time = time_gemm_conv(torch, dev)
+    for (label, b), row in gemm_time.items():
+        print(f"  V2 {label} B={b}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['gflop']:.3f} GFLOP, {100 * row['bound_ms'] / row['ms']:.1f} %), "
+              f"plain {row['plain_ms']:.4f} ms, cuDNN's best (library_ms, "
               f"{row['library_layout']}) {row['library_ms']:.5f} ms + LeakyReLU "
               f"{row['leaky_ms']:.5f} ms", flush=True)
     gpu = gpu_name_and_power()
@@ -3933,6 +4072,7 @@ def main() -> int:
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
           warp_launches=warp_launches, threefry_launches=t1_launches["4"],
           lowc_conv_launches=launches[conv_cuda.KERNEL],
+          conv_gemm_launches=launches[conv_gemm.KERNEL],
           ate_pos_m=f"{ate_pos:.5f}",
           ate_ori_deg=f"{ate_ori:.4f}", ate_bar_m=f"{ATE_BAR_M:.5f}")
     if warp_launches != 3 * steps * iekf:
@@ -3943,6 +4083,9 @@ def main() -> int:
     if launches[conv_cuda.KERNEL] != 3 * steps * iekf:
         raise AssertionError(f"V1 launched {launches[conv_cuda.KERNEL]}x, expected 3 x {steps} x "
                              f"{iekf} (block 3's conv0, block 4's conv0 and conv1 a call)")
+    if launches[conv_gemm.KERNEL] != 14 * steps * iekf:
+        raise AssertionError(f"V2 launched {launches[conv_gemm.KERNEL]}x, expected 14 x {steps} "
+                             f"x {iekf} (the other layers of blocks 2-4 a call)")
     if not ate_pos <= ATE_BAR_M:
         raise AssertionError(f"ATE {ate_pos:.5f} m above the bar {ATE_BAR_M:.5f} m")
 
@@ -4275,6 +4418,22 @@ def main() -> int:
              spill_stores=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["spill_stores"],
              spill_loads=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["spill_loads"])
         for (label, row), shape in zip(lowc_time.items(), ("2,8,7,1", "8,16,5,2", "2,16,7,1"))
+    ]
+    # V2 at close-loops' B = 64 (its wide tiling, `<..., 0>`; the B = 16 and
+    # B = 1 rows are phase 3's lines)
+    gemm_shapes = {label: "{},{},{},{}".format(c.in_channels, c.out_channels, c.kernel_size[0],
+                                               c.stride[0])
+                   for label, c, _, _ in gemm_conv_layers(torch, dev)}
+    kernels += [
+        dict(name=f"conv_gemm ({label}, B=64, close-loops)", route="cuda",
+             source="cuahn_vio_torch/ops/cuda/conv_gemm.cu",
+             replaces="none: cuDNN's conv2d, bias and LeakyReLU passes of the tower layer",
+             launches=launches[conv_gemm.KERNEL], max_abs_err=gemm_errs[label][0], ms=row["ms"],
+             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by="flops",
+             library_ms=row["library_ms"], leaky_ms=row["leaky_ms"],
+             **{k: gemm_ptxas[f"gemm_conv_kernel<{gemm_shapes[label]},0>"][k]
+                for k in ("registers", "spill_stores", "spill_loads", "smem_bytes")})
+        for (label, b), row in gemm_time.items() if b == 64
     ]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

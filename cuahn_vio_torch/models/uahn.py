@@ -56,6 +56,7 @@ from torch import nn
 
 from cuahn_vio_torch.models.uahn_graphs import GraphCache
 from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+from cuahn_vio_torch.ops.cuda import conv_gemm
 from cuahn_vio_torch.ops.cuda import uahn_calls
 from cuahn_vio_torch.ops.homography import (
     block_diag_cov8,
@@ -85,8 +86,10 @@ class ConvTower(nn.Module):
     float32 for the fc layers (the JAX ``ConvTower``'s ``dtype``). On the
     card, in float32 and with autograd off, a layer of V1's shapes (block
     4's ``conv0`` and ``conv1``, block 3's ``conv0``) runs as one launch of
-    V1 with its bias and LeakyReLU (``ops/cuda/conv``); every other layer
-    and call as cuDNN's (or the CPU's) ``conv2d`` and a ``leaky_relu``."""
+    V1 with its bias and LeakyReLU (``ops/cuda/conv``), a layer of V2's
+    shapes (the other layers of blocks 2-4) as one launch of V2
+    (``ops/cuda/conv_gemm``); every other layer and call as cuDNN's (or the
+    CPU's) ``conv2d`` and a ``leaky_relu``."""
 
     def __init__(self, in_channels: int, specs: Sequence[tuple[int, int, int]],
                  compute_dtype: torch.dtype = torch.float32):
@@ -103,6 +106,9 @@ class ConvTower(nn.Module):
         for conv in self.children():
             if conv_cuda.takes(x.device, dtype, conv):
                 x = conv_cuda.lowc_conv(x, conv.weight, conv.bias, conv.stride[0])
+                continue
+            if conv_gemm.takes(x.device, dtype, conv):
+                x = conv_gemm.conv_gemm(x, conv.weight, conv.bias, conv.stride[0])
                 continue
             x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
                          conv.padding)

@@ -303,6 +303,8 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
     ("_Z15threefry_kernelILi2ELi16EEvPKjPKlPvilffffj", "threefry_kernel<2,16>"),
     ("_ZN12_GLOBAL__N_116lowc_conv_kernelILi8ELi16ELi5ELi2EEEvPKfS2_S2_Pfiiii",
      "lowc_conv_kernel<8,16,5,2>"),
+    ("_ZN12_GLOBAL__N_116gemm_conv_kernelILi256ELi256ELi3ELi2EEEvPKfS2_S2_Pfiiiii",
+     "gemm_conv_kernel<256,256,3,2>"),
     ("_Z13remap_frames_Pi", None),
 ])
 def test_kernel_name_keeps_every_template_argument(mangled, name):
