@@ -38,14 +38,14 @@ Phases, each printed on its own line with its seconds:
    165 frames, each map's tiles counted by path by the kernel itself
    (shared ring or global taps) and held to ``ops/remap.tile_boxes``: every
    fisheye and radtan tile on the shared ring, at least one edge-map tile
-   on global taps; V1 at its three layers (``LOWC_LAYERS``, the v10
-   weights) at B = 64, 8 and 1 and at ragged sizes, each output within
-   ``ops/cuda/conv.rounding_bound`` of its plain version (the same float32
-   sums in the same order, one rounding a term against two); V2 at its
-   eight layer shapes (``GEMM_LAYERS``, the v10 weights of each shape's
-   first layer) at B = 64, 16, 8, 1 and 13 and at ragged sizes, within the
-   same bound of its plain version (the same GEMM in the library's order),
-   and a pair's row of the B = 64 launch bit for bit its B = 1 launch;
+   on global taps; the towers' fused convolutions at each shape of
+   ``ops/cuda/conv.SHAPES`` (``CONV_LAYERS``, the v10 weights of each
+   shape's first layer: V1's three, V2's eight) at B = 64, 16, 8, 1 and 13
+   and at ragged sizes, each output within ``ops/cuda/conv.rounding_bound``
+   of the shape's plain version (V1's: the same float32 sums in the same
+   order, one rounding a term against two; V2's: the same GEMM in the
+   library's order), and a pair's row of the B = 64 launch bit for bit its
+   B = 1 launch;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
@@ -59,11 +59,11 @@ Phases, each printed on its own line with its seconds:
    raw 640x480 frames on the fisheye map, beside ``grid_sample`` on the
    same frames (as float) and coordinates and its byte bound, and with a
    cold L2 (each call after a read of L2_FLUSH_BYTES, in one graph, less
-   the reads alone); V1 at its three layers at B = 64 beside their FLOP
-   bound, its plain version, and cuDNN's best algorithm for the
-   convolution with its bias (``library_ms``: benchmark mode over every
-   engine, NCHW and NHWC) and the LeakyReLU pass that follows it; V2 the
-   same way at its eight shapes at B = 64, 16 and 1;
+   the reads alone); V1 at each of its shapes at B = 64 and V2 at B = 64,
+   16 and 1, beside their FLOP bound, the plain version, and cuDNN's best
+   algorithm for the convolution with its bias (``library_ms``: benchmark
+   mode over every engine, NCHW and NHWC) and the LeakyReLU pass that
+   follows it;
 3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
    ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
    the card against JAX's bits, uniform, bernoulli and randint (over
@@ -1162,188 +1162,114 @@ def time_kernel(torch, dev):
             for kernel, dtype, b, iters in cases}
 
 
-# V1's layers (``ops/cuda/conv.SHAPES``) as the towers run them at 224x320:
-# (label, tower, layer, input height, input width)
-LOWC_LAYERS = (("block4.conv0", "block4", 0, H, W), ("block4.conv1", "block4", 1, H, W),
-               ("block3.conv0", "block3", 0, H // 2, W // 2))
-LOWC_BATCHES = (64, 8, 1)  # close-loops, run-vio-batch, run-vio
+# the towers' input (H, W) at 224x320 frames
+TOWER_INPUT = {"block2": (H // 4, W // 4), "block3": (H // 2, W // 2), "block4": (H, W)}
+# each shape of ``ops/cuda/conv.SHAPES`` as its first layer in the towers:
+# (tower, layer); V1's three, then V2's eight
+CONV_LAYERS = (("block4", 0), ("block4", 1), ("block3", 0), ("block2", 0), ("block2", 1),
+               ("block3", 1), ("block4", 2), ("block3", 2), ("block3", 3), ("block2", 2),
+               ("block2", 3))
+CONV_BATCHES = (64, 16, 8, 1, 13)  # close-loops, eval-flow, run-vio-batch, run-vio, a ragged B
+# the batches phase 3 times, by kernel: V1 at close-loops' B = 64 alone,
+# which keeps the phase inside its time (its plain version is a slow
+# reference), V2 at B = 64, 16 and 1
+CONV_TIMED_BATCHES = {"V1": (64,), "V2": (64, 16, 1)}
 # ragged parity inputs (B, H, W): no multiple of a tile, smaller than one,
 # odd under the stride
-LOWC_RAGGED = ((3, 37, 53), (2, 5, 3), (2, 9, 11))
+CONV_RAGGED = ((3, 37, 53), (2, 5, 3), (2, 9, 11))
 
 
-def lowc_conv_layers(torch, dev) -> list:
-    """(label, conv layer with the v10 weights, input H, input W) of V1's
-    three layers."""
+def conv_layers(torch, dev) -> list:
+    """(label, kernel, conv layer with the v10 weights, its input H, its
+    input W) of each shape in ``conv.SHAPES``, the sizes from the layers
+    before it."""
     from cuahn_vio_torch.models.uahn import build_uahn
+    from cuahn_vio_torch.ops.cuda import conv
     from cuahn_vio_torch.utils.checkpoint import load_params
 
     model = build_uahn(load_params(WEIGHTS), device=dev)
-    return [(label, getattr(getattr(model, tower), f"conv{i}"), h, w)
-            for label, tower, i, h, w in LOWC_LAYERS]
-
-
-def check_lowc_conv(torch, dev) -> dict:
-    """Phase 2, V1: against its plain version on the card at each layer's
-    shape at B = 64, 8 and 1 and on the ragged inputs; each output within
-    ``conv.rounding_bound``. Returns {label: (max abs error, largest share
-    of the bound)}."""
-    from cuahn_vio_torch.ops.cuda.conv import lowc_conv_cuda, lowc_conv_plain, rounding_bound
-
-    gen = torch.Generator(device=dev).manual_seed(23)
-    found = {}
-    for label, conv, h, w in lowc_conv_layers(torch, dev):
-        worst_err, worst_share = 0.0, 0.0
-        for b, hh, ww in [(b, h, w) for b in LOWC_BATCHES] + list(LOWC_RAGGED):
-            x = torch.rand((b, conv.in_channels, hh, ww), generator=gen, device=dev) * 2 - 0.5
-            with torch.no_grad():
-                got = lowc_conv_cuda(x, conv.weight, conv.bias, conv.stride[0])
-                want = lowc_conv_plain(x, conv.weight, conv.bias, conv.stride[0])
-                bound = rounding_bound(x, conv.weight, conv.bias, conv.stride[0])
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"V1 {label} at {(b, hh, ww)}: shape {tuple(got.shape)} "
-                                     f"against {tuple(want.shape)}, or not finite")
-            err = (got - want).abs()
-            share = float(torch.where(err == 0, 0.0, err / bound).max())
-            if share > 1.0:
-                raise AssertionError(f"V1 {label} at {(b, hh, ww)}: {float(err.max()):.3e} "
-                                     f"apart from its plain version, {share:.2f}x its bound")
-            worst_err, worst_share = max(worst_err, float(err.max())), max(worst_share, share)
-        found[label] = (worst_err, worst_share)
-    return found
-
-
-def time_lowc_conv(torch, dev) -> dict:
-    """Phase 3, V1: device times (CUDA-graph replays, in turns) at each
-    layer's B = 64 shape of V1, its plain version, and cuDNN's best
-    algorithm for the convolution with its bias (``library_ms``: benchmark
-    mode trying every engine, the faster of NCHW and NHWC; the port never
-    calls it), its LeakyReLU pass, and the FLOP bound. Returns {label:
-    {ms, plain_ms, library_ms, library_layout, leaky_ms, bound_ms}}."""
-    import torch.nn.functional as F
-
-    from cuahn_vio_torch.ops.cuda.conv import lowc_conv_cuda, lowc_conv_plain
-
-    gen = torch.Generator(device=dev).manual_seed(24)
-    rows = {}
-    benchmark, limit = torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit
-    torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, 0
-    try:
-        for label, conv, h, w in lowc_conv_layers(torch, dev):
-            x = torch.rand((64, conv.in_channels, h, w), generator=gen, device=dev)
-            wt, bias, s, pad = conv.weight.detach(), conv.bias.detach(), conv.stride, conv.padding
-            x_nhwc = x.contiguous(memory_format=torch.channels_last)
-            w_nhwc = wt.contiguous(memory_format=torch.channels_last)
-            y = F.conv2d(x, wt, bias, s, pad)
-            flops = 2 * y.numel() * conv.in_channels * conv.kernel_size[0] ** 2
-            bytes_moved = 4 * (x.numel() + y.numel() + wt.numel() + bias.numel())
-            fns = {
-                "ms": lambda: lowc_conv_cuda(x, wt, bias, s[0]),
-                "plain_ms": lambda: lowc_conv_plain(x, wt, bias, s[0]),
-                "nchw": lambda: F.conv2d(x, wt, bias, s, pad),
-                "nhwc": lambda: F.conv2d(x_nhwc, w_nhwc, bias, s, pad),
-                "leaky_ms": lambda: F.leaky_relu(y, 0.1),
-            }
-            row, _ = timed(torch, fns, max(flops / F32_FLOPS_PER_S,
-                                           bytes_moved / HBM_BYTES_PER_S) * 1e3, iters=20)
-            layout = min(("nchw", "nhwc"), key=lambda k: row[k])
-            rows[label] = dict(ms=row["ms"], plain_ms=row["plain_ms"],
-                               library_ms=row[layout], library_layout=layout,
-                               leaky_ms=row["leaky_ms"], bound_ms=row["bound_ms"],
-                               gflop=flops / 1e9)
-    finally:
-        torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = benchmark, limit
-    return rows
-
-
-# V2's layer shapes (``ops/cuda/conv_gemm.SHAPES``), each as its first
-# layer in the towers at 224x320: (label, tower, layer, the tower's input
-# H and W)
-GEMM_LAYERS = (("block2.conv0", "block2", 0, H // 4, W // 4),
-               ("block2.conv1", "block2", 1, H // 4, W // 4),
-               ("block3.conv1", "block3", 1, H // 2, W // 2),
-               ("block4.conv2", "block4", 2, H, W),
-               ("block3.conv2", "block3", 2, H // 2, W // 2),
-               ("block3.conv3", "block3", 3, H // 2, W // 2),
-               ("block2.conv2", "block2", 2, H // 4, W // 4),
-               ("block2.conv3", "block2", 3, H // 4, W // 4))
-GEMM_BATCHES = (64, 16, 8, 1, 13)  # close-loops, eval-flow, run-vio-batch, run-vio, a ragged B
-GEMM_TIMED_BATCHES = (64, 16, 1)
-
-
-def gemm_conv_layers(torch, dev) -> list:
-    """(label, conv layer with the v10 weights, its input H, its input W)
-    of V2's eight shapes, the sizes from the layers before it."""
-    from cuahn_vio_torch.models.uahn import build_uahn
-    from cuahn_vio_torch.ops.cuda.conv import out_size
-    from cuahn_vio_torch.utils.checkpoint import load_params
-
-    model = build_uahn(load_params(WEIGHTS), device=dev)
-    out = []
-    for label, tower, i, h, w in GEMM_LAYERS:
+    out, shapes = [], []
+    for tower, i in CONV_LAYERS:
         layers = list(getattr(model, tower).children())
+        h, w = TOWER_INPUT[tower]
         for layer in layers[:i]:
             k, st = layer.kernel_size[0], layer.stride[0]
-            h, w = out_size(h, k, st), out_size(w, k, st)
-        out.append((label, layers[i], h, w))
+            h, w = conv.out_size(h, k, st), conv.out_size(w, k, st)
+        c = layers[i]
+        shapes.append((c.in_channels, c.out_channels, c.kernel_size[0], c.stride[0]))
+        out.append((f"{tower}.conv{i}", conv.SHAPES[shapes[-1]], c, h, w))
+    if sorted(shapes) != sorted(conv.SHAPES):
+        raise AssertionError(f"CONV_LAYERS' shapes {shapes} are not conv.SHAPES, each once")
     return out
 
 
-def check_gemm_conv(torch, dev) -> dict:
-    """Phase 2, V2: against its plain version on the card at each shape's
-    tower size at B = 64, 16, 8, 1 and 13 and on LOWC_RAGGED's sizes; each
-    output within ``conv.rounding_bound``; rows 0 and 63 of the B = 64
-    launch the same bits as those pairs launched alone. Returns {label:
-    (max abs error, largest share of the bound)}."""
-    from cuahn_vio_torch.ops.cuda.conv_gemm import conv_gemm_cuda, conv_gemm_plain, rounding_bound
+def check_conv(torch, dev) -> dict:
+    """Phase 2, V1 and V2: each kernel against its plain version on the card
+    at each of its shapes' tower size at B = 64, 16, 8, 1 and 13 and on
+    CONV_RAGGED's sizes; each output within ``conv.rounding_bound``; rows 0
+    and 63 of the B = 64 launch the same bits as those pairs launched
+    alone. Returns {label: (kernel, max abs error, largest share of the
+    bound)}."""
+    from cuahn_vio_torch.ops.cuda.conv import conv_leaky_cuda, rounding_bound
 
     gen = torch.Generator(device=dev).manual_seed(25)
     found = {}
-    for label, conv, h, w in gemm_conv_layers(torch, dev):
+    for label, kernel, conv, h, w in conv_layers(torch, dev):
         worst_err, worst_share = 0.0, 0.0
         wt, bias, s = conv.weight.detach(), conv.bias.detach(), conv.stride[0]
-        for b, hh, ww in [(b, h, w) for b in GEMM_BATCHES] + list(LOWC_RAGGED):
+        for b, hh, ww in [(b, h, w) for b in CONV_BATCHES] + list(CONV_RAGGED):
             x = torch.rand((b, conv.in_channels, hh, ww), generator=gen, device=dev) * 2 - 0.5
-            got = conv_gemm_cuda(x, wt, bias, s)
-            want = conv_gemm_plain(x, wt, bias, s)
+            got = conv_leaky_cuda(x, wt, bias, s)
+            want = kernel.plain(x, wt, bias, s)
             bound = rounding_bound(x, wt, bias, s)
             torch.cuda.synchronize()
             if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"V2 {label} at {(b, hh, ww)}: shape {tuple(got.shape)} "
-                                     f"against {tuple(want.shape)}, or not finite")
+                raise AssertionError(f"{kernel.label} {label} at {(b, hh, ww)}: shape "
+                                     f"{tuple(got.shape)} against {tuple(want.shape)}, or not "
+                                     f"finite")
             err = (got - want).abs()
             share = float(torch.where(err == 0, 0.0, err / bound).max())
             if share > 1.0:
-                raise AssertionError(f"V2 {label} at {(b, hh, ww)}: {float(err.max()):.3e} "
-                                     f"apart from its plain version, {share:.2f}x its bound")
+                raise AssertionError(f"{kernel.label} {label} at {(b, hh, ww)}: "
+                                     f"{float(err.max()):.3e} apart from its plain version, "
+                                     f"{share:.2f}x its bound")
             if b == 64:
                 for i in (0, 63):
-                    if not conv_gemm_cuda(x[i:i + 1].contiguous(), wt, bias, s).equal(got[i:i + 1]):
-                        raise AssertionError(f"V2 {label}: pair {i} of 64 not the bits of B = 1")
+                    if not conv_leaky_cuda(x[i:i + 1].contiguous(), wt, bias, s).equal(got[i:i + 1]):
+                        raise AssertionError(f"{kernel.label} {label}: pair {i} of 64 not the "
+                                             f"bits of B = 1")
             worst_err, worst_share = max(worst_err, float(err.max())), max(worst_share, share)
-        found[label] = (worst_err, worst_share)
+        found[label] = (kernel, worst_err, worst_share)
     return found
 
 
-def time_gemm_conv(torch, dev) -> dict:
-    """Phase 3, V2: device times (CUDA-graph replays, in turns) at each
-    shape's tower size at B = 64, 16 and 1: V2, its plain version, cuDNN's
-    best algorithm for the convolution with its bias (``library_ms``, as
-    ``time_lowc_conv``'s), its LeakyReLU pass, and the FLOP bound. Returns
-    {(label, B): {ms, plain_ms, library_ms, library_layout, leaky_ms,
-    bound_ms, gflop}}."""
+def conv_ptxas_entry(report: dict, kernel, shape: tuple) -> dict:
+    """ptxas's entry (``conv.ptxas_report``) of ``kernel`` at layer
+    ``shape`` as close-loops' B = 64 runs it: V1's one instantiation, V2's
+    wide tiling (``<..., 0>``)."""
+    name = "{}<{}".format(kernel.symbol, ",".join(map(str, shape)))
+    return report.get(f"{name}>") or report[f"{name},0>"]
+
+
+def time_conv(torch, dev) -> dict:
+    """Phase 3, V1 and V2: device times (CUDA-graph replays, in turns) at
+    each shape's tower size at its kernel's ``CONV_TIMED_BATCHES``: the
+    shape's kernel, its plain version, cuDNN's best algorithm for the
+    convolution with its bias (``library_ms``: benchmark mode trying every
+    engine, the faster of NCHW and NHWC; the port never calls it), its
+    LeakyReLU pass, and the FLOP bound. Returns {(label, B): {kernel, shape, ms, plain_ms, library_ms,
+    library_layout, leaky_ms, bound_ms, gflop}}."""
     import torch.nn.functional as F
 
-    from cuahn_vio_torch.ops.cuda.conv_gemm import conv_gemm_cuda, conv_gemm_plain
+    from cuahn_vio_torch.ops.cuda.conv import conv_leaky_cuda
 
     gen = torch.Generator(device=dev).manual_seed(26)
     rows = {}
     benchmark, limit = torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit
     torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, 0
     try:
-        for label, conv, h, w in gemm_conv_layers(torch, dev):
-            for b in GEMM_TIMED_BATCHES:
+        for label, kernel, conv, h, w in conv_layers(torch, dev):
+            for b in CONV_TIMED_BATCHES[kernel.label]:
                 x = torch.rand((b, conv.in_channels, h, w), generator=gen, device=dev)
                 wt, bias, s, pad = conv.weight.detach(), conv.bias.detach(), conv.stride, conv.padding
                 x_nhwc = x.contiguous(memory_format=torch.channels_last)
@@ -1352,8 +1278,8 @@ def time_gemm_conv(torch, dev) -> dict:
                 flops = 2 * y.numel() * conv.in_channels * conv.kernel_size[0] ** 2
                 bytes_moved = 4 * (x.numel() + y.numel() + wt.numel() + bias.numel())
                 fns = {
-                    "ms": lambda: conv_gemm_cuda(x, wt, bias, s[0]),
-                    "plain_ms": lambda: conv_gemm_plain(x, wt, bias, s[0]),
+                    "ms": lambda: conv_leaky_cuda(x, wt, bias, s[0]),
+                    "plain_ms": lambda: kernel.plain(x, wt, bias, s[0]),
                     "nchw": lambda: F.conv2d(x, wt, bias, s, pad),
                     "nhwc": lambda: F.conv2d(x_nhwc, w_nhwc, bias, s, pad),
                     "leaky_ms": lambda: F.leaky_relu(y, 0.1),
@@ -1361,7 +1287,9 @@ def time_gemm_conv(torch, dev) -> dict:
                 row, _ = timed(torch, fns, max(flops / F32_FLOPS_PER_S,
                                                bytes_moved / HBM_BYTES_PER_S) * 1e3, iters=5)
                 layout = min(("nchw", "nhwc"), key=lambda k: row[k])
-                rows[(label, b)] = dict(ms=row["ms"], plain_ms=row["plain_ms"],
+                rows[(label, b)] = dict(kernel=kernel, shape=(conv.in_channels, conv.out_channels,
+                                                              conv.kernel_size[0], s[0]),
+                                        ms=row["ms"], plain_ms=row["plain_ms"],
                                         library_ms=row[layout], library_layout=layout,
                                         leaky_ms=row["leaky_ms"], bound_ms=row["bound_ms"],
                                         gflop=flops / 1e9)
@@ -2198,16 +2126,18 @@ def build_kernels() -> dict:
     seconds}."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from cuahn_vio_torch.ops.cuda import build
     from cuahn_vio_torch.ops.cuda import conv as conv_cuda
-    from cuahn_vio_torch.ops.cuda import conv_gemm
     from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.ops.cuda import remap as remap_cuda
     from cuahn_vio_torch.ops.cuda import warp as warp_cuda
 
-    mods = (warp_cuda, remap_cuda, prng_cuda, conv_cuda, conv_gemm)
-    with ThreadPoolExecutor(len(mods)) as pool:
-        seconds = list(pool.map(lambda m: m.build_kernel(), mods))
-    return {os.path.relpath(m.SOURCE, REPO): s for m, s in zip(mods, seconds)}
+    jobs = [(m.SOURCE, m.build_kernel) for m in (warp_cuda, remap_cuda, prng_cuda)]
+    # the two sources of ``conv.build_kernel``, each in its own thread
+    jobs += [(k.source, lambda k=k: build.build(k.source)[1]) for k in conv_cuda.KERNELS]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        seconds = list(pool.map(lambda job: job[1](), jobs))
+    return {os.path.relpath(source, REPO): s for (source, _), s in zip(jobs, seconds)}
 
 
 def remap_maps(torch, dev) -> dict:
@@ -3960,7 +3890,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from cuahn_vio_torch.ops.cuda import conv as conv_cuda
-        from cuahn_vio_torch.ops.cuda import conv_gemm
         from cuahn_vio_torch.ops.cuda import prng as prng_cuda
         from cuahn_vio_torch.ops.cuda import remap as remap_cuda
         from cuahn_vio_torch.ops.cuda import warp as warp_cuda
@@ -3993,10 +3922,8 @@ def main() -> int:
     remap_ptxas = remap_cuda.ptxas_report()["remap_kernel"]
     prng_ptxas = prng_cuda.ptxas_report()
     conv_ptxas = conv_cuda.ptxas_report()
-    gemm_ptxas = conv_gemm.ptxas_report()
     for kern, info in (sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]
-                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())
-                       + sorted(gemm_ptxas.items())):
+                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())):
         print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
@@ -4010,36 +3937,30 @@ def main() -> int:
     rowskip_err = check_rowskip(torch, dev)
     sample_errs = check_sample(torch, dev)
     remap_err, remap_paths = check_remap(torch, dev)
-    lowc_errs = check_lowc_conv(torch, dev)
-    gemm_errs = check_gemm_conv(torch, dev)
+    conv_errs = check_conv(torch, dev)
+    conv_worst = {}  # {kernel}_max_abs_err and {kernel}_max_share_of_bound, V1's then V2's
+    for kernel in conv_cuda.KERNELS:
+        errs = [(e, sh) for k, e, sh in conv_errs.values() if k is kernel]
+        conv_worst[f"{kernel.name}_max_abs_err"] = f"{max(e for e, _ in errs):.3e}"
+        conv_worst[f"{kernel.name}_max_share_of_bound"] = f"{max(sh for _, sh in errs):.4f}"
     phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
           sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
           sampler_batch_shapes_max_abs_err=f"{sample_errs['batch']:.3e}",
           sampler_max_abs_err=f"{sample_errs['all']:.3e}", remap_max_abs_err=remap_err,
-          lowc_conv_max_abs_err=f"{max(e for e, _ in lowc_errs.values()):.3e}",
-          lowc_conv_max_share_of_bound=f"{max(sh for _, sh in lowc_errs.values()):.4f}",
-          conv_gemm_max_abs_err=f"{max(e for e, _ in gemm_errs.values()):.3e}",
-          conv_gemm_max_share_of_bound=f"{max(sh for _, sh in gemm_errs.values()):.4f}")
+          **conv_worst)
 
     t0 = time.perf_counter()
     times = time_kernel(torch, dev)
     sample_time = time_sample(torch, dev)
     remap_time = time_remap(torch, dev)
-    lowc_time = time_lowc_conv(torch, dev)
-    for label, row in lowc_time.items():
-        print(f"  V1 {label} B=64: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['gflop']:.3f} GFLOP at 67 TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f} %), "
-              f"plain {row['plain_ms']:.3f} ms, cuDNN's best (library_ms, "
-              f"{row['library_layout']}) {row['library_ms']:.5f} ms + LeakyReLU "
-              f"{row['leaky_ms']:.5f} ms", flush=True)
-    gemm_time = time_gemm_conv(torch, dev)
-    for (label, b), row in gemm_time.items():
-        print(f"  V2 {label} B={b}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['gflop']:.3f} GFLOP, {100 * row['bound_ms'] / row['ms']:.1f} %), "
-              f"plain {row['plain_ms']:.4f} ms, cuDNN's best (library_ms, "
-              f"{row['library_layout']}) {row['library_ms']:.5f} ms + LeakyReLU "
-              f"{row['leaky_ms']:.5f} ms", flush=True)
+    conv_time = time_conv(torch, dev)
+    for (label, b), row in conv_time.items():
+        print(f"  {row['kernel'].label} {label} B={b}: {row['ms']:.5f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['gflop']:.3f} GFLOP at 67 TFLOP/s, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} %), plain {row['plain_ms']:.4f} ms, "
+              f"cuDNN's best (library_ms, {row['library_layout']}) {row['library_ms']:.5f} ms "
+              f"+ LeakyReLU {row['leaky_ms']:.5f} ms", flush=True)
     gpu = gpu_name_and_power()
     phase("timing", t0, gpu=f"'{gpu}'")
 
@@ -4071,8 +3992,8 @@ def main() -> int:
     t1_by_mode["4"] = launches["threefry_by_mode"]
     phase("slice", t0, frames=steps, ms_per_frame=f"{ms_frame:.3f}",
           warp_launches=warp_launches, threefry_launches=t1_launches["4"],
-          lowc_conv_launches=launches[conv_cuda.KERNEL],
-          conv_gemm_launches=launches[conv_gemm.KERNEL],
+          lowc_conv_launches=launches[conv_cuda.V1.name],
+          conv_gemm_launches=launches[conv_cuda.V2.name],
           ate_pos_m=f"{ate_pos:.5f}",
           ate_ori_deg=f"{ate_ori:.4f}", ate_bar_m=f"{ATE_BAR_M:.5f}")
     if warp_launches != 3 * steps * iekf:
@@ -4080,12 +4001,12 @@ def main() -> int:
             f"warp launched {warp_launches}x, expected 3 x {steps} x {iekf}"
         )
     expect_t1("slice", t1_launches["4"], steps * iekf)
-    if launches[conv_cuda.KERNEL] != 3 * steps * iekf:
-        raise AssertionError(f"V1 launched {launches[conv_cuda.KERNEL]}x, expected 3 x {steps} x "
-                             f"{iekf} (block 3's conv0, block 4's conv0 and conv1 a call)")
-    if launches[conv_gemm.KERNEL] != 14 * steps * iekf:
-        raise AssertionError(f"V2 launched {launches[conv_gemm.KERNEL]}x, expected 14 x {steps} "
-                             f"x {iekf} (the other layers of blocks 2-4 a call)")
+    for kernel, per_call, layers in (
+            (conv_cuda.V1, 3, "block 3's conv0, block 4's conv0 and conv1"),
+            (conv_cuda.V2, 14, "the other layers of blocks 2-4")):
+        if launches[kernel.name] != per_call * steps * iekf:
+            raise AssertionError(f"{kernel.label} launched {launches[kernel.name]}x, expected "
+                                 f"{per_call} x {steps} x {iekf} ({layers} a call)")
     if not ate_pos <= ATE_BAR_M:
         raise AssertionError(f"ATE {ate_pos:.5f} m above the bar {ATE_BAR_M:.5f} m")
 
@@ -4407,33 +4328,18 @@ def main() -> int:
                                        "16": verbs["batch_mesh_warp_launches"]}
     kernels[3]["launches_by_phase"]["13"] = loop["sampler_launches"]
     kernels.append(prng_entry(t1_launches, t1_by_mode, prng_found, prng_ptxas))
+    # each shape's kernel at close-loops' B = 64 (V2 there in its wide
+    # tiling, `<..., 0>`; the B = 16 and B = 1 rows are phase 3's lines)
     kernels += [
-        dict(name=f"lowc_conv ({label}, B=64, close-loops)", route="cuda",
-             source="cuahn_vio_torch/ops/cuda/conv.cu",
+        dict(name=f"{row['kernel'].name} ({label}, B=64, close-loops)", route="cuda",
+             source=os.path.relpath(row["kernel"].source, REPO),
              replaces="none: cuDNN's conv2d, bias and LeakyReLU passes of the tower layer",
-             launches=launches[conv_cuda.KERNEL], max_abs_err=lowc_errs[label][0], ms=row["ms"],
-             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by="flops",
-             library_ms=row["library_ms"],
-             registers=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["registers"],
-             spill_stores=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["spill_stores"],
-             spill_loads=conv_ptxas[f"lowc_conv_kernel<{shape}>"]["spill_loads"])
-        for (label, row), shape in zip(lowc_time.items(), ("2,8,7,1", "8,16,5,2", "2,16,7,1"))
-    ]
-    # V2 at close-loops' B = 64 (its wide tiling, `<..., 0>`; the B = 16 and
-    # B = 1 rows are phase 3's lines)
-    gemm_shapes = {label: "{},{},{},{}".format(c.in_channels, c.out_channels, c.kernel_size[0],
-                                               c.stride[0])
-                   for label, c, _, _ in gemm_conv_layers(torch, dev)}
-    kernels += [
-        dict(name=f"conv_gemm ({label}, B=64, close-loops)", route="cuda",
-             source="cuahn_vio_torch/ops/cuda/conv_gemm.cu",
-             replaces="none: cuDNN's conv2d, bias and LeakyReLU passes of the tower layer",
-             launches=launches[conv_gemm.KERNEL], max_abs_err=gemm_errs[label][0], ms=row["ms"],
-             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by="flops",
+             launches=launches[row["kernel"].name], max_abs_err=conv_errs[label][1],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by="flops",
              library_ms=row["library_ms"], leaky_ms=row["leaky_ms"],
-             **{k: gemm_ptxas[f"gemm_conv_kernel<{gemm_shapes[label]},0>"][k]
+             **{k: conv_ptxas_entry(conv_ptxas, row["kernel"], row["shape"])[k]
                 for k in ("registers", "spill_stores", "spill_loads", "smem_bytes")})
-        for (label, b), row in gemm_time.items() if b == 64
+        for (label, b), row in conv_time.items() if b == 64
     ]
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

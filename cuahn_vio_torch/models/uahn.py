@@ -40,7 +40,11 @@ Parameter names match the flax tree (``block2.conv0.weight`` for flax's
 MC-dropout masks come from JAX keys (``dropout_keys``, ``utils/prng``):
 each batch row's four masks are the ones ``model.apply(...,
 rngs={"dropout": key})`` of the JAX model draws for that row's key, all
-of a call drawn in one launch of the threefry kernel T1. With
+of a call drawn in one launch of the threefry kernel T1. On the card, in
+float32 with autograd off, each tower layer whose shape is in
+``ops/cuda/conv.SHAPES`` (every layer of blocks 2-4, and block 1's
+``conv2``) is one launch of that shape's kernel with its bias and
+LeakyReLU fused (``ConvTower``); every other layer is ``conv2d``. With
 ``compute_dtype=torch.bfloat16`` the four conv towers run in bfloat16
 (cuDNN bf16 convolutions on the card), as the JAX ``compute_dtype`` does.
 """
@@ -56,8 +60,8 @@ from torch import nn
 
 from cuahn_vio_torch.models.uahn_graphs import GraphCache
 from cuahn_vio_torch.ops.cuda import conv as conv_cuda
-from cuahn_vio_torch.ops.cuda import conv_gemm
 from cuahn_vio_torch.ops.cuda import uahn_calls
+from cuahn_vio_torch.ops.cuda.conv import LEAK  # LeakyReLU slope, model_to_trace.py:12
 from cuahn_vio_torch.ops.homography import (
     block_diag_cov8,
     corner_points,
@@ -71,7 +75,6 @@ from cuahn_vio_torch.utils.spans import span
 CONV_PLANES = (8, 16, 32, 64, 128, 256, 256)  # model_to_trace.py:88-89
 IMG_HEIGHT, IMG_WIDTH = 224, 320  # the virtual camera
 MC_DROPOUT_NUM = 16  # model_to_trace.py:201
-LEAK = 0.1  # LeakyReLU slope, model_to_trace.py:12
 # bound on the scaled aleatoric log-variance: exp(11.5) ~ 1e5 px^2 already
 # means "no information", and an inf variance would poison the EKF solve
 LOGVAR_CLAMP = 11.5
@@ -84,11 +87,10 @@ class ConvTower(nn.Module):
     The layers run in ``compute_dtype``: the input and the (float32)
     weights are cast to it per call, and the output is cast back to
     float32 for the fc layers (the JAX ``ConvTower``'s ``dtype``). On the
-    card, in float32 and with autograd off, a layer of V1's shapes (block
-    4's ``conv0`` and ``conv1``, block 3's ``conv0``) runs as one launch of
-    V1 with its bias and LeakyReLU (``ops/cuda/conv``), a layer of V2's
-    shapes (the other layers of blocks 2-4) as one launch of V2
-    (``ops/cuda/conv_gemm``); every other layer and call as cuDNN's (or the
+    card, in float32 and with autograd off, a layer whose shape is in
+    ``ops/cuda/conv.SHAPES`` (every layer of blocks 2-4, and block 1's
+    ``conv2``) runs as one launch of that shape's kernel, V1 or V2, with
+    its bias and LeakyReLU; every other layer and call as cuDNN's (or the
     CPU's) ``conv2d`` and a ``leaky_relu``."""
 
     def __init__(self, in_channels: int, specs: Sequence[tuple[int, int, int]],
@@ -105,14 +107,11 @@ class ConvTower(nn.Module):
         x = x.to(dtype)
         for conv in self.children():
             if conv_cuda.takes(x.device, dtype, conv):
-                x = conv_cuda.lowc_conv(x, conv.weight, conv.bias, conv.stride[0])
-                continue
-            if conv_gemm.takes(x.device, dtype, conv):
-                x = conv_gemm.conv_gemm(x, conv.weight, conv.bias, conv.stride[0])
-                continue
-            x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
-                         conv.padding)
-            x = F.leaky_relu(x, LEAK)
+                x = conv_cuda.conv_leaky(x, conv.weight, conv.bias, conv.stride[0])
+            else:
+                x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
+                             conv.padding)
+                x = F.leaky_relu(x, LEAK)
         return x.to(torch.float32)
 
 
@@ -282,14 +281,6 @@ class UAHN(nn.Module):
         the prior's): 2 and 3; in prior mode those that ``blocks_to_run``
         keeps (3 keeps both, 2 keeps block 3, 1 neither)."""
         return [b for b in (2, 3) if not use_prior or self.blocks_to_run >= 5 - b]
-
-    def part1(self, img1, img2, prior_offset: Optional[torch.Tensor],
-              use_prior: bool) -> torch.Tensor:
-        """Blocks 1-3 -> part-1 homography (B, 3, 3)."""
-        h_uv = self._prior_h(prior_offset) if use_prior else self._refine(1, img1, img2, None)
-        for block in self._refinements(use_prior):
-            h_uv = self._refine(block, img1, img2, h_uv)
-        return h_uv
 
     def _masks(self, dropout_keys, img1):
         """The call's MC-dropout masks (``draw_masks``; None at rate 0)."""

@@ -125,7 +125,8 @@ def test_mc_dropout_members_are_seeded_and_distinct(frames):
     img1, img2, prior = frames
     model = build_uahn(load_params(WEIGHTS), device="cpu", dropout_rate=0.05)
     i1, i2 = torch.from_numpy(img1)[None], torch.from_numpy(img2)[None]
-    h = model.part1(i1, i2, torch.from_numpy(prior)[None], use_prior=True)
+    with torch.no_grad():
+        h = model.cascade_flows(i1, i2, torch.from_numpy(prior)[None], use_prior=True)[1]
 
     def members(keys):
         with torch.no_grad():

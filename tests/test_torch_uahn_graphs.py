@@ -232,8 +232,9 @@ def test_keys_are_checked_before_the_call(small):
 @pytest.mark.parametrize("tensor_keys", [True, False])
 def test_forward_is_its_parts(use_prior, tensor_keys):
     """``forward`` on the CPU computes what the public pieces compose, bit
-    for bit: ``part1``, block 4's members, the ensemble statistics, the
-    covariance transfer (the JAX-parity tests hold those pieces)."""
+    for bit: part 1's homography (``cascade_flows``), block 4's members,
+    the ensemble statistics, the covariance transfer (the JAX-parity tests
+    hold those pieces)."""
     torch.manual_seed(1)
     model = UAHN(dropout_rate=0.05, img_height=64, img_width=64).eval()
     img1, img2, prior, keys = pair_inputs(3, 64, 64, 10)
@@ -241,7 +242,7 @@ def test_forward_is_its_parts(use_prior, tensor_keys):
         keys = mask_keys_tensor(keys, "cpu")
     flow8, cov88 = model(img1, img2, prior, use_prior=use_prior, dropout_keys=keys)
     with torch.no_grad():
-        h = model.part1(img1, img2, prior, use_prior)
+        h = model.cascade_flows(img1, img2, prior, use_prior)[1]
         means, logvars = model.last_block_members(img1, img2, h, keys)
         logvars = torch.clamp(logvars, -LOGVAR_CLAMP, LOGVAR_CLAMP)
         mean_avg = means.mean(dim=1)
