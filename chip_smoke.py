@@ -10,7 +10,8 @@ Phases, each printed on its own line with its seconds:
    row-band warp B3 and the flat sampler B4; ``remap.cu``: the
    undistortion remap C1; ``prng.cu``: the threefry kernel T1; ``conv.cu``:
    V1, the towers' low-channel convolutions; ``conv_gemm.cu``: V2, the
-   towers' other layers of blocks 2-4), and print
+   towers' other layers of blocks 2-4; ``heads.cu``: H1, the two
+   MC-dropout heads), and print
    each kernel's registers, shared memory and spill bytes (``-Xptxas
    -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
@@ -45,7 +46,11 @@ Phases, each printed on its own line with its seconds:
    of the shape's plain version (V1's: the same float32 sums in the same
    order, one rounding a term against two; V2's: the same GEMM in the
    library's order), and a pair's row of the B = 64 launch bit for bit its
-   B = 1 launch;
+   B = 1 launch; H1 with the v10 heads at B = 64, 19, 16 and 1
+   (``HEADS_BATCHES``, T1's masks), its members, corner prediction and
+   variance within ``ops/cuda/heads.rounding_bounds`` of its plain
+   version, and pairs 0 and 63 of the B = 64 call bit for bit those pairs
+   called alone;
 3. time each kernel, its plain version and ``torch.nn.functional.
    grid_sample`` on the same points (the library yardstick; the port never
    calls it) beside its byte bound: device time from CUDA-graph replays
@@ -63,7 +68,10 @@ Phases, each printed on its own line with its seconds:
    16 and 1, beside their FLOP bound, the plain version, and cuDNN's best
    algorithm for the convolution with its bias (``library_ms``: benchmark
    mode over every engine, NCHW and NHWC) and the LeakyReLU pass that
-   follows it;
+   follows it; H1 at B = 64, 16 and 1 (``HEADS_TIMED_BATCHES``) beside the
+   heads' FLOP bound, its plain version and the UAHN's eager heads stage
+   it replaced (``McHead`` twice and the statistics), and the eager
+   call-to-call time of H1 and of that stage;
 3b. the JAX random stream: the port's host keys (``PRNGKey``, ``split``,
    ``fold_in``) against JAX's in ``PRNG_REF``; the threefry kernel T1 on
    the card against JAX's bits, uniform, bernoulli and randint (over
@@ -92,8 +100,9 @@ Phases, each printed on its own line with its seconds:
    at seed 0: one T1 launch a network call); the warp launch count must
    be 3 x steps x IEKF iterations, T1's steps x IEKF iterations, V1's 3 x
    steps x IEKF iterations (block 3's conv0, block 4's conv0 and conv1),
-   V2's 14 x steps x IEKF iterations (the other layers of blocks 2-4), every
-   pose finite and the ATE under the bar below;
+   V2's 14 x steps x IEKF iterations (the other layers of blocks 2-4),
+   H1's 2 x steps x IEKF iterations (fc0 of both heads, then the tail),
+   every pose finite and the ATE under the bar below;
 5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
    with ``make_sequence`` on the card, and one motion-blurred one
    (``BLUR_SEQ``, ``exposure_s = EXPOSURE_S``: each frame the mean of 3
@@ -241,12 +250,13 @@ Phases, each printed on its own line with its seconds:
    (``eval_flow_rate``). 15b, the verbs as subprocesses of ``python -m
    cuahn_vio_torch.cli`` with their warp launches recorded, side by side
    but for ``track-features``, which runs alone: ``eval-flow
-   --prior gt`` over every pair (3 float32 warps, one T1 draw, 3 V1 and 14
-   V2 launches a batch of at most 16, nothing else; the corner-error RMSE
-   under FLOW_RMSE_BARS_PX) and ``--prior none --limit DIAG_NONE_LIMIT``
-   (block 1 runs, 3 warps a batch; V2 15 times, block 1's conv2 having
-   block 2's conv2's shape); ``inspect-frame`` (the full cascade: exactly
-   4 float32 warps at B = 1, one T1 draw, 3 V1 and 15 V2 launches; the PNG
+   --prior gt`` over every pair (3 float32 warps, one T1 draw, 3 V1, 14
+   V2 and 2 H1 launches a batch of at most 16, nothing else; the
+   corner-error RMSE under FLOW_RMSE_BARS_PX) and ``--prior none --limit
+   DIAG_NONE_LIMIT`` (block 1 runs, 3 warps a batch; V2 15 times, block
+   1's conv2 having block 2's conv2's shape); ``inspect-frame`` (the full
+   cascade: exactly 4 float32 warps at B = 1, one T1 draw, 3 V1, 15 V2 and
+   2 H1 launches; the PNG
    224 x 960, the mean error finite); ``track-features`` (no kernel
    launch, 80 slots a frame, ids non-decreasing; ms/frame and survivors
    beside the JAX package's); ``calibrate-covariance`` and
@@ -1298,6 +1308,97 @@ def time_conv(torch, dev) -> dict:
     return rows
 
 
+HEADS_BATCHES = (64, 19, 16, 1)  # close-loops, its ragged last call, eval-flow, run-vio
+HEADS_TIMED_BATCHES = (64, 16, 1)
+
+
+def heads_inputs(torch, dev, b: int, seed: int):
+    """(model with the v10 weights, features, masks) of one heads call at
+    B = ``b``: block 4's features as a LeakyReLU output of a tower's scale,
+    the masks drawn by T1 as a network call draws them."""
+    import numpy as np
+
+    from cuahn_vio_torch.models.uahn import build_uahn, draw_masks
+    from cuahn_vio_torch.ops.cuda.heads import IN
+    from cuahn_vio_torch.utils.checkpoint import load_params
+
+    model = build_uahn(load_params(WEIGHTS), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feat = torch.nn.functional.leaky_relu(
+        torch.randn((b, IN), generator=gen, device=dev) + 0.2, 0.1)
+    keys = np.stack([np.array([seed, i], np.uint32) for i in range(b)])
+    return model, feat, draw_masks(keys, model.dropout_rate, IN, dev, b)
+
+
+def check_heads(torch, dev) -> dict:
+    """Phase 2, H1: the kernel pair against its plain version at
+    HEADS_BATCHES with the v10 heads, each output within
+    ``heads.rounding_bounds``; rows 0 and 63 of the B = 64 call the same
+    bits as those pairs called alone. Returns {output: (max abs error,
+    largest share of the bound)}."""
+    from cuahn_vio_torch.ops.cuda import heads
+
+    found = {}
+    for b in HEADS_BATCHES:
+        model, feat, masks = heads_inputs(torch, dev, b, 26 + b)
+        pair = (model.head_mean, model.head_logvar)
+        with torch.no_grad():
+            got = heads.mc_heads_cuda(feat, masks, model.dropout_rate, pair, model.corners)
+            want = heads.heads_plain(feat, masks, model.dropout_rate, pair, model.corners)
+            bounds = heads.rounding_bounds(feat, masks, model.dropout_rate, pair, model.corners,
+                                           want[0])
+            torch.cuda.synchronize()
+            for name, g, w, lim in zip(("members", "pred", "var"), got, want, bounds):
+                if g.shape != w.shape or not torch.isfinite(g).all():
+                    raise AssertionError(f"H1 {name} at B = {b}: shape {tuple(g.shape)} against "
+                                         f"{tuple(w.shape)}, or not finite")
+                err = (g - w).abs()
+                share = float(torch.where(err == 0, 0.0, err / lim).max())
+                if share > 1.0:
+                    raise AssertionError(f"H1 {name} at B = {b}: {float(err.max()):.3e} apart "
+                                         f"from its plain version, {share:.2f}x its bound")
+                e0, s0 = found.get(name, (0.0, 0.0))
+                found[name] = (max(e0, float(err.max())), max(s0, share))
+            if b == 64:
+                for i in (0, 63):
+                    one = heads.mc_heads_cuda(feat[i:i + 1].contiguous(),
+                                              tuple((m0[i:i + 1], m1[i:i + 1]) for m0, m1 in masks),
+                                              model.dropout_rate, pair, model.corners)
+                    if not all(o.equal(g[i:i + 1]) for o, g in zip(one, got)):
+                        raise AssertionError(f"H1: pair {i} of 64 not the bits of B = 1")
+    return found
+
+
+def time_heads(torch, dev) -> dict:
+    """Phase 3, H1: device times (CUDA-graph replays, in turns) at
+    HEADS_TIMED_BATCHES with the v10 heads: the kernel pair, the UAHN's
+    eager heads stage (``McHead`` twice and ``ensemble_statistics``, the
+    path before H1, which its no-grad call on the card took), the plain
+    version, and the FLOP bound (``perfbench/lib/counts.head_flops``' work:
+    fc0 and fc1 of both heads); and each one's eager call-to-call time.
+    Returns {B: {ms, eager_ms, plain_ms, bound_ms, gflop, ms_host,
+    eager_ms_host}}."""
+    from cuahn_vio_torch.ops.cuda import heads
+
+    rows = {}
+    for b in HEADS_TIMED_BATCHES:
+        model, feat, masks = heads_inputs(torch, dev, b, 27 + b)
+        pair, rate = (model.head_mean, model.head_logvar), model.dropout_rate
+
+        def eager():
+            means, logvars = model._members(feat, masks)
+            return heads.ensemble_statistics(means, logvars, model.corners)
+
+        flops = 2 * b * 2 * heads.MEMBERS * (heads.IN * heads.HIDDEN + heads.HIDDEN * heads.OUT)
+        fns = {"ms": lambda: heads.mc_heads_cuda(feat, masks, rate, pair, model.corners),
+               "eager_ms": eager,
+               "plain_ms": lambda: heads.heads_plain(feat, masks, rate, pair, model.corners)}
+        with torch.no_grad():
+            row, host = timed(torch, fns, flops / F32_FLOPS_PER_S * 1e3, iters=20)
+        rows[b] = dict(row, gflop=flops / 1e9, ms_host=host["ms"], eager_ms_host=host["eager_ms"])
+    return rows
+
+
 def sample_bound_ms(torch, tex, su, sv) -> tuple[float, int]:
     """(least ms, distinct texels read) of one flat-sampler call: 8 B of
     coordinates and 4 B of output a point, and each texel that an in-image
@@ -2128,11 +2229,12 @@ def build_kernels() -> dict:
 
     from cuahn_vio_torch.ops.cuda import build
     from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+    from cuahn_vio_torch.ops.cuda import heads as heads_cuda
     from cuahn_vio_torch.ops.cuda import prng as prng_cuda
     from cuahn_vio_torch.ops.cuda import remap as remap_cuda
     from cuahn_vio_torch.ops.cuda import warp as warp_cuda
 
-    jobs = [(m.SOURCE, m.build_kernel) for m in (warp_cuda, remap_cuda, prng_cuda)]
+    jobs = [(m.SOURCE, m.build_kernel) for m in (warp_cuda, remap_cuda, prng_cuda, heads_cuda)]
     # the two sources of ``conv.build_kernel``, each in its own thread
     jobs += [(k.source, lambda k=k: build.build(k.source)[1]) for k in conv_cuda.KERNELS]
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -3142,6 +3244,7 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
 
     import numpy as np
 
+    from cuahn_vio_torch.ops.cuda import heads as heads_cuda
     from cuahn_vio_torch.ops.cuda.warp import KERNEL
     from cuahn_vio_torch.utils.png import read_pngs
 
@@ -3152,15 +3255,17 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
 
     def only_warps(seen, want, key, calls, gemm):
         """Exactly ``want`` warps, and ``calls`` network calls: a T1 draw,
-        three V1 launches and ``gemm`` V2 launches each."""
+        three V1 launches, ``gemm`` V2 launches and H1's two each."""
         counts = seen["launch_counts"]
+        heads = heads_cuda.LAUNCHES
         if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
                 or counts["threefry"] != calls or counts["lowc_conv"] != 3 * calls
-                or counts["conv_gemm"] != gemm * calls
-                or sum(counts.values()) != len(want) + (4 + gemm) * calls):
+                or counts["conv_gemm"] != gemm * calls or counts["mc_heads"] != heads * calls
+                or sum(counts.values()) != len(want) + (4 + gemm + heads) * calls):
             raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
-                                 f"expected {want}, {calls} threefry, {3 * calls} lowc_conv "
-                                 f"and {gemm * calls} conv_gemm launches")
+                                 f"expected {want}, {calls} threefry, {3 * calls} lowc_conv, "
+                                 f"{gemm * calls} conv_gemm and {heads * calls} mc_heads "
+                                 f"launches")
         out["threefry_launches"] = out.get("threefry_launches", 0) + calls
 
     def refused():  # calibrate-state-covariance on the --cov-calib log: its stderr
@@ -3890,6 +3995,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+        from cuahn_vio_torch.ops.cuda import heads as heads_cuda
         from cuahn_vio_torch.ops.cuda import prng as prng_cuda
         from cuahn_vio_torch.ops.cuda import remap as remap_cuda
         from cuahn_vio_torch.ops.cuda import warp as warp_cuda
@@ -3922,8 +4028,10 @@ def main() -> int:
     remap_ptxas = remap_cuda.ptxas_report()["remap_kernel"]
     prng_ptxas = prng_cuda.ptxas_report()
     conv_ptxas = conv_cuda.ptxas_report()
+    heads_ptxas = heads_cuda.ptxas_report()
     for kern, info in (sorted(ptxas.items()) + [("remap_kernel", remap_ptxas)]
-                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())):
+                       + sorted(prng_ptxas.items()) + sorted(conv_ptxas.items())
+                       + sorted(heads_ptxas.items())):
         print(f"  {kern}: {info['registers']} registers, {info['smem_bytes']} B shared, "
               f"{info['stack_bytes']} B stack, spill stores {info['spill_stores']} B, "
               f"spill loads {info['spill_loads']} B", flush=True)
@@ -3943,6 +4051,10 @@ def main() -> int:
         errs = [(e, sh) for k, e, sh in conv_errs.values() if k is kernel]
         conv_worst[f"{kernel.name}_max_abs_err"] = f"{max(e for e, _ in errs):.3e}"
         conv_worst[f"{kernel.name}_max_share_of_bound"] = f"{max(sh for _, sh in errs):.4f}"
+    heads_errs = check_heads(torch, dev)
+    for name, (err, share) in heads_errs.items():
+        conv_worst[f"mc_heads_{name}_max_abs_err"] = f"{err:.3e}"
+        conv_worst[f"mc_heads_{name}_max_share_of_bound"] = f"{share:.3e}"
     phase("parity", t0, warp_max_abs_err=f"{max(warp_errs.values()):.3e}",
           rowskip_max_abs_err=f"{rowskip_err:.3e}",
           sampler_frame_shapes_max_abs_err=f"{sample_errs['frame']:.3e}",
@@ -3961,6 +4073,12 @@ def main() -> int:
               f"{100 * row['bound_ms'] / row['ms']:.1f} %), plain {row['plain_ms']:.4f} ms, "
               f"cuDNN's best (library_ms, {row['library_layout']}) {row['library_ms']:.5f} ms "
               f"+ LeakyReLU {row['leaky_ms']:.5f} ms", flush=True)
+    heads_time = time_heads(torch, dev)
+    for b, row in heads_time.items():
+        print(f"  H1 B={b}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms ({row['gflop']:.3f} "
+              f"GFLOP at 67 TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f} %), eager heads "
+              f"stage {row['eager_ms']:.5f} ms, plain {row['plain_ms']:.4f} ms; call to call "
+              f"{row['ms_host']:.4f} ms, eager stage {row['eager_ms_host']:.4f} ms", flush=True)
     gpu = gpu_name_and_power()
     phase("timing", t0, gpu=f"'{gpu}'")
 
@@ -3994,6 +4112,7 @@ def main() -> int:
           warp_launches=warp_launches, threefry_launches=t1_launches["4"],
           lowc_conv_launches=launches[conv_cuda.V1.name],
           conv_gemm_launches=launches[conv_cuda.V2.name],
+          mc_heads_launches=launches["mc_heads"],
           ate_pos_m=f"{ate_pos:.5f}",
           ate_ori_deg=f"{ate_ori:.4f}", ate_bar_m=f"{ATE_BAR_M:.5f}")
     if warp_launches != 3 * steps * iekf:
@@ -4001,11 +4120,12 @@ def main() -> int:
             f"warp launched {warp_launches}x, expected 3 x {steps} x {iekf}"
         )
     expect_t1("slice", t1_launches["4"], steps * iekf)
-    for kernel, per_call, layers in (
-            (conv_cuda.V1, 3, "block 3's conv0, block 4's conv0 and conv1"),
-            (conv_cuda.V2, 14, "the other layers of blocks 2-4")):
-        if launches[kernel.name] != per_call * steps * iekf:
-            raise AssertionError(f"{kernel.label} launched {launches[kernel.name]}x, expected "
+    for name, label, per_call, layers in (
+            (conv_cuda.V1.name, "V1", 3, "block 3's conv0, block 4's conv0 and conv1"),
+            (conv_cuda.V2.name, "V2", 14, "the other layers of blocks 2-4"),
+            ("mc_heads", "H1", heads_cuda.LAUNCHES, "fc0 of both heads, then the tail")):
+        if launches[name] != per_call * steps * iekf:
+            raise AssertionError(f"{label} launched {launches[name]}x, expected "
                                  f"{per_call} x {steps} x {iekf} ({layers} a call)")
     if not ate_pos <= ATE_BAR_M:
         raise AssertionError(f"ATE {ate_pos:.5f} m above the bar {ATE_BAR_M:.5f} m")
@@ -4341,6 +4461,16 @@ def main() -> int:
                 for k in ("registers", "spill_stores", "spill_loads", "smem_bytes")})
         for (label, b), row in conv_time.items() if b == 64
     ]
+    # H1 at close-loops' B = 64 (its wide tiling; B = 16 and 1 are phase 3's
+    # lines): the two kernels' time together, each one's registers
+    h1 = heads_time[64]
+    kernels.append(dict(
+        name="mc_heads (both heads, B=64, close-loops)", route="cuda",
+        source=os.path.relpath(heads_cuda.SOURCE, REPO),
+        replaces="none: cuBLAS's SIMT sgemm for fc0 and the eager dropout, fc1 and statistics",
+        launches=launches["mc_heads"], max_abs_err=max(e for e, _ in heads_errs.values()),
+        ms=h1["ms"], plain_ms=h1["plain_ms"], bound_ms=h1["bound_ms"], bound_by="flops",
+        library_ms=h1["eager_ms"], compiled=heads_ptxas))
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -12,7 +12,9 @@ and in torch's NCHW layout:
 - Block 4: the full-resolution 7-conv tower runs once; the mean and
   log-variance fc heads run as a 16-member MC-dropout ensemble.
   ensemble_var = empirical var of the means + mean(exp(logvar)), logvar
-  scaled by 1e-3 and clamped to ±11.5.
+  scaled by 1e-3 and clamped to ±11.5. On the card, in float32 with
+  autograd off at a rate above 0, both heads and these statistics are one
+  call of the kernel pair H1 (``ops/cuda/heads``).
 - Covariance transfer into the original img2 frame, 8x8 block diagonal.
 - On request (``forward(return_error_map=True)``, ``inspect-frame``), the
   photometric error map |warp(img2, H_total) - img1| * 255.
@@ -60,8 +62,10 @@ from torch import nn
 
 from cuahn_vio_torch.models.uahn_graphs import GraphCache
 from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+from cuahn_vio_torch.ops.cuda import heads as heads_cuda
 from cuahn_vio_torch.ops.cuda import uahn_calls
 from cuahn_vio_torch.ops.cuda.conv import LEAK  # LeakyReLU slope, model_to_trace.py:12
+from cuahn_vio_torch.ops.cuda.heads import ensemble_statistics
 from cuahn_vio_torch.ops.homography import (
     block_diag_cov8,
     corner_points,
@@ -75,9 +79,6 @@ from cuahn_vio_torch.utils.spans import span
 CONV_PLANES = (8, 16, 32, 64, 128, 256, 256)  # model_to_trace.py:88-89
 IMG_HEIGHT, IMG_WIDTH = 224, 320  # the virtual camera
 MC_DROPOUT_NUM = 16  # model_to_trace.py:201
-# bound on the scaled aleatoric log-variance: exp(11.5) ~ 1e5 px^2 already
-# means "no information", and an inf variance would poison the EKF solve
-LOGVAR_CLAMP = 11.5
 BLOCK_SPANS = ("vio.uahn.block1", "vio.uahn.block2", "vio.uahn.block3")  # of ``_refine``
 
 
@@ -319,14 +320,17 @@ class UAHN(nn.Module):
 
     def _statistics(self, feat, masks):
         """The ensemble statistics of the members: (corner prediction (B,
-        4, 2), ensemble variance (B, 4, 2)), warped frame."""
+        4, 2), ensemble variance (B, 4, 2)), warped frame. On the card, in
+        float32 with autograd off and masks drawn, both heads and the
+        statistics are one call of H1 (``ops/cuda/heads``, two launches);
+        every other call runs ``_members`` and ``ensemble_statistics``."""
         with span("vio.uahn.heads"):
+            heads = (self.head_mean, self.head_logvar)
+            if heads_cuda.takes(feat, masks, self.dropout_rate, heads):
+                return heads_cuda.mc_heads(feat, masks, self.dropout_rate, heads,
+                                           self.corners)[1:]
             means, logvars = self._members(feat, masks)
-            logvars = torch.clamp(logvars, -LOGVAR_CLAMP, LOGVAR_CLAMP)
-            mean_avg = means.mean(dim=1)
-            var_avg = torch.exp(logvars).mean(dim=1)
-            emp_var = torch.square(means - mean_avg[:, None]).mean(dim=1)
-            return self.corners + mean_avg, emp_var + var_avg
+            return ensemble_statistics(means, logvars, self.corners)
 
     def _transfer(self, h_part1, pred, var):
         """Block 4's prediction and variance into the original img2 frame:

@@ -15,6 +15,7 @@ ptxas's report of each kernel (registers, shared memory, spills;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -88,6 +89,16 @@ def load(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``source``."""
     path, _ = build(source)
     return ctypes.CDLL(path)
+
+
+@functools.lru_cache(maxsize=None)
+def entry(source: str, name: str, argtypes: tuple):
+    """The C function ``name`` of ``source``'s library (``load``), taking
+    ``argtypes`` (ctypes types: ``c_void_p`` for a pointer or a stream) and
+    returning an int (a ``cudaError_t``)."""
+    fn = getattr(load(source), name)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
 
 
 _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")

@@ -146,17 +146,11 @@ SHAPES = {  # (c_in, c_out, k, stride) -> its kernel
 @functools.lru_cache(maxsize=None)
 def _launcher(kernel: Kernel):
     """The kernel's C launcher, its library loaded and its ``init`` run."""
-    lib = build.load(kernel.source)
-    launch = getattr(lib, kernel.entry)
-    launch.argtypes = [_P, _P, _P, _P] + [_I] * 9 + [_P]
-    launch.restype = ctypes.c_int
     if kernel.init is not None:
-        init = getattr(lib, kernel.init)
-        init.argtypes, init.restype = [], ctypes.c_int
-        err = init()  # e.g. each shape's shared memory, before any launch or capture
-        if err != 0:
+        err = build.entry(kernel.source, kernel.init, ())()  # e.g. each shape's shared memory,
+        if err != 0:  # before any launch or capture
             raise RuntimeError(f"{kernel.name}: {kernel.init} failed: cudaError {err}")
-    return launch
+    return build.entry(kernel.source, kernel.entry, (_P,) * 4 + (_I,) * 9 + (_P,))
 
 
 def build_kernel() -> float:

@@ -23,13 +23,9 @@ import pytest
 import torch
 
 from cuahn_vio_torch.models import uahn_graphs
-from cuahn_vio_torch.models.uahn import (
-    LOGVAR_CLAMP,
-    UAHN,
-    build_uahn,
-    mask_keys_tensor,
-)
+from cuahn_vio_torch.models.uahn import UAHN, build_uahn, mask_keys_tensor
 from cuahn_vio_torch.ops import cuda as tcuda
+from cuahn_vio_torch.ops.cuda.heads import LOGVAR_CLAMP
 from cuahn_vio_torch.ops import warp
 from cuahn_vio_torch.ops.homography import block_diag_cov8, transfer_mean_var
 from cuahn_vio_torch.utils import prng
