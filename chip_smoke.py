@@ -10,8 +10,9 @@ Phases, each printed on its own line with its seconds:
    row-band warp B3 and the flat sampler B4; ``remap.cu``: the
    undistortion remap C1; ``prng.cu``: the threefry kernel T1; ``conv.cu``:
    V1, the towers' low-channel convolutions; ``conv_gemm.cu``: V2, the
-   towers' other layers of blocks 2-4; ``heads.cu``: H1, the two
-   MC-dropout heads), and print
+   towers' other layers of blocks 2-4, with its split path V2K; a copy of
+   it with V2K's shapes on their whole-K tilings, phase 3's yardstick
+   ``V2_WHOLE_K``; ``heads.cu``: H1, the two MC-dropout heads), and print
    each kernel's registers, shared memory and spill bytes (``-Xptxas
    -v``);
 2. hold each kernel to its plain PyTorch version on the card, uint8 and
@@ -41,12 +42,12 @@ Phases, each printed on its own line with its seconds:
    fisheye and radtan tile on the shared ring, at least one edge-map tile
    on global taps; the towers' fused convolutions at each shape of
    ``ops/cuda/conv.SHAPES`` (``CONV_LAYERS``, the v10 weights of each
-   shape's first layer: V1's three, V2's eight) at B = 64, 16, 8, 1 and 13
-   and at ragged sizes, each output within ``ops/cuda/conv.rounding_bound``
-   of the shape's plain version (V1's: the same float32 sums in the same
-   order, one rounding a term against two; V2's: the same GEMM in the
-   library's order), and a pair's row of the B = 64 launch bit for bit its
-   B = 1 launch; H1 with the v10 heads at B = 64, 19, 16 and 1
+   shape's first layer: V1's three, V2's eight, two of them V2K's) at B =
+   64, 16, 8, 1 and 13 and at ragged sizes, each output within
+   ``ops/cuda/conv.rounding_bound`` of the shape's plain version (V1's: the
+   same float32 sums in the same order, one rounding a term against two;
+   V2's: the same GEMM in the library's order, V2K's in its runs of c_in),
+   and a pair's row of the B = 64 launch bit for bit its B = 1 launch; H1 with the v10 heads at B = 64, 19, 16 and 1
    (``HEADS_BATCHES``, T1's masks), its members, corner prediction and
    variance within ``ops/cuda/heads.rounding_bounds`` of its plain
    version, and pairs 0 and 63 of the B = 64 call bit for bit those pairs
@@ -68,7 +69,8 @@ Phases, each printed on its own line with its seconds:
    16 and 1, beside their FLOP bound, the plain version, and cuDNN's best
    algorithm for the convolution with its bias (``library_ms``: benchmark
    mode over every engine, NCHW and NHWC) and the LeakyReLU pass that
-   follows it; H1 at B = 64, 16 and 1 (``HEADS_TIMED_BATCHES``) beside the
+   follows it; V2K also beside V2's whole-K tiling of its shape
+   (``V2_WHOLE_K``); H1 at B = 64, 16 and 1 (``HEADS_TIMED_BATCHES``) beside the
    heads' FLOP bound, its plain version and the UAHN's eager heads stage
    it replaced (``McHead`` twice and the statistics), and the eager
    call-to-call time of H1 and of that stage;
@@ -101,6 +103,8 @@ Phases, each printed on its own line with its seconds:
    be 3 x steps x IEKF iterations, T1's steps x IEKF iterations, V1's 3 x
    steps x IEKF iterations (block 3's conv0, block 4's conv0 and conv1),
    V2's 14 x steps x IEKF iterations (the other layers of blocks 2-4),
+   V2K's 12 x steps x IEKF iterations (V2's split path: its GEMM and the
+   sum of its splits for each of the six layers at 7x10 and 4x5 out),
    H1's 2 x steps x IEKF iterations (fc0 of both heads, then the tail),
    every pose finite and the ATE under the bar below;
 5. textured data: three photo-texture sequences (``TEX_SEQS``) rendered
@@ -251,12 +255,12 @@ Phases, each printed on its own line with its seconds:
    cuahn_vio_torch.cli`` with their warp launches recorded, side by side
    but for ``track-features``, which runs alone: ``eval-flow
    --prior gt`` over every pair (3 float32 warps, one T1 draw, 3 V1, 14
-   V2 and 2 H1 launches a batch of at most 16, nothing else; the
+   V2, 12 V2K and 2 H1 launches a batch of at most 16, nothing else; the
    corner-error RMSE under FLOW_RMSE_BARS_PX) and ``--prior none --limit
-   DIAG_NONE_LIMIT`` (block 1 runs, 3 warps a batch; V2 15 times, block
-   1's conv2 having block 2's conv2's shape); ``inspect-frame`` (the full
-   cascade: exactly 4 float32 warps at B = 1, one T1 draw, 3 V1, 15 V2 and
-   2 H1 launches; the PNG
+   DIAG_NONE_LIMIT`` (block 1 runs, 3 warps a batch; V2 15 times and V2K
+   14, block 1's conv2 having block 2's conv2's shape); ``inspect-frame``
+   (the full cascade: exactly 4 float32 warps at B = 1, one T1 draw, 3
+   V1, 15 V2, 14 V2K and 2 H1 launches; the PNG
    224 x 960, the mean error finite); ``track-features`` (no kernel
    launch, 80 slots a frame, ids non-decreasing; ms/frame and survivors
    beside the JAX package's); ``calibrate-covariance`` and
@@ -1184,6 +1188,16 @@ CONV_BATCHES = (64, 16, 8, 1, 13)  # close-loops, eval-flow, run-vio-batch, run-
 # which keeps the phase inside its time (its plain version is a slow
 # reference), V2 at B = 64, 16 and 1
 CONV_TIMED_BATCHES = {"V1": (64,), "V2": (64, 16, 1)}
+# V2's split path's launches a no-grad float32 call on the card: two for
+# each of the six layers of blocks 2-4 at 7x10 and 4x5 out, and for block
+# 1's conv2 where the full cascade runs it
+SPLIT_LAUNCHES_PRIOR, SPLIT_LAUNCHES_FULL = 2 * 6, 2 * 7
+# phase 3's yardstick for V2K: the tilings its shapes had while V2 took
+# their K whole in a block, in a copy of conv_gemm.cu
+V2_WHOLE_K = {
+    (128, 256, 3, 2): "kBM = 64, kBN = 64, kTM = 8, kTN = 8, kKS = 2, kBK = 12, kStages = 3",
+    (256, 256, 3, 2): "kBM = 32, kBN = 32, kTM = 8, kTN = 4, kKS = 4, kBK = 6, kStages = 3",
+}
 # ragged parity inputs (B, H, W): no multiple of a tile, smaller than one,
 # odd under the stride
 CONV_RAGGED = ((3, 37, 53), (2, 5, 3), (2, 9, 11))
@@ -1213,6 +1227,56 @@ def conv_layers(torch, dev) -> list:
     return out
 
 
+def conv_label(kernel) -> str:
+    """A conv kernel's name in the smoke's lines: V1, V2, or V2K (V2's
+    split path)."""
+    return f"{kernel.label}K" if kernel.splits else kernel.label
+
+
+def whole_k_source() -> str:
+    """A copy of ``conv_gemm.cu`` (under ``_build/``) with V2K's shapes on
+    their whole-K tilings (``V2_WHOLE_K``) in its ``conv_gemm_f32``, and no
+    split path; returns its path."""
+    import re
+
+    from cuahn_vio_torch.ops.cuda import build
+    from cuahn_vio_torch.ops.cuda import conv as conv_cuda
+
+    with open(conv_cuda.V2.source) as f:
+        src = f.read()
+    for shape, tiling in V2_WHOLE_K.items():
+        name = ", ".join(map(str, shape))
+        src, n = re.subn(r"struct Tiling<" + re.escape(name) + r"> \{.*?\n\};",
+                         f"struct Tiling<{name}> : Whole {{\n  static constexpr int {tiling};\n}};",
+                         src, flags=re.S)
+        assert n == 1, f"conv_gemm.cu has no Tiling<{name}>"
+    src, n = re.subn(r"#define V2_SPLIT_SHAPES\(X\)[^\n]*\n(?:[^\n]*\\\n)*[^\n]*\n",
+                     "#define V2_SPLIT_SHAPES(X)\n", src)
+    src = src.replace("#define V2_SHAPES(X)", "#define V2_SHAPES(X) " + " ".join(
+        f"X({', '.join(map(str, shape))})" for shape in V2_WHOLE_K) + " \\\n ", 1)
+    assert n == 1 and all(f"X({', '.join(map(str, s))}) " in src for s in V2_WHOLE_K)
+    path = os.path.join(build.BUILD_DIR, "whole_k", "conv_gemm_whole_k.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if not os.path.exists(path) or open(path).read() != src:
+        with open(path, "w") as f:
+            f.write(src)
+    return path
+
+
+def whole_k_launcher():
+    """``conv_gemm_f32`` of ``whole_k_source``'s library, its shared memory
+    allowed."""
+    import ctypes
+
+    from cuahn_vio_torch.ops.cuda import build
+
+    path = whole_k_source()
+    if build.entry(path, "conv_gemm_init", ())() != 0:
+        raise AssertionError("the whole-K copy of conv_gemm.cu: conv_gemm_init failed")
+    return build.entry(path, "conv_gemm_f32", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
+                       + (ctypes.c_void_p,))
+
+
 def check_conv(torch, dev) -> dict:
     """Phase 2, V1 and V2: each kernel against its plain version on the card
     at each of its shapes' tower size at B = 64, 16, 8, 1 and 13 and on
@@ -1234,19 +1298,19 @@ def check_conv(torch, dev) -> dict:
             bound = rounding_bound(x, wt, bias, s)
             torch.cuda.synchronize()
             if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"{kernel.label} {label} at {(b, hh, ww)}: shape "
+                raise AssertionError(f"{conv_label(kernel)} {label} at {(b, hh, ww)}: shape "
                                      f"{tuple(got.shape)} against {tuple(want.shape)}, or not "
                                      f"finite")
             err = (got - want).abs()
             share = float(torch.where(err == 0, 0.0, err / bound).max())
             if share > 1.0:
-                raise AssertionError(f"{kernel.label} {label} at {(b, hh, ww)}: "
+                raise AssertionError(f"{conv_label(kernel)} {label} at {(b, hh, ww)}: "
                                      f"{float(err.max()):.3e} apart from its plain version, "
                                      f"{share:.2f}x its bound")
             if b == 64:
                 for i in (0, 63):
                     if not conv_leaky_cuda(x[i:i + 1].contiguous(), wt, bias, s).equal(got[i:i + 1]):
-                        raise AssertionError(f"{kernel.label} {label}: pair {i} of 64 not the "
+                        raise AssertionError(f"{conv_label(kernel)} {label}: pair {i} of 64 not the "
                                              f"bits of B = 1")
             worst_err, worst_share = max(worst_err, float(err.max())), max(worst_share, share)
         found[label] = (kernel, worst_err, worst_share)
@@ -1267,13 +1331,16 @@ def time_conv(torch, dev) -> dict:
     shape's kernel, its plain version, cuDNN's best algorithm for the
     convolution with its bias (``library_ms``: benchmark mode trying every
     engine, the faster of NCHW and NHWC; the port never calls it), its
-    LeakyReLU pass, and the FLOP bound. Returns {(label, B): {kernel, shape, ms, plain_ms, library_ms,
-    library_layout, leaky_ms, bound_ms, gflop}}."""
+    LeakyReLU pass, and the FLOP bound; for V2K also V2's whole-K tiling of
+    the shape (``whole_ms``, ``V2_WHOLE_K``; None elsewhere). Returns
+    {(label, B): {kernel, shape, ms, plain_ms, library_ms, library_layout,
+    leaky_ms, whole_ms, bound_ms, gflop}}."""
     import torch.nn.functional as F
 
-    from cuahn_vio_torch.ops.cuda.conv import conv_leaky_cuda
+    from cuahn_vio_torch.ops.cuda.conv import conv_leaky_cuda, out_size
 
     gen = torch.Generator(device=dev).manual_seed(26)
+    whole = whole_k_launcher()
     rows = {}
     benchmark, limit = torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit
     torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, 0
@@ -1294,6 +1361,20 @@ def time_conv(torch, dev) -> dict:
                     "nhwc": lambda: F.conv2d(x_nhwc, w_nhwc, bias, s, pad),
                     "leaky_ms": lambda: F.leaky_relu(y, 0.1),
                 }
+                if kernel.splits:  # V2's whole-K tiling of the shape, into its own output
+                    out_w = torch.empty_like(y)
+                    k = conv.kernel_size[0]
+                    sizes = (b, conv.in_channels, conv.out_channels, k, s[0], h, w,
+                             out_size(h, k, s[0]), out_size(w, k, s[0]))
+
+                    def whole_k():
+                        err = whole(x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                                    out_w.data_ptr(), *sizes,
+                                    torch.cuda.current_stream().cuda_stream)
+                        if err != 0:
+                            raise AssertionError(f"V2's whole-K {label}: cudaError {err}")
+
+                    fns["whole_ms"] = whole_k
                 row, _ = timed(torch, fns, max(flops / F32_FLOPS_PER_S,
                                                bytes_moved / HBM_BYTES_PER_S) * 1e3, iters=5)
                 layout = min(("nchw", "nhwc"), key=lambda k: row[k])
@@ -1301,8 +1382,8 @@ def time_conv(torch, dev) -> dict:
                                                               conv.kernel_size[0], s[0]),
                                         ms=row["ms"], plain_ms=row["plain_ms"],
                                         library_ms=row[layout], library_layout=layout,
-                                        leaky_ms=row["leaky_ms"], bound_ms=row["bound_ms"],
-                                        gflop=flops / 1e9)
+                                        leaky_ms=row["leaky_ms"], whole_ms=row.get("whole_ms"),
+                                        bound_ms=row["bound_ms"], gflop=flops / 1e9)
     finally:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = benchmark, limit
     return rows
@@ -2235,8 +2316,10 @@ def build_kernels() -> dict:
     from cuahn_vio_torch.ops.cuda import warp as warp_cuda
 
     jobs = [(m.SOURCE, m.build_kernel) for m in (warp_cuda, remap_cuda, prng_cuda, heads_cuda)]
-    # the two sources of ``conv.build_kernel``, each in its own thread
-    jobs += [(k.source, lambda k=k: build.build(k.source)[1]) for k in conv_cuda.KERNELS]
+    # the two sources of ``conv.build_kernel`` and phase 3's whole-K copy,
+    # each in its own thread
+    jobs += [(source, lambda source=source: build.build(source)[1])
+             for source in (*conv_cuda.SOURCES, whole_k_source())]
     with ThreadPoolExecutor(len(jobs)) as pool:
         seconds = list(pool.map(lambda job: job[1](), jobs))
     return {os.path.relpath(source, REPO): s for (source, _), s in zip(jobs, seconds)}
@@ -3253,19 +3336,21 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
     n_pairs = len(np.load(path("seq.npz"))["frames"]) - 1
     flow_batch = 16  # eval-flow's default --batch
 
-    def only_warps(seen, want, key, calls, gemm):
+    def only_warps(seen, want, key, calls, gemm, split):
         """Exactly ``want`` warps, and ``calls`` network calls: a T1 draw,
-        three V1 launches, ``gemm`` V2 launches and H1's two each."""
+        three V1 launches, ``gemm`` V2 launches (one a layer), ``split``
+        launches of V2's split path and H1's two each."""
         counts = seen["launch_counts"]
         heads = heads_cuda.LAUNCHES
         if (sorted(seen["warps"]) != sorted(want) or counts[KERNEL] != len(want)
                 or counts["threefry"] != calls or counts["lowc_conv"] != 3 * calls
                 or counts["conv_gemm"] != gemm * calls or counts["mc_heads"] != heads * calls
-                or sum(counts.values()) != len(want) + (4 + gemm + heads) * calls):
+                or counts["conv_gemm_split"] != split * calls
+                or sum(counts.values()) != len(want) + (4 + gemm + split + heads) * calls):
             raise AssertionError(f"{key}: warp launches {seen['warps']} ({counts}), "
                                  f"expected {want}, {calls} threefry, {3 * calls} lowc_conv, "
-                                 f"{gemm * calls} conv_gemm and {heads * calls} mc_heads "
-                                 f"launches")
+                                 f"{gemm * calls} conv_gemm, {split * calls} conv_gemm_split "
+                                 f"and {heads * calls} mc_heads launches")
         out["threefry_launches"] = out.get("threefry_launches", 0) + calls
 
     def refused():  # calibrate-state-covariance on the --cov-calib log: its stderr
@@ -3300,9 +3385,10 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         if pairs % flow_batch:
             sizes.append(pairs % flow_batch)
         # V2 takes blocks 2-4's 14 layers, and block 1's conv2 (block 2's
-        # conv2's shape) where block 1 runs
+        # conv2's shape, so the split path's too) where block 1 runs
+        full = prior != "gt"
         only_warps(seen, [[b, "float32"] for b in sizes for _ in range(3)], key, len(sizes),
-                   14 if prior == "gt" else 15)
+                   15 if full else 14, SPLIT_LAUNCHES_FULL if full else SPLIT_LAUNCHES_PRIOR)
         rmse = float(re.search(r"corner error  px: rmse ([0-9.]+)", said).group(1))
         out[f"flow_rmse_px_{prior}"] = rmse
         out[f"flow_pairs_{prior}"] = pairs
@@ -3315,7 +3401,8 @@ def run_diagnostics(torch, dev, tmp: str) -> dict:
         raise AssertionError(f"eval-flow --out: pred {dump['pred'].shape}")
 
     said, seen = said_by["inspect-frame"]
-    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame", 1, 15)  # the full cascade
+    only_warps(seen, [[1, "float32"]] * 4, "inspect-frame", 1, 15,  # the full cascade
+               SPLIT_LAUNCHES_FULL)
     out["inspect_warp_launches"] = len(seen["warps"])
     out["inspect_png_shape"] = list(read_pngs([path("inspect.png")])[0].shape)
     out["inspect_mean_err"] = float(said.rsplit("mean photometric err ", 1)[1].rstrip(")"))
@@ -4047,10 +4134,11 @@ def main() -> int:
     remap_err, remap_paths = check_remap(torch, dev)
     conv_errs = check_conv(torch, dev)
     conv_worst = {}  # {kernel}_max_abs_err and {kernel}_max_share_of_bound, V1's then V2's
-    for kernel in conv_cuda.KERNELS:
+    for kernel in conv_cuda.KERNELS:  # V2K's under the split path's launch_counts key
         errs = [(e, sh) for k, e, sh in conv_errs.values() if k is kernel]
-        conv_worst[f"{kernel.name}_max_abs_err"] = f"{max(e for e, _ in errs):.3e}"
-        conv_worst[f"{kernel.name}_max_share_of_bound"] = f"{max(sh for _, sh in errs):.4f}"
+        name = conv_cuda.SPLIT_NAME if kernel.splits else kernel.name
+        conv_worst[f"{name}_max_abs_err"] = f"{max(e for e, _ in errs):.3e}"
+        conv_worst[f"{name}_max_share_of_bound"] = f"{max(sh for _, sh in errs):.4f}"
     heads_errs = check_heads(torch, dev)
     for name, (err, share) in heads_errs.items():
         conv_worst[f"mc_heads_{name}_max_abs_err"] = f"{err:.3e}"
@@ -4068,11 +4156,13 @@ def main() -> int:
     remap_time = time_remap(torch, dev)
     conv_time = time_conv(torch, dev)
     for (label, b), row in conv_time.items():
-        print(f"  {row['kernel'].label} {label} B={b}: {row['ms']:.5f} ms, bound "
+        whole = (f", V2's whole-K tiling {row['whole_ms']:.5f} ms"
+                 if row["whole_ms"] is not None else "")
+        print(f"  {conv_label(row['kernel'])} {label} B={b}: {row['ms']:.5f} ms, bound "
               f"{row['bound_ms']:.5f} ms ({row['gflop']:.3f} GFLOP at 67 TFLOP/s, "
               f"{100 * row['bound_ms'] / row['ms']:.1f} %), plain {row['plain_ms']:.4f} ms, "
               f"cuDNN's best (library_ms, {row['library_layout']}) {row['library_ms']:.5f} ms "
-              f"+ LeakyReLU {row['leaky_ms']:.5f} ms", flush=True)
+              f"+ LeakyReLU {row['leaky_ms']:.5f} ms{whole}", flush=True)
     heads_time = time_heads(torch, dev)
     for b, row in heads_time.items():
         print(f"  H1 B={b}: {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms ({row['gflop']:.3f} "
@@ -4112,6 +4202,7 @@ def main() -> int:
           warp_launches=warp_launches, threefry_launches=t1_launches["4"],
           lowc_conv_launches=launches[conv_cuda.V1.name],
           conv_gemm_launches=launches[conv_cuda.V2.name],
+          conv_gemm_split_launches=launches[conv_cuda.SPLIT_NAME],
           mc_heads_launches=launches["mc_heads"],
           ate_pos_m=f"{ate_pos:.5f}",
           ate_ori_deg=f"{ate_ori:.4f}", ate_bar_m=f"{ATE_BAR_M:.5f}")
@@ -4123,6 +4214,8 @@ def main() -> int:
     for name, label, per_call, layers in (
             (conv_cuda.V1.name, "V1", 3, "block 3's conv0, block 4's conv0 and conv1"),
             (conv_cuda.V2.name, "V2", 14, "the other layers of blocks 2-4"),
+            (conv_cuda.SPLIT_NAME, "V2K", SPLIT_LAUNCHES_PRIOR,
+             "V2's split path: the split GEMM and the sum of the splits, six layers"),
             ("mc_heads", "H1", heads_cuda.LAUNCHES, "fc0 of both heads, then the tail")):
         if launches[name] != per_call * steps * iekf:
             raise AssertionError(f"{label} launched {launches[name]}x, expected "

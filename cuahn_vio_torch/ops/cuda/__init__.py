@@ -17,6 +17,8 @@ launch_counts = {
     "threefry": 0,  # T1: threefry_kernel (prng.cu), the JAX random stream
     "lowc_conv": 0,  # V1: lowc_conv_kernel (conv.cu), the towers' low-channel convolutions
     "conv_gemm": 0,  # V2: gemm_conv_kernel (conv_gemm.cu), the towers' other layers of blocks 2-4
+    # V2's split path: gemm_conv_kernel and sum_gemm_conv_kernel, two a layer of 7x10 or 4x5 out
+    "conv_gemm_split": 0,
     "mc_heads": 0,  # H1: mc_heads_gemm_kernel and mc_heads_tail_kernel (heads.cu), the heads
 }
 

@@ -62,6 +62,19 @@ SHAPES = list(LAYERS)
 IDS = [f"{name}-{label}" for name, label, _ in LAYERS.values()]
 V2_SHAPES = [s for s in SHAPES if LAYERS[s][0] == "V2"]
 KERNELS = {"V1": conv.V1, "V2": conv.V2}
+# V2's split path (V2K): its shapes, each to the runs of c_in that its K is
+# split into across blocks
+SPLIT = {(128, 256, 3, 2): 4, (256, 256, 3, 2): 6}
+# each split's sums there (conv_gemm.cu's Tiling): a block's groups of
+# threads (KS) and the k rows a group takes of each stage's KS x BK (BK)
+GROUPS = {(128, 256, 3, 2): (2, 12), (256, 256, 3, 2): (2, 12)}
+SPLIT_SHAPES = list(SPLIT)
+SPLIT_IDS = [f"V2K-{LAYERS[s][1]}" for s in SPLIT_SHAPES]
+
+
+def kernel_of(shape):
+    """The table's kernel of a layer shape: V2K on the split path."""
+    return conv.V2K if shape in SPLIT else KERNELS[LAYERS[shape][0]]
 # block 1's conv0 and conv1, and shapes of no tower layer: they stay on conv2d
 OTHERS = [(2, 128, 7, 2), (128, 128, 5, 2), (2, 8, 7, 2), (16, 32, 3, 1), (2, 8, 5, 1),
           (3, 8, 7, 1)]
@@ -86,7 +99,7 @@ def within(got, want, lim):
 @pytest.mark.parametrize("b,h,w", [(2, 20, 28), (2, 14, 20), (1, 9, 11), (3, 5, 3)])
 def test_plain_is_conv_then_leaky_relu(shape, b, h, w):
     x, wt, bias = layer_inputs(shape, b, h, w, seed=10 * SHAPES.index(shape) + h)
-    got = KERNELS[LAYERS[shape][0]].plain(x, wt, bias, shape[3])
+    got = kernel_of(shape).plain(x, wt, bias, shape[3])
     want = F.leaky_relu(F.conv2d(x, wt, bias, shape[3], (shape[2] - 1) // 2), 0.1)
     assert got.shape == want.shape
     assert within(got, want, conv.rounding_bound(x, wt, bias, shape[3]))
@@ -123,7 +136,8 @@ CARD = torch.device("cuda", 0)  # a device object: no card needed to build it
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 def test_each_shape_goes_to_its_kernel_on_the_card_in_float32_without_autograd(shape):
-    assert conv.SHAPES[shape] is KERNELS[LAYERS[shape][0]]
+    assert conv.SHAPES[shape] is kernel_of(shape)
+    assert conv.SHAPES[shape].splits.get(shape, 1) == SPLIT.get(shape, 1)
     layer = _layer(shape)
     with torch.no_grad():
         assert conv.takes(CARD, torch.float32, layer)
@@ -156,7 +170,7 @@ def spy(monkeypatch):
     """``conv.takes`` as on the card for a CPU tensor, and a record of the
     layer shapes that went to each kernel through ``conv.conv_leaky`` (run
     as its plain version)."""
-    calls = {name: [] for name in KERNELS}
+    calls = {name: [] for name in [*KERNELS, "V2K"]}
     takes, conv_leaky = conv.takes, conv.conv_leaky
 
     def takes_as_on_card(device, dtype, layer):
@@ -165,6 +179,8 @@ def spy(monkeypatch):
     def recording(x, w, b, stride):
         shape = (w.shape[1], w.shape[0], w.shape[2], stride)
         calls[conv.SHAPES[shape].label].append(shape)
+        if conv.SHAPES[shape] is conv.V2K:
+            calls["V2K"].append(shape)
         return conv_leaky(x, w, b, stride)
 
     monkeypatch.setattr(conv, "takes", takes_as_on_card)
@@ -195,9 +211,12 @@ NO_GRAD = {"V1": [(2, 16, 7, 1)], "V2": BLOCK2 + BLOCK3}
 # the full cascade's block 1: its conv2 has block 2's conv2's shape, its
 # conv0 and conv1 stay on conv2d
 BLOCK1 = {"V1": [], "V2": [(128, 256, 3, 2)]}
+for _sent in (SENT, NO_GRAD, BLOCK1):  # V2's layers that take its split path
+    _sent["V2K"] = [s for s in _sent["V2"] if s in SPLIT]
 
 
-@pytest.mark.parametrize("name,launches", [("V1", 3), ("V2", 14)], ids=["V1-3", "V2-14"])
+@pytest.mark.parametrize("name,launches", [("V1", 3), ("V2", 14), ("V2K", 6)],
+                         ids=["V1-3", "V2-14", "V2K-6"])
 def test_a_uahn_call_sends_its_layers(spy, name, launches):
     torch.manual_seed(0)
     model = UAHN(dropout_rate=0.05, img_height=64, img_width=64).eval()
@@ -211,7 +230,8 @@ def test_a_uahn_call_sends_its_layers(spy, name, launches):
         assert torch.allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name,launches", [("V1", 3), ("V2", 15)], ids=["V1-3", "V2-15"])
+@pytest.mark.parametrize("name,launches", [("V1", 3), ("V2", 15), ("V2K", 7)],
+                         ids=["V1-3", "V2-15", "V2K-7"])
 def test_the_full_cascade_sends_its_layers(spy, name, launches):
     torch.manual_seed(0)
     model = UAHN(dropout_rate=0.05, img_height=64, img_width=64).eval()
@@ -227,7 +247,7 @@ def test_bf16_towers_keep_conv2d(spy):
     img1, img2, prior, keys = _pair_call(bf16, 1)
     bf16(img1, img2, prior, use_prior=True, dropout_keys=keys)
     bf16(img1, img2, None, use_prior=False, dropout_keys=keys)
-    assert spy == {"V1": [], "V2": []}
+    assert spy == {"V1": [], "V2": [], "V2K": []}
 
 
 @pytest.mark.parametrize("specs", [[(8, 7, 1), (16, 5, 2), (32, 3, 2)],
@@ -248,6 +268,61 @@ def test_tower_is_conv2d_on_the_cpu(specs):
                                      layer.padding), 0.1)
     assert got.equal(want)
     assert tcuda.launch_counts == before
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=SPLIT_IDS)
+@pytest.mark.parametrize("b,h,w", [(64, None, None), (16, None, None), (13, None, None),
+                                   (1, None, None), (3, 37, 53), (2, 5, 3), (2, 9, 11)],
+                         ids=["B64", "B16", "B13", "B1", "3x37x53", "2x5x3", "2x9x11"])
+def test_the_split_plain_version_is_the_whole_gemm(shape, b, h, w):
+    """V2K's plain version (the shape's runs of c_in, each its own product,
+    added to the bias in run order) against V2's single GEMM of the same
+    layer, at the tower's size and at ragged ones: within
+    ``rounding_bound``, and not the same function (the runs are split)."""
+    h, w = (h, w) if h else LAYERS[shape][2]
+    x, wt, bias = layer_inputs(shape, b, h, w, seed=b + 7 * SPLIT_SHAPES.index(shape))
+    got = conv.V2K.plain(x, wt, bias, shape[3])
+    assert got.equal(conv.conv_gemm_plain(x, wt, bias, shape[3], splits=SPLIT[shape]))
+    whole = conv.conv_gemm_plain(x, wt, bias, shape[3], splits=1)
+    assert within(got, whole, conv.rounding_bound(x, wt, bias, shape[3]))
+    if b > 1:  # with many outputs, some round otherwise
+        assert not got.equal(whole)
+
+
+def kernel_order(x, wt, bias, stride, shape):
+    """V2K's arithmetic op for op (each fma rounded once,
+    ``ops/remap.fma_f32``): in each run of c_in, each group's k rows of
+    every stage in k order from 0 (a run's rows past its end zeros), the
+    groups added in order; then the bias plus the runs in run order, then
+    the LeakyReLU."""
+    from cuahn_vio_torch.ops.remap import fma_f32
+
+    splits, (groups, rows) = SPLIT[shape], GROUPS[shape]
+    c_out, c_in, k, _ = wt.shape
+    b = x.shape[0]
+    oh, ow = conv.out_size(x.shape[2], k, stride), conv.out_size(x.shape[3], k, stride)
+    cols = F.unfold(x, k, padding=(k - 1) // 2, stride=stride).permute(1, 0, 2)  # (k, B, L)
+    wk = wt.reshape(c_out, -1).T  # (k, c_out)
+    runs = conv.split_runs(c_in, splits)
+    stage = groups * rows
+    span = -(-max(c1 - c0 for c0, c1 in runs) * k * k // stage) * stage
+    idx = torch.tensor([[c0 * k * k + j if j < (c1 - c0) * k * k else -1 for j in range(span)]
+                        for c0, c1 in runs], device=x.device)
+    # (split, stage, group, row) -> (split, group, the group's rows in k order)
+    idx = idx.reshape(splits, -1, groups, rows).transpose(1, 2).reshape(splits, groups, -1)
+    a = torch.where(idx[..., None, None] >= 0, cols[idx.clamp(min=0)], 0.0)
+    w_ = torch.where(idx[..., None] >= 0, wk[idx.clamp(min=0)], 0.0)
+    acc = torch.zeros(splits, groups, b, c_out, cols.shape[-1], device=x.device)
+    for j in range(idx.shape[-1]):
+        acc = fma_f32(a[:, :, j, :, None, :], w_[:, :, j, None, :, None], acc)
+    part = acc[:, 0]
+    for g in range(1, groups):
+        part = part + acc[:, g]
+    out = bias[None, :, None] + part[0]
+    for i in range(1, splits):
+        out = out + part[i]
+    out = torch.where(out > 0, out, out * torch.tensor(conv.LEAK, device=x.device))
+    return out.reshape(b, c_out, oh, ow)
 
 
 # ---------------------------------------------- V2's kernel, built for the host
@@ -307,19 +382,20 @@ static void host_fiber(int t) {
   (*host_body)();
   (*host_done)[t] = 1;
 }
-template <int CIN, int COUT, int K, int S, bool N, class... A>
-void host_launch(dim3 grid, unsigned threads, size_t smem_bytes, A... args) {
-  std::function<void()> body = [&] { gemm_conv_kernel<CIN, COUT, K, S, N>(args...); };
+template <class F>
+void host_launch(dim3 grid, unsigned threads, size_t smem_bytes, F kernel) {
+  std::function<void()> body = kernel;
   std::vector<ucontext_t> fibers(threads);
   std::vector<std::vector<char>> stacks(threads, std::vector<char>(1 << 16));
   std::vector<char> done(threads);
   host_body = &body;
   host_done = &done;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::vector<float> smem(smem_bytes / 4, NAN);
       host_smem = smem.data();
-      blockIdx = {bx, by, 0};
+      blockIdx = {bx, by, bz};
       for (unsigned t = 0; t < threads; ++t) {
         getcontext(&fibers[t]);
         fibers[t].uc_stack.ss_sp = stacks[t].data();
@@ -345,8 +421,8 @@ void host_launch(dim3 grid, unsigned threads, size_t smem_bytes, A... args) {
 
 def host_source(src: str) -> str:
     """``conv_gemm.cu`` for the host: the shim for CUDA's few names, shared
-    memory a buffer a block, the cp.async copies done at once, the launch a
-    call of ``host_launch``."""
+    memory a buffer a block, the cp.async copies done at once, each launch
+    (the GEMM's and the sum of the split path's) a call of ``host_launch``."""
     rewrites = [  # (regular expression, replacement)
         (re.escape("#include <cuda_runtime.h>"), HOST_SHIM.replace("\\", "\\\\")),
         (re.escape("extern __shared__ __align__(16) float smem[];"), "float* smem = host_smem;"),
@@ -357,15 +433,16 @@ def host_source(src: str) -> str:
          "inline void copies_commit() {}"),
         (r"(template <int N>\n)__device__ __forceinline__ void copies_wait\(\) \{.*?\n\}",
          r"\1inline void copies_wait() {}"),
-        (r"gemm_conv_kernel<CIN, COUT, K, S, N><<<grid, G::kThreads, G::kSmemBytes,\s*"
-         r"static_cast<cudaStream_t>\(stream\)>>>\(",
-         "host_launch<CIN, COUT, K, S, N>(grid, G::kThreads, G::kSmemBytes, "),
         (r"(template <int CIN, int COUT, int K, int S, bool N>\nint allow_smem\(\))",
          HOST_LAUNCH + r"\1"),
     ]
     for pattern, repl in rewrites:
         src, n = re.subn(pattern, repl, src, flags=re.S)
         assert n == 1, f"conv_gemm.cu is not as the host build expects: {pattern[:48]}"
+    launch = (r"(\w+<[^<>]*>)<<<([^,]+), ([^,]+), ([^,]+),\s*static_cast<cudaStream_t>"
+              r"\(stream\)>>>\((.*?)\);")
+    src, n = re.subn(launch, r"host_launch(\2, \3, \4, [&] { \1(\5); });", src, flags=re.S)
+    assert n == 2, "conv_gemm.cu is not as the host build expects: its two launches"
     return src
 
 
@@ -382,18 +459,31 @@ def host_kernel(tmp_path_factory):
                    check=True, timeout=300)
     host = ctypes.CDLL(str(lib))
     host.conv_gemm_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    host.conv_gemm_f32.restype = ctypes.c_int
+    host.conv_gemm_split_f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                                         + [ctypes.c_void_p])
+    host.conv_gemm_f32.restype = host.conv_gemm_split_f32.restype = ctypes.c_int
+    host.conv_gemm_splits.argtypes = [ctypes.c_int] * 4
     host.host_set_sms.argtypes = [ctypes.c_int]
     return host
 
 
 def _host_run(host, x, wt, bias, stride):
+    """The shape's launch of the host build: ``conv_gemm_split_f32`` with a
+    workspace (NaNs, each read before its write shows) on the split path,
+    ``conv_gemm_f32`` elsewhere."""
     c_out, c_in, k, _ = wt.shape
     b, _, h, w = x.shape
     oh, ow = conv.out_size(h, k, stride), conv.out_size(w, k, stride)
     out = torch.full((b, c_out, oh, ow), float("nan"))
-    err = host.conv_gemm_f32(x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-                             c_in, c_out, k, stride, h, w, oh, ow, None)
+    args = (b, c_in, c_out, k, stride, h, w, oh, ow, None)
+    if (c_in, c_out, k, stride) in SPLIT:
+        ws = torch.full((SPLIT[(c_in, c_out, k, stride)], c_out, -(-b * oh * ow // 4) * 4),
+                        float("nan"))
+        err = host.conv_gemm_split_f32(x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                                       out.data_ptr(), ws.data_ptr(), *args)
+    else:
+        err = host.conv_gemm_f32(x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                 *args)
     assert err == 0
     return out
 
@@ -410,8 +500,10 @@ def test_kernel_on_the_host_is_the_plain_version(host_kernel, shape):
         x, wt, bias = layer_inputs(shape, b, h, w, seed=V2_SHAPES.index(shape) + h)
         got = _host_run(host_kernel, x, wt, bias, shape[3])
         assert torch.isfinite(got).all()
-        want = conv.V2.plain(x, wt, bias, shape[3])
+        want = kernel_of(shape).plain(x, wt, bias, shape[3])
         assert within(got, want, conv.rounding_bound(x, wt, bias, shape[3]))
+        if shape in SPLIT:  # the split path: its arithmetic op for op, bit for bit
+            assert got.equal(kernel_order(x, wt, bias, shape[3], shape))
     assert _host_run(host_kernel, x[1:2].contiguous(), wt, bias, shape[3]).equal(got[1:2])
     try:
         host_kernel.host_set_sms(1 << 20)
@@ -428,6 +520,27 @@ def test_kernel_on_the_host_refuses_what_it_does_not_take(host_kernel):
     assert host_kernel.conv_gemm_f32(*args, 16, 32, 3, 1, 8, 8, 4, 4, None) == invalid  # stride
     assert host_kernel.conv_gemm_f32(*args, 16, 32, 3, 2, 8, 8, 5, 4, None) == invalid  # oh
     assert host_kernel.conv_gemm_f32(*args, 2, 8, 7, 1, 8, 8, 8, 8, None) == invalid  # V1's
+
+
+def test_the_split_path_takes_its_shapes_alone(host_kernel):
+    """The library splits each of V2K's shapes as ``conv.V2K.splits`` says
+    and no other; its whole-K launcher refuses V2K's shapes, the split
+    launcher every other shape and a missing workspace."""
+    assert conv.V2K.splits == SPLIT and not conv.V1.splits and not conv.V2.splits
+    for shape in SHAPES + OTHERS:
+        assert host_kernel.conv_gemm_splits(*shape) == SPLIT.get(shape, 0)
+    invalid = 1  # the shim's cudaErrorInvalidValue
+    for shape in V2_SHAPES:
+        x, wt, bias = layer_inputs(shape, 1, 8, 8, seed=3)
+        out = torch.empty(1, shape[1], 4, 4)
+        ws = torch.empty(8, *out.shape)
+        sizes = (1, *shape, 8, 8, 4, 4, None)
+        ptrs = (x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr())
+        if shape in SPLIT:
+            assert host_kernel.conv_gemm_f32(*ptrs, *sizes) == invalid
+            assert host_kernel.conv_gemm_split_f32(*ptrs, None, *sizes) == invalid
+        else:
+            assert host_kernel.conv_gemm_split_f32(*ptrs, ws.data_ptr(), *sizes) == invalid
 
 
 # ------------------------------------------------------------------ the card
@@ -447,12 +560,14 @@ def card():
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 @pytest.mark.parametrize("b", [64, 16, 8, 1, 13])
 def test_kernel_is_its_plain_version(card, shape, b):
-    kernel = KERNELS[LAYERS[shape][0]]
+    kernel = kernel_of(shape)
     h, w = LAYERS[shape][2]
     x, wt, bias = layer_inputs(shape, b, h, w, seed=b, device=card)
-    before = tcuda.launch_counts[kernel.name]
+    before = dict(tcuda.launch_counts)
     got = conv.conv_leaky(x, wt, bias, shape[3])
-    assert tcuda.launch_counts[kernel.name] == before + 1
+    assert tcuda.launch_counts[kernel.name] == before[kernel.name] + 1
+    split = conv.SPLIT_LAUNCHES if shape in SPLIT else 0
+    assert tcuda.launch_counts[conv.SPLIT_NAME] == before[conv.SPLIT_NAME] + split
     want = kernel.plain(x, wt, bias, shape[3])
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got).all()
@@ -465,7 +580,7 @@ def test_kernel_is_its_plain_version(card, shape, b):
 def test_kernel_at_ragged_sizes(card, shape, b, h, w):
     x, wt, bias = layer_inputs(shape, b, h, w, seed=h, device=card)
     got = conv.conv_leaky_cuda(x, wt, bias, shape[3])
-    want = KERNELS[LAYERS[shape][0]].plain(x, wt, bias, shape[3])
+    want = kernel_of(shape).plain(x, wt, bias, shape[3])
     torch.cuda.synchronize()
     assert got.shape == want.shape
     assert within(got, want, conv.rounding_bound(x, wt, bias, shape[3]))
@@ -480,7 +595,9 @@ def test_a_pair_is_the_same_bits_at_any_batch(card, shape):
     for i in (0, 37, 63):
         assert conv.conv_leaky_cuda(x[i:i + 1].contiguous(), wt, bias, shape[3]).equal(
             full[i:i + 1])
-    assert conv.conv_leaky_cuda(x[8:24].contiguous(), wt, bias, shape[3]).equal(full[8:24])
+    for lo, hi in ((8, 24), (40, 59)):  # B = 16 and 19
+        assert conv.conv_leaky_cuda(x[lo:hi].contiguous(), wt, bias, shape[3]).equal(
+            full[lo:hi])
 
 
 @pytest.fixture(scope="module")
@@ -502,8 +619,14 @@ def _pairs(b, seed, device):
     return img1, img2, prior, keys
 
 
+# each kernel's launch_counts key: V2K's counts the split path's two
+# launches a layer (V2's counts one a layer, the split path's too)
+COUNTED = {"V1": conv.V1.name, "V2": conv.V2.name, "V2K": conv.SPLIT_NAME}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,launches", [("V1", 3), ("V2", 14)], ids=["V1-3", "V2-14"])
+@pytest.mark.parametrize("name,launches", [("V1", 3), ("V2", 14), ("V2K", 12)],
+                         ids=["V1-3", "V2-14", "V2K-12"])
 def test_a_replay_is_the_eager_call_with_its_launches(model, name, launches):
     from cuahn_vio_torch.models import uahn_graphs
 
@@ -512,9 +635,9 @@ def test_a_replay_is_the_eager_call_with_its_launches(model, name, launches):
     img1, img2, prior, keys = _pairs(16, 5, model.block2.conv0.weight.device)
     outs, moved = [], []
     for _ in range(3):  # eager, captured, replayed
-        before = tcuda.launch_counts[KERNELS[name].name]
+        before = tcuda.launch_counts[COUNTED[name]]
         outs.append(net(img1, img2, prior, use_prior=True, dropout_keys=keys))
-        moved.append(tcuda.launch_counts[KERNELS[name].name] - before)
+        moved.append(tcuda.launch_counts[COUNTED[name]] - before)
     torch.cuda.synchronize()
     assert len(net._graphs.captured()) == 1
     assert moved == [launches] * 3
@@ -559,3 +682,35 @@ def test_kernel_refuses_what_it_does_not_take(card, name):
         conv.conv_leaky_cuda(x.cpu(), wt, bias, s)
     with pytest.raises(ValueError):
         conv.conv_leaky_cuda(x, wt, bias, 3 - s)  # the shape's stride is the other one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=SPLIT_IDS)
+@pytest.mark.parametrize("b", [64, 19, 16, 1])
+def test_the_split_path_is_its_arithmetic_on_the_card(card, shape, b):
+    """V2K on the card, wide tiling (B = 64, 19) or narrow (16, 1): bit for
+    bit its arithmetic done op for op (``kernel_order``)."""
+    h, w = LAYERS[shape][2]
+    x, wt, bias = layer_inputs(shape, b, h, w, seed=b + 1, device=card)
+    got = conv.conv_leaky_cuda(x, wt, bias, shape[3])
+    assert got.equal(kernel_order(x, wt, bias, shape[3], shape))
+
+
+@pytest.mark.cuda
+def test_the_split_path_counts_nothing_under_autograd_or_in_bf16(model):
+    """The split path's counter moves only where V2K runs: not while
+    autograd records, not in the bf16 towers."""
+    from cuahn_vio_torch.models.uahn import build_uahn
+
+    img1, img2, prior, keys = _pairs(4, 8, model.block2.conv0.weight.device)
+    before = tcuda.launch_counts[conv.SPLIT_NAME]
+    with torch.enable_grad():
+        model.flow_and_cov(img1, img2, prior, True, keys)
+    # blocks 2 and 3 refine without autograd: two split layers each; block 4
+    # records autograd, so its two go to conv2d
+    assert tcuda.launch_counts[conv.SPLIT_NAME] == before + conv.SPLIT_LAUNCHES * 4
+    before = tcuda.launch_counts[conv.SPLIT_NAME]
+    bf16 = build_uahn(model.state_dict(), device=img1.device, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        bf16(img1, img2, prior, use_prior=True, dropout_keys=keys)
+    assert tcuda.launch_counts[conv.SPLIT_NAME] == before
